@@ -3,21 +3,34 @@
 
     python3 chip_smoke.py
 
-Phases (any failed check raises and the script exits non-zero):
-  1. build   — compile every kernel in umbrella_tpu_torch/csrc/ with nvcc.
-  2. kernels — call each kernel's wrapper at the main path's shapes and hold it
-               against its plain PyTorch version on the card; time the kernel,
-               the plain version and one PyTorch library call computing the same
-               function, and compute the card's bound for the same work.
-  3. lossless — full widths, 4 layers, early exit 2, fp32 activations: greedy
-               static-tree generate() must equal the port's own greedy
-               autoregressive decode for 64 tokens.
-  4. main path — the 8B AWQ target (32 layers, damped tail, Int4F shared
-               prefix of 3 layers + lm_head) with its early-exit draft, a
-               Sequoia 24x6 tree, through AutoEngine.from_config ->
-               initialize -> generate(); every kernel must have launched.
-  5. report  — one JSON line of kernels, the card's name and power limit, and
-               the final {"ok": true, ...} line.
+Phases (any failed check raises and the script exits non-zero); each prints
+lines tagged with its name:
+  build            compile every kernel in umbrella_tpu_torch/csrc/ with nvcc.
+  kernels          call each kernel's wrapper at the main paths' shapes and hold
+                   it against its plain PyTorch version on the card; time the
+                   kernel, the plain version and a PyTorch library yardstick,
+                   and compute the card's bound for the same work.
+  lossless         full widths, 4 layers, early exit 2, fp32 activations:
+                   greedy static-tree generate() must equal the port's own
+                   greedy autoregressive decode for 64 tokens.
+  lossless-int8    the same on an int8 KV cache (both decodes).
+  batched-lossless fp32, 4 layers, B=4 slots, 7 requests of staggered prompt
+                   lengths: BatchedStaticEngine.run() must give each request
+                   the single-slot StaticEngine's tokens (48 or more).
+  main             the 8B AWQ target (32 layers, damped tail, Int4F shared
+                   prefix of 3 layers + lm_head) with its early-exit draft, a
+                   Sequoia 24x6 tree, through AutoEngine.from_config ->
+                   initialize -> generate().
+  serve            the same models behind engine="batched_static": B=32, int8
+                   KV, 2x3 tree, 64 requests through run() and then through the
+                   pipelined ContinuousBatcher; tok/s, accept, step ms, TTFT,
+                   TPOT, peak memory, launches per step, device idle share.
+  serve-bf16       B=8, bf16 KV, 3x4 tree, 16 requests through run().
+  serve-stochastic B=32 int8 KV at temperature 0.6, top-p 0.9.
+  report           one JSON line of kernels, the card's name and power limit,
+                   and the final {"ok": true, ...} line.
+Every kernel must have launched in the phase that its `launches` is read
+from. `--phases a,b` runs a subset (no report).
 
 Weights are random (seeded). The script needs CUDA and the repository's
 umbrella_tpu_torch package beside it; without either it exits with code 2.
@@ -30,8 +43,12 @@ import time
 import traceback
 
 PROMPT_LEN = 128
-MAIN_NEW_TOKENS = 256
+MAIN_NEW_TOKENS = 128
 LOSSLESS_NEW_TOKENS = 64
+BATCHED_LOSSLESS_TOKENS = 48
+SERVE_NEW_TOKENS = 160
+STOCHASTIC_NEW_TOKENS = 64
+SEGMENT_STEPS = 8
 MAX_LEN = 2048
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
@@ -171,6 +188,8 @@ def kernel_checks(torch, dev):
         library_ms=library_ms(torch, sdpa), bound_ms=by, bound_by=bb)
     log(f"[kernels] attend_flash {report['attend_flash']}")
     del kc, vc
+    torch.cuda.empty_cache()
+    report.update(attention_int8_and_batched_checks(torch, dev, gen, randn, err))
 
     # -- w4a16_matmul: the four AWQ layer shapes, ragged S; bf16 and fp32 output
     w_max, w_rel, shapes_ms = 0.0, 0.0, {}
@@ -246,6 +265,164 @@ def kernel_checks(torch, dev):
     return report
 
 
+def attention_int8_and_batched_checks(torch, dev, gen, randn, err):
+    """attend_flash_int8, attend_flash_batched and attend_flash_batched_int8 at
+    the serving paths' shapes, each against its plain version on the same
+    inputs. Library yardstick: F.scaled_dot_product_attention with a bool mask
+    over the live columns (one call), after a dequantizing call for int8 KV
+    (two calls, timed together)."""
+    import torch.nn.functional as F
+
+    from umbrella_tpu_torch.models.kv_cache import _quantize_block
+    from umbrella_tpu_torch.ops.kernels.tree_attention import (
+        attend_flash_batched, attend_flash_batched_ref, attend_flash_int8, attend_flash_ref)
+    from umbrella_tpu_torch.ops.masks import (causal_mask_rows, tree_mask_rows,
+                                              tree_mask_rows_batched)
+    from umbrella_tpu_torch.sequoia import growmap_from_spec
+
+    nH, KVH, D, L = 32, 8, 128, MAX_LEN
+    tol = "max abs err <= 2e-2 * max|plain| (bf16 output; p rounded at other points)"
+    report = {}
+
+    def cache(shape, int8):
+        """Random K or V at `shape` (+D): bf16, or int8 with fp32 per-row scales."""
+        x = randn(*shape, D)
+        if not int8:
+            return x, None
+        q, s = _quantize_block(x)
+        return q, s
+
+    def check_pair(name, got, ref):
+        e, m = err(got, ref)
+        check(e <= 2e-2 * m, f"{name}: err {e} vs max {m}")
+        return e, e / m
+
+    def library(q, k, v, ks, vs, mask, live):
+        """F.scaled_dot_product_attention over the first `live` columns of one
+        layer's per-slot caches [B, KVH, L, D] (dequantized first for int8)."""
+        qs = q.transpose(1, 2)
+        msk = mask[:, None, :, :live]
+
+        def deq():
+            if ks is None:
+                return k[:, :, :live], v[:, :, :live]
+            return ((k[:, :, :live].float() * ks[:, :, :live, None]).to(q.dtype),
+                    (v[:, :, :live].float() * vs[:, :, :live, None]).to(q.dtype))
+
+        def run():
+            kd, vd = deq()
+            return F.scaled_dot_product_attention(qs, kd, vd, attn_mask=msk, enable_gqa=True)
+
+        return library_ms(torch, run)
+
+    def bound_of(B, S, limits, int8):
+        """q read + out written (bf16), the live K and V columns of each slot
+        (int8 plus an fp32 scale per column, or bf16) and their mask bytes."""
+        kv_b = 1 + 4 / D if int8 else 2  # bytes per cached value
+        live = float(sum(limits))
+        by = 2 * B * S * nH * D * 2 + 2 * live * KVH * D * kv_b + S * live
+        return bound(by, 4 * S * nH * live * D, "bf16")
+
+    # -- attend_flash_int8: single slot, q [127, 32, 128] at kv_limit 428 (row 1's shape)
+    gm = growmap_from_spec(24, 6, acc=ACC_24x6)
+    nn, S = 301, gm.size
+    kq, ks = cache((2, KVH, L), True)
+    vq, vs = cache((2, KVH, L), True)
+    mask = tree_mask_rows(nn, torch.as_tensor(gm.bitmap, device=dev), L)
+    a_max, a_rel = 0.0, 0.0
+    for S_, msk in ((S, mask), (1, causal_mask_rows(nn, 1, L, device=dev))):
+        q = randn(S_, nH, D)
+        for layer in (0, 1):
+            got = attend_flash_int8(q, kq, vq, ks, vs, msk, nn + S_, layer)
+            ref = attend_flash_ref(q, kq[layer], vq[layer], msk, nn + S_,
+                                   k_scale=ks[layer], v_scale=vs[layer])
+            e, r = check_pair(f"attend_flash_int8 S={S_} layer={layer}", got, ref)
+            a_max, a_rel = max(a_max, e), max(a_rel, r)
+    q = randn(S, nH, D)
+    limit = nn + S
+    by, bb = bound_of(1, S, [limit], True)
+    report["attend_flash_int8"] = dict(
+        shape=f"q [{S},32,128] bf16 vs int8 [2,8,2048,128] cache + fp32 scales, tree mask, "
+              f"kv_limit={limit}",
+        tolerance=tol, max_abs_err=a_max, max_rel_err=a_rel,
+        ms=cuda_ms(torch, lambda: attend_flash_int8(q, kq, vq, ks, vs, mask, limit, 1)),
+        plain_ms=cuda_ms(torch, lambda: attend_flash_ref(q, kq[1], vq[1], mask, limit,
+                                                         k_scale=ks[1], v_scale=vs[1])),
+        library_ms=library(q[None], kq[1][None], vq[1][None], ks[1][None], vs[1][None],
+                           mask[None], limit),
+        library="dequantize (1 call) + scaled_dot_product_attention (1 call)",
+        bound_ms=by, bound_by=bb)
+    log(f"[kernels] attend_flash_int8 {report['attend_flash_int8']}")
+    del kq, vq, ks, vs
+
+    def batched_case(name, B, Bc, tree, int8, slot_S):
+        """Decode shape (B slots, a `tree` growmap per slot, kv limits spread over
+        135-300) and the one-slot prefill shape (q [1, slot_S] through `slots`)."""
+        g = growmap_from_spec(*tree)
+        T = g.size
+        kc, ksc = cache((2, Bc, KVH, L), int8)
+        vc, vsc = cache((2, Bc, KVH, L), int8)
+        limits = torch.randint(135, 301, (B,), generator=gen, device=dev, dtype=torch.int32)
+        nn = limits - T
+        mask = tree_mask_rows_batched(nn, torch.as_tensor(g.bitmap, device=dev), L)
+        q = randn(B, T, nH, D)
+        scales = dict(k_scale=ksc, v_scale=vsc) if int8 else {}
+        m_max, m_rel = 0.0, 0.0
+        for layer in (0, 1):
+            got = attend_flash_batched(q, kc, vc, mask, limits, layer, **scales)
+            ref = attend_flash_batched_ref(q, kc, vc, mask, limits, layer, **scales)
+            e, r = check_pair(f"{name} B={B} layer={layer}", got, ref)
+            m_max, m_rel = max(m_max, e), max(m_rel, r)
+        # prefill through the slot indirection: q [1, slot_S] into cache row 5
+        qp = randn(1, slot_S, nH, D)
+        pm = causal_mask_rows(0, slot_S, L, device=dev)[None]
+        lim1 = torch.full((1,), slot_S, dtype=torch.int32, device=dev)
+        slot = torch.full((1,), 5, dtype=torch.int32, device=dev)
+        got = attend_flash_batched(qp, kc, vc, pm, lim1, 1, slots=slot, **scales)
+        ref = attend_flash_batched_ref(qp, kc, vc, pm, lim1, 1, slots=slot, **scales)
+        e, r = check_pair(f"{name} slots prefill S={slot_S}", got, ref)
+        m_max, m_rel = max(m_max, e), max(m_rel, r)
+
+        lims = limits.tolist()
+        live = max(lims)
+        per_slot = lambda t: None if t is None else t[1]  # noqa: E731
+        by, bb = bound_of(B, T, lims, int8)
+        dec = dict(
+            ms=cuda_ms(torch, lambda: attend_flash_batched(q, kc, vc, mask, limits, 1, **scales)),
+            plain_ms=cuda_ms(torch, lambda: attend_flash_batched_ref(q, kc, vc, mask, limits, 1,
+                                                                     **scales)),
+            library_ms=library(q, kc[1], vc[1], per_slot(ksc), per_slot(vsc), mask, live),
+            bound_ms=by, bound_by=bb)
+        pby, pbb = bound_of(1, slot_S, [slot_S], int8)
+        pick = (lambda t: None if t is None else t[1, 5:6])  # noqa: E731
+        pre = dict(
+            ms=cuda_ms(torch, lambda: attend_flash_batched(qp, kc, vc, pm, lim1, 1, slots=slot,
+                                                           **scales)),
+            plain_ms=cuda_ms(torch, lambda: attend_flash_batched_ref(qp, kc, vc, pm, lim1, 1,
+                                                                     slots=slot, **scales)),
+            library_ms=library(qp, kc[1, 5:6], vc[1, 5:6], pick(ksc), pick(vsc), pm, slot_S),
+            bound_ms=pby, bound_by=pbb)
+        kind = "int8 [2,%d,8,2048,128] + fp32 scales" % Bc if int8 else \
+            "bf16 [2,%d,8,2048,128]" % Bc
+        res = dict(
+            shape=f"q [{B},{T},32,128] bf16 vs {kind} cache, {tree[0]}x{tree[1]} tree masks, "
+                  f"kv_limits {min(lims)}-{max(lims)}",
+            tolerance=tol, max_abs_err=m_max, max_rel_err=m_rel,
+            library=("dequantize (1 call) + scaled_dot_product_attention (1 call)" if int8
+                     else "scaled_dot_product_attention (1 call), bool mask"),
+            per_shape={"decode": dec, f"prefill q [1,{slot_S}] via slots": pre}, **dec)
+        log(f"[kernels] {name} {res}")
+        return res
+
+    report["attend_flash_batched_int8"] = batched_case(
+        "attend_flash_batched_int8", 32, 32, (2, 3), True, 512)
+    torch.cuda.empty_cache()
+    report["attend_flash_batched"] = batched_case(
+        "attend_flash_batched", 8, 8, (3, 4), False, 512)
+    torch.cuda.empty_cache()
+    return report
+
+
 # ---------------------------------------------------------------- phases 3-4
 
 
@@ -269,25 +446,29 @@ def build_target(torch, dev, n_layers, exit_layer, dtype):
     return target, early_exit_runtime(target, exit_layer=exit_layer)
 
 
-def make_engine(torch, dev, target, draft, dtype):
+def make_engine(torch, dev, target, draft, dtype, kv_dtype=None, tree=None):
+    """The single-slot static engine (Sequoia 24x6 tree unless `tree` is a
+    growmap_from_spec spec)."""
     from umbrella_tpu_torch.sequoia import growmap_from_spec
     from umbrella_tpu_torch.speculation.auto_engine import AutoEngine
 
+    gm = growmap_from_spec(24, 6, acc=ACC_24x6) if tree is None else growmap_from_spec(*tree)
     eng = AutoEngine.from_config(
-        device=dev, engine="static", model=target, draft_model=draft,
-        growmap=growmap_from_spec(24, 6, acc=ACC_24x6), max_length=MAX_LEN,
-        temperature=0.0, eos_token_ids=[-100], dtype=dtype)
+        device=dev, engine="static", model=target, draft_model=draft, growmap=gm,
+        max_length=MAX_LEN, temperature=0.0, eos_token_ids=[-100], dtype=dtype,
+        kv_dtype=kv_dtype)
     eng.initialize()
     return eng
 
 
-def greedy_ar_decode(torch, runtime, prompt, n_new):
-    """Plain autoregressive greedy decode with the port's own forward. Returns
-    (tokens, gaps): gaps[i] is the top-1 minus top-2 logit at step i."""
+def greedy_ar_decode(torch, runtime, prompt, n_new, kv_dtype=None):
+    """Plain autoregressive greedy decode with the port's own forward (on an
+    int8 KV cache for kv_dtype="int8"). Returns (tokens, gaps): gaps[i] is the
+    top-1 minus top-2 logit at step i."""
     from umbrella_tpu_torch.ops.masks import causal_mask_rows
 
     dev = runtime.device
-    kv = runtime.init_kv()
+    kv = runtime.init_kv(kv_dtype=kv_dtype)
     S = len(prompt)
     logits, kv = runtime.forward(runtime.params, kv, torch.tensor(prompt, device=dev),
                                  torch.arange(S, device=dev),
@@ -311,32 +492,44 @@ def first_difference(a, b):
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
 
 
-def lossless_check(torch, dev, prompt):
-    """The first LOSSLESS_NEW_TOKENS tokens must be identical; where the two
-    decodes part later (generate() may overshoot by up to a tree path), the AR
-    top-1/top-2 logit gap at that step is reported."""
+def lossless_check(torch, dev, prompt, kv_dtype=None):
+    """Static-tree generate() against the port's own AR decode (both on an int8
+    KV cache when kv_dtype="int8"). The first LOSSLESS_NEW_TOKENS tokens must
+    be identical; where the two decodes part later (generate() may overshoot by
+    up to a tree path), the AR top-1/top-2 logit gap at that step is reported.
+    Exact equality needs every op but attention to compute a row the same way
+    whatever rows share the call (see ops/norms.py); int8 KV rounding and the
+    W4A8 layers' int8 activations would turn any last-bit difference into a
+    quantum."""
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    tag = "[lossless]" if kv_dtype is None else f"[lossless-{kv_dtype}]"
     target, draft = build_target(torch, dev, n_layers=4, exit_layer=2, dtype=torch.float32)
-    eng = make_engine(torch, dev, target, draft, torch.float32)
+    eng = make_engine(torch, dev, target, draft, torch.float32, kv_dtype=kv_dtype)
+    reset_launch_counts()
     out = eng.generate(input_ids=prompt, max_new_tokens=LOSSLESS_NEW_TOKENS)
+    counts = launch_counts()
     toks = out["generated_tokens"]
-    ar, gaps = greedy_ar_decode(torch, target, prompt, len(toks))
+    ar, gaps = greedy_ar_decode(torch, target, prompt, len(toks), kv_dtype=kv_dtype)
     same = first_difference(toks, ar)
+    steps = max(1, round(len(toks) / out["avg_accept_tokens"]))
     res = dict(tokens=len(toks), identical_prefix=same, avg_accept_tokens=out["avg_accept_tokens"],
-               min_ar_gap=min(gaps), gap_at_first_difference=gaps[same] if same < len(toks) else None)
-    log(f"[lossless] {json.dumps(res)}")
-    check(len(toks) >= LOSSLESS_NEW_TOKENS, "lossless: too few tokens")
+               min_ar_gap=min(gaps),
+               gap_at_first_difference=gaps[same] if same < len(toks) else None,
+               launches=counts, launches_per_step={k: n / steps for k, n in counts.items()})
+    log(f"{tag} {json.dumps(res)}")
+    check(len(toks) >= LOSSLESS_NEW_TOKENS, f"{tag} too few tokens")
     check(same >= LOSSLESS_NEW_TOKENS,
-          f"lossless: spec and AR decode differ at token {same}: {toks} vs {ar}")
+          f"{tag} spec and AR decode differ at token {same}: {toks} vs {ar}")
+    attn = "attend_flash_int8" if kv_dtype == "int8" else "attend_flash"
+    for name in (attn, "w4a16_matmul", "w4a8f_matmul", "embed_gather"):
+        check(counts[name] > 0, f"{tag} kernel {name} was never launched")
     return res
 
 
-def main_path(torch, dev, prompt):
+def main_path(torch, dev, prompt, target, draft):
     from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    t0 = time.time()
-    target, draft = build_target(torch, dev, n_layers=32, exit_layer=3, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    setup_s = time.time() - t0
     eng = make_engine(torch, dev, target, draft, torch.bfloat16)
     eng.generate(input_ids=prompt, max_new_tokens=16)  # warm-up
 
@@ -356,13 +549,15 @@ def main_path(torch, dev, prompt):
     dec_len = len(toks)
     tpot = out["time_per_output_token"]
     steps = round(dec_len / out["avg_accept_tokens"])
-    for name, n in counts.items():
-        check(n > 0, f"main path: kernel {name} was never launched")
+    for name in MAIN_KERNELS:
+        check(counts[name] > 0, f"main path: kernel {name} was never launched")
     per_step = {k: (counts[k] - prefill_counts[k]) / steps for k in counts}
     ar, gaps = greedy_ar_decode(torch, target, prompt, dec_len)
     prefix = first_difference(toks, ar)
-    profiled = profile_generate(torch, eng, prompt)
-    res = dict(setup_s=setup_s, tokens=dec_len, steps=steps, tok_per_s=1000.0 / tpot,
+    profiled = profile_window(
+        torch, "[profile]", lambda: eng.generate(input_ids=prompt, max_new_tokens=64),
+        lambda out: max(1, round(len(out["generated_tokens"]) / out["avg_accept_tokens"])))
+    res = dict(tokens=dec_len, steps=steps, tok_per_s=1000.0 / tpot,
                decode_step_ms=tpot * dec_len / steps, avg_accept_tokens=out["avg_accept_tokens"],
                ttft_ms_prefill128=ttft_ms, launches=counts, launches_per_step=per_step,
                spec_vs_ar_common_prefix=prefix,
@@ -370,19 +565,21 @@ def main_path(torch, dev, prompt):
                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30, profile=profiled)
     log(f"[main] {json.dumps(res)}")
     check(all(0 <= t < CFG_8B["vocab_size"] for t in toks), "main path: token out of range")
+    del eng
     return res
 
 
-def profile_generate(torch, eng, prompt, new_tokens=64):
-    """One generate() under torch.profiler: device time by kernel name (summed
-    over launches), device busy time and wall time. Returns None where the
-    profiler saw no device time."""
+def profile_window(torch, tag, fn, count_steps):
+    """fn() once under torch.profiler: device time by kernel name (summed over
+    launches), device busy and wall time, host ops and kernels per step
+    (count_steps(fn's result) steps). Returns None where the profiler saw no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        out = eng.generate(input_ids=prompt, max_new_tokens=new_tokens)
+        out = fn()
         torch.cuda.synchronize()
         wall_ms = 1000 * (time.time() - t0)
     by_name = {}
@@ -396,7 +593,7 @@ def profile_generate(torch, eng, prompt, new_tokens=64):
         if us > 0:
             by_name[e.key] = by_name.get(e.key, 0.0) + us / 1000.0
     if not by_name:
-        log("[profile] the profiler recorded no device time: not measured")
+        log(f"{tag} the profiler recorded no device time: not measured")
         return None
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
@@ -406,12 +603,188 @@ def profile_generate(torch, eng, prompt, new_tokens=64):
     host_ops = sum(1 for e in events if e.device_type != cuda and e.cpu_parent is None
                    and e.name.startswith("aten::"))
     kernels = sum(1 for e in events if e.device_type == cuda)
-    steps = max(1, round(len(out["generated_tokens"]) / out["avg_accept_tokens"]))
-    res = dict(new_tokens=len(out["generated_tokens"]), steps=steps, wall_ms=wall_ms,
-               device_busy_ms=busy, device_idle_share=1.0 - busy / wall_ms,
-               host_ops_per_step=host_ops / steps, device_kernels_per_step=kernels / steps,
+    steps = count_steps(out)
+    res = dict(steps=steps, wall_ms=wall_ms, device_busy_ms=busy,
+               device_idle_share=1.0 - busy / wall_ms, host_ops_per_step=host_ops / steps,
+               device_kernels_per_step=kernels / steps,
                top_kernels_ms={k[:90]: v for k, v in top})
-    log(f"[profile] {json.dumps(res)}")
+    log(f"{tag} {json.dumps(res)}")
+    return res
+
+
+# ---------------------------------------------------------------- phases 5-9: serving
+
+
+def batched_engine(torch, dev, target, draft, batch, tree, kv_dtype, dtype, **kw):
+    from umbrella_tpu_torch.sequoia import growmap_from_spec
+    from umbrella_tpu_torch.speculation.auto_engine import AutoEngine
+
+    eng = AutoEngine.from_config(
+        device=dev, engine="batched_static", model=target, draft_model=draft, batch_size=batch,
+        growmap=growmap_from_spec(*tree), max_length=MAX_LEN, eos_token_ids=[-100],
+        segment_steps=SEGMENT_STEPS, kv_dtype=kv_dtype, dtype=dtype, **kw)
+    eng.initialize()
+    return eng
+
+
+def random_requests(seed, n, new_tokens, prompt_len=PROMPT_LEN, **sampling):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [dict(input_ids=rng.integers(0, 120000, size=prompt_len).astype(np.int32).tolist(),
+                 max_new_tokens=new_tokens, **sampling) for _ in range(n)]
+
+
+def batched_lossless_check(torch, dev):
+    """fp32, 4 layers, B=4 slots, more requests than slots, staggered prompt
+    lengths: every request's greedy tokens from BatchedStaticEngine.run() equal
+    the single-slot StaticEngine's tokens for the same prompt."""
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    tree = (2, 3)
+    target, draft = build_target(torch, dev, n_layers=4, exit_layer=2, dtype=torch.float32)
+    reqs = [dict(r, input_ids=r["input_ids"][:PROMPT_LEN - PROMPT_LEN // 8 * i])
+            for i, r in enumerate(random_requests(3, 7, BATCHED_LOSSLESS_TOKENS))]
+    eng = batched_engine(torch, dev, target, draft, 4, tree, None, torch.float32)
+    reset_launch_counts()
+    outs = eng.run(reqs)
+    counts = launch_counts()
+    del eng
+    single = make_engine(torch, dev, target, draft, torch.float32, tree=tree)
+    same, vs_ar, gaps, parted = [], [], [], []
+    for r, o in zip(reqs, outs):
+        want = single.generate(input_ids=r["input_ids"],
+                               max_new_tokens=BATCHED_LOSSLESS_TOKENS)["generated_tokens"]
+        got = o["generated_tokens"]
+        same.append(first_difference(got, want))
+        ar, g = greedy_ar_decode(torch, target, r["input_ids"], len(got))
+        vs_ar.append((first_difference(got, ar), first_difference(want, ar)))
+        if same[-1] < BATCHED_LOSSLESS_TOKENS:
+            gaps.append(g[same[-1]])
+            parted.append(dict(batched=got, single=want, ar=ar))
+    res = dict(requests=len(reqs), slots=4, prompt_lens=[len(r["input_ids"]) for r in reqs],
+               identical_prefix=same, batched_and_single_vs_ar=vs_ar,
+               ar_gaps_where_they_part=gaps,
+               avg_accept_tokens=[o["avg_accept_tokens"] for o in outs], launches=counts)
+    log(f"[batched-lossless] {json.dumps(res)}")
+    check(min(same) >= BATCHED_LOSSLESS_TOKENS,
+          f"[batched-lossless] batched and single-slot tokens differ: {same} {parted}")
+    for name in ("attend_flash_batched", "w4a16_matmul", "w4a8f_matmul", "embed_gather"):
+        check(counts[name] > 0, f"[batched-lossless] kernel {name} was never launched")
+    return res
+
+
+def decode_segment(torch, eng, reqs):
+    """Admit B requests, then time one synced segment of SEGMENT_STEPS steps
+    at full occupancy (ms per step, kernel launches per step); profile a
+    second one."""
+    for b, r in enumerate(reqs):
+        check(eng.admit(b, r["input_ids"]), "admission failed")
+    stop = [int(eng.num_nodes[b]) + 10**6 for b in range(eng.batch_size)]
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    eng.step_many(SEGMENT_STEPS, stop)  # warm
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.time()
+    steps = eng.step_many(SEGMENT_STEPS, stop)
+    ms = 1000 * (time.time() - t0) / SEGMENT_STEPS
+    per_step = {k: n / SEGMENT_STEPS for k, n in launch_counts().items()}
+    check(int(steps.min()) == SEGMENT_STEPS, "decode segment ran short")
+    prof = profile_window(torch, "[serve-profile]", lambda: eng.step_many(SEGMENT_STEPS, stop),
+                          lambda _: SEGMENT_STEPS)
+    eng.active[:] = False
+    return ms, per_step, prof
+
+
+def pct(xs, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else None
+
+
+def serve_phase(torch, dev, target, draft, tag, batch, tree, kv_dtype, n_requests,
+                attn_kernel, pipelined=True):
+    """bench.py's serving rows: a warm-up run() of B requests, then n_requests
+    through run(), then (optionally) all of them submitted at once to the
+    pipelined ContinuousBatcher; then one profiled decode segment."""
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.serving.batched_engine import ContinuousBatcher
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = batched_engine(torch, dev, target, draft, batch, tree, kv_dtype, torch.bfloat16)
+    reqs = random_requests(5, n_requests, SERVE_NEW_TOKENS)
+    eng.run(reqs[:batch])  # warm-up
+    reset_launch_counts()
+    steps0 = eng.steps_dispatched
+    torch.cuda.synchronize()
+    t0 = time.time()
+    outs = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launch_counts()
+    steps = eng.steps_dispatched - steps0
+    for name in (attn_kernel, "w4a16_matmul", "w4a8f_matmul", "embed_gather"):
+        check(counts[name] > 0, f"{tag} kernel {name} was never launched")
+    for r, o in zip(reqs, outs):
+        toks = o["generated_tokens"]
+        check(r["max_new_tokens"] <= len(toks) <= r["max_new_tokens"] + 1,
+              f"{tag} request got {len(toks)} tokens")
+        check(all(0 <= t < CFG_8B["vocab_size"] for t in toks), f"{tag} token out of range")
+    total = sum(len(o["generated_tokens"]) for o in outs)
+    res = dict(batch=batch, tree=f"{tree[0]}x{tree[1]}", kv_dtype=kv_dtype or "bf16",
+               requests=n_requests, new_tokens=SERVE_NEW_TOKENS,
+               run_tok_per_s=total / wall, run_s=wall, run_steps=steps,
+               avg_accept_tokens=sum(o["avg_accept_tokens"] for o in outs) / len(outs),
+               run_ttft_ms_p50=pct([o["ttft_ms"] for o in outs], 50),
+               run_tpot_ms_p50=pct([o["time_per_output_token"] for o in outs], 50),
+               launches=counts)
+    if pipelined:
+        batcher = ContinuousBatcher(eng)
+        batcher.start()
+        try:
+            t0 = time.time()
+            futs = [batcher.submit(**dict(r)) for r in reqs]
+            pouts = [f.result(timeout=600) for f in futs]
+            pwall = time.time() - t0
+        finally:
+            batcher.shutdown()
+        same = sum(p["generated_tokens"] == o["generated_tokens"] for p, o in zip(pouts, outs))
+        res.update(
+            pipelined_tok_per_s=sum(len(p["generated_tokens"]) for p in pouts) / pwall,
+            pipelined_s=pwall, pipelined_equal_to_run=same,
+            ttft_ms_p50=pct([p["ttft_ms"] for p in pouts], 50),
+            ttft_ms_p95=pct([p["ttft_ms"] for p in pouts], 95),
+            tpot_ms_p50=pct([p["time_per_output_token"] for p in pouts], 50))
+    step_ms, per_step, prof = decode_segment(torch, eng, reqs[:batch])
+    res.update(decode_step_ms=step_ms, launches_per_step=per_step, profile=prof,
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+    log(f"{tag} {json.dumps(res)}")
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def stochastic_phase(torch, dev, target, draft):
+    """B=32 int8 KV at temperature 0.6, top-p 0.9: the stochastic verify branch
+    runs, every token is in range and every request finishes its budget."""
+    eng = batched_engine(torch, dev, target, draft, 32, (2, 3), "int8", torch.bfloat16)
+    reqs = random_requests(7, 32, STOCHASTIC_NEW_TOKENS, temperature=0.6, topp=0.9)
+    t0 = time.time()
+    outs = eng.run(reqs)
+    wall = time.time() - t0
+    for o in outs:
+        toks = o["generated_tokens"]
+        check(STOCHASTIC_NEW_TOKENS <= len(toks) <= STOCHASTIC_NEW_TOKENS + 1,
+              f"[serve-stochastic] request got {len(toks)} tokens")
+        check(all(0 <= t < CFG_8B["vocab_size"] for t in toks),
+              "[serve-stochastic] token out of range")
+    res = dict(requests=len(reqs), temperature=0.6, topp=0.9,
+               tok_per_s=sum(len(o["generated_tokens"]) for o in outs) / wall,
+               avg_accept_tokens=sum(o["avg_accept_tokens"] for o in outs) / len(outs))
+    log(f"[serve-stochastic] {json.dumps(res)}")
+    del eng
+    torch.cuda.empty_cache()
     return res
 
 
@@ -420,14 +793,29 @@ def profile_generate(torch, eng, prompt, new_tokens=64):
 KERNEL_META = {
     "embed_gather": ("umbrella_tpu_torch/csrc/embed_gather.cu",
                      "umbrella_tpu/ops/pallas/embed_gather.py:60"),
+    # the tree_attention family: each kernel's own pallas_call (attend_flash
+    # launches both _flash_kernel and _flash_kernel_q)
     "attend_flash": ("umbrella_tpu_torch/csrc/tree_attention.cu",
-                     "umbrella_tpu/ops/pallas/tree_attention.py:361"),
+                     "umbrella_tpu/ops/pallas/tree_attention.py:449"),
+    "attend_flash_int8": ("umbrella_tpu_torch/csrc/tree_attention.cu",
+                          "umbrella_tpu/ops/pallas/tree_attention.py:438"),
+    "attend_flash_batched": ("umbrella_tpu_torch/csrc/tree_attention.cu",
+                             "umbrella_tpu/ops/pallas/tree_attention.py:349"),
+    "attend_flash_batched_int8": ("umbrella_tpu_torch/csrc/tree_attention.cu",
+                                  "umbrella_tpu/ops/pallas/tree_attention.py:338"),
     "w4a16_matmul": ("umbrella_tpu_torch/csrc/w4a16.cu", "umbrella_tpu/ops/pallas/w4a16.py:233"),
     "w4a8f_matmul": ("umbrella_tpu_torch/csrc/w4a8f.cu", "umbrella_tpu/ops/pallas/w4a8f.py:97"),
 }
+# the kernels of the static main path (phase 4)
+MAIN_KERNELS = ("embed_gather", "attend_flash", "w4a16_matmul", "w4a8f_matmul")
+# the phase whose run a kernel's `launches` is read from: its main path
+LAUNCHES_FROM = {"attend_flash_int8": "lossless-int8", "attend_flash_batched": "serve-bf16",
+                 "attend_flash_batched_int8": "serve"}
+PHASES = ("kernels", "lossless", "lossless-int8", "batched-lossless", "main", "serve",
+          "serve-bf16", "serve-stochastic")
 
 
-def run(torch):
+def run(torch, phases):
     import numpy as np
 
     from umbrella_tpu_torch.ops.kernels import build
@@ -439,39 +827,69 @@ def run(torch):
                           capture_output=True, text=True).stdout.strip().splitlines()
     log(f"[card] {torch.cuda.get_device_name(0)}; {card}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    t_all = time.time()
 
     t0 = time.time()
     build.build_all(verbose=True)
-    log(f"[build] {len(build.sources())} kernels in {time.time() - t0:.1f} s")
+    log(f"[build] {len(build.sources())} kernel sources in {time.time() - t0:.1f} s")
 
-    t0 = time.time()
-    report = kernel_checks(torch, dev)
-    log(f"[kernels] checked in {time.time() - t0:.1f} s")
+    results = {}
+
+    def phase(name, fn, *args):
+        if name not in phases:
+            return None
+        t0 = time.time()
+        results[name] = fn(*args)
+        log(f"[{name}] done in {time.time() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        return results[name]
 
     prompt = np.random.default_rng(0).integers(0, 120000, size=PROMPT_LEN).astype(np.int32)
-    t0 = time.time()
-    lossless = lossless_check(torch, dev, prompt.tolist())
-    log(f"[lossless] done in {time.time() - t0:.1f} s")
-    torch.cuda.empty_cache()
+    report = phase("kernels", kernel_checks, torch, dev)
+    phase("lossless", lossless_check, torch, dev, prompt.tolist())
+    phase("lossless-int8", lossless_check, torch, dev, prompt.tolist(), "int8")
+    phase("batched-lossless", batched_lossless_check, torch, dev)
 
-    t0 = time.time()
-    main = main_path(torch, dev, prompt.tolist())
-    log(f"[main] done in {time.time() - t0:.1f} s")
+    if {"main", "serve", "serve-bf16", "serve-stochastic"} & set(phases):
+        t0 = time.time()
+        target, draft = build_target(torch, dev, n_layers=32, exit_layer=3, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        log(f"[setup] 8B target and draft built in {time.time() - t0:.1f} s")
+        phase("main", main_path, torch, dev, prompt.tolist(), target, draft)
+        phase("serve", serve_phase, torch, dev, target, draft, "[serve]", 32, (2, 3), "int8",
+              64, "attend_flash_batched_int8")
+        phase("serve-bf16", serve_phase, torch, dev, target, draft, "[serve-bf16]", 8, (3, 4),
+              None, 16, "attend_flash_batched", False)
+        phase("serve-stochastic", stochastic_phase, torch, dev, target, draft)
 
+    if set(phases) != set(PHASES):
+        log(f"[partial] phases {sorted(phases)} passed in {time.time() - t_all:.1f} s")
+        return
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
-        r = report[name]
+        r, path = report[name], results[LAUNCHES_FROM.get(name, "main")]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=main["launches"][name], max_abs_err=r["max_abs_err"], matched=True,
+            launches=path["launches"][name], max_abs_err=r["max_abs_err"], matched=True,
             tolerance=r["tolerance"], shape=r["shape"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
-            launches_per_step=main["launches_per_step"][name]))
+            launches_per_step=path["launches_per_step"][name],
+            launches_from=LAUNCHES_FROM.get(name, "main")))
+    main, serve = results["main"], results["serve"]
     summary = {k: main[k] for k in ("tok_per_s", "decode_step_ms", "avg_accept_tokens",
                                     "ttft_ms_prefill128", "spec_vs_ar_common_prefix")}
     if main["profile"]:
         summary["device_idle_share"] = main["profile"]["device_idle_share"]
-    log(f"[summary] {json.dumps(dict(summary, lossless=lossless))}")
+    summary["serve"] = {k: serve[k] for k in (
+        "run_tok_per_s", "pipelined_tok_per_s", "avg_accept_tokens", "decode_step_ms",
+        "ttft_ms_p50", "ttft_ms_p95", "tpot_ms_p50", "peak_mem_gb")}
+    summary["serve-bf16"] = {k: results["serve-bf16"][k] for k in (
+        "run_tok_per_s", "avg_accept_tokens", "decode_step_ms")}
+    summary["lossless"] = results["lossless"]["identical_prefix"]
+    summary["lossless-int8"] = results["lossless-int8"]["identical_prefix"]
+    summary["batched-lossless"] = results["batched-lossless"]["identical_prefix"]
+    summary["seconds"] = time.time() - t_all
+    log(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card[0] if card else "nvidia-smi: no card", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -480,6 +898,13 @@ def run(torch):
 
 
 def main():
+    phases = PHASES
+    if len(sys.argv) > 2 and sys.argv[1] == "--phases":  # a subset, for debugging
+        phases = tuple(sys.argv[2].split(","))
+        unknown = set(phases) - set(PHASES)
+        if unknown:
+            print(f"chip_smoke: unknown phases {sorted(unknown)}", file=sys.stderr)
+            return 2
     try:
         import torch
     except ImportError:
@@ -495,7 +920,7 @@ def main():
         print("chip_smoke: umbrella_tpu_torch not found beside this script", file=sys.stderr)
         return 2
     try:
-        run(torch)
+        run(torch, phases)
     except Exception:  # report the failed phase and exit non-zero
         traceback.print_exc()
         return 1

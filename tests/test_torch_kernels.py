@@ -12,6 +12,8 @@ import torch
 
 from umbrella_tpu.ops.pallas.embed_gather import embed_gather as jax_embed_gather
 from umbrella_tpu.ops.pallas.tree_attention import attend_flash as jax_attend_flash
+from umbrella_tpu.ops.pallas.tree_attention import \
+    attend_flash_batched as jax_attend_flash_batched
 from umbrella_tpu.ops.pallas.w4a16 import w4a16_matmul as jax_w4a16_matmul
 from umbrella_tpu.ops.pallas.w4a8f import quantize_activations_int8 as jax_quantize_act
 from umbrella_tpu.ops.pallas.w4a8f import w4a8f_matmul as jax_w4a8f_matmul
@@ -19,7 +21,9 @@ from umbrella_tpu.quantization.awq import AwqTensor as JaxAwqTensor
 from umbrella_tpu.quantization.int4f import quantize_int4f as jax_quantize_int4f
 from umbrella_tpu_torch.models.convert import params_from_numpy, to_tensor
 from umbrella_tpu_torch.ops.kernels.embed_gather import embed_gather, embed_gather_ref
-from umbrella_tpu_torch.ops.kernels.tree_attention import attend_dense, attend_flash
+from umbrella_tpu_torch.ops.kernels.tree_attention import (
+    attend_dense, attend_flash, attend_flash_batched, attend_flash_batched_int8,
+    attend_flash_batched_ref, attend_flash_int8, attend_flash_ref)
 from umbrella_tpu_torch.ops.kernels.w4a16 import w4a16_matmul, w4a16_matmul_ref
 from umbrella_tpu_torch.ops.kernels.w4a8f import (quantize_activations_int8, w4a8f_int_dot,
                                                   w4a8f_matmul, w4a8f_matmul_ref)
@@ -112,3 +116,109 @@ def test_embed_gather_ref_matches_pallas_kernel(S):
     got = embed_gather_ref(_t(emb), _t(ids)).numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(embed_gather(_t(emb), _t(ids)).numpy(), got)
+
+
+# ------------------------------------------------------- int8 and batched attention
+
+
+def _int8_cache(rng, shape):
+    """int8 values and fp32 per-row scales, as models/kv_cache stores them."""
+    return (rng.integers(-127, 128, shape).astype(np.int8),
+            rng.uniform(0.005, 0.02, shape[:-1]).astype(np.float32))
+
+
+@pytest.mark.parametrize("S", SIZES)
+def test_attend_flash_int8_ref_matches_pallas(S):
+    """int8 KV with fp32 scales applied in score space (`_flash_kernel_q`).
+    Tolerance: max abs err <= 1e-4 * max|y| (fp32; summation order and the
+    online-softmax rescaling differ)."""
+    rng = np.random.default_rng(500 + S)
+    n_layers, KVH, H, D, L, layer, kv_limit = 2, 2, 4, 32, 256, 1, 131
+    q = rng.standard_normal((S, H, D)).astype(np.float32)
+    k, ks = _int8_cache(rng, (n_layers, KVH, L, D))
+    v, vs = _int8_cache(rng, (n_layers, KVH, L, D))
+    mask = np.asarray(causal_mask_rows(kv_limit - S, S, L))
+    want = np.asarray(jax_attend_flash(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask), jnp.int32(kv_limit),
+        block_k=128, interpret=True, k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs),
+        layer_idx=jnp.int32(layer)))
+    qt, kt, vt, kst, vst, mt = _t(q), _t(k), _t(v), _t(ks), _t(vs), torch.as_tensor(mask)
+    got = attend_flash_ref(qt, kt[layer], vt[layer], mt, kv_limit, k_scale=kst[layer],
+                           v_scale=vst[layer]).numpy()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    # the wrappers take the plain version for CPU tensors
+    np.testing.assert_array_equal(
+        attend_flash_int8(qt, kt, vt, kst, vst, mt, kv_limit, layer).numpy(), got)
+    np.testing.assert_array_equal(
+        attend_flash(qt, kt, vt, mt, kv_limit, layer, k_scale=kst, v_scale=vst).numpy(), got)
+
+
+def _batched_inputs(rng, B, S, H, KVH, D, L, Bc, int8):
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    if int8:
+        k, ks = _int8_cache(rng, (2, Bc, KVH, L, D))
+        v, vs = _int8_cache(rng, (2, Bc, KVH, L, D))
+    else:
+        k = rng.standard_normal((2, Bc, KVH, L, D)).astype(np.float32)
+        v = rng.standard_normal((2, Bc, KVH, L, D)).astype(np.float32)
+        ks = vs = None
+    return q, k, v, ks, vs
+
+
+# case: (B, Bc, int8, slots, soft_cap, garbage past slot 0's limit)
+BATCHED_CASES = {
+    "per_slot_limits": (4, 4, False, None, 0.0, False),
+    "limit_isolation": (2, 2, False, None, 0.0, True),
+    "slots_indirection": (1, 4, False, [2], 0.0, False),
+    "int8_scales": (3, 3, True, None, 0.0, False),
+    "int8_soft_cap": (2, 2, True, None, 30.0, False),
+    "int8_slots_indirection": (2, 4, True, [3, 0], 0.0, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BATCHED_CASES))
+def test_attend_flash_batched_ref_matches_pallas(case):
+    """Plain versions of `_flash_kernel_b` / `_flash_kernel_bq` against the
+    Pallas kernels in interpret mode, called as tests/test_batched_flash.py
+    calls them: per-slot kv limits (the mask is false past each slot's limit,
+    as the engine builds it, and every row sees at least one slot), slot
+    indirection, int8 scales, soft cap. With `garbage`, slot 0's cache past its
+    limit holds 1e6, which must not reach slot 0's output. Tolerance: max abs
+    err <= 1e-4 * max|y| (fp32)."""
+    B, Bc, int8, slots, cap, garbage = BATCHED_CASES[case]
+    rng = np.random.default_rng(600 + sorted(BATCHED_CASES).index(case))
+    S, H, KVH, D, L, layer = 8, 4, 2, 64, 256, 1
+    q, k, v, ks, vs = _batched_inputs(rng, B, S, H, KVH, D, L, Bc, int8)
+    limits = rng.integers(S + 1, L, B).astype(np.int32)
+    mask = rng.random((B, S, L)) > 0.4
+    for b in range(B):
+        mask[b, :, limits[b]:] = False
+        mask[b, :, 0] = True
+    if garbage:
+        row0 = slots[0] if slots else 0
+        big = 127 if int8 else 1e6
+        k[layer, row0, :, limits[0]:] = big
+        v[layer, row0, :, limits[0]:] = big
+    jslots = None if slots is None else jnp.asarray(slots, jnp.int32)
+    jscales = {} if ks is None else dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    want = np.asarray(jax_attend_flash_batched(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask), jnp.asarray(limits),
+        jnp.int32(layer), slots=jslots, soft_cap=cap, block_k=128, interpret=True, **jscales))
+    tslots = None if slots is None else torch.tensor(slots, dtype=torch.int32)
+    tscales = {} if ks is None else dict(k_scale=_t(ks), v_scale=_t(vs))
+    args = (_t(q), _t(k), _t(v), torch.as_tensor(mask), _t(limits), layer)
+    got = attend_flash_batched_ref(*args, slots=tslots, soft_cap=cap, **tscales).numpy()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    np.testing.assert_array_equal(
+        attend_flash_batched(*args, slots=tslots, soft_cap=cap, **tscales).numpy(), got)
+    if int8:
+        np.testing.assert_array_equal(attend_flash_batched_int8(
+            _t(q), _t(k), _t(v), _t(ks), _t(vs), torch.as_tensor(mask), _t(limits), layer,
+            slots=tslots, soft_cap=cap).numpy(), got)
+    if garbage:  # slot 0 is blind to its cache past its own limit
+        k[layer, :, :, limits[0]:] = 0
+        v[layer, :, :, limits[0]:] = 0
+        clean = attend_flash_batched_ref(_t(q), _t(k), _t(v), torch.as_tensor(mask),
+                                         _t(limits), layer, slots=tslots, soft_cap=cap,
+                                         **tscales).numpy()
+        np.testing.assert_array_equal(clean[0], got[0])

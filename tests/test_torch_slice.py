@@ -45,6 +45,7 @@ from umbrella_tpu_torch.quantization import awq, int4f
 from umbrella_tpu_torch.quantization.awq import AwqTensor
 from umbrella_tpu_torch.quantization.int4f import Int4FTensor
 from umbrella_tpu_torch.sequoia import generate_sequoia_tree, growmap_from_spec
+from umbrella_tpu_torch.serving.batched_engine import BatchedStaticEngine
 from umbrella_tpu_torch.speculation.auto_engine import AutoEngine
 from umbrella_tpu_torch.speculation.static_engine import StaticEngine
 from umbrella_tpu_torch.speculation.tree import GrowMap
@@ -457,7 +458,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 @pytest.mark.parametrize("entry", ["ModelRuntime", "random_runtime", "random_awq_runtime",
-                                   "StaticEngine", "AutoEngine.from_config"])
+                                   "StaticEngine", "AutoEngine.from_config",
+                                   "BatchedStaticEngine", "AutoEngine.from_config batched"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = ModelConfig(**dict(SMALL, num_hidden_layers=1))
@@ -469,6 +471,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
         "StaticEngine": lambda: StaticEngine(rt, rt, growmap=growmap_from_spec(3, 4)),
         "AutoEngine.from_config": lambda: AutoEngine.from_config(
             engine="static", model=rt, draft_model=rt, growmap=growmap_from_spec(3, 4)),
+        "BatchedStaticEngine": lambda: BatchedStaticEngine(rt, rt, growmap=growmap_from_spec(3, 4)),
+        "AutoEngine.from_config batched": lambda: AutoEngine.from_config(
+            engine="batched_static", model=rt, draft_model=rt, growmap=growmap_from_spec(3, 4)),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

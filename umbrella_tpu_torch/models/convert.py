@@ -13,6 +13,7 @@ import torch
 
 from ..quantization.awq import AwqTensor
 from ..quantization.int4f import Int4FTensor
+from .batched import BatchedKVCache
 from .kv_cache import KVCache
 
 # entries that stay fp32 whatever dtype the rest of the tree is cast to
@@ -63,9 +64,14 @@ def params_from_numpy(params: dict, device="cpu", dtype=None) -> dict:
     return _convert(params, torch.device(device), dtype)
 
 
-def kv_from_numpy(kv, device="cpu") -> KVCache:
-    """A KVCache-like object with numpy `k`/`v` [layers, KVH, L, D] -> KVCache."""
-    if getattr(kv, "k_scale", None) is not None:
-        raise NotImplementedError("int8 KV cache is not ported yet (ROADMAP queue A, item 2)")
+def kv_from_numpy(kv, device="cpu"):
+    """A KVCache-like object with numpy `k`/`v` -> the port's cache: a KVCache for
+    [layers, KVH, L, D] buffers, a BatchedKVCache for batched [layers, B, KVH, L, D]
+    ones. int8 caches carry their fp32 `k_scale`/`v_scale` across too."""
     device = torch.device(device)
-    return KVCache(k=to_tensor(kv.k, device), v=to_tensor(kv.v, device))
+    k = to_tensor(kv.k, device)
+    cls = BatchedKVCache if k.dim() == 5 else KVCache
+    if getattr(kv, "k_scale", None) is None:
+        return cls(k=k, v=to_tensor(kv.v, device))
+    return cls(k=k, v=to_tensor(kv.v, device), k_scale=to_tensor(kv.k_scale, device),
+               v_scale=to_tensor(kv.v_scale, device))

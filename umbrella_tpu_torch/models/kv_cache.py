@@ -5,10 +5,15 @@ here the buffers are updated in place (slice assignment), which saves a copy of
 the cache per step, and the functions return the same cache for symmetry.
 Write offsets are clamped so the written window fits the cache, as
 `lax.dynamic_update_slice` clamps in the JAX package.
+
+int8 mode (`dtype="int8"`): int8 values with one fp32 scale per (layer, head,
+slot), `[num_layers, kv_heads, max_length]` with no trailing 1; each written row
+is quantized on its own, so a row's bytes do not depend on what else was
+written with it.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -16,18 +21,44 @@ from ..config import ModelConfig
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor  # [layers, kv_heads, max_len, head_dim]
+    k: torch.Tensor  # [layers, kv_heads, max_len, head_dim] (int8 when quantized)
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None  # [layers, kv_heads, max_len] fp32, int8 mode
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+def is_int8(dtype) -> bool:
+    return dtype in ("int8", torch.int8)
 
 
 def init_kv_cache(cfg: ModelConfig, max_length: int, dtype=torch.bfloat16,
                   num_layers: int | None = None, device="cpu") -> KVCache:
-    if dtype in ("int8", torch.int8):
-        raise NotImplementedError("int8 KV cache is not ported yet (ROADMAP queue A, item 2)")
     n_layers = num_layers if num_layers is not None else cfg.num_hidden_layers
     shape = (n_layers, cfg.num_key_value_heads, max_length, cfg.resolved_head_dim)
+    if is_int8(dtype):
+        return KVCache(k=torch.zeros(shape, dtype=torch.int8, device=device),
+                       v=torch.zeros(shape, dtype=torch.int8, device=device),
+                       k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                       v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device))
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _quantize_block(x: torch.Tensor):
+    """[..., D] fp -> (int8 values [..., D], fp32 per-row scales [...]).
+
+    Bit for bit the JAX package's `_quantize_block` as its engines run it, under
+    jit: XLA compiles `amax / 127.0` as `amax * (1 / 127)` and keeps `x / scale`
+    a true divide; round half to even, clip to +-127."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax * (1.0 / 127.0), min=1e-8)
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0]
 
 
 def _window_start(offset: int, width: int, length: int) -> int:
@@ -36,11 +67,19 @@ def _window_start(offset: int, width: int, length: int) -> int:
 
 def update_layer(kv: KVCache, layer_idx: int, k_new: torch.Tensor, v_new: torch.Tensor,
                  offset: int) -> KVCache:
-    """Write k/v [S, kv_heads, head_dim] at slots [offset, offset + S) of one layer."""
+    """Write k/v [S, kv_heads, head_dim] at slots [offset, offset + S) of one layer
+    (quantized with their scales in int8 mode)."""
     S = k_new.shape[0]
     start = _window_start(offset, S, kv.k.shape[2])
-    kv.k[layer_idx, :, start:start + S] = k_new.transpose(0, 1).to(kv.k.dtype)
-    kv.v[layer_idx, :, start:start + S] = v_new.transpose(0, 1).to(kv.v.dtype)
+    win = slice(start, start + S)
+    if kv.quantized:
+        for buf, sbuf, new in ((kv.k, kv.k_scale, k_new), (kv.v, kv.v_scale, v_new)):
+            q, s = _quantize_block(new)
+            buf[layer_idx, :, win] = q.transpose(0, 1)
+            sbuf[layer_idx, :, win] = s.transpose(0, 1)
+        return kv
+    kv.k[layer_idx, :, win] = k_new.transpose(0, 1).to(kv.k.dtype)
+    kv.v[layer_idx, :, win] = v_new.transpose(0, 1).to(kv.v.dtype)
     return kv
 
 
@@ -49,12 +88,14 @@ def gather_compact(kv: KVCache, local_indices: torch.Tensor, offset: int, accept
 
     `local_indices` [tree_size] are tree-local slot ids; entries at or past
     `accept_len` (an int or a 0-d tensor) are ignored and their destination
-    slots are zeroed, as in the JAX package."""
+    slots are zeroed, as in the JAX package. int8 scales move with their rows."""
     T = local_indices.shape[0]
     pos = torch.arange(T, device=local_indices.device)
-    valid = (pos < accept_len)[None, None, :, None]
     idx = local_indices.long()
-    for buf in (kv.k, kv.v):
+    for buf in kv:
+        if buf is None:
+            continue
+        valid = (pos < accept_len).reshape(T, *[1] * (buf.dim() - 3))
         start = _window_start(offset, T, buf.shape[2])
         window = buf[:, :, start:start + T]
         picked = window.index_select(2, idx)

@@ -105,7 +105,7 @@ def llama_attention(args: StaticModelArgs, lw: dict, hidden: torch.Tensor, kv: K
     q, k = apply_rope(q, k, inv_freq, rope_scale, position_ids)
     kv = update_layer(kv, layer_idx, k, v, write_offset)
     out = attend(q.contiguous(), kv.k, kv.v, attn_mask, kv_limit=write_offset + S,
-                 layer_idx=layer_idx)
+                 layer_idx=layer_idx, k_scale=kv.k_scale, v_scale=kv.v_scale)
     return _linear(out.reshape(S, args.num_heads * D), lw["wo"]), kv
 
 

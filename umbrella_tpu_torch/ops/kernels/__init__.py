@@ -4,13 +4,17 @@ Every wrapper counts its own launches (`wrapper.launches`) so a run can show
 which kernels it went through.
 """
 from .embed_gather import embed_gather
-from .tree_attention import attend_flash
+from .tree_attention import (attend_flash, attend_flash_batched, attend_flash_batched_int8,
+                             attend_flash_int8)
 from .w4a16 import w4a16_matmul
 from .w4a8f import w4a8f_matmul
 
 KERNELS = {
     "embed_gather": embed_gather,
     "attend_flash": attend_flash,
+    "attend_flash_int8": attend_flash_int8,
+    "attend_flash_batched": attend_flash_batched,
+    "attend_flash_batched_int8": attend_flash_batched_int8,
     "w4a16_matmul": w4a16_matmul,
     "w4a8f_matmul": w4a8f_matmul,
 }

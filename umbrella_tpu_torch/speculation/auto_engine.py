@@ -2,11 +2,13 @@
 
 `from_config` validates config keys against the selected engine's consumed-key
 allowlist (as `umbrella_tpu/speculation/auto_engine.py` does), so a typo'd or
-unsupported key raises instead of being ignored. Only the static engine is
-ported; the others raise and name the ROADMAP item that brings them.
+unsupported key raises instead of being ignored. The static and the batched
+(continuous-batching) engines are ported; the dynamic engine raises and names
+the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
+from ..serving.batched_engine import BatchedStaticEngine
 from .static_engine import StaticEngine
 
 _APP_KEYS = frozenset({"template", "generation_length", "max_turns", "scheduler"})
@@ -21,16 +23,22 @@ _ENGINE_CONFIG_KEYS = {
     "static": _COMMON_KEYS | _MODEL_KEYS | _APP_KEYS | {
         "growmap_path", "growmap", "tensor_parallel", "pipeline_parallel",
         "expert_parallel"},
+    # batched: no offload and no pipeline_parallel (BatchedStaticEngine raises
+    # for both; listed so the error names them as unsupported, not unknown)
+    "batched_static": (_COMMON_KEYS - {"stop_distance"}) | _APP_KEYS | {
+        "growmap_path", "growmap", "batch_size", "segment_steps",
+        "prefill_chunks_per_segment", "tensor_parallel", "pipeline_parallel",
+        "expert_parallel", "offload", "exit_layer", "num_cache_layers",
+        "quantize_draft"},
 }
 
 _NOT_PORTED = {
     "dynamic": "ROADMAP queue A, item 8",
-    "batched_static": "ROADMAP queue A, item 10",
 }
 
 
 class AutoEngine:
-    _ENGINE_MAPPING = {"static": StaticEngine}
+    _ENGINE_MAPPING = {"static": StaticEngine, "batched_static": BatchedStaticEngine}
 
     @classmethod
     def _resolve(cls, engine_name: str):
