@@ -14,6 +14,7 @@ lines tagged with its name:
                    greedy static-tree generate() must equal the port's own
                    greedy autoregressive decode for 64 tokens.
   lossless-int8    the same on an int8 KV cache (both decodes).
+  lossless-w4a8    the same with awq_act="int8" (the W4 layers run W4A8).
   batched-lossless fp32, 4 layers, B=4 slots, 7 requests of staggered prompt
                    lengths: BatchedStaticEngine.run() must give each request
                    the single-slot StaticEngine's tokens (48 or more).
@@ -27,6 +28,20 @@ lines tagged with its name:
                    TPOT, peak memory, launches per step, device idle share.
   serve-bf16       B=8, bf16 KV, 3x4 tree, 16 requests through run().
   serve-stochastic B=32 int8 KV at temperature 0.6, top-p 0.9.
+  checkpoint       write synthetic checkpoints under build/ (deleted at the
+                   end) in the published on-disk formats: an AutoAWQ GEMM
+                   Llama-3.1-8B target (two safetensors shards; a second
+                   directory over the same files says awq_act "int8") and a
+                   bf16 Llama-3.2-1B draft; load both through
+                   AutoModelLM.from_pretrained (time, host RSS, device
+                   memory); the target's logits must equal the in-memory
+                   conversion's bit for bit.
+  code-config      configs/code_config_8b_awq_v5e.json as shipped (model,
+                   draft_model and growmap_path rewritten; 128 new tokens):
+                   greedy 24x6, W4 draft and head from quantize_draft.
+  code-config-w4a8 the same on the awq_act "int8" target (w4a8_matmul).
+  serve-config     configs/serve_batched_8b_awq_int8kv_v5e.json as shipped:
+                   B=32, int8 KV, Int4F draft, 2x3 tree, temperature 0.6.
   report           one JSON line of kernels, the card's name and power limit,
                    and the final {"ok": true, ...} line.
 Every kernel must have launched in the phase that its `launches` is read
@@ -262,6 +277,94 @@ def kernel_checks(torch, dev):
         tolerance="max abs err <= 1e-6 * max|plain| (integer part exact, same fp32 epilogue)",
         max_abs_err=f_max, max_rel_err=f_rel, per_shape=shapes_ms, **shapes_ms["lm_head S=24"])
     torch.cuda.empty_cache()
+    report.update(gate_up_kernel_checks(torch, dev, gen, randn, err))
+    return report
+
+
+def gate_up_kernel_checks(torch, dev, gen, randn, err):
+    """w4a8_matmul and w4a16_gate_up_silu at the 8B gate_up shape [4096, 28672],
+    S=127 (a verify pass) and S=24 (a draft level), bf16 and fp32 x, each
+    against its plain version; w4a8_matmul's row invariance bitwise. Library
+    yardstick: torch.matmul on the pre-dequantized bf16 weight (+ F.silu * mul
+    for the fused form)."""
+    import torch.nn.functional as F
+
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.ops.kernels.w4a8 import w4a8_matmul, w4a8_matmul_ref
+    from umbrella_tpu_torch.ops.kernels.w4a16 import (_dequant_halves_bf16, w4a16_gate_up_silu,
+                                                      w4a16_gate_up_silu_ref, w4a16_matmul)
+    from umbrella_tpu_torch.quantization.awq import awq_gate_up_silu, quantize_pack_device
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    K, N = LAYER_SHAPES["gate_up"]
+    I, G = N // 2, K // 128
+    q = quantize_pack_device(torch.randn((K, N), generator=gen, device=dev) * 0.02, 128, bf16)
+    w_deq = _dequant_halves_bf16(q)
+    report = {}
+    a_max, a_rel, s_max, s_rel = 0.0, 0.0, 0.0, 0.0
+    for S in (24, 127):
+        for xd in (bf16, f32):
+            x = randn(S, K, dtype=xd)
+            e, m = err(w4a8_matmul(x, q), w4a8_matmul_ref(x, q))
+            check(e <= 1e-6 * m, f"w4a8 gate_up S={S} {xd}: err {e} vs max {m}")
+            a_max, a_rel = max(a_max, e), max(a_rel, e / m)
+            e, m = err(w4a16_gate_up_silu(x, q), w4a16_gate_up_silu_ref(x, q))
+            tol = 2 ** -7 if xd == bf16 else 1e-4
+            check(e <= tol * m, f"w4a16_gate_up_silu S={S} {xd}: err {e} vs max {m}")
+            s_max, s_rel = max(s_max, e), max(s_rel, e / m)
+    x = randn(127, K)
+    whole = w4a8_matmul(x, q)
+    alone = w4a8_matmul(x[:1].clone(), q)
+    check(torch.equal(whole[:1], alone), "w4a8_matmul: row 0 alone differs from row 0 of S=127")
+    xs = {S: randn(S, K) for S in (24, 127)}
+    w8_ms, gs_ms = {}, {}
+    for S, x in xs.items():
+        by, bb = bound(K // 2 * N + 2 * G * N * 2 + S * K * 2 + S * N * 2, 2 * S * K * N, "int8")
+        w8_ms[f"S={S}"] = dict(
+            ms=cuda_ms(torch, lambda: w4a8_matmul(x, q)),
+            plain_ms=cuda_ms(torch, lambda: w4a8_matmul_ref(x, q), iters=3, warmup=1),
+            library_ms=cuda_ms(torch, lambda: torch.matmul(x, w_deq)),
+            w4a16_ms=cuda_ms(torch, lambda: w4a16_matmul(x, q)),
+            bound_ms=by, bound_by=bb)
+
+        def lib():
+            gu = torch.matmul(x, w_deq)
+            return F.silu(gu[:, :I]) * gu[:, I:]
+
+        def composed():
+            gu = w4a16_matmul(x, q)
+            return F.silu(gu[:, :I]) * gu[:, I:]
+
+        by, bb = bound(K // 2 * N + 2 * G * N * 2 + S * K * 2 + S * I * 2, 2 * S * K * N, "bf16")
+        gs_ms[f"S={S}"] = dict(
+            ms=cuda_ms(torch, lambda: w4a16_gate_up_silu(x, q)),
+            plain_ms=cuda_ms(torch, lambda: w4a16_gate_up_silu_ref(x, q), iters=5),
+            library_ms=cuda_ms(torch, lib), composed_ms=cuda_ms(torch, composed),
+            bound_ms=by, bound_by=bb)
+    log(f"[kernels] w4a8_matmul gate_up {w8_ms}")
+    log(f"[kernels] w4a16_gate_up_silu gate_up {gs_ms}")
+    report["w4a8_matmul"] = dict(
+        shape="x [127,4096] bf16 @ W4 [4096,28672] (gate_up), int8 activations, bf16 out",
+        tolerance="max abs err <= 1e-6 * max|plain| (integer products exact, the same fp32 "
+                  "fix-up order); row 0 alone equals row 0 of S=127 bitwise",
+        max_abs_err=a_max, max_rel_err=a_rel, row_invariant=True, per_shape=w8_ms,
+        **w8_ms["S=127"])
+    # no shipped config reaches the fused form (nor does the JAX package's
+    # default): its launches come from awq_gate_up_silu(fused=True), the opt-in
+    reset_launch_counts()
+    for x in xs.values():
+        awq_gate_up_silu(x, q, fused=True)
+    torch.cuda.synchronize()
+    fused_counts = launch_counts()
+    check(fused_counts["w4a16_gate_up_silu"] == len(xs),
+          f"awq_gate_up_silu(fused=True) launched {fused_counts['w4a16_gate_up_silu']} kernels")
+    report["w4a16_gate_up_silu"] = dict(
+        shape="x [127,4096] bf16 @ packed W4 gate|up [4096,28672] -> [127,14336] bf16",
+        tolerance="max abs err <= 2**-7 * max|plain| (bf16 out), 1e-4 * max|plain| (fp32 x)",
+        max_abs_err=s_max, max_rel_err=s_rel, per_shape=gs_ms, launches=fused_counts,
+        launches_per_step={"w4a16_gate_up_silu": None}, **gs_ms["S=127"])
+    del q, w_deq
+    torch.cuda.empty_cache()
     return report
 
 
@@ -426,15 +529,16 @@ def attention_int8_and_batched_checks(torch, dev, gen, randn, err):
 # ---------------------------------------------------------------- phases 3-4
 
 
-def build_target(torch, dev, n_layers, exit_layer, dtype):
+def build_target(torch, dev, n_layers, exit_layer, dtype, awq_act="bf16"):
     """bench.py's primary target: random W4 weights, tail wo/down scales damped
-    x0.05, shared prefix (exit_layer layers + lm_head) converted to Int4F."""
+    x0.05, shared prefix (exit_layer layers + lm_head) converted to Int4F;
+    awq_act="int8" runs the W4 layers through W4A8."""
     from umbrella_tpu_torch.config import ModelConfig
     from umbrella_tpu_torch.models.auto_model import (ModelRuntime, early_exit_runtime,
                                                       random_awq_runtime)
     from umbrella_tpu_torch.quantization.int4f import hybridize_shared_prefix
 
-    cfg = ModelConfig(**dict(CFG_8B, num_hidden_layers=n_layers))
+    cfg = ModelConfig(**dict(CFG_8B, num_hidden_layers=n_layers, awq_act=awq_act))
     t = random_awq_runtime(cfg, MAX_LEN, dtype=dtype, seed=2, quantize_lm_head=True,
                            device=dev)
     layers = dict(t.params["layers"])
@@ -492,7 +596,7 @@ def first_difference(a, b):
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
 
 
-def lossless_check(torch, dev, prompt, kv_dtype=None):
+def lossless_check(torch, dev, prompt, kv_dtype=None, awq_act="bf16"):
     """Static-tree generate() against the port's own AR decode (both on an int8
     KV cache when kv_dtype="int8"). The first LOSSLESS_NEW_TOKENS tokens must
     be identical; where the two decodes part later (generate() may overshoot by
@@ -500,11 +604,13 @@ def lossless_check(torch, dev, prompt, kv_dtype=None):
     Exact equality needs every op but attention to compute a row the same way
     whatever rows share the call (see ops/norms.py); int8 KV rounding and the
     W4A8 layers' int8 activations would turn any last-bit difference into a
-    quantum."""
+    quantum. awq_act="int8": the W4 layers past the Int4F prefix run W4A8."""
     from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    tag = "[lossless]" if kv_dtype is None else f"[lossless-{kv_dtype}]"
-    target, draft = build_target(torch, dev, n_layers=4, exit_layer=2, dtype=torch.float32)
+    tag = ("[lossless-w4a8]" if awq_act == "int8" else
+           "[lossless]" if kv_dtype is None else f"[lossless-{kv_dtype}]")
+    target, draft = build_target(torch, dev, n_layers=4, exit_layer=2, dtype=torch.float32,
+                                 awq_act=awq_act)
     eng = make_engine(torch, dev, target, draft, torch.float32, kv_dtype=kv_dtype)
     reset_launch_counts()
     out = eng.generate(input_ids=prompt, max_new_tokens=LOSSLESS_NEW_TOKENS)
@@ -522,7 +628,8 @@ def lossless_check(torch, dev, prompt, kv_dtype=None):
     check(same >= LOSSLESS_NEW_TOKENS,
           f"{tag} spec and AR decode differ at token {same}: {toks} vs {ar}")
     attn = "attend_flash_int8" if kv_dtype == "int8" else "attend_flash"
-    for name in (attn, "w4a16_matmul", "w4a8f_matmul", "embed_gather"):
+    w4 = "w4a8_matmul" if awq_act == "int8" else "w4a16_matmul"
+    for name in (attn, w4, "w4a8f_matmul", "embed_gather"):
         check(counts[name] > 0, f"{tag} kernel {name} was never launched")
     return res
 
@@ -788,6 +895,404 @@ def stochastic_phase(torch, dev, target, draft):
     return res
 
 
+# ---------------------------------------------------------------- checkpoints
+
+
+# config.json of the checkpoints the shipped 8B configs name, as published:
+# hugging-quants/Meta-Llama-3.1-8B-Instruct-AWQ-INT4 (AutoAWQ GEMM, fp16) and
+# meta-llama/Llama-3.2-1B-Instruct (bf16, tied embeddings)
+LLAMA3_EOS = [128001, 128008, 128009]
+TARGET_HF_CONFIG = dict(
+    architectures=["LlamaForCausalLM"], model_type="llama", vocab_size=128256, hidden_size=4096,
+    intermediate_size=14336, num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    rms_norm_eps=1e-5, rope_theta=500000.0, max_position_embeddings=131072,
+    rope_scaling=dict(factor=8.0, low_freq_factor=1.0, high_freq_factor=4.0,
+                      original_max_position_embeddings=8192, rope_type="llama3"),
+    tie_word_embeddings=False, bos_token_id=128000, eos_token_id=LLAMA3_EOS,
+    hidden_act="silu", torch_dtype="float16",
+    quantization_config=dict(quant_method="awq", bits=4, group_size=128, version="gemm",
+                             zero_point=True))
+DRAFT_HF_CONFIG = dict(
+    architectures=["LlamaForCausalLM"], model_type="llama", vocab_size=128256, hidden_size=2048,
+    intermediate_size=8192, num_hidden_layers=16, num_attention_heads=32, num_key_value_heads=8,
+    head_dim=64, rms_norm_eps=1e-5, rope_theta=500000.0, max_position_embeddings=131072,
+    rope_scaling=dict(factor=32.0, low_freq_factor=1.0, high_freq_factor=4.0,
+                      original_max_position_embeddings=8192, rope_type="llama3"),
+    tie_word_embeddings=True, bos_token_id=128000, eos_token_id=LLAMA3_EOS,
+    hidden_act="silu", torch_dtype="bfloat16")
+CONFIG_NEW_TOKENS = 128
+SERVE_CONFIG_REQUESTS = 32
+SERVE_CONFIG_NEW_TOKENS = 64
+_ST_CODES = {"float32": "F32", "float16": "F16", "bfloat16": "BF16", "int32": "I32",
+             "int64": "I64", "int8": "I8", "uint8": "U8"}
+
+
+def write_safetensors(path, specs):
+    """Write a safetensors file. specs: [(name, torch dtype, shape, make)] in
+    file order; make() returns that tensor (on any device). Tensors are made
+    and written one at a time, so host memory holds one tensor."""
+    import math
+    import struct
+
+    import torch
+
+    header, off = {}, 0
+    for name, dtype, shape, _ in specs:
+        n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        header[name] = dict(dtype=_ST_CODES[str(dtype).split(".")[-1]], shape=list(shape),
+                            data_offsets=[off, off + n])
+        off += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for name, dtype, shape, make in specs:
+            t = make()
+            check(t.dtype == dtype and tuple(t.shape) == tuple(shape), f"{name}: made {t.dtype} "
+                  f"{tuple(t.shape)}, declared {dtype} {tuple(shape)}")
+            f.write(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+
+
+def _proj_shapes(hf):
+    """(HF projection name, in, out) of one decoder layer."""
+    H, I = hf["hidden_size"], hf["intermediate_size"]
+    D = hf.get("head_dim") or H // hf["num_attention_heads"]
+    Hq, KV = hf["num_attention_heads"] * D, hf["num_key_value_heads"] * D
+    return [("self_attn.q_proj", H, Hq), ("self_attn.k_proj", H, KV), ("self_attn.v_proj", H, KV),
+            ("self_attn.o_proj", Hq, H), ("mlp.gate_proj", H, I), ("mlp.up_proj", H, I),
+            ("mlp.down_proj", I, H)]
+
+
+def target_specs(torch, dev, gen, hf):
+    """AutoAWQ GEMM tensors of the 8B target: random packed words (nibbles
+    0..15), zeros 6..9, fp16 scales U(0.0035, 0.005) so weights have std ~0.02;
+    from layer 3 on the o_proj/down_proj scales are x0.05 (bench.py's damped
+    tail), which keeps the residual stream near the first layers' scale."""
+    f16, i32 = torch.float16, torch.int32
+    H, V, g = hf["hidden_size"], hf["vocab_size"], hf["quantization_config"]["group_size"]
+
+    def normal(shape, dtype):
+        return lambda: (torch.randn(shape, generator=gen, device=dev) * 0.02).to(dtype)
+
+    def ones(n):
+        return lambda: torch.ones(n, dtype=f16, device=dev)
+
+    def words(rows, n, lo=0, hi=16):
+        def make():
+            nib = torch.randint(lo, hi, (rows, n // 8, 8), generator=gen, device=dev)
+            w = (nib << (4 * torch.arange(8, device=dev))).sum(-1)
+            return (w - ((w >> 31) << 32)).to(i32)  # uint32 bits as int32
+        return make
+
+    def scales(rows, n, damp):
+        return lambda: ((torch.rand((rows, n), generator=gen, device=dev) * 0.0015 + 0.0035)
+                        * damp).to(f16)
+
+    specs = [("model.embed_tokens.weight", f16, (V, H), normal((V, H), f16))]
+    for i in range(hf["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        specs += [(p + "input_layernorm.weight", f16, (H,), ones(H)),
+                  (p + "post_attention_layernorm.weight", f16, (H,), ones(H))]
+        for name, k, n in _proj_shapes(hf):
+            damp = 0.05 if i >= 3 and name in ("self_attn.o_proj", "mlp.down_proj") else 1.0
+            specs += [(p + name + ".qweight", i32, (k, n // 8), words(k, n)),
+                      (p + name + ".qzeros", i32, (k // g, n // 8), words(k // g, n, 6, 10)),
+                      (p + name + ".scales", f16, (k // g, n), scales(k // g, n, damp))]
+    specs += [("model.norm.weight", f16, (H,), ones(H)),
+              ("lm_head.weight", f16, (V, H), normal((V, H), f16))]
+    return specs
+
+
+def draft_specs(torch, dev, gen, hf):
+    """bf16 tensors of the 1B draft: N(0, 0.02) weights, unit norms, tied head."""
+    bf16 = torch.bfloat16
+    H, V = hf["hidden_size"], hf["vocab_size"]
+
+    def normal(shape):
+        return lambda: (torch.randn(shape, generator=gen, device=dev) * 0.02).to(bf16)
+
+    def ones():
+        return lambda: torch.ones(H, dtype=bf16, device=dev)
+
+    specs = [("model.embed_tokens.weight", bf16, (V, H), normal((V, H)))]
+    for i in range(hf["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        specs += [(p + "input_layernorm.weight", bf16, (H,), ones()),
+                  (p + "post_attention_layernorm.weight", bf16, (H,), ones())]
+        specs += [(p + name + ".weight", bf16, (n, k), normal((n, k)))
+                  for name, k, n in _proj_shapes(hf)]
+    return specs + [("model.norm.weight", bf16, (H,), ones())]
+
+
+def spec_bytes(torch, specs):
+    import math
+
+    return sum(math.prod(s) * torch.empty((), dtype=d).element_size() for _, d, s, _ in specs)
+
+
+def _write_dir(path, hf, shards):
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf, f, indent=1)
+    for i, specs in enumerate(shards):
+        write_safetensors(os.path.join(
+            path, f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+            if len(shards) > 1 else "model.safetensors"), specs)
+
+
+def write_checkpoints(torch, dev, root):
+    """The target (two shards, as published), a second target directory with
+    `"awq_act": "int8"` over the same files, and the draft. If the disk cannot
+    hold them, the target's depth is cut (never its width)."""
+    import shutil
+
+    free = shutil.disk_usage(root).free
+    target_hf = dict(TARGET_HF_CONFIG)
+    gen = torch.Generator(device=dev)
+    d_bytes = spec_bytes(torch, draft_specs(torch, dev, gen, DRAFT_HF_CONFIG))
+    while True:
+        t_bytes = spec_bytes(torch, target_specs(torch, dev, gen, target_hf))
+        if t_bytes + d_bytes + 2e9 <= free or target_hf["num_hidden_layers"] <= 4:
+            break
+        target_hf["num_hidden_layers"] -= 4
+    log(f"[checkpoint] free disk {free / 1e9:.1f} GB; target {t_bytes / 1e9:.2f} GB at "
+        f"{target_hf['num_hidden_layers']} layers, draft {d_bytes / 1e9:.2f} GB")
+    check(t_bytes + d_bytes + 2e9 <= free, "[checkpoint] not enough disk even at 4 layers")
+    dirs = {k: os.path.join(root, k) for k in ("target", "target-w4a8", "draft")}
+    t0 = time.time()
+    specs = target_specs(torch, dev, gen.manual_seed(11), target_hf)
+    half = 1 + 23 * (target_hf["num_hidden_layers"] // 2)  # embed + half the layers | the rest
+    _write_dir(dirs["target"], target_hf, [specs[:half], specs[half:]])
+    os.makedirs(dirs["target-w4a8"])
+    for f in os.listdir(dirs["target"]):
+        if f.endswith(".safetensors"):
+            os.symlink(os.path.join(dirs["target"], f), os.path.join(dirs["target-w4a8"], f))
+    with open(os.path.join(dirs["target-w4a8"], "config.json"), "w") as f:
+        json.dump(dict(target_hf, awq_act="int8"), f, indent=1)
+    t_write = time.time() - t0
+    t0 = time.time()
+    _write_dir(dirs["draft"], DRAFT_HF_CONFIG,
+               [draft_specs(torch, dev, gen.manual_seed(12), DRAFT_HF_CONFIG)])
+    d_write = time.time() - t0
+    torch.cuda.empty_cache()
+    return dict(dirs=dirs, target_hf=target_hf, target_gb=t_bytes / 1e9, draft_gb=d_bytes / 1e9,
+                target_layers=target_hf["num_hidden_layers"], free_disk_gb=free / 1e9,
+                target_write_s=t_write, draft_write_s=d_write)
+
+
+def _rss_gb():
+    """The process's resident set now, from /proc/self/statm (None where absent)."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**30
+    except (OSError, ValueError, IndexError):
+        return None
+
+
+def _timed_load(torch, dev, path, **kw):
+    """AutoModelLM.from_pretrained(path), timed, with the host RSS sampled every
+    5 ms by a thread during the load (its peak and its rise over the start)."""
+    import threading
+
+    from umbrella_tpu_torch.models.auto_model import AutoModelLM
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    rss0, peak, done = _rss_gb(), [_rss_gb() or 0.0], threading.Event()
+
+    def sample():
+        while not done.wait(0.005):
+            peak[0] = max(peak[0], _rss_gb() or 0.0)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.time()
+    try:
+        rt = AutoModelLM.from_pretrained(path, device=dev, **kw)
+        torch.cuda.synchronize()
+    finally:
+        done.set()
+        sampler.join()
+    return rt, dict(load_s=time.time() - t0,
+                    host_rss_gb_before=rss0, peak_host_rss_gb=peak[0] if rss0 else None,
+                    device_gb=(torch.cuda.memory_allocated(dev) - base) / 2**30,
+                    peak_device_gb=(torch.cuda.max_memory_allocated(dev) - base) / 2**30)
+
+
+def checkpoint_phase(torch, dev, ckpt):
+    """Load both checkpoints through AutoModelLM.from_pretrained (timed, with
+    peak host RSS and device memory); the target's logits for a 16-token
+    prompt must equal, bit for bit, those of the same tensors converted in
+    memory (regenerated from the seed on the card)."""
+    from umbrella_tpu_torch.config import ModelConfig
+    from umbrella_tpu_torch.models.auto_model import ModelRuntime
+    from umbrella_tpu_torch.ops.masks import causal_mask_rows
+    from umbrella_tpu_torch.quantization.awq import AwqTensor
+    from umbrella_tpu_torch.quantization.loader import awq_params_from_hf_state_dict
+
+    L = 256
+    target, t_load = _timed_load(torch, dev, ckpt["dirs"]["target"], max_length=L)
+    log(f"[checkpoint] target loaded {t_load}")
+    check(isinstance(target.params["layers"]["gate_up"][0], AwqTensor)
+          and target.params["lm_head"].dtype == torch.bfloat16 and target.cfg.eos_token_ids ==
+          LLAMA3_EOS and target.cfg.rope_scaling["rope_type"] == "llama3",
+          "[checkpoint] target loaded in the wrong form")
+    ids = torch.arange(100, 116, device=dev)
+    pos = torch.arange(16, device=dev)
+    mask = causal_mask_rows(0, 16, L, device=dev)
+
+    def logits(rt):
+        return rt.forward(rt.params, rt.init_kv(), ids, pos, mask, 0)[0]
+
+    got = logits(target)
+    del target
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    sd = {name: make() for name, _, _, make in target_specs(torch, dev, gen, ckpt["target_hf"])}
+    cfg = ModelConfig.from_dict(ckpt["target_hf"])
+    mem = ModelRuntime(cfg, awq_params_from_hf_state_dict(sd, cfg, L, device=dev), L, device=dev)
+    del sd
+    want = logits(mem)
+    del mem
+    torch.cuda.empty_cache()
+    check(bool(torch.isfinite(got).all()), "[checkpoint] target logits not finite")
+    check(torch.equal(got, want), "[checkpoint] loaded target's logits differ from the in-memory "
+          f"conversion: max abs diff {(got - want).abs().max().item()}")
+    draft, d_load = _timed_load(torch, dev, ckpt["dirs"]["draft"], max_length=L)
+    log(f"[checkpoint] draft loaded {d_load}")
+    hf = DRAFT_HF_CONFIG
+    qkv = (hf["num_attention_heads"] + 2 * hf["num_key_value_heads"]) * hf["head_dim"]
+    check("lm_head" not in draft.params and draft.args.head_dim == hf["head_dim"]
+          and draft.params["layers"]["wqkv"].shape == (hf["num_hidden_layers"],
+                                                       hf["hidden_size"], qkv),
+          "[checkpoint] draft loaded in the wrong form")
+    d_logits = logits(draft)
+    check(bool(torch.isfinite(d_logits).all()), "[checkpoint] draft logits not finite")
+    del draft
+    torch.cuda.empty_cache()
+    res = dict({k: v for k, v in ckpt.items() if k not in ("dirs", "target_hf")},
+               target=t_load, draft=d_load, logits_equal_in_memory=True)
+    log(f"[checkpoint] {json.dumps(res)}")
+    return res
+
+
+def shipped_config(name, ckpt, target="target"):
+    """A shipped config file with only model, draft_model and growmap_path
+    rewritten (the checkpoints written above; the port's copy of the tree)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "configs", name)) as f:
+        cfg = json.load(f)
+    tree = os.path.join(here, "umbrella_tpu_torch", "trees", os.path.basename(cfg["growmap_path"]))
+    return dict(cfg, model=ckpt["dirs"][target], draft_model=ckpt["dirs"]["draft"],
+                growmap_path=tree)
+
+
+def code_config_phase(torch, dev, ckpt, prompt, tag, target):
+    """configs/code_config_8b_awq_v5e.json as shipped (greedy, 24x6 tree, W4
+    draft with a W4 head from quantize_draft: true) through AutoEngine ->
+    initialize -> generate(); CONFIG_NEW_TOKENS new tokens in place of 512."""
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.quantization.awq import AwqTensor
+    from umbrella_tpu_torch.speculation.auto_engine import AutoEngine
+
+    cfg = shipped_config("code_config_8b_awq_v5e.json", ckpt, target)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    eng = AutoEngine.from_config(device=dev, **cfg)
+    eng.initialize()
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    w4a8 = target == "target-w4a8"
+    check(eng.target_model.args.awq_act_int8 == w4a8, f"{tag} awq_act not taken from config.json")
+    check(isinstance(eng.draft_model.params["layers"]["wqkv"][0], AwqTensor)
+          and isinstance(eng.draft_model.params["lm_head"], AwqTensor),
+          f"{tag} quantize_draft: true did not give a W4 draft and head")
+    eng.generate(input_ids=prompt, max_new_tokens=16)  # warm-up
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.time()
+    check(eng._prefill(prompt), f"{tag} prefill refused")
+    torch.cuda.synchronize()
+    ttft_ms = 1000 * (time.time() - t1)
+    prefill_counts = launch_counts()
+    eng.reset()
+    reset_launch_counts()
+    out = eng.generate(input_ids=prompt, max_new_tokens=CONFIG_NEW_TOKENS)
+    counts = launch_counts()
+    toks = out["generated_tokens"]
+    steps = max(1, round(len(toks) / out["avg_accept_tokens"]))
+    eos = set(eng.eos_token_ids)
+    check(len(toks) >= CONFIG_NEW_TOKENS or toks[-1] in eos, f"{tag} stopped early: {len(toks)}")
+    check(all(0 <= t < 128256 for t in toks), f"{tag} token out of range")
+    kernels = ("embed_gather", "attend_flash", "w4a16_matmul") + (("w4a8_matmul",) if w4a8 else ())
+    for name in kernels:
+        check(counts[name] > 0, f"{tag} kernel {name} was never launched")
+    check(w4a8 or counts["w4a8_matmul"] == 0, f"{tag} a W4A16 target ran W4A8")
+    per_step = {k: (counts[k] - prefill_counts[k]) / steps for k in counts}
+    res = dict(tokens=len(toks), steps=steps, tok_per_s=1000.0 / out["time_per_output_token"],
+               decode_step_ms=out["time_per_output_token"] * len(toks) / steps,
+               avg_accept_tokens=out["avg_accept_tokens"], ttft_ms_prefill128=ttft_ms,
+               init_s=init_s, launches=counts, launches_per_step=per_step,
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+    log(f"{tag} {json.dumps(res)}")
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_config_phase(torch, dev, ckpt):
+    """configs/serve_batched_8b_awq_int8kv_v5e.json as shipped (B=32, int8 KV,
+    Int4F draft, 2x3 tree, temperature 0.6, segment_steps 16): 32 requests of
+    PROMPT_LEN random tokens and SERVE_CONFIG_NEW_TOKENS new ones through run()."""
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.quantization.int4f import Int4FTensor
+    from umbrella_tpu_torch.speculation.auto_engine import AutoEngine
+
+    cfg = shipped_config("serve_batched_8b_awq_int8kv_v5e.json", ckpt)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    eng = AutoEngine.from_config(device=dev, **cfg)
+    eng.initialize()
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    check(eng.kv_target.quantized and isinstance(eng.draft_model.params["lm_head"], Int4FTensor),
+          "[serve-config] int8 KV / Int4F draft not set up from the config")
+    reqs = random_requests(9, SERVE_CONFIG_REQUESTS, SERVE_CONFIG_NEW_TOKENS)
+    eng.run([dict(r, max_new_tokens=8) for r in reqs[:4]])  # warm-up
+    reset_launch_counts()
+    steps0 = eng.steps_dispatched
+    torch.cuda.synchronize()
+    t0 = time.time()
+    outs = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launch_counts()
+    eos = set(eng.eos_token_ids)
+    for o in outs:
+        toks = o["generated_tokens"]
+        check(len(toks) <= SERVE_CONFIG_NEW_TOKENS + 1 and (
+            len(toks) >= SERVE_CONFIG_NEW_TOKENS or toks[-1] in eos),
+            f"[serve-config] request got {len(toks)} tokens")
+        check(all(0 <= t < 128256 for t in toks), "[serve-config] token out of range")
+    for name in ("attend_flash_batched_int8", "w4a16_matmul", "w4a8f_matmul", "embed_gather"):
+        check(counts[name] > 0, f"[serve-config] kernel {name} was never launched")
+    steps = eng.steps_dispatched - steps0
+    res = dict(batch=eng.batch_size, requests=len(reqs), new_tokens=SERVE_CONFIG_NEW_TOKENS,
+               temperature=eng.temperature, init_s=init_s,
+               tok_per_s=sum(len(o["generated_tokens"]) for o in outs) / wall, run_s=wall,
+               run_steps=steps,
+               avg_accept_tokens=sum(o["avg_accept_tokens"] for o in outs) / len(outs),
+               ttft_ms_p50=pct([o["ttft_ms"] for o in outs], 50), launches=counts,
+               launches_per_step={k: n / max(steps, 1) for k, n in counts.items()},
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+    log(f"[serve-config] {json.dumps(res)}")
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
 # ---------------------------------------------------------------- main
 
 KERNEL_META = {
@@ -805,14 +1310,21 @@ KERNEL_META = {
                                   "umbrella_tpu/ops/pallas/tree_attention.py:338"),
     "w4a16_matmul": ("umbrella_tpu_torch/csrc/w4a16.cu", "umbrella_tpu/ops/pallas/w4a16.py:233"),
     "w4a8f_matmul": ("umbrella_tpu_torch/csrc/w4a8f.cu", "umbrella_tpu/ops/pallas/w4a8f.py:97"),
+    "w4a16_gate_up_silu": ("umbrella_tpu_torch/csrc/w4a16.cu",
+                           "umbrella_tpu/ops/pallas/w4a16.py:158"),
+    "w4a8_matmul": ("umbrella_tpu_torch/csrc/w4a8.cu", "umbrella_tpu/ops/pallas/w4a8.py:85"),
 }
 # the kernels of the static main path (phase 4)
 MAIN_KERNELS = ("embed_gather", "attend_flash", "w4a16_matmul", "w4a8f_matmul")
-# the phase whose run a kernel's `launches` is read from: its main path
+# the phase whose run a kernel's `launches` is read from: its main path. No
+# shipped config reaches w4a16_gate_up_silu (nor does the JAX package's default
+# routing): its launches are awq_gate_up_silu(fused=True)'s, in [kernels]
 LAUNCHES_FROM = {"attend_flash_int8": "lossless-int8", "attend_flash_batched": "serve-bf16",
-                 "attend_flash_batched_int8": "serve"}
-PHASES = ("kernels", "lossless", "lossless-int8", "batched-lossless", "main", "serve",
-          "serve-bf16", "serve-stochastic")
+                 "attend_flash_batched_int8": "serve", "w4a8_matmul": "code-config-w4a8",
+                 "w4a16_gate_up_silu": "kernels"}
+CHECKPOINT_PHASES = ("checkpoint", "code-config", "code-config-w4a8", "serve-config")
+PHASES = ("kernels", "lossless", "lossless-int8", "lossless-w4a8", "batched-lossless", "main",
+          "serve", "serve-bf16", "serve-stochastic") + CHECKPOINT_PHASES
 
 
 def run(torch, phases):
@@ -848,6 +1360,7 @@ def run(torch, phases):
     report = phase("kernels", kernel_checks, torch, dev)
     phase("lossless", lossless_check, torch, dev, prompt.tolist())
     phase("lossless-int8", lossless_check, torch, dev, prompt.tolist(), "int8")
+    phase("lossless-w4a8", lossless_check, torch, dev, prompt.tolist(), None, "int8")
     phase("batched-lossless", batched_lossless_check, torch, dev)
 
     if {"main", "serve", "serve-bf16", "serve-stochastic"} & set(phases):
@@ -861,20 +1374,42 @@ def run(torch, phases):
         phase("serve-bf16", serve_phase, torch, dev, target, draft, "[serve-bf16]", 8, (3, 4),
               None, 16, "attend_flash_batched", False)
         phase("serve-stochastic", stochastic_phase, torch, dev, target, draft)
+        del target, draft
+        torch.cuda.empty_cache()
+
+    if set(CHECKPOINT_PHASES) & set(phases):
+        import shutil
+        import tempfile
+
+        os.makedirs(build.BUILD_DIR, exist_ok=True)
+        root = tempfile.mkdtemp(prefix="checkpoints-", dir=build.BUILD_DIR)
+        try:
+            ckpt = write_checkpoints(torch, dev, root)
+            phase("checkpoint", checkpoint_phase, torch, dev, ckpt)
+            phase("code-config", code_config_phase, torch, dev, ckpt, prompt.tolist(),
+                  "[code-config]", "target")
+            phase("code-config-w4a8", code_config_phase, torch, dev, ckpt, prompt.tolist(),
+                  "[code-config-w4a8]", "target-w4a8")
+            phase("serve-config", serve_config_phase, torch, dev, ckpt)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
 
     if set(phases) != set(PHASES):
         log(f"[partial] phases {sorted(phases)} passed in {time.time() - t_all:.1f} s")
         return
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
-        r, path = report[name], results[LAUNCHES_FROM.get(name, "main")]
+        src = LAUNCHES_FROM.get(name, "main")
+        r = report[name]
+        path = r if src == "kernels" else results[src]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=path["launches"][name], max_abs_err=r["max_abs_err"], matched=True,
             tolerance=r["tolerance"], shape=r["shape"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             launches_per_step=path["launches_per_step"][name],
-            launches_from=LAUNCHES_FROM.get(name, "main")))
+            launches_from=("kernels: awq_gate_up_silu(fused=True), which no shipped config "
+                           "reaches" if src == "kernels" else src)))
     main, serve = results["main"], results["serve"]
     summary = {k: main[k] for k in ("tok_per_s", "decode_step_ms", "avg_accept_tokens",
                                     "ttft_ms_prefill128", "spec_vs_ar_common_prefix")}
@@ -888,6 +1423,16 @@ def run(torch, phases):
     summary["lossless"] = results["lossless"]["identical_prefix"]
     summary["lossless-int8"] = results["lossless-int8"]["identical_prefix"]
     summary["batched-lossless"] = results["batched-lossless"]["identical_prefix"]
+    summary["lossless-w4a8"] = results["lossless-w4a8"]["identical_prefix"]
+    summary["checkpoint"] = {k: results["checkpoint"][k] for k in (
+        "target_write_s", "draft_write_s", "target", "draft", "target_layers")}
+    for name in ("code-config", "code-config-w4a8"):
+        summary[name] = {k: results[name][k] for k in (
+            "tok_per_s", "decode_step_ms", "avg_accept_tokens", "ttft_ms_prefill128")}
+    summary["code-config-w4a8"]["w4a8_launches_per_step"] = \
+        results["code-config-w4a8"]["launches_per_step"]["w4a8_matmul"]
+    summary["serve-config"] = {k: results["serve-config"][k] for k in (
+        "tok_per_s", "avg_accept_tokens", "peak_mem_gb")}
     summary["seconds"] = time.time() - t_all
     log(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": kernels}), flush=True)

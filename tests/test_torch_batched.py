@@ -695,7 +695,7 @@ def test_start_refuses_while_previous_loop_alive(port_models):
 
 def test_batched_static_allowlist_and_refusals(port_models):
     """The batched_static key allowlist is the JAX package's; keys the port
-    does not carry raise and name their ROADMAP item."""
+    does not carry raise and name their ROADMAP item; quantize_draft is taken."""
     assert auto_engine._ENGINE_CONFIG_KEYS["batched_static"] == \
         jax_auto_engine._ENGINE_CONFIG_KEYS["batched_static"]
     target, draft = port_models
@@ -715,5 +715,51 @@ def test_batched_static_allowlist_and_refusals(port_models):
         auto_engine.AutoEngine.from_config(**base, pipeline_parallel=2)
     with pytest.raises(ValueError, match="resident"):
         auto_engine.AutoEngine.from_config(**base, offload=True)
-    with pytest.raises(NotImplementedError, match="items 5-6"):
-        auto_engine.AutoEngine.from_config(**base, quantize_draft=True)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        auto_engine.AutoEngine.from_config(**base, num_cache_layers=2)
+    # quantize_draft is ported: initialize() W4-quantizes the fp draft and its head
+    eng = auto_engine.AutoEngine.from_config(**base, batch_size=2, quantize_draft=True)
+    eng.initialize()
+    from umbrella_tpu_torch.quantization.awq import AwqTensor
+
+    assert isinstance(eng.draft_model.params["lm_head"], AwqTensor)
+    assert eng.target_model is target
+
+
+# ------------------------------------------------------------------ W4A8 in the batched forward
+
+
+def test_batched_forward_w4a8_reaches_only_qkv(monkeypatch):
+    """The JAX package's batched forward passes awq_act="int8" only to the QKV
+    projection (models/batched.py: _attn_projections gets args, wo / the MLP /
+    down call _linear and _mlp_act without act_int8). The port mirrors it: with
+    every AWQ product routed to a kernel, only the wqkv products are W4A8 in
+    the batched forward, while the single-slot forward runs all four W4A8."""
+    from umbrella_tpu_torch.models import llama
+    from umbrella_tpu_torch.quantization import awq
+
+    cfg = ModelConfig(**dict(SMALL, awq_act="int8", num_hidden_layers=2))
+    rt = auto_model.random_awq_runtime(cfg, MAX_LEN, dtype=torch.float32, seed=6, group_size=64,
+                                       device=CPU)
+    seen = []
+    matmul = awq.awq_matmul
+
+    def record(x, q, b=None, act_int8=False, **kw):
+        seen.append((q.n, act_int8))
+        return matmul(x, q, b, act_int8=act_int8, prefer_fused=True, **kw)
+
+    monkeypatch.setattr(llama, "awq_matmul", record)
+    monkeypatch.setattr(awq, "awq_matmul", record)  # the one awq_gate_up_silu calls
+    B, S = 2, 3
+    kv = batched.init_batched_kv(cfg, B, MAX_LEN, torch.float32, device=CPU)
+    mask = masks.causal_mask_rows_batched(torch.tensor([0, 4]), S, MAX_LEN)
+    batched.batched_llama_forward(rt.params, rt.args, kv, torch.arange(6).reshape(B, S) + 1,
+                                  torch.tensor([[0, 1, 2], [4, 5, 6]]), mask,
+                                  torch.tensor([0, 4], dtype=torch.int32))
+    qkv_n = rt.params["layers"]["wqkv"][0].n
+    assert seen and all(a8 == (n == qkv_n) for n, a8 in seen), seen
+    assert sum(a8 for _, a8 in seen) == cfg.num_hidden_layers
+    seen.clear()
+    rt.forward(rt.params, rt.init_kv(), torch.tensor([1, 2, 3]), torch.arange(3),
+               masks.causal_mask_rows(0, 3, MAX_LEN), 0)
+    assert sum(a8 for _, a8 in seen) == 4 * cfg.num_hidden_layers  # wqkv, wo, gate_up, down

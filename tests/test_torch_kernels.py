@@ -5,6 +5,7 @@ The CUDA kernels themselves run only on a GPU (chip_smoke.py holds each one
 against the plain version checked here). Inputs are made with numpy from a seed
 and handed to both sides.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -222,3 +223,131 @@ def test_attend_flash_batched_ref_matches_pallas(case):
                                          _t(limits), layer, slots=tslots, soft_cap=cap,
                                          **tscales).numpy()
         np.testing.assert_array_equal(clean[0], got[0])
+
+
+# ------------------------------------------------------------------ W4A8 and the fused gate-up-SiLU
+
+
+def _w4a8_case(S, dtype, group_size, K=512, N=256):
+    rng = np.random.default_rng(400 + S + group_size)
+    jq = _awq_numpy(rng, K, N, group_size)
+    x = (rng.standard_normal((S, K)) * rng.uniform(0.01, 30.0, (S, 1))).astype(np.float32)
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    xt = _t(np.asarray(jx.astype(jnp.float32))).to(getattr(torch, dtype))
+    return jq, jx, xt, params_from_numpy({"q": jq})["q"]
+
+
+@pytest.mark.parametrize("group_size", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 7, 33])
+def test_w4a8_ref_matches_pallas_kernel(S, dtype, group_size):
+    """The int8 activations and their scales bit for bit equal to the JAX
+    package's (its `/ 127.0` compiles to a multiply by the fp32 reciprocal, as
+    the port computes it); the fp32 output within 1e-6 * max|y| (exact integer
+    products, the fp32 fix-ups summed over groups in another order)."""
+    from umbrella_tpu.ops.pallas.w4a8 import w4a8_matmul as jax_w4a8_matmul
+    from umbrella_tpu_torch.ops.kernels.w4a8 import (quantize_activations_w4a8, w4a8_matmul,
+                                                     w4a8_matmul_ref)
+
+    jq, jx, xt, q = _w4a8_case(S, dtype, group_size)
+
+    @jax.jit
+    def jax_quantize(x):  # the JAX kernel's activation quantization (w4a8.py:100-102)
+        xf = x.astype(jnp.float32)
+        sx = jnp.maximum(jnp.max(jnp.abs(xf), axis=1, keepdims=True), 1e-8) / 127.0
+        return jnp.clip(jnp.round(xf / sx), -127, 127).astype(jnp.int8), sx
+
+    jxq, jsx = jax_quantize(jx)
+    xq, sx = quantize_activations_w4a8(xt)
+    np.testing.assert_array_equal(xq.numpy(), np.asarray(jxq))
+    np.testing.assert_array_equal(sx.numpy(), np.asarray(jsx))
+    want = np.asarray(jax_w4a8_matmul(jx, jq, interpret=True, out_dtype=jnp.float32))
+    got = w4a8_matmul_ref(xt, q, out_dtype=torch.float32).numpy()
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+    np.testing.assert_array_equal(w4a8_matmul(xt, q, out_dtype=torch.float32).numpy(), got)
+
+
+def test_w4a8_ref_is_row_invariant():
+    """Bitwise: each row of a 33-row call equals that row alone, on a matrix
+    whose K is split (the kernel's split is a function of N and K only)."""
+    from umbrella_tpu_torch.ops.kernels.w4a8 import kernel_splits, w4a8_matmul_ref
+
+    _, _, xt, q = _w4a8_case(33, "bfloat16", 64, K=2048, N=64)
+    assert kernel_splits(q) > 1
+    whole = w4a8_matmul_ref(xt, q)
+    for i in (0, 5, 32):
+        assert torch.equal(whole[i:i + 1], w4a8_matmul_ref(xt[i:i + 1], q))
+
+
+@pytest.mark.parametrize("S", [1, 7])
+def test_w4a16_gate_up_silu_ref_matches_pallas_kernel(S):
+    """As tests/test_awq.py holds the JAX kernel: the plain version within
+    1e-4 * max|y| of JAX's w4a16_gate_up_silu(interpret=True) (both round x
+    and the dequantized weight to bf16, sum in fp32 and apply g*sigmoid(g)*u
+    to the sums), and within 2e-3 of the fp32 composed product."""
+    from umbrella_tpu.ops.pallas.w4a16 import w4a16_gate_up_silu as jax_gate_up_silu
+    from umbrella_tpu.quantization.awq import dequantize as jax_dequantize
+    from umbrella_tpu_torch.ops.kernels.w4a16 import w4a16_gate_up_silu, w4a16_gate_up_silu_ref
+
+    rng = np.random.default_rng(7)
+    H, I, g = 256, 512, 64
+    w = rng.standard_normal((H, 2 * I)).astype(np.float32) * 0.05
+    jq = _np_tree(jax_pack(w, g))
+    x = (rng.standard_normal((S, H)) * 0.1).astype(np.float32)
+    want = np.asarray(jax_gate_up_silu(jnp.asarray(x), jq, interpret=True))
+    q = params_from_numpy({"q": jq})["q"]
+    got = w4a16_gate_up_silu_ref(_t(x), q).numpy()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    gu = x @ np.asarray(jax_dequantize(jq, jnp.float32))
+    ref = gu[:, :I] / (1 + np.exp(-gu[:, :I])) * gu[:, I:]
+    np.testing.assert_allclose(got, ref, rtol=2e-3, atol=2e-3)
+    np.testing.assert_array_equal(w4a16_gate_up_silu(_t(x), q).numpy(), got)
+
+
+def jax_pack(w, g):
+    from umbrella_tpu.quantization.awq import pack_tpu_layout, quantize_matrix
+
+    return pack_tpu_layout(*quantize_matrix(w, g), dtype=jnp.float32)
+
+
+def _np_tree(q):
+    return type(q)(*(np.asarray(a) for a in q))
+
+
+def test_awq_dispatch_rules_on_the_cpu(monkeypatch, caplog):
+    """awq_matmul: prefer_fused=None on a CPU tensor dequantizes (act_int8 or
+    not, as the JAX package's dequant route ignores it); prefer_fused=True runs
+    the kernel's plain version, W4A8 with act_int8. awq_gate_up_silu(fused=True)
+    on the CPU warns and composes (the JAX package's rule); fused=False composes."""
+    from umbrella_tpu_torch.ops.kernels import w4a8 as w4a8_mod
+    from umbrella_tpu_torch.ops.kernels.w4a8 import w4a8_matmul_ref
+    from umbrella_tpu_torch.ops.kernels.w4a16 import w4a16_gate_up_silu_ref
+    from umbrella_tpu_torch.quantization import awq
+
+    rng = np.random.default_rng(9)
+    q = params_from_numpy({"q": _np_tree(jax_pack(
+        rng.standard_normal((256, 128)).astype(np.float32) * 0.05, 64))})["q"]
+    x = _t(rng.standard_normal((2, 3, 256)).astype(np.float32))
+    dense = (x.float() @ awq.dequantize(q, torch.float32)).numpy()
+    for a8 in (False, True):
+        np.testing.assert_array_equal(awq.awq_matmul(x, q, act_int8=a8).numpy(), dense)
+    np.testing.assert_array_equal(
+        awq.awq_matmul(x, q, prefer_fused=True, act_int8=True).numpy(),
+        w4a8_matmul_ref(x.reshape(6, 256), q).reshape(2, 3, 128).numpy())
+    np.testing.assert_array_equal(
+        awq.awq_matmul(x, q, prefer_fused=True).numpy(),
+        w4a16_matmul_ref(x.reshape(6, 256), q).reshape(2, 3, 128).numpy())
+    calls = []
+    monkeypatch.setattr(w4a8_mod, "w4a8_matmul_ref",
+                        lambda *a, **k: calls.append(1) or w4a8_matmul_ref(*a, **k))
+    awq.awq_matmul(x, q, prefer_fused=True, act_int8=True)
+    assert calls == [1]
+    with caplog.at_level("WARNING", logger="umbrella_tpu_torch"):
+        fused = awq.awq_gate_up_silu(x, q, fused=True)
+    assert "does NOT measure the fused kernel" in caplog.text
+    composed = awq.awq_gate_up_silu(x, q)
+    np.testing.assert_array_equal(fused.numpy(), composed.numpy())
+    d = dense.reshape(6, 128)
+    want = (torch.nn.functional.silu(torch.from_numpy(d[:, :64])) * torch.from_numpy(d[:, 64:]))
+    np.testing.assert_array_equal(composed.reshape(6, 64).numpy(), want.numpy())
+    assert w4a16_gate_up_silu_ref(x.reshape(6, 256), q).shape == (6, 64)

@@ -493,3 +493,55 @@ def test_engine_rejects_what_this_slice_does_not_port():
     eng.initialize()
     with pytest.raises(NotImplementedError, match="item 7"):
         eng.generate(input_ids=[1, 2], max_new_tokens=4, temperature=0.7)
+
+
+# ------------------------------------------------------------------ W4A8 (awq_act="int8")
+
+
+def _w4a8_fused(monkeypatch):
+    """Route every AWQ product of the forward through a kernel's plain version
+    (prefer_fused=True), as a CUDA input below the token threshold is routed."""
+    import functools
+
+    from umbrella_tpu_torch.models import llama
+
+    monkeypatch.setattr(llama, "awq_matmul", functools.partial(awq.awq_matmul, prefer_fused=True))
+
+
+def test_w4a8_spec_decode_equals_ar_decode(monkeypatch):
+    """awq_act="int8" with the W4A8 plain version on every AWQ layer (draft and
+    target): greedy spec decode is token-identical with the port's own AR
+    decode, since the W4A8 product is row-invariant."""
+    _w4a8_fused(monkeypatch)
+    from umbrella_tpu_torch.ops.kernels import w4a8
+
+    cfg = ModelConfig(**dict(SMALL, awq_act="int8"))
+    t = auto_model.random_awq_runtime(cfg, MAX_LEN, dtype=torch.float32, seed=5, group_size=64,
+                                      quantize_lm_head=True, device=CPU)
+    assert t.args.awq_act_int8
+    calls = []
+    monkeypatch.setattr(w4a8, "w4a8_matmul_ref",
+                        lambda *a, _f=w4a8.w4a8_matmul_ref, **k: calls.append(1) or _f(*a, **k))
+    eng = _port_engine(t, auto_model.early_exit_runtime(t, EXIT))
+    toks = eng.generate(input_ids=[5, 6, 7], max_new_tokens=32)["generated_tokens"]
+    assert calls, "the W4A8 plain version never ran"
+    assert len(toks) >= 32 and toks == _port_ar_decode(t, [5, 6, 7], len(toks))
+
+
+def test_w4a8_forward_default_routing_matches_jax(jax_params):
+    """awq_act="int8" on the CPU with default routing: both packages take the
+    dequantize route (the JAX package only runs W4A8 in its Pallas route), so
+    fp32 logits agree within 1e-4 abs, as for W4A16."""
+    kw = dict(SMALL, awq_act="int8")
+    jp = jax_params["awq"]
+    jrt = jax_auto.ModelRuntime(JaxConfig(**kw), jp, MAX_LEN, dtype=jnp.float32)
+    prt = auto_model.ModelRuntime(ModelConfig(**kw), params_from_numpy(_np(jp), CPU), MAX_LEN,
+                                  dtype=torch.float32, device=CPU)
+    assert jrt.args.awq_act_int8 and prt.args.awq_act_int8
+    ids = np.array([1, 17, 42, 9, 300, 511], np.int32)
+    S = len(ids)
+    jl, _ = jax_llama_forward(jp, jrt.args, jrt.init_kv(), jnp.asarray(ids), jnp.arange(S),
+                              jax_masks.causal_mask_rows(0, S, MAX_LEN), 0)
+    pl, _ = llama_forward(prt.params, prt.args, prt.init_kv(), _t(ids), torch.arange(S),
+                          masks.causal_mask_rows(0, S, MAX_LEN), 0)
+    np.testing.assert_allclose(pl.numpy(), np.asarray(jl), atol=1e-4)

@@ -1,11 +1,15 @@
 """Model architecture configuration (HF `config.json`-compatible).
 
-Counterpart of `umbrella_tpu/config.py`. Loading a config from a checkpoint
-(`from_pretrained`) arrives with the HF loaders in a later slice.
+Counterpart of `umbrella_tpu/config.py`: `from_pretrained` reads a local
+checkpoint directory's `config.json`; any other name goes to
+`transformers.AutoConfig` (imported only then, and absent on a machine without
+`transformers`, where that raises ImportError).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Any, List, Optional
 
 
@@ -42,7 +46,8 @@ class ModelConfig:
 
     # Quantization (populated when loading AWQ checkpoints)
     quantization: Optional[dict] = None  # {"method": "awq", "bits": 4, "group_size": 128}
-    # Activation dtype for AWQ matmuls: "bf16" (W4A16). "int8" (W4A8) is not ported yet.
+    # Activation dtype for AWQ matmuls: "bf16" (W4A16, default) or "int8" (W4A8,
+    # ops/kernels/w4a8.py)
     awq_act: str = "bf16"
 
     @property
@@ -73,6 +78,18 @@ class ModelConfig:
                 "version": quant_cfg.get("version", "gemm"),
             }
         return cls(**known)
+
+    @classmethod
+    def from_pretrained(cls, model_name_or_path: str) -> "ModelConfig":
+        """From a local checkpoint directory's config.json, else through
+        transformers.AutoConfig (hub / local cache)."""
+        cfg_path = os.path.join(model_name_or_path, "config.json")
+        if os.path.isfile(cfg_path):
+            with open(cfg_path) as f:
+                return cls.from_dict(json.load(f))
+        from transformers import AutoConfig
+
+        return cls.from_dict(AutoConfig.from_pretrained(model_name_or_path).to_dict())
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)

@@ -1,8 +1,11 @@
-"""Runtime construction for the llama family.
+"""Model registry and runtime construction for the llama family.
 
-Counterpart of `umbrella_tpu/models/auto_model.py` (ModelRuntime, early-exit
-drafts, random runtimes). Loading HF checkpoints (`AutoModelLM.from_pretrained`)
-and the Gemma2 / MoE families come in later slices (ROADMAP queue A).
+Counterpart of `umbrella_tpu/models/auto_model.py`: ModelRuntime, loading a
+checkpoint directory (`AutoModelLM.from_pretrained`: HF fp or AutoAWQ
+safetensors / .bin), early-exit drafts and random runtimes. The family is
+resolved from the checkpoint's `model_type` as in the JAX package; Gemma2 and
+MoE resolve but are not ported (ROADMAP queue A, item 11), nor is offload
+(item 12).
 """
 from __future__ import annotations
 
@@ -14,8 +17,66 @@ from ..config import ModelConfig
 from ..utils import resolve_device
 from .kv_cache import KVCache, init_kv_cache
 from .llama import StaticModelArgs, init_llama_params, llama_forward
+from .weights import load_llama_params
 
 LLAMA_FAMILIES = ("llama", "qwen2", "mistral")
+
+# Qwen2.5 serving vocab (checkpoints pad the embedding past it)
+QWEN25_VOCAB = 151936
+
+# known model ids (the JAX package's table, for names without a config model_type)
+_KNOWN_FAMILIES = {
+    "llama": [
+        "meta-llama/Llama-3.3-70B-Instruct", "meta-llama/Llama-3.1-70B-Instruct",
+        "meta-llama/Llama-3.1-8B-Instruct", "meta-llama/Meta-Llama-3-70B-Instruct",
+        "meta-llama/Meta-Llama-3-8B-Instruct", "meta-llama/Llama-3.2-1B-Instruct",
+        "meta-llama/Llama-3.2-3B-Instruct", "Felladrin/Llama-68M-Chat-v1",
+        "facebook/layerskip-llama3.2-1B", "Zhuominc/Llama-3-330M",
+        "Zhuominc/Coder-670M", "Zhuominc/Coder-400M", "Zhuominc/Coder-400M-IT",
+        "Zhuominc/FastCode-500M", "InfiniAILab/CodeDrafter-500M",
+        "ibnzterrell/Meta-Llama-3.3-70B-Instruct-AWQ-INT4",
+        "lambdalabs/Llama-3.3-70B-Instruct-AWQ-4bit",
+        "casperhansen/llama-3.3-70b-instruct-awq",
+        "hugging-quants/Meta-Llama-3.1-70B-Instruct-AWQ-INT4",
+        "hugging-quants/Meta-Llama-3.1-8B-Instruct-AWQ-INT4",
+        "casperhansen/deepseek-r1-distill-llama-70b-awq",
+    ],
+    "qwen2": ["Qwen/Qwen2.5", "Qwen/QwQ", "KirillR/QwQ-32B-Preview-AWQ",
+              "casperhansen/deepseek-r1-distill-qwen-32b-awq"],
+    "mistral": ["mistralai/Mistral", "mistralai/Ministral",
+                "solidrust/Mistral-7B-Instruct-v0.3-AWQ",
+                "stelterlab/Mistral-Small-24B-Instruct-2501-AWQ",
+                "PyrTools/Ministral-8B-Instruct-2410-AWQ"],
+    "gemma2": ["google/gemma-2"],
+    "moe": ["mistralai/Mixtral"],
+}
+
+
+def resolve_family(model_name: str, cfg: Optional[ModelConfig] = None) -> str:
+    if cfg is not None and cfg.model_type:
+        mt = cfg.model_type.lower()
+        if "mixtral" in mt:
+            return "moe"
+        if (cfg.num_local_experts or 0) > 0:
+            raise ValueError(
+                f"unsupported MoE variant model_type={cfg.model_type!r} "
+                f"(num_local_experts={cfg.num_local_experts}): only "
+                "Mixtral-format checkpoints (block_sparse_moe.* expert "
+                "tensors) are loadable as family 'moe'")
+        for key, family in (("gemma2", "gemma2"), ("qwen", "qwen2"), ("mistral", "mistral"),
+                            ("llama", "llama")):
+            if key in mt:
+                return family
+    for family, prefixes in _KNOWN_FAMILIES.items():
+        if any(model_name.startswith(p) for p in prefixes):
+            return family
+    return "llama"
+
+
+def _check_family(family: str) -> None:
+    if family not in LLAMA_FAMILIES:
+        raise NotImplementedError(
+            f"model family '{family}' is not ported yet (ROADMAP queue A, item 11)")
 
 
 class ModelRuntime:
@@ -29,9 +90,7 @@ class ModelRuntime:
     def __init__(self, cfg: ModelConfig, params: dict, max_length: int,
                  dtype=torch.bfloat16, family: str = "llama", n_layers: Optional[int] = None,
                  model_name: str = "", device="cuda"):
-        if family not in LLAMA_FAMILIES:
-            raise NotImplementedError(
-                f"model family '{family}' is not ported yet (ROADMAP queue A, item 11)")
+        _check_family(family)
         self.cfg = cfg
         self.params = params
         self.max_length = max_length
@@ -58,6 +117,43 @@ class ModelRuntime:
     @property
     def eos_ids(self):
         return self.cfg.eos_token_ids
+
+
+class AutoModelLM:
+    """Loads a checkpoint directory into a ModelRuntime on `device`."""
+
+    @classmethod
+    def from_pretrained(cls, model_name: str, offload: bool = False, max_length: int = 8192,
+                        dtype=torch.bfloat16, exit_layer: int = -1, num_cache_layers: int = 0,
+                        packed: bool = True, device="cuda", **kwargs) -> ModelRuntime:
+        """`model_name` is a checkpoint directory (config.json + *.safetensors or
+        pytorch_model*.bin); an AWQ `quantization_config` selects the AWQ
+        loader. exit_layer > 0 loads only the first exit_layer decoder layers.
+        packed=False keeps q/k/v and gate/up separate. Other keyword arguments
+        (an engine's config) are ignored, as in the JAX package."""
+        from ..utils import resolve_device
+
+        device = resolve_device(device)
+        cfg = ModelConfig.from_pretrained(model_name)
+        family = resolve_family(model_name, cfg)
+        _check_family(family)
+        if offload:
+            raise NotImplementedError("offload is not ported yet (ROADMAP queue A, item 12)")
+        if family == "qwen2":
+            # Qwen2.5 checkpoints pad the embedding; serve the real vocab so
+            # draft and target token ids align
+            cfg.vocab_size = min(cfg.vocab_size, QWEN25_VOCAB)
+        n_layers = exit_layer if (exit_layer and exit_layer > 0) else None
+        if cfg.quantization and cfg.quantization.get("method") == "awq":
+            from ..quantization.loader import load_awq_runtime
+
+            return load_awq_runtime(model_name, cfg, max_length=max_length, dtype=dtype,
+                                    family=family, n_layers=n_layers, packed=packed,
+                                    device=device)
+        params = load_llama_params(model_name, cfg, max_length, dtype, n_layers=n_layers,
+                                   packed=packed, device=device)
+        return ModelRuntime(cfg, params, max_length, dtype=dtype, family=family,
+                            n_layers=n_layers, model_name=model_name, device=device)
 
 
 def early_exit_runtime(runtime: ModelRuntime, exit_layer: int) -> ModelRuntime:

@@ -120,7 +120,11 @@ def gather_compact_batched(kv: BatchedKVCache, local_indices: torch.Tensor,
 
 def _layer_block(args: StaticModelArgs, lw: dict, hidden: torch.Tensor, attend_fn):
     """One decoder layer on hidden [N, H] (N = B * S rows); `attend_fn(q, k, v)`
-    writes the layer's KV and returns attention [N, heads * D]."""
+    writes the layer's KV and returns attention [N, heads * D].
+
+    As in the JAX package's batched forward, `awq_act="int8"` reaches only the
+    QKV projection (through _attn_projections): wo, the MLP and down run W4A16
+    (ROADMAP queue C)."""
     residual = hidden
     x = rms_norm(hidden, lw["input_norm"], args.rms_eps)
     q, k, v = _attn_projections(args, lw, x)

@@ -36,12 +36,10 @@ class StaticModelArgs(NamedTuple):
     hidden_size: int
     rms_eps: float
     n_layers: int
+    awq_act_int8: bool = False  # W4A8 opt-in (ModelConfig.awq_act == "int8")
 
     @classmethod
     def from_config(cls, cfg: ModelConfig, n_layers: Optional[int] = None) -> "StaticModelArgs":
-        if getattr(cfg, "awq_act", "bf16") == "int8":
-            raise NotImplementedError(
-                "awq_act='int8' (W4A8) is not ported yet (ROADMAP queue B, kernel w4a8_matmul)")
         return cls(
             num_heads=cfg.num_attention_heads,
             num_kv_heads=cfg.num_key_value_heads,
@@ -49,15 +47,18 @@ class StaticModelArgs(NamedTuple):
             hidden_size=cfg.hidden_size,
             rms_eps=cfg.rms_norm_eps,
             n_layers=n_layers if n_layers is not None else cfg.num_hidden_layers,
+            awq_act_int8=getattr(cfg, "awq_act", "bf16") == "int8",
         )
 
 
-def _linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Dense or quantized linear: w is a [in, out] tensor, an AwqTensor or an Int4FTensor."""
+def _linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
+            act_int8: bool = False) -> torch.Tensor:
+    """Dense or quantized linear: w is a [in, out] tensor, an AwqTensor or an
+    Int4FTensor; `act_int8` routes AwqTensors through W4A8."""
     if isinstance(w, Int4FTensor):
         return int4f_matmul(x, w, b)
     if isinstance(w, AwqTensor):
-        return awq_matmul(x, w, b)
+        return awq_matmul(x, w, b, act_int8=act_int8)
     y = (x.float() @ w.float()).to(x.dtype)
     if b is not None:
         y = y + b.to(x.dtype)
@@ -67,28 +68,32 @@ def _linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tenso
 def _attn_projections(args: StaticModelArgs, lw: dict, hidden):
     Hq = args.num_heads * args.head_dim
     KV = args.num_kv_heads * args.head_dim
+    a8 = args.awq_act_int8
     if "wqkv" in lw:
-        qkv = _linear(hidden, lw["wqkv"], lw.get("bqkv"))
+        qkv = _linear(hidden, lw["wqkv"], lw.get("bqkv"), act_int8=a8)
         return qkv[..., :Hq], qkv[..., Hq:Hq + KV], qkv[..., Hq + KV:]
-    return (_linear(hidden, lw["wq"], lw.get("bq")),
-            _linear(hidden, lw["wk"], lw.get("bk")),
-            _linear(hidden, lw["wv"], lw.get("bv")))
+    return (_linear(hidden, lw["wq"], lw.get("bq"), act_int8=a8),
+            _linear(hidden, lw["wk"], lw.get("bk"), act_int8=a8),
+            _linear(hidden, lw["wv"], lw.get("bv"), act_int8=a8))
 
 
-def _mlp_gate_up(lw: dict, hidden):
+def _mlp_gate_up(lw: dict, hidden, act_int8: bool = False):
     if "gate_up" in lw:
-        gu = _linear(hidden, lw["gate_up"])
+        gu = _linear(hidden, lw["gate_up"], act_int8=act_int8)
         half = gu.shape[-1] // 2
         return gu[..., :half], gu[..., half:]
-    return _linear(hidden, lw["gate"]), _linear(hidden, lw["up"])
+    return (_linear(hidden, lw["gate"], act_int8=act_int8),
+            _linear(hidden, lw["up"], act_int8=act_int8))
 
 
-def _mlp_act(lw: dict, hidden):
-    """silu(gate) * up for the layer's MLP input projection."""
+def _mlp_act(lw: dict, hidden, act_int8: bool = False):
+    """silu(gate) * up for the layer's MLP input projection. A packed AWQ
+    gate_up goes through awq_gate_up_silu (composed by default), except under
+    W4A8, which composes gate/up through W4A8 and then silu * mul."""
     gu = lw.get("gate_up")
-    if isinstance(gu, AwqTensor):
+    if isinstance(gu, AwqTensor) and not act_int8:
         return awq_gate_up_silu(hidden, gu)
-    gate, up = _mlp_gate_up(lw, hidden)
+    gate, up = _mlp_gate_up(lw, hidden, act_int8=act_int8)
     return F.silu(gate) * up
 
 
@@ -106,7 +111,7 @@ def llama_attention(args: StaticModelArgs, lw: dict, hidden: torch.Tensor, kv: K
     kv = update_layer(kv, layer_idx, k, v, write_offset)
     out = attend(q.contiguous(), kv.k, kv.v, attn_mask, kv_limit=write_offset + S,
                  layer_idx=layer_idx, k_scale=kv.k_scale, v_scale=kv.v_scale)
-    return _linear(out.reshape(S, args.num_heads * D), lw["wo"]), kv
+    return _linear(out.reshape(S, args.num_heads * D), lw["wo"], act_int8=args.awq_act_int8), kv
 
 
 def llama_layer(args: StaticModelArgs, lw: dict, hidden: torch.Tensor, kv: KVCache,
@@ -119,7 +124,8 @@ def llama_layer(args: StaticModelArgs, lw: dict, hidden: torch.Tensor, kv: KVCac
     hidden = residual + attn_out
     residual = hidden
     hidden = rms_norm(hidden, lw["post_norm"], args.rms_eps)
-    hidden = _linear(_mlp_act(lw, hidden), lw["down"])
+    act = _mlp_act(lw, hidden, act_int8=args.awq_act_int8)
+    hidden = _linear(act, lw["down"], act_int8=args.awq_act_int8)
     return residual + hidden, kv
 
 

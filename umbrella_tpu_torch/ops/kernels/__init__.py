@@ -6,7 +6,8 @@ which kernels it went through.
 from .embed_gather import embed_gather
 from .tree_attention import (attend_flash, attend_flash_batched, attend_flash_batched_int8,
                              attend_flash_int8)
-from .w4a16 import w4a16_matmul
+from .w4a16 import w4a16_gate_up_silu, w4a16_matmul
+from .w4a8 import w4a8_matmul
 from .w4a8f import w4a8f_matmul
 
 KERNELS = {
@@ -16,7 +17,9 @@ KERNELS = {
     "attend_flash_batched": attend_flash_batched,
     "attend_flash_batched_int8": attend_flash_batched_int8,
     "w4a16_matmul": w4a16_matmul,
+    "w4a16_gate_up_silu": w4a16_gate_up_silu,
     "w4a8f_matmul": w4a8f_matmul,
+    "w4a8_matmul": w4a8_matmul,
 }
 
 

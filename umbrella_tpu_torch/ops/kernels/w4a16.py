@@ -1,7 +1,9 @@
-"""W4A16 matmul over split-halves AWQ weights: CUDA kernel `csrc/w4a16.cu` and
-its plain version `w4a16_matmul_ref`.
+"""W4A16 matmul over split-halves AWQ weights, and the fused gate-up-SiLU over a
+packed gate|up weight: CUDA kernels in `csrc/w4a16.cu` and their plain
+versions `w4a16_matmul_ref` and `w4a16_gate_up_silu_ref`.
 
-Replaces `umbrella_tpu/ops/pallas/w4a16.py::w4a16_matmul` (plain mode).
+Replaces `umbrella_tpu/ops/pallas/w4a16.py::w4a16_matmul` (plain mode) and
+`::w4a16_gate_up_silu`.
 """
 from __future__ import annotations
 
@@ -33,12 +35,57 @@ def w4a16_matmul_ref(x: torch.Tensor, q, out_dtype=None) -> torch.Tensor:
     return y.to(out_dtype or x.dtype)
 
 
+def w4a16_gate_up_silu_ref(x: torch.Tensor, q, out_dtype=None) -> torch.Tensor:
+    """Plain version of the fused form, with the kernel's rounding: x and the
+    dequantized packed gate|up weight [K, 2I] in bf16, fp32 sums, then
+    g * sigmoid(g) * u in fp32, rounded once to out_dtype (default x.dtype)."""
+    gu = x.to(torch.bfloat16).float() @ _dequant_halves_bf16(q).float()
+    g, u = gu[:, :q.n // 2], gu[:, q.n // 2:]
+    return (g * torch.sigmoid(g) * u).to(out_dtype or x.dtype)
+
+
 @functools.lru_cache(maxsize=None)
-def _fn():
-    fn = build.library("w4a16").w4a16_matmul
+def _fn(name: str):
+    fn = getattr(build.library("w4a16"), name)
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(name: str, x: torch.Tensor, q, n_out: int, n_ranges: int, out_dtype) -> torch.Tensor:
+    """Check the operands, allocate the output [S, n_out] and the split-K scratch,
+    launch C entry point `name` over `n_ranges` weight column ranges of n_out."""
+    S, K = x.shape
+    K2, N = q.w8.shape
+    G = q.scales.shape[0]
+    if K != 2 * K2 or K % G or K2 % (K // G) or (K // G) % 32:
+        raise ValueError(f"{name}: x {tuple(x.shape)} vs w8 {tuple(q.w8.shape)}, "
+                         f"{G} groups (K/2 must be a multiple of the group size, and the "
+                         "group size of 32)")
+    if q.w8.dtype not in (torch.int8, torch.uint8) or q.scales.shape != (G, N) \
+            or q.zeros.shape != (G, N) or q.zeros.dtype != q.scales.dtype \
+            or N != n_ranges * n_out:
+        raise ValueError(f"{name}: malformed AwqTensor")
+    if x.dtype not in _FLOATS or q.scales.dtype not in _FLOATS or out_dtype not in _FLOATS:
+        raise ValueError(f"{name}: unsupported dtypes {x.dtype}/{q.scales.dtype}/{out_dtype}")
+    for t in (x, q.w8, q.scales, q.zeros):
+        if not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"{name}: inputs must be contiguous on one device")
+    if x.data_ptr() % 16:
+        x = x.clone()  # the kernel reads x in 16-byte vectors
+    out = torch.empty((S, n_out), dtype=out_dtype, device=x.device)
+    # a block owns one 64-column tile of every range, so the split follows the
+    # tiles of one range and K: never S
+    splits = build.split_k(-(-n_out // 64), K2 // 32)
+    partial = (torch.empty((splits, n_ranges, S, n_out), dtype=torch.float32, device=x.device)
+               if splits > 1 else None)
+    build.check(_fn(name)(build.ptr(x), build.ptr(q.w8), build.ptr(q.scales), build.ptr(q.zeros),
+                          build.ptr(out), build.ptr(partial), S, K2, n_out, K // G, splits,
+                          int(x.dtype == torch.bfloat16),
+                          int(q.scales.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+                          build.stream(x.device)),
+                name)
+    return out
 
 
 def w4a16_matmul(x: torch.Tensor, q, out_dtype=None) -> torch.Tensor:
@@ -48,35 +95,24 @@ def w4a16_matmul(x: torch.Tensor, q, out_dtype=None) -> torch.Tensor:
     out_dtype = out_dtype or x.dtype
     if not x.is_cuda:
         return w4a16_matmul_ref(x, q, out_dtype)
-    S, K = x.shape
-    K2, N = q.w8.shape
-    G = q.scales.shape[0]
-    if K != 2 * K2 or K % G or K2 % (K // G) or (K // G) % 32:
-        raise ValueError(f"w4a16_matmul: x {tuple(x.shape)} vs w8 {tuple(q.w8.shape)}, "
-                         f"{G} groups (K/2 must be a multiple of the group size, and the "
-                         "group size of 32)")
-    if q.w8.dtype not in (torch.int8, torch.uint8) or q.scales.shape != (G, N) \
-            or q.zeros.shape != (G, N) or q.zeros.dtype != q.scales.dtype:
-        raise ValueError("w4a16_matmul: malformed AwqTensor")
-    if x.dtype not in _FLOATS or q.scales.dtype not in _FLOATS or out_dtype not in _FLOATS:
-        raise ValueError(f"w4a16_matmul: unsupported dtypes {x.dtype}/{q.scales.dtype}/{out_dtype}")
-    for t in (x, q.w8, q.scales, q.zeros):
-        if not t.is_contiguous() or t.device != x.device:
-            raise ValueError("w4a16_matmul: inputs must be contiguous on one device")
-    if x.data_ptr() % 16:
-        x = x.clone()  # the kernel reads x in 16-byte vectors
-    out = torch.empty((S, N), dtype=out_dtype, device=x.device)
-    splits = build.split_k(-(-N // 64), K2 // 32)
-    partial = (torch.empty((splits, S, N), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
-    build.check(_fn()(build.ptr(x), build.ptr(q.w8), build.ptr(q.scales), build.ptr(q.zeros),
-                      build.ptr(out), build.ptr(partial), S, K2, N, K // G, splits,
-                      int(x.dtype == torch.bfloat16),
-                      int(q.scales.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-                      build.stream(x.device)),
-                "w4a16_matmul")
+    out = _launch("w4a16_matmul", x, q, q.n, 1, out_dtype)
     w4a16_matmul.launches += 1
     return out
 
 
+def w4a16_gate_up_silu(x: torch.Tensor, q, out_dtype=None) -> torch.Tensor:
+    """silu(x @ W_gate) * (x @ W_up) in one kernel: x [S, K] and a packed gate|up
+    AwqTensor [K, 2I] (gate columns first) -> [S, I] in out_dtype (default
+    x.dtype). CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    out_dtype = out_dtype or x.dtype
+    if not x.is_cuda:
+        return w4a16_gate_up_silu_ref(x, q, out_dtype)
+    if q.n % 2:
+        raise ValueError(f"w4a16_gate_up_silu: gate|up width {q.n} is odd")
+    out = _launch("w4a16_gate_up_silu", x, q, q.n // 2, 2, out_dtype)
+    w4a16_gate_up_silu.launches += 1
+    return out
+
+
 w4a16_matmul.launches = 0
+w4a16_gate_up_silu.launches = 0

@@ -1,4 +1,8 @@
-"""AWQ W4A16 weight-only quantization in the split-halves layout.
+"""AWQ W4 weight-only quantization in the split-halves layout.
+
+Checkpoints: the HF AutoAWQ "GEMM" format (`qweight` int32 [K, N/8] nibble-packed
+along N in the AWQ interleave order, `qzeros` int32 [K/g, N/8], `scales` fp16
+[K/g, N]); dequant w = (int4 - zero) * scale. `awq_from_hf_tensors` repacks it.
 
 Layout (as in `umbrella_tpu/quantization/awq.py`):
     w8     int8 [K/2, N]  — low nibble = original row r, high nibble = row r + K/2
@@ -7,8 +11,9 @@ Layout (as in `umbrella_tpu/quantization/awq.py`):
 Then  x @ W == x[:, :K/2] @ deq(lo(w8)) + x[:, K/2:] @ deq(hi(w8)).
 
 Routing mirrors the JAX package: below FP16_MATMUL_HEURISTIC_TOKENS a CUDA input
-runs the hand-written W4A16 kernel; above it, and on the CPU, the weight is
-dequantized in x.dtype and multiplied with fp32 accumulation.
+runs a hand-written kernel (W4A16, or W4A8 with `act_int8`); above it, and on
+the CPU, the weight is dequantized in x.dtype and multiplied with fp32
+accumulation.
 """
 from __future__ import annotations
 
@@ -18,11 +23,49 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.kernels.w4a16 import w4a16_matmul
+from ..ops.kernels.w4a8 import w4a8_matmul
+from ..ops.kernels.w4a16 import w4a16_gate_up_silu, w4a16_matmul
+from ..utils import setup_logger
+
+logger = setup_logger()
+
+AWQ_REVERSE_ORDER = np.array([0, 4, 1, 5, 2, 6, 3, 7])
 
 # tokens >= this dequantize the weight and run a dense product (awq.py:44 of the
 # JAX package; kept because it changes numerics at prefill sizes)
 FP16_MATMUL_HEURISTIC_TOKENS = 2048
+
+
+def unpack_awq_numpy(qweight: np.ndarray, qzeros: np.ndarray, bits: int = 4):
+    """AutoAWQ GEMM-format unpack -> (int_weights [K, N], int_zeros [K/g, N])."""
+    if bits != 4:
+        raise ValueError(f"only 4-bit AWQ is supported, got {bits}")
+    shifts = np.arange(0, 32, bits, dtype=np.uint32)
+
+    def unpack(packed):
+        x = (packed.astype(np.uint32)[:, :, None] >> shifts[None, None, :]) & 0xF
+        x = x.reshape(packed.shape[0], -1)
+        # undo the AWQ nibble interleave within each group of 8 columns
+        idx = (np.arange(x.shape[1]).reshape(-1, 8)[:, AWQ_REVERSE_ORDER]).reshape(-1)
+        return x[:, idx].astype(np.int8)
+
+    return unpack(qweight), unpack(qzeros)
+
+
+def pack_awq_numpy(int_weights: np.ndarray, int_zeros: np.ndarray, bits: int = 4):
+    """Inverse of unpack_awq_numpy (tests and synthetic checkpoints)."""
+    if bits != 4:
+        raise ValueError(f"only 4-bit AWQ is supported, got {bits}")
+    awq_order = np.argsort(AWQ_REVERSE_ORDER)  # forward interleave
+
+    def pack(x):
+        idx = (np.arange(x.shape[1]).reshape(-1, 8)[:, awq_order]).reshape(-1)
+        x = x[:, idx].astype(np.uint32).reshape(x.shape[0], -1, 8)
+        shifts = np.arange(0, 32, bits, dtype=np.uint32)
+        out = (x << shifts[None, None, :]).sum(-1).astype(np.uint32).view(np.int32)
+        return np.ascontiguousarray(out)  # serializers write the raw buffer
+
+    return pack(int_weights), pack(int_zeros)
 
 
 class AwqTensor(NamedTuple):
@@ -42,6 +85,56 @@ class AwqTensor(NamedTuple):
     @property
     def group_size(self) -> int:
         return self.k // self.scales.shape[-2]
+
+
+def has_awq_layers(layers: dict) -> bool:
+    """True if any layer entry is quantized (a single AwqTensor or a per-layer
+    tuple of AwqTensors)."""
+    for v in layers.values():
+        if isinstance(v, AwqTensor):
+            return True
+        if isinstance(v, tuple) and v and isinstance(v[0], AwqTensor):
+            return True
+    return False
+
+
+def pack_tpu_layout(int_weights: np.ndarray, int_zeros: np.ndarray, scales: np.ndarray,
+                    dtype=torch.bfloat16, device="cpu") -> AwqTensor:
+    """[K, N] int4 values (+ per-group zeros/scales) -> split-halves AwqTensor."""
+    K = int_weights.shape[0]
+    if K % 2:
+        raise ValueError(f"K={K} must be even")
+    lo = int_weights[: K // 2].astype(np.uint8)
+    hi = int_weights[K // 2:].astype(np.uint8)
+    w8 = (lo | (hi << 4)).astype(np.uint8).view(np.int8)
+    return AwqTensor(
+        w8=torch.from_numpy(np.ascontiguousarray(w8)).to(device),
+        scales=torch.from_numpy(np.asarray(scales, np.float32)).to(device=device, dtype=dtype),
+        zeros=torch.from_numpy(int_zeros.astype(np.float32)).to(device=device, dtype=dtype))
+
+
+def _unpack_awq_words(packed: torch.Tensor) -> torch.Tensor:
+    """int32 [R, N/8] AutoAWQ words -> uint8 [R, N] nibbles in column order:
+    column 8w + i is nibble AWQ_REVERSE_ORDER[i] of word w."""
+    shifts = torch.as_tensor(4 * AWQ_REVERSE_ORDER, dtype=torch.int32, device=packed.device)
+    nib = (packed.to(torch.int32)[:, :, None] >> shifts) & 0xF
+    return nib.to(torch.uint8).reshape(packed.shape[0], -1)
+
+
+def awq_from_hf_tensors(qweight, qzeros, scales, dtype=torch.bfloat16) -> AwqTensor:
+    """HF AutoAWQ GEMM tensors -> split-halves AwqTensor, with tensor ops on the
+    tensors' own device (bit-identical to the JAX package's C and numpy
+    repackers). numpy inputs are taken as CPU tensors."""
+    qweight, qzeros, scales = (a if isinstance(a, torch.Tensor)
+                               else torch.from_numpy(np.ascontiguousarray(a))
+                               for a in (qweight, qzeros, scales))
+    w = _unpack_awq_words(qweight)
+    K = w.shape[0]
+    if K % 2:
+        raise ValueError(f"K={K} must be even")
+    w8 = (w[: K // 2] | (w[K // 2:] << 4)).view(torch.int8)
+    zeros = _unpack_awq_words(qzeros).to(torch.float32).to(dtype)
+    return AwqTensor(w8=w8, scales=scales.to(torch.float32).to(dtype), zeros=zeros)
 
 
 def quantize_matrix(w: np.ndarray, group_size: int = 128):
@@ -98,13 +191,23 @@ def dequantize(q: AwqTensor, dtype=torch.bfloat16) -> torch.Tensor:
 
 
 def awq_matmul(x: torch.Tensor, q: AwqTensor, bias: Optional[torch.Tensor] = None,
-               out_dtype=None) -> torch.Tensor:
+               prefer_fused: Optional[bool] = None, out_dtype=None,
+               act_int8: bool = False) -> torch.Tensor:
     """y = x @ W for split-halves W4 weights; x [..., K] -> [..., N] in out_dtype
-    (default x.dtype; fp32 accumulation either way)."""
+    (default x.dtype; fp32 accumulation either way).
+
+    `prefer_fused` (default: a CUDA input below FP16_MATMUL_HEURISTIC_TOKENS)
+    picks a kernel -- W4A16, or W4A8 (per-row int8 activations) with
+    `act_int8` -- over dequantizing the weight for a dense product, which stays
+    in x.dtype whatever `act_int8` says. A CPU input given prefer_fused=True
+    runs the kernel's plain version."""
     tokens = int(np.prod(x.shape[:-1]))
     out_dtype = out_dtype or x.dtype
-    if x.is_cuda and tokens < FP16_MATMUL_HEURISTIC_TOKENS:
-        y = w4a16_matmul(x.reshape(tokens, x.shape[-1]).contiguous(), q, out_dtype=out_dtype)
+    if prefer_fused is None:
+        prefer_fused = x.is_cuda and tokens < FP16_MATMUL_HEURISTIC_TOKENS
+    if prefer_fused:
+        kernel = w4a8_matmul if act_int8 else w4a16_matmul
+        y = kernel(x.reshape(tokens, x.shape[-1]).contiguous(), q, out_dtype=out_dtype)
         y = y.reshape(*x.shape[:-1], q.n)
     else:
         w = dequantize(q, dtype=x.dtype)
@@ -114,11 +217,24 @@ def awq_matmul(x: torch.Tensor, q: AwqTensor, bias: Optional[torch.Tensor] = Non
     return y
 
 
-def awq_gate_up_silu(x: torch.Tensor, q: AwqTensor, out_dtype=None) -> torch.Tensor:
+def awq_gate_up_silu(x: torch.Tensor, q: AwqTensor, out_dtype=None,
+                     fused: bool = False) -> torch.Tensor:
     """silu(x @ W_gate) * (x @ W_up) for a packed gate_up AwqTensor ([K, 2I], gate
-    columns first), composed as one W4A16 product and an elementwise epilogue
-    (the JAX package's default; its fused variant is not on the path)."""
+    columns first). Default: composed, one W4A16 product and an elementwise
+    epilogue (the JAX package's default). `fused=True` runs the one-kernel
+    w4a16_gate_up_silu on a CUDA input below FP16_MATMUL_HEURISTIC_TOKENS, and
+    otherwise warns and composes, as the JAX package does."""
+    tokens = int(np.prod(x.shape[:-1]))
     half = q.n // 2
+    if fused:
+        if x.is_cuda and tokens < FP16_MATMUL_HEURISTIC_TOKENS:
+            y = w4a16_gate_up_silu(x.reshape(tokens, x.shape[-1]).contiguous(), q,
+                                   out_dtype=out_dtype)
+            return y.reshape(*x.shape[:-1], half)
+        logger.warning(
+            "awq_gate_up_silu(fused=True) falling back to the composed path "
+            "(tokens=%d >= %d or device=%s is not cuda) -- this run does NOT "
+            "measure the fused kernel", tokens, FP16_MATMUL_HEURISTIC_TOKENS, x.device)
     gu = awq_matmul(x, q, out_dtype=out_dtype)
     return F.silu(gu[..., :half]) * gu[..., half:]
 

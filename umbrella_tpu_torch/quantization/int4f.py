@@ -113,6 +113,55 @@ def dequantize_int4f(q: Int4FTensor, dtype=torch.bfloat16) -> torch.Tensor:
     return (qv * q.a[:, None] * q.b[None, :]).to(dtype)
 
 
+def has_int4f_layers(layers: dict) -> bool:
+    for v in layers.values():
+        if isinstance(v, Int4FTensor):
+            return True
+        if isinstance(v, tuple) and v and isinstance(v[0], Int4FTensor):
+            return True
+    return False
+
+
+def quantize_params_int4f(params: dict, group_size: int = 128,
+                          quantize_lm_head: bool = True) -> dict:
+    """A llama-family param tree's linear weights (dense stacks or per-layer
+    AwqTensor tuples) -> per-layer Int4FTensor tuples; embeddings and norms stay
+    fp. A tied head is materialised from embed.T and quantized."""
+    src_layers = params["layers"]
+    out_layers = dict(src_layers)
+    n = src_layers["input_norm"].shape[0]
+    for name in ("wq", "wk", "wv", "wo", "gate", "up", "down", "wqkv", "gate_up"):
+        if name not in src_layers:
+            continue
+        v = src_layers[name]
+        if isinstance(v, tuple):  # per-layer (maybe mixed with Int4F): convert per element
+            out_layers[name] = tuple(
+                t if isinstance(t, Int4FTensor) else quantize_int4f(t, group_size) for t in v)
+        else:  # stacked dense [n, K, N]
+            out_layers[name] = tuple(quantize_int4f(v[i], group_size) for i in range(n))
+    out = dict(params)
+    out["layers"] = out_layers
+    if quantize_lm_head:
+        head = params.get("lm_head")
+        if head is None:
+            head = params["embed"].T.contiguous()  # tied: materialise an Int4F head
+        if not isinstance(head, Int4FTensor):
+            out["lm_head"] = quantize_int4f(head, group_size)
+    return out
+
+
+def quantize_runtime_int4f(runtime, group_size: int = 128, quantize_lm_head: bool = True):
+    """Int4F-quantize a loaded ModelRuntime (the draft-side counterpart of
+    quantization/loader.quantize_runtime)."""
+    from ..models.auto_model import ModelRuntime
+
+    params = quantize_params_int4f(runtime.params, group_size=group_size,
+                                   quantize_lm_head=quantize_lm_head)
+    return ModelRuntime(runtime.cfg, params, runtime.max_length, dtype=runtime.dtype,
+                        family=runtime.family, n_layers=runtime.args.n_layers,
+                        model_name=runtime.model_name, device=runtime.device)
+
+
 def hybridize_shared_prefix(params: dict, n_prefix: int, group_size: int = 128,
                             head: bool = True, refine: int = 16) -> dict:
     """Convert the first n_prefix layers' linears (and the lm_head) of a quantized

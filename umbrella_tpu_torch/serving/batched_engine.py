@@ -46,6 +46,7 @@ from ..models.batched import (batched_llama_forward, gather_compact_batched, ini
 from ..ops import sampling as S
 from ..ops.masks import (causal_mask_rows, causal_mask_rows_batched,
                          tree_level_mask_rows_batched, tree_mask_rows_batched)
+from ..speculation.engine_common import load_runtime, load_tokenizer, quantize_draft_runtime
 from ..speculation.spec_utils import next_bucket
 from ..speculation.tree import GrowMap
 from ..speculation.verify import accept_and_commit
@@ -58,8 +59,6 @@ PREFILL_BUCKETS = (32, 64, 128, 256, 512)
 _NOT_PORTED = {
     "tensor_parallel": "ROADMAP queue A, item 13",
     "expert_parallel": "ROADMAP queue A, item 13",
-    "quantize_draft": "ROADMAP queue A, items 5-6 (quantize_runtime)",
-    "exit_layer": "ROADMAP queue A, item 3 (HF loaders)",
     "num_cache_layers": "ROADMAP queue A, item 12",
 }
 
@@ -126,6 +125,7 @@ class BatchedStaticEngine:
         # None => model dtype; "int8" halves KV traffic (per-slot-scaled int8
         # values, read as int8 by the batched flash kernel)
         self.kv_dtype = kwargs.pop("kv_dtype", None)
+        self.quantize_draft = kwargs.pop("quantize_draft", False)
         if int(kwargs.pop("pipeline_parallel", 0) or 0) > 1:
             raise ValueError("BatchedStaticEngine does not support pipeline_parallel")
         if kwargs.pop("offload", False):
@@ -139,13 +139,7 @@ class BatchedStaticEngine:
     # ------------------------------------------------------------------ setup
 
     def _load(self, spec) -> ModelRuntime:
-        if isinstance(spec, str):
-            raise NotImplementedError(
-                f"loading '{spec}' needs the HF loaders, not ported yet (ROADMAP queue A, "
-                "item 3); pass a ModelRuntime")
-        if spec.device != self.device:
-            raise ValueError(f"model on {spec.device}, engine on {self.device}")
-        return spec
+        return load_runtime(spec, self.max_length, self.dtype, self.device, self.config)
 
     def initialize(self):
         if self.growmap_obj is not None:
@@ -161,6 +155,10 @@ class BatchedStaticEngine:
 
         self.draft_model = self._load(self.draft_model_name)
         self.target_model = self._load(self.target_model_name)
+        self.draft_model = quantize_draft_runtime(self.draft_model, self.quantize_draft,
+                                                  self.dtype)
+        if self.tokenizer is None:
+            self.tokenizer = load_tokenizer(self.target_model_name)
         if self.eos_token_ids is None:
             self.eos_token_ids = self.target_model.eos_ids or [-1]
 

@@ -54,8 +54,9 @@ class AutoEngine:
     @classmethod
     def from_config(cls, device="cuda", **kwargs):
         """Build an engine (call its `initialize()` next). `model` and
-        `draft_model` are ModelRuntimes; the engine runs on `device` (the GPU by
-        default)."""
+        `draft_model` are ModelRuntimes or checkpoint directories (loaded by
+        `initialize()` through AutoModelLM.from_pretrained); the engine runs on
+        `device` (the GPU by default)."""
         engine_name = kwargs.pop("engine", "dynamic")
         engine_class = cls._resolve(engine_name)
         draft_model = kwargs.pop("draft_model", None)

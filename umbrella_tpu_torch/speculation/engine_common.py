@@ -11,13 +11,14 @@ NotImplementedError (ROADMAP queue A, item 7).
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Union
 
 import numpy as np
 import torch
 
-from ..models.auto_model import ModelRuntime
+from ..models.auto_model import AutoModelLM, ModelRuntime
 from ..ops.masks import causal_mask_rows
 from ..utils import TextColors, resolve_device, setup_logger
 from .base import BaseEngine
@@ -33,10 +34,57 @@ _NOT_PORTED = {
     "tensor_parallel": "ROADMAP queue A, item 13",
     "pipeline_parallel": "ROADMAP queue A, item 13",
     "expert_parallel": "ROADMAP queue A, item 13",
-    "quantize_draft": "ROADMAP queue A, items 5-6 (quantize_runtime)",
     "num_cache_layers": "ROADMAP queue A, item 12",
-    "exit_layer": "ROADMAP queue A, item 3 (HF loaders)",
 }
+
+
+def load_runtime(spec, max_length: int, dtype, device: torch.device, config: dict,
+                 packed: bool = True) -> ModelRuntime:
+    """A checkpoint directory -> AutoModelLM.from_pretrained with the engine's
+    config (exit_layer and the rest; keys it does not use are ignored); a
+    ModelRuntime is taken as it is and must live on `device`."""
+    if isinstance(spec, str):
+        kw = {k: v for k, v in config.items() if k != "offload"}
+        return AutoModelLM.from_pretrained(spec, max_length=max_length, dtype=dtype,
+                                           packed=packed, device=device, **kw)
+    if spec.device != device:
+        raise ValueError(f"model on {spec.device}, engine on {device}")
+    return spec
+
+
+def quantize_draft_runtime(draft: ModelRuntime, mode, dtype) -> ModelRuntime:
+    """The engines' `quantize_draft`: "int4f" requantizes the draft to Int4F
+    (head included); any other true value W4-quantizes an fp draft and its head
+    (tied heads from embed.T). Drafts already in that form stay as they are."""
+    if not mode:
+        return draft
+    if draft.family in ("gemma2", "moe"):
+        raise ValueError(f"quantize_draft is not supported for {draft.family} drafts")
+    if mode == "int4f":
+        from ..quantization.int4f import has_int4f_layers, quantize_runtime_int4f
+
+        if has_int4f_layers(draft.params["layers"]):
+            return draft
+        return quantize_runtime_int4f(draft)
+    from ..quantization.awq import has_awq_layers
+    from ..quantization.loader import quantize_runtime
+
+    if has_awq_layers(draft.params["layers"]):
+        return draft
+    return quantize_runtime(draft, dtype=dtype, quantize_lm_head=True)
+
+
+def load_tokenizer(path):
+    """The tokenizer of a checkpoint directory that ships one (through
+    transformers, imported only then), else None: generate() then returns
+    token ids and no text."""
+    if not isinstance(path, str) or not any(
+            os.path.exists(os.path.join(path, f)) for f in ("tokenizer.json",
+                                                            "tokenizer_config.json")):
+        return None
+    from transformers import AutoTokenizer
+
+    return AutoTokenizer.from_pretrained(path)
 
 
 def _sync(device: torch.device) -> None:
@@ -86,17 +134,14 @@ class SpecEngineBase(BaseEngine):
     # ------------------------------------------------------------ model setup
 
     def _load_model(self, spec) -> ModelRuntime:
-        if isinstance(spec, str):
-            raise NotImplementedError(
-                f"loading '{spec}' needs the HF loaders, not ported yet (ROADMAP queue A, "
-                "item 3); pass a ModelRuntime")
-        if spec.device != self.device:
-            raise ValueError(f"model on {spec.device}, engine on {self.device}")
-        return spec
+        return load_runtime(spec, self.max_length, self.dtype, self.device, self.config)
 
     def _init_models_and_state(self):
-        self.draft_model = self._load_model(self.draft_model_name)
+        self.draft_model = quantize_draft_runtime(self._load_model(self.draft_model_name),
+                                                  self.config.get("quantize_draft"), self.dtype)
         self.target_model = self._load_model(self.target_model_name)
+        if self.tokenizer is None:
+            self.tokenizer = load_tokenizer(self.target_model_name)
         if self.eos_token_ids is None:
             self.eos_token_ids = self.target_model.eos_ids or [-1]
         self._eos_arr = torch.tensor(self.eos_token_ids, dtype=torch.int32, device=self.device)
