@@ -9,7 +9,11 @@ lines tagged with its name:
   kernels          call each kernel's wrapper at the main paths' shapes and hold
                    it against its plain PyTorch version on the card; time the
                    kernel, the plain version and a PyTorch library yardstick,
-                   and compute the card's bound for the same work.
+                   and compute the card's bound for the same work. The W4A16
+                   layered mode runs on 4-layer stacks at each 70B layer shape
+                   (split K and not), bit for bit the plain mode on each
+                   layer; an index past the stack must trap (checked in a
+                   child process).
   lossless         full widths, 4 layers, early exit 2, fp32 activations:
                    greedy static-tree generate() must equal the port's own
                    greedy autoregressive decode for 64 tokens.
@@ -18,6 +22,13 @@ lines tagged with its name:
   batched-lossless fp32, 4 layers, B=4 slots, 7 requests of staggered prompt
                    lengths: BatchedStaticEngine.run() must give each request
                    the single-slot StaticEngine's tokens (48 or more).
+  pp-lossless      full Llama-3.3-70B width, 8 AWQ layers, early-exit draft
+                   of 2 layers; the target staged in 4 stages of 2 layers
+                   (pipeline_parallel 4): fp32, fp32 with int8 KV, and bf16.
+                   generate() must equal the unstaged engine's tokens for 64
+                   tokens, and the AR decode's (fp32, bf16), or part from it
+                   only at a near tie (int8 KV); the KV rows of the spec and
+                   the AR decode are compared layer by layer as the witness.
   main             the 8B AWQ target (32 layers, damped tail, Int4F shared
                    prefix of 3 layers + lm_head) with its early-exit draft, a
                    Sequoia 24x6 tree, through AutoEngine.from_config ->
@@ -42,6 +53,14 @@ lines tagged with its name:
   code-config-w4a8 the same on the awq_act "int8" target (w4a8_matmul).
   serve-config     configs/serve_batched_8b_awq_int8kv_v5e.json as shipped:
                    B=32, int8 KV, Int4F draft, 2x3 tree, temperature 0.6.
+  pp-config        configs/chat_config_70b_awq_pp4.json as shipped: a random
+                   AWQ Llama-3.3-70B at full shape (80 layers) staged in 4
+                   stages (one per card on a host with 4, else all on this
+                   card), the 8B AutoAWQ directory above as its draft,
+                   temperature 0.6, top-p 0.9, repetition penalty 1.05, 24x6
+                   tree, max_length 8192; TTFT, step ms, tok/s, accept, peak
+                   memory, launches per step (320 layered W4A16 a step), and
+                   a profiled 8-token request ([pp-profile]).
   report           one JSON line of kernels, the card's name and power limit,
                    and the final {"ok": true, ...} line.
 Every kernel must have launched in the phase that its `launches` is read
@@ -74,6 +93,18 @@ CFG_8B = dict(vocab_size=128256, hidden_size=4096, intermediate_size=14336,
 ACC_24x6 = [0.55, 0.2, 0.1, 0.06, 0.05, 0.04]
 LAYER_SHAPES = {"wqkv": (4096, 6144), "wo": (4096, 4096), "gate_up": (4096, 28672),
                 "down": (14336, 4096)}
+LAYER_SHAPES_70B = {"wqkv": (8192, 10240), "wo": (8192, 8192), "gate_up": (8192, 57344),
+                    "down": (28672, 8192)}
+LLAMA3_EOS = [128001, 128008, 128009]
+# meta-llama/Llama-3.3-70B-Instruct's config.json: the shapes of the pp4
+# config's target (an AutoAWQ g128 checkpoint of it)
+CFG_70B = dict(vocab_size=128256, hidden_size=8192, intermediate_size=28672,
+               num_hidden_layers=80, num_attention_heads=64, num_key_value_heads=8,
+               rms_norm_eps=1e-5, rope_theta=500000.0, max_position_embeddings=131072,
+               rope_scaling=dict(factor=8.0, low_freq_factor=1.0, high_freq_factor=4.0,
+                                 original_max_position_embeddings=8192, rope_type="llama3"),
+               tie_word_embeddings=False, eos_token_id=LLAMA3_EOS)
+PP_STAGES = 4
 
 
 def log(msg):
@@ -278,7 +309,107 @@ def kernel_checks(torch, dev):
         max_abs_err=f_max, max_rel_err=f_rel, per_shape=shapes_ms, **shapes_ms["lm_head S=24"])
     torch.cuda.empty_cache()
     report.update(gate_up_kernel_checks(torch, dev, gen, randn, err))
+    report.update(layered_kernel_checks(torch, dev, gen, randn, err))
     return report
+
+
+def layered_kernel_checks(torch, dev, gen, randn, err):
+    """w4a16_matmul's layered mode on a stack of 4 layers at each of the 70B
+    layer shapes (wqkv, wo, gate_up, down; g128), S=127 (a verify pass) and
+    S=24 (a draft level): on every layer equal to the plain mode on that layer
+    bit for bit, and within 2**-7 x max|y| of the plain version (bf16 out).
+    wqkv, wo and down split K over blocks (partial sums, then a fixed-order
+    reduction), gate_up does not: both routes are held. An index past the
+    stack traps (in a child process: a trap ends the CUDA context). Times
+    beside the plain mode's on the same layer; library yardstick: torch.matmul
+    on the pre-dequantized bf16 layer. The reported row is gate_up."""
+    from umbrella_tpu_torch.ops.kernels import build
+    from umbrella_tpu_torch.ops.kernels.w4a16 import (_dequant_halves_bf16, select_layer,
+                                                      w4a16_matmul, w4a16_matmul_ref)
+    from umbrella_tpu_torch.quantization.awq import AwqTensor, quantize_pack_device
+
+    bf16 = torch.bfloat16
+    n = 4
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    e_max, e_rel, per_shape = 0.0, 0.0, {}
+    for name, (K, N) in LAYER_SHAPES_70B.items():
+        G = K // 128
+        splits = build.split_k(-(-N // 64), K // 2 // 32)
+        stacked = [quantize_pack_device(torch.randn((K, N), generator=gen, device=dev) * 0.02,
+                                        128, bf16) for _ in range(n)]
+        stacked = AwqTensor(*(torch.stack([q[f] for q in stacked]) for f in range(3)))
+        for S in (127, 24):
+            x = randn(S, K)
+            for i in range(n):
+                got = w4a16_matmul(x, stacked, layer_idx=idx[i])
+                plain = w4a16_matmul(x, AwqTensor(*(t[i] for t in stacked)))
+                check(torch.equal(got, plain), f"w4a16 layered {name} S={S} layer {i}: differs "
+                      "from the plain mode on that layer")
+                e, m = err(got, w4a16_matmul_ref(x, select_layer(stacked, idx[i])))
+                check(e <= 2 ** -7 * m, f"w4a16 layered {name} S={S} layer {i}: err {e} vs "
+                      f"max {m}")
+                e_max, e_rel = max(e_max, e), max(e_rel, e / m)
+            layer2 = AwqTensor(*(t[2] for t in stacked))
+            w_deq = _dequant_halves_bf16(layer2)
+            by, bb = bound(K // 2 * N + 2 * G * N * 2 + S * K * 2 + S * N * 2, 2 * S * K * N,
+                           "bf16")
+            per_shape[f"{name} S={S}"] = dict(
+                K=K, N=N, splits=splits,
+                ms=cuda_ms(torch, lambda: w4a16_matmul(x, stacked, layer_idx=idx[2])),
+                plain_mode_ms=cuda_ms(torch, lambda: w4a16_matmul(x, layer2)),
+                plain_ms=cuda_ms(torch,
+                                 lambda: w4a16_matmul_ref(x, select_layer(stacked, idx[2])),
+                                 iters=5),
+                library_ms=cuda_ms(torch, lambda: torch.matmul(x, w_deq)), bound_ms=by,
+                bound_by=bb)
+            log(f"[kernels] w4a16_matmul_layered {name} 70B S={S} {per_shape[f'{name} S={S}']}")
+            del w_deq
+        del stacked
+        torch.cuda.empty_cache()
+    check(any(v["splits"] > 1 for v in per_shape.values())
+          and any(v["splits"] == 1 for v in per_shape.values()),
+          "w4a16 layered: the 70B shapes no longer cover both the split-K and the unsplit route")
+    trapped = layered_index_trap()
+    log(f"[kernels] w4a16_matmul_layered index past the stack: {trapped}")
+    check(trapped.startswith("trapped"), "w4a16 layered: an index past the stack did not trap")
+    return {"w4a16_matmul_layered": dict(
+        shape="x [127,8192] bf16 @ layer 2 of a W4 stack [4,8192,57344] (70B gate_up), bf16 out",
+        tolerance="equal to the plain mode on the same layer bit for bit, on each of 4 layers "
+                  "at all four 70B layer shapes, S=127 and S=24; max abs err <= "
+                  "2**-7 * max|plain| (bf16 out)",
+        max_abs_err=e_max, max_rel_err=e_rel, bitwise_equal_to_plain_mode=True,
+        out_of_range_index=trapped, per_shape=per_shape, **per_shape["gate_up S=127"])}
+
+
+_TRAP_CHILD = """
+import os, sys, torch
+sys.path.insert(0, os.getcwd())
+from umbrella_tpu_torch.ops.kernels.w4a16 import w4a16_matmul
+from umbrella_tpu_torch.quantization.awq import AwqTensor
+dev = torch.device("cuda:0")
+q = AwqTensor(torch.zeros((2, 128, 256), dtype=torch.int8, device=dev),
+              torch.ones((2, 2, 256), device=dev), torch.zeros((2, 2, 256), device=dev))
+x = torch.ones((4, 256), device=dev)
+try:
+    w4a16_matmul(x, q, layer_idx=torch.tensor(2, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    print("ran", flush=True)
+except RuntimeError as e:
+    print("trapped:", str(e).splitlines()[0], flush=True)
+os._exit(0)
+"""
+
+
+def layered_index_trap():
+    """Launch the layered kernel with layer index 2 on a stack of 2 in a child
+    process; returns what it printed ("trapped: <the CUDA error>" when the
+    kernel stopped at the index)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, "-c", _TRAP_CHILD], cwd=here, capture_output=True,
+                         text=True, timeout=300)
+    lines = (out.stdout + out.stderr).strip().splitlines()
+    return next((ln for ln in lines if ln.startswith(("trapped", "ran"))),
+                f"rc {out.returncode}: {lines[-1] if lines else ''}")
 
 
 def gate_up_kernel_checks(torch, dev, gen, randn, err):
@@ -541,16 +672,13 @@ def build_target(torch, dev, n_layers, exit_layer, dtype, awq_act="bf16"):
     cfg = ModelConfig(**dict(CFG_8B, num_hidden_layers=n_layers, awq_act=awq_act))
     t = random_awq_runtime(cfg, MAX_LEN, dtype=dtype, seed=2, quantize_lm_head=True,
                            device=dev)
-    layers = dict(t.params["layers"])
-    for k in ("wo", "down"):
-        layers[k] = tuple(q._replace(scales=q.scales * 0.05) if i >= exit_layer else q
-                          for i, q in enumerate(layers[k]))
-    params = hybridize_shared_prefix(dict(t.params, layers=layers), exit_layer, refine=0)
+    params = hybridize_shared_prefix(
+        dict(t.params, layers=damp_tail(t.params["layers"], exit_layer)), exit_layer, refine=0)
     target = ModelRuntime(cfg, params, MAX_LEN, dtype=dtype, device=dev)
     return target, early_exit_runtime(target, exit_layer=exit_layer)
 
 
-def make_engine(torch, dev, target, draft, dtype, kv_dtype=None, tree=None):
+def make_engine(torch, dev, target, draft, dtype, kv_dtype=None, tree=None, **kw):
     """The single-slot static engine (Sequoia 24x6 tree unless `tree` is a
     growmap_from_spec spec)."""
     from umbrella_tpu_torch.sequoia import growmap_from_spec
@@ -560,15 +688,16 @@ def make_engine(torch, dev, target, draft, dtype, kv_dtype=None, tree=None):
     eng = AutoEngine.from_config(
         device=dev, engine="static", model=target, draft_model=draft, growmap=gm,
         max_length=MAX_LEN, temperature=0.0, eos_token_ids=[-100], dtype=dtype,
-        kv_dtype=kv_dtype)
+        kv_dtype=kv_dtype, **kw)
     eng.initialize()
     return eng
 
 
-def greedy_ar_decode(torch, runtime, prompt, n_new, kv_dtype=None):
+def greedy_ar_decode(torch, runtime, prompt, n_new, kv_dtype=None, keep_kv=False):
     """Plain autoregressive greedy decode with the port's own forward (on an
-    int8 KV cache for kv_dtype="int8"). Returns (tokens, gaps): gaps[i] is the
-    top-1 minus top-2 logit at step i."""
+    int8 KV cache for kv_dtype="int8"). Returns (tokens, gaps, runner_ups,
+    scales): at step i, the top-1 minus top-2 logit, the top-2 token and the
+    row's max |logit|; and the KV cache after the decode, where keep_kv."""
     from umbrella_tpu_torch.ops.masks import causal_mask_rows
 
     dev = runtime.device
@@ -578,18 +707,20 @@ def greedy_ar_decode(torch, runtime, prompt, n_new, kv_dtype=None):
                                  torch.arange(S, device=dev),
                                  causal_mask_rows(0, S, MAX_LEN, device=dev), 0)
     row = logits[-1]
-    out, gaps = [], []
+    out, gaps, runner_ups, scales = [], [], [], []
     for t in range(S, S + n_new):
         top = torch.topk(row, 2)
         out.append(int(top.indices[0]))
         gaps.append(float(top.values[0] - top.values[1]))
+        runner_ups.append(int(top.indices[1]))
+        scales.append(float(row.abs().max()))
         if len(out) == n_new:
             break
         lg, kv = runtime.forward(runtime.params, kv, torch.tensor([out[-1]], device=dev),
                                  torch.tensor([t], device=dev),
                                  causal_mask_rows(t, 1, MAX_LEN, device=dev), t)
         row = lg[0]
-    return out, gaps
+    return (out, gaps, runner_ups, scales) + ((kv,) if keep_kv else ())
 
 
 def first_difference(a, b):
@@ -616,7 +747,7 @@ def lossless_check(torch, dev, prompt, kv_dtype=None, awq_act="bf16"):
     out = eng.generate(input_ids=prompt, max_new_tokens=LOSSLESS_NEW_TOKENS)
     counts = launch_counts()
     toks = out["generated_tokens"]
-    ar, gaps = greedy_ar_decode(torch, target, prompt, len(toks), kv_dtype=kv_dtype)
+    ar, gaps, _, _ = greedy_ar_decode(torch, target, prompt, len(toks), kv_dtype=kv_dtype)
     same = first_difference(toks, ar)
     steps = max(1, round(len(toks) / out["avg_accept_tokens"]))
     res = dict(tokens=len(toks), identical_prefix=same, avg_accept_tokens=out["avg_accept_tokens"],
@@ -632,6 +763,205 @@ def lossless_check(torch, dev, prompt, kv_dtype=None, awq_act="bf16"):
     for name in (attn, w4, "w4a8f_matmul", "embed_gather"):
         check(counts[name] > 0, f"{tag} kernel {name} was never launched")
     return res
+
+
+def stage_devices(torch, dev):
+    """PP_STAGES stage devices: cuda:0..3 on a host with that many cards, else
+    every stage on `dev` (shard_runtime_pp takes a device more than once)."""
+    if torch.cuda.device_count() >= PP_STAGES:
+        return [torch.device("cuda", i) for i in range(PP_STAGES)]
+    return [dev] * PP_STAGES
+
+
+def damp_tail(layers, first):
+    """bench.py's damped tail: wo and down scales x0.05 from layer `first` on
+    (new per-layer tuples; the packed bytes are shared)."""
+    layers = dict(layers)
+    for k in ("wo", "down"):
+        layers[k] = tuple(q._replace(scales=q.scales * 0.05) if i >= first else q
+                          for i, q in enumerate(layers[k]))
+    return layers
+
+
+# where the int8 KV cache lets a spec decode part from the AR decode, the AR
+# step must be a near tie: top-1 minus top-2 at most NEAR_TIE x max|logit|
+# (about 3x the one parting seen on an H100, a gap of 0.0027 at max|logit|
+# 8.05), and the spec decode must have taken the AR's top-2 token
+NEAR_TIE = 2 ** -10
+
+
+def keep_target_kv(eng):
+    """A dict that holds the engine's target KV cache as each generate() leaves
+    it: generate() ends with reset(), which makes a new cache and so leaves
+    the kept one as it was."""
+    kept, reset = {}, eng.reset
+
+    def keep_then_reset():
+        kept["kv"] = eng.kv_target
+        reset()
+
+    eng.reset = keep_then_reset
+    return kept
+
+
+def kv_rows(torch, kv, n):
+    """(k, v, k_scale, v_scale) at slots [0, n) of every layer of a KV cache
+    (a staged cache's stages concatenated over layers, on stage 0's device);
+    the scales are None unless the cache is int8."""
+    from umbrella_tpu_torch.models.kv_cache import StagedKVCache
+
+    stages = kv.stages if isinstance(kv, StagedKVCache) else (kv,)
+    d0 = stages[0].k.device
+    return tuple(None if stages[0][f] is None else
+                 torch.cat([s[f][:, :, :n].to(d0) for s in stages]) for f in range(4))
+
+
+def kv_witness(torch, spec, ar, ref=None):
+    """How far the spec decode's KV rows lie from the AR decode's (same tokens
+    at these slots), layer by layer: the largest difference in int8 codes, or
+    relative to the layer's max |row| for a float cache, and whether layer 0
+    is bit for bit the same (its rows pass no attention). With `ref` (an fp32
+    cache's rows at the same slots), the largest distance of either int8
+    cache's dequantized rows from it, in quanta of the row's own scale."""
+    out = dict(layer0_equal=all(torch.equal(a[0], b[0]) for a, b in zip(spec, ar)
+                                if a is not None))
+    if spec[2] is None:
+        out["rel_diff"] = [max(float((a[li].float() - b[li].float()).abs().max()
+                                     / b[li].float().abs().max()) for a, b in zip(spec[:2], ar[:2]))
+                           for li in range(spec[0].shape[0])]
+        return out
+    out["code_diff"] = [max(int((a[li].int() - b[li].int()).abs().max())
+                            for a, b in zip(spec[:2], ar[:2])) for li in range(spec[0].shape[0])]
+    out["codes_differing"] = sum(int((a.int() != b.int()).sum()) for a, b in zip(spec[:2], ar[:2]))
+    out["codes"] = 2 * spec[0].numel()
+    if ref is not None:
+        m = ref[0].shape[2]
+        out["fp32_slots"] = m
+        for tag, rows in (("spec", spec), ("ar", ar)):
+            out[f"{tag}_quanta_from_fp32"] = [
+                max(float(((c[li, :, :m].float() * s[li, :, :m, None] - r[li]).abs()
+                           / s[li, :, :m, None]).max())
+                    for c, s, r in ((rows[0], rows[2], ref[0]), (rows[1], rows[3], ref[1])))
+                for li in range(spec[0].shape[0])]
+    return out
+
+
+def pp_lossless_check(torch, dev, prompt):
+    """Full Llama-3.3-70B width, 8 random AWQ layers (damped tail), W4 head,
+    and its early-exit draft of 2 layers. The target is staged by
+    shard_runtime_pp over PP_STAGES stages (2 layers each, so the layered index
+    takes both values) and run through pipeline_parallel. Three cases: fp32
+    activations with an fp32 KV cache, fp32 with int8 KV, and bf16 activations
+    and KV (the pp4 config's dtype). In each, the staged engine's greedy
+    generate() of LOSSLESS_NEW_TOKENS tokens must equal the unstaged engine's
+    (the same kernels on the same rows). Against the port's AR decode: fp32
+    and bf16 must be identical for LOSSLESS_NEW_TOKENS tokens; int8 KV too,
+    or part from it only at a near tie (NEAR_TIE) where the spec decode took
+    the AR's top-2. The witness for that rounding: the KV rows both decodes
+    wrote over the tokens they share. Layer 0's rows, which no attention
+    precedes, must be bit for bit the same (the ops outside attention compute
+    a row alike in a verify pass and an AR step); from layer 1 on the rows
+    differ by rounding (a verify row reads its ancestors at tree slots, the
+    AR row the same keys at contiguous slots, so the attention kernel's block
+    sums round differently, and the W4A16 kernel's bf16 rounding of its input
+    widens that to bf16 steps), which an int8 row turns into whole quanta:
+    fewer, layer by layer, than int8 rounding moves a row from the fp32
+    cache's."""
+    from umbrella_tpu_torch.config import ModelConfig
+    from umbrella_tpu_torch.models.auto_model import (ModelRuntime, early_exit_runtime,
+                                                      random_awq_runtime)
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.parallel.pipeline import shard_runtime_pp
+
+    cfg = ModelConfig(**dict(CFG_70B, num_hidden_layers=8, max_position_embeddings=MAX_LEN))
+    P = len(prompt)
+    res, fp32_ref = {}, None
+    for case, dtype, kv_dtype in (("fp32", torch.float32, None),
+                                  ("int8", torch.float32, "int8"),
+                                  ("bf16", torch.bfloat16, None)):
+        if case != "int8":  # int8 KV reuses the fp32 models
+            target = draft = staged = None
+            torch.cuda.empty_cache()
+            params = random_awq_runtime(cfg, MAX_LEN, dtype=dtype, seed=3,
+                                        quantize_lm_head=True, device=dev).params
+            params = dict(params, layers=damp_tail(params["layers"], 2))
+            target = ModelRuntime(cfg, params, MAX_LEN, dtype=dtype, device=dev)
+            draft = early_exit_runtime(target, 2)
+            staged = shard_runtime_pp(ModelRuntime(cfg, dict(params), MAX_LEN, dtype=dtype,
+                                                   device=dev), stage_devices(torch, dev))
+            del params
+        eng = make_engine(torch, dev, staged, draft, dtype, kv_dtype=kv_dtype,
+                          pipeline_parallel=PP_STAGES)
+        kept = keep_target_kv(eng)
+        reset_launch_counts()
+        out = eng.generate(input_ids=prompt, max_new_tokens=LOSSLESS_NEW_TOKENS)
+        counts = launch_counts()
+        del eng
+        toks = out["generated_tokens"]
+        unstaged = make_engine(torch, dev, target, draft, dtype, kv_dtype=kv_dtype).generate(
+            input_ids=prompt, max_new_tokens=LOSSLESS_NEW_TOKENS)["generated_tokens"]
+        ar, gaps, runner_ups, scales, ar_kv = greedy_ar_decode(
+            torch, target, prompt, len(toks), kv_dtype=kv_dtype, keep_kv=True)
+        same, same_ar = first_difference(toks, unstaged), first_difference(toks, ar)
+        parted = same_ar < min(len(toks), LOSSLESS_NEW_TOKENS)
+        # slots whose token both decodes share (and both wrote the KV of)
+        n = P + min(same_ar, len(ar) - 1, len(toks) - 1)
+        spec_rows, ar_rows = kv_rows(torch, kept["kv"], n), kv_rows(torch, ar_kv, n)
+        del kept, ar_kv
+        ref = None
+        if case == "int8":  # the fp32-KV decode of the same models, where its tokens agree
+            m = min(n, P + first_difference(toks, fp32_ref[0]))
+            ref = tuple(t[:, :, :m] for t in fp32_ref[1][:2])
+        witness = kv_witness(torch, spec_rows, ar_rows, ref)
+        if case == "fp32":
+            fp32_ref = (ar, ar_rows)
+        del spec_rows, ar_rows, ref
+        r = dict(case=case, tokens=len(toks), identical_to_unstaged=same,
+                 identical_to_ar=same_ar, avg_accept_tokens=out["avg_accept_tokens"],
+                 min_ar_gap=min(gaps), stages=[str(d) for d in staged.stage_devices],
+                 kv_slots_compared=n, kv_witness=witness, launches=counts)
+        if parted:
+            r["ar_at_first_difference"] = dict(
+                gap=gaps[same_ar], max_abs_logit=scales[same_ar], spec_token=toks[same_ar],
+                ar_top1=ar[same_ar], ar_top2=runner_ups[same_ar])
+        log(f"[pp-lossless] {json.dumps(r)}")
+        tag = f"[pp-lossless] {case}"
+        check(len(toks) >= LOSSLESS_NEW_TOKENS, f"{tag}: too few tokens")
+        check(same >= LOSSLESS_NEW_TOKENS, f"{tag}: staged {toks} vs unstaged {unstaged}")
+        check(witness["layer0_equal"], f"{tag}: layer 0's KV rows differ between the spec and "
+              "the AR decode (an op outside attention computes a row differently by batch)")
+        if case == "int8":
+            check(all(d < q for d, q in zip(witness["code_diff"][1:],
+                                            witness["spec_quanta_from_fp32"][1:])),
+                  f"{tag}: spec and AR KV rows differ by as much as int8 rows differ from fp32 "
+                  f"rows: {witness}")
+        near_tie = parted and case == "int8" and toks[same_ar] == runner_ups[same_ar] \
+            and gaps[same_ar] <= NEAR_TIE * scales[same_ar]
+        check(not parted or near_tie, f"{tag}: staged {toks} vs AR {ar}")
+        attn = "attend_flash_int8" if kv_dtype == "int8" else "attend_flash"
+        for name in (attn, "w4a16_matmul", "w4a16_matmul_layered", "embed_gather"):
+            check(counts[name] > 0, f"{tag}: kernel {name} was never launched")
+        res[case] = r
+    return res
+
+
+def build_70b(torch, dev, devices, max_length):
+    """A random AWQ Llama-3.3-70B at full shape (80 layers, g128, bf16 scales,
+    bf16 embedding and untied head, tail wo/down scales x0.05 from layer 3 on),
+    built on `dev` and staged by shard_runtime_pp over `devices`. No reference
+    to the per-layer tensors outlives this function's locals, so staging frees
+    them as it stacks."""
+    from umbrella_tpu_torch.config import ModelConfig
+    from umbrella_tpu_torch.models.auto_model import ModelRuntime, random_awq_runtime
+    from umbrella_tpu_torch.parallel.pipeline import shard_runtime_pp
+
+    cfg = ModelConfig(**CFG_70B)
+    params = random_awq_runtime(cfg, max_length, dtype=torch.bfloat16, seed=4,
+                                device=dev).params
+    rt = ModelRuntime(cfg, dict(params, layers=damp_tail(params["layers"], 3)), max_length,
+                      dtype=torch.bfloat16, device=dev)
+    del params
+    return shard_runtime_pp(rt, devices)
 
 
 def main_path(torch, dev, prompt, target, draft):
@@ -659,7 +989,7 @@ def main_path(torch, dev, prompt, target, draft):
     for name in MAIN_KERNELS:
         check(counts[name] > 0, f"main path: kernel {name} was never launched")
     per_step = {k: (counts[k] - prefill_counts[k]) / steps for k in counts}
-    ar, gaps = greedy_ar_decode(torch, target, prompt, dec_len)
+    ar, gaps, _, _ = greedy_ar_decode(torch, target, prompt, dec_len)
     prefix = first_difference(toks, ar)
     profiled = profile_window(
         torch, "[profile]", lambda: eng.generate(input_ids=prompt, max_new_tokens=64),
@@ -764,7 +1094,7 @@ def batched_lossless_check(torch, dev):
                                max_new_tokens=BATCHED_LOSSLESS_TOKENS)["generated_tokens"]
         got = o["generated_tokens"]
         same.append(first_difference(got, want))
-        ar, g = greedy_ar_decode(torch, target, r["input_ids"], len(got))
+        ar, g, _, _ = greedy_ar_decode(torch, target, r["input_ids"], len(got))
         vs_ar.append((first_difference(got, ar), first_difference(want, ar)))
         if same[-1] < BATCHED_LOSSLESS_TOKENS:
             gaps.append(g[same[-1]])
@@ -901,7 +1231,6 @@ def stochastic_phase(torch, dev, target, draft):
 # config.json of the checkpoints the shipped 8B configs name, as published:
 # hugging-quants/Meta-Llama-3.1-8B-Instruct-AWQ-INT4 (AutoAWQ GEMM, fp16) and
 # meta-llama/Llama-3.2-1B-Instruct (bf16, tied embeddings)
-LLAMA3_EOS = [128001, 128008, 128009]
 TARGET_HF_CONFIG = dict(
     architectures=["LlamaForCausalLM"], model_type="llama", vocab_size=128256, hidden_size=4096,
     intermediate_size=14336, num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
@@ -1293,6 +1622,87 @@ def serve_config_phase(torch, dev, ckpt):
     return res
 
 
+PP_CONFIG_NEW_TOKENS = 64
+
+
+def pp_config_phase(torch, dev, ckpt, prompt):
+    """configs/chat_config_70b_awq_pp4.json as shipped (pipeline_parallel 4,
+    temperature 0.6, top-p 0.9, repetition penalty 1.05, top-k 32, 24x6 tree,
+    max_length 8192) through AutoEngine -> initialize -> generate(). `model` is
+    build_70b's staged random 70B (4 stages: on cuda:0..3 where there are 4
+    cards, else all on this card); `draft_model` is the synthetic
+    Meta-Llama-3.1-8B-Instruct-AWQ-INT4 directory written above, the format of
+    the config's own draft. TTFT of a PROMPT_LEN prompt, then
+    PP_CONFIG_NEW_TOKENS new tokens: step ms, tok/s, accept, peak device
+    memory, launches per step."""
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.speculation.auto_engine import AutoEngine
+
+    cards = range(torch.cuda.device_count())
+    torch.cuda.synchronize()
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    base = sum(torch.cuda.memory_allocated(c) for c in cards)
+    t0 = time.time()
+    cfg = shipped_config("chat_config_70b_awq_pp4.json", ckpt)
+    target = build_70b(torch, dev, stage_devices(torch, dev), cfg["max_length"])
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    cfg.update(model=target, draft_model=ckpt["dirs"]["target"])
+    del target
+    t0 = time.time()
+    eng = AutoEngine.from_config(device=dev, **cfg)
+    eng.initialize()
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    resident_gb = (sum(torch.cuda.memory_allocated(c) for c in cards) - base) / 2**30
+    stages = eng.target_model.stage_devices
+    check(len(stages) == PP_STAGES and eng.pipeline_parallel == PP_STAGES
+          and (eng.temperature, eng.topp, eng.repetition_penalty) == (0.6, 0.9, 1.05),
+          "[pp-config] the engine did not take the config as shipped")
+    eng.generate(input_ids=prompt, max_new_tokens=8)  # warm-up
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.time()
+    check(eng._prefill(prompt), "[pp-config] prefill refused")
+    torch.cuda.synchronize()
+    ttft_ms = 1000 * (time.time() - t1)
+    prefill_counts = launch_counts()
+    eng.reset()
+    reset_launch_counts()
+    out = eng.generate(input_ids=prompt, max_new_tokens=PP_CONFIG_NEW_TOKENS)
+    counts = launch_counts()
+    toks = out["generated_tokens"]
+    steps = max(1, round(len(toks) / out["avg_accept_tokens"]))
+    eos = set(eng.eos_token_ids)
+    check(len(toks) >= PP_CONFIG_NEW_TOKENS or toks[-1] in eos,
+          f"[pp-config] stopped early: {len(toks)}")
+    check(all(0 <= t < CFG_70B["vocab_size"] for t in toks), "[pp-config] token out of range")
+    for name in ("embed_gather", "attend_flash", "w4a16_matmul", "w4a16_matmul_layered"):
+        check(counts[name] > 0, f"[pp-config] kernel {name} was never launched")
+    per_step = {k: (counts[k] - prefill_counts[k]) / steps for k in counts}
+    profiled = profile_window(
+        torch, "[pp-profile]", lambda: eng.generate(input_ids=prompt, max_new_tokens=8),
+        lambda out: max(1, round(len(out["generated_tokens"]) / out["avg_accept_tokens"])))
+    products = 4 * CFG_70B["num_hidden_layers"]
+    check(per_step["w4a16_matmul_layered"] == products and
+          prefill_counts["w4a16_matmul_layered"] == products,
+          f"[pp-config] {per_step['w4a16_matmul_layered']} layered launches a step, "
+          f"{prefill_counts['w4a16_matmul_layered']} in the prefill; want {products}")
+    res = dict(stage_devices=[str(d) for d in stages], distinct_cards=len(set(stages)),
+               draft_layers=eng.draft_model.args.n_layers, tokens=len(toks), steps=steps,
+               tok_per_s=1000.0 / out["time_per_output_token"],
+               decode_step_ms=out["time_per_output_token"] * len(toks) / steps,
+               avg_accept_tokens=out["avg_accept_tokens"], ttft_ms_prefill128=ttft_ms,
+               build_and_stage_s=build_s, init_s=init_s, resident_gb=resident_gb,
+               peak_mem_gb=(sum(torch.cuda.max_memory_allocated(c) for c in cards) - base)
+               / 2**30, launches=counts, launches_per_step=per_step, profile=profiled)
+    log(f"[pp-config] {json.dumps(res)}")
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
 # ---------------------------------------------------------------- main
 
 KERNEL_META = {
@@ -1313,6 +1723,9 @@ KERNEL_META = {
     "w4a16_gate_up_silu": ("umbrella_tpu_torch/csrc/w4a16.cu",
                            "umbrella_tpu/ops/pallas/w4a16.py:158"),
     "w4a8_matmul": ("umbrella_tpu_torch/csrc/w4a8.cu", "umbrella_tpu/ops/pallas/w4a8.py:85"),
+    # w4a16_matmul's layered mode: the same function's scalar-prefetch pallas_call
+    "w4a16_matmul_layered": ("umbrella_tpu_torch/csrc/w4a16.cu",
+                             "umbrella_tpu/ops/pallas/w4a16.py:303"),
 }
 # the kernels of the static main path (phase 4)
 MAIN_KERNELS = ("embed_gather", "attend_flash", "w4a16_matmul", "w4a8f_matmul")
@@ -1321,10 +1734,11 @@ MAIN_KERNELS = ("embed_gather", "attend_flash", "w4a16_matmul", "w4a8f_matmul")
 # routing): its launches are awq_gate_up_silu(fused=True)'s, in [kernels]
 LAUNCHES_FROM = {"attend_flash_int8": "lossless-int8", "attend_flash_batched": "serve-bf16",
                  "attend_flash_batched_int8": "serve", "w4a8_matmul": "code-config-w4a8",
-                 "w4a16_gate_up_silu": "kernels"}
-CHECKPOINT_PHASES = ("checkpoint", "code-config", "code-config-w4a8", "serve-config")
-PHASES = ("kernels", "lossless", "lossless-int8", "lossless-w4a8", "batched-lossless", "main",
-          "serve", "serve-bf16", "serve-stochastic") + CHECKPOINT_PHASES
+                 "w4a16_gate_up_silu": "kernels", "w4a16_matmul_layered": "pp-config"}
+CHECKPOINT_PHASES = ("checkpoint", "code-config", "code-config-w4a8", "serve-config",
+                     "pp-config")
+PHASES = ("kernels", "lossless", "lossless-int8", "lossless-w4a8", "batched-lossless",
+          "pp-lossless", "main", "serve", "serve-bf16", "serve-stochastic") + CHECKPOINT_PHASES
 
 
 def run(torch, phases):
@@ -1362,6 +1776,7 @@ def run(torch, phases):
     phase("lossless-int8", lossless_check, torch, dev, prompt.tolist(), "int8")
     phase("lossless-w4a8", lossless_check, torch, dev, prompt.tolist(), None, "int8")
     phase("batched-lossless", batched_lossless_check, torch, dev)
+    phase("pp-lossless", pp_lossless_check, torch, dev, prompt.tolist())
 
     if {"main", "serve", "serve-bf16", "serve-stochastic"} & set(phases):
         t0 = time.time()
@@ -1391,11 +1806,12 @@ def run(torch, phases):
             phase("code-config-w4a8", code_config_phase, torch, dev, ckpt, prompt.tolist(),
                   "[code-config-w4a8]", "target-w4a8")
             phase("serve-config", serve_config_phase, torch, dev, ckpt)
+            phase("pp-config", pp_config_phase, torch, dev, ckpt, prompt.tolist())
         finally:
             shutil.rmtree(root, ignore_errors=True)
 
     if set(phases) != set(PHASES):
-        log(f"[partial] phases {sorted(phases)} passed in {time.time() - t_all:.1f} s")
+        log(f"[partial] phases {sorted(phases)} passed in {time.time() - t_all:.1f} s on {card}")
         return
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
@@ -1433,6 +1849,14 @@ def run(torch, phases):
         results["code-config-w4a8"]["launches_per_step"]["w4a8_matmul"]
     summary["serve-config"] = {k: results["serve-config"][k] for k in (
         "tok_per_s", "avg_accept_tokens", "peak_mem_gb")}
+    summary["pp-lossless"] = {kv: (r["identical_to_unstaged"], r["identical_to_ar"])
+                              for kv, r in results["pp-lossless"].items()}
+    summary["pp-config"] = {k: results["pp-config"][k] for k in (
+        "tok_per_s", "decode_step_ms", "avg_accept_tokens", "ttft_ms_prefill128",
+        "peak_mem_gb", "distinct_cards")}
+    if results["pp-config"]["profile"]:
+        summary["pp-config"]["device_idle_share"] = \
+            results["pp-config"]["profile"]["device_idle_share"]
     summary["seconds"] = time.time() - t_all
     log(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -489,8 +489,6 @@ def test_shipped_8b_config_keys_are_accepted(ckpts, name):
     cfg.update(model=dirs["awq"], draft_model=dirs["draft"],
                growmap_path=os.path.join(REPO, "umbrella_tpu_torch", "trees",
                                          os.path.basename(cfg["growmap_path"])))
-    if cfg["engine"] == "static":
-        cfg.update(temperature=0.0, repetition_penalty=1.0)  # stochastic static: A.7
     eng = AutoEngine.from_config(device=CPU, **cfg)
     assert eng.draft_model_name == dirs["draft"]
     with pytest.raises(NotImplementedError, match="item 12"):

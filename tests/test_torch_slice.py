@@ -483,16 +483,18 @@ def test_engine_rejects_what_this_slice_does_not_port():
     cfg = ModelConfig(**dict(SMALL, num_hidden_layers=1))
     rt = auto_model.random_runtime(cfg, MAX_LEN, device=CPU)
     base = dict(device=CPU, model=rt, draft_model=rt, growmap=growmap_from_spec(3, 4))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        AutoEngine.from_config(engine="static", temperature=0.6, **base)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        AutoEngine.from_config(engine="static", tensor_parallel=2, **base)
     with pytest.raises(NotImplementedError, match="item 8"):
         AutoEngine.from_config(engine="dynamic", **base)
     with pytest.raises(ValueError, match="not consumed"):
         AutoEngine.from_config(engine="static", tensor_paralel=2, **base)
+    # stochastic verify is ported (ROADMAP A.7): a request may switch to it
     eng = AutoEngine.from_config(engine="static", max_length=MAX_LEN, **base)
     eng.initialize()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        eng.generate(input_ids=[1, 2], max_new_tokens=4, temperature=0.7)
+    out = eng.generate(input_ids=[1, 2], max_new_tokens=4, temperature=0.7,
+                       repetition_penalty=1.1)
+    assert len(out["generated_tokens"]) >= 4 and eng.temperature == 0.7
 
 
 # ------------------------------------------------------------------ W4A8 (awq_act="int8")

@@ -7,7 +7,8 @@
 //   y = silu(x @ W_gate) * (x @ W_up)                                  [S, I]
 //
 // Replaces the TPU kernels umbrella_tpu/ops/pallas/w4a16.py::w4a16_matmul
-// (_w4a16_kernel, plain mode) and ::w4a16_gate_up_silu (_w4a16_gusilu_kernel).
+// (_w4a16_kernel, plain and layered mode) and ::w4a16_gate_up_silu
+// (_w4a16_gusilu_kernel).
 // Numerics kept from them: the weight is dequantized as (nibble - z) * s in
 // fp32 and rounded to bf16, x is rounded to bf16, the products accumulate in
 // fp32; the plain product writes its output in its own dtype, the fused one
@@ -37,6 +38,13 @@
 // second kernel sums the partials in a fixed order -- for the fused form the
 // SiLU epilogue runs there, on the full-K sums.
 // No atomics, so results are deterministic. Ragged S and N are masked.
+// Layered mode (w4a16_matmul_layered, the TPU kernel's scalar-prefetch form):
+// w8/scales/zeros are stacks [n_layers, ...] and the layer index is an int32
+// on the device. Thread 0 of each block reads it once, traps on an index
+// outside [0, n_layers) (no read outside the stack), and the block offsets its
+// three weight pointers by the layer strides; the rest is the plain mode's
+// code, so layer i's result equals the plain mode on stack[i] bit for bit. The
+// host never reads the index, so the launch can be captured in a CUDA graph.
 // Not yet: TMA and wgmma.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,13 +126,26 @@ __global__ void __launch_bounds__(kThreads)
 w4a16_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ w8,
              const TS* __restrict__ scales, const TS* __restrict__ zeros, TO* __restrict__ out,
              float* __restrict__ partial, int S, int K2, int N, int ldw, int group_size,
-             int chunks_per_split) {
+             int chunks_per_split, const int* __restrict__ layer_idx, int n_layers) {
     constexpr int WM = BM == 128 ? 4 : 2, WN = 8 / WM;
     constexpr int FM = BM / WM / 16, FN = kBN / WN / 16;
     constexpr int XV = (8 * BM + kThreads - 1) / kThreads;  // x vectors per thread
     constexpr int E = BM * kBN / kThreads;                  // epilogue elements per thread
     __shared__ Smem<BM, NW> sm;
+    __shared__ int layer;
     const int tid = threadIdx.x, warp = tid >> 5;
+    if (layer_idx != nullptr) {  // layered mode: select this block's layer of the stacks
+        if (tid == 0) {
+            const int li = *layer_idx;
+            if (li < 0 || li >= n_layers) __trap();
+            layer = li;
+        }
+        __syncthreads();
+        const long long groups = 2LL * K2 / group_size;
+        w8 += (long long)layer * K2 * ldw;
+        scales += (long long)layer * groups * ldw;
+        zeros += (long long)layer * groups * ldw;
+    }
     const int wm = warp / WN, wn = warp % WN;
     const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * BM, kz = blockIdx.z;
     const long long K = 2LL * K2;
@@ -316,28 +337,36 @@ __global__ void sum_partials(const float* __restrict__ partial, TO* __restrict__
     }
 }
 
+// the layered mode's index and stack depth (nullptr, 0 in plain mode)
+struct Layer {
+    const int* idx;
+    int n;
+};
+
 template <int BM, int NW, typename TX, typename TS, typename TO>
 void launch_main(const void* x, const void* w8, const void* scales, const void* zeros, void* out,
                  void* partial, int S, int K2, int N, int group_size, int splits, int per,
-                 cudaStream_t st) {
+                 Layer layer, cudaStream_t st) {
     dim3 grid((N + kBN - 1) / kBN, (S + BM - 1) / BM, splits);
     w4a16_kernel<BM, NW, TX, TS, TO><<<grid, kThreads, 0, st>>>(
         (const TX*)x, (const uint8_t*)w8, (const TS*)scales, (const TS*)zeros, (TO*)out,
-        splits > 1 ? (float*)partial : nullptr, S, K2, N, NW * N, group_size, per);
+        splits > 1 ? (float*)partial : nullptr, S, K2, N, NW * N, group_size, per, layer.idx,
+        layer.n);
 }
 
 template <int NW, typename TX, typename TS, typename TO>
 int launch(const void* x, const void* w8, const void* scales, const void* zeros, void* out,
-           void* partial, int S, int K2, int N, int group_size, int splits, cudaStream_t st) {
+           void* partial, int S, int K2, int N, int group_size, int splits, Layer layer,
+           cudaStream_t st) {
     const int n_chunks = K2 / kBR;
     const int per = (n_chunks + splits - 1) / splits;
     // the row tile changes which rows share a block, never a row's summation order
     if (S <= 32)
         launch_main<32, NW, TX, TS, TO>(x, w8, scales, zeros, out, partial, S, K2, N, group_size,
-                                        splits, per, st);
+                                        splits, per, layer, st);
     else
         launch_main<128, NW, TX, TS, TO>(x, w8, scales, zeros, out, partial, S, K2, N,
-                                         group_size, splits, per, st);
+                                         group_size, splits, per, layer, st);
     if (splits > 1) {
         const long long count = (long long)S * N;
         const int blocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
@@ -349,39 +378,40 @@ int launch(const void* x, const void* w8, const void* scales, const void* zeros,
 
 template <int NW, typename TX, typename TS>
 int dispatch_out(int out_bf16, const void* x, const void* w8, const void* s, const void* z,
-                 void* out, void* partial, int S, int K2, int N, int gs, int splits,
+                 void* out, void* partial, int S, int K2, int N, int gs, int splits, Layer layer,
                  cudaStream_t st) {
     if (out_bf16)
         return launch<NW, TX, TS, __nv_bfloat16>(x, w8, s, z, out, partial, S, K2, N, gs, splits,
-                                                 st);
-    return launch<NW, TX, TS, float>(x, w8, s, z, out, partial, S, K2, N, gs, splits, st);
+                                                 layer, st);
+    return launch<NW, TX, TS, float>(x, w8, s, z, out, partial, S, K2, N, gs, splits, layer, st);
 }
 
 template <int NW, typename TX>
 int dispatch_scales(int s_bf16, int out_bf16, const void* x, const void* w8, const void* s,
                     const void* z, void* out, void* partial, int S, int K2, int N, int gs,
-                    int splits, cudaStream_t st) {
+                    int splits, Layer layer, cudaStream_t st) {
     if (s_bf16)
         return dispatch_out<NW, TX, __nv_bfloat16>(out_bf16, x, w8, s, z, out, partial, S, K2, N,
-                                                   gs, splits, st);
+                                                   gs, splits, layer, st);
     return dispatch_out<NW, TX, float>(out_bf16, x, w8, s, z, out, partial, S, K2, N, gs, splits,
-                                       st);
+                                       layer, st);
 }
 
 template <int NW>
 int run(const void* x, const void* w8, const void* scales, const void* zeros, void* out,
         void* partial, int S, int K2, int N, int group_size, int splits, int x_bf16, int s_bf16,
-        int out_bf16, void* stream) {
+        int out_bf16, Layer layer, void* stream) {
     if (S <= 0 || N <= 0) return 0;
     if (group_size % kBR != 0 || K2 % group_size != 0 || splits < 1 ||
-        (splits > 1 && partial == nullptr))
+        (splits > 1 && partial == nullptr) || (layer.idx != nullptr && layer.n < 1))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     if (x_bf16)
         return dispatch_scales<NW, __nv_bfloat16>(s_bf16, out_bf16, x, w8, scales, zeros, out,
-                                                  partial, S, K2, N, group_size, splits, st);
+                                                  partial, S, K2, N, group_size, splits, layer,
+                                                  st);
     return dispatch_scales<NW, float>(s_bf16, out_bf16, x, w8, scales, zeros, out, partial, S,
-                                      K2, N, group_size, splits, st);
+                                      K2, N, group_size, splits, layer, st);
 }
 
 }  // namespace
@@ -394,7 +424,21 @@ extern "C" int w4a16_matmul(const void* x, const void* w8, const void* scales, c
                             void* out, void* partial, int S, int K2, int N, int group_size,
                             int splits, int x_bf16, int s_bf16, int out_bf16, void* stream) {
     return run<1>(x, w8, scales, zeros, out, partial, S, K2, N, group_size, splits, x_bf16,
-                  s_bf16, out_bf16, stream);
+                  s_bf16, out_bf16, Layer{nullptr, 0}, stream);
+}
+
+// Layered mode: w8 [n_layers, K2, N], scales/zeros [n_layers, 2*K2/group_size, N]
+// and layer_idx one int32 on the device, in [0, n_layers) (the kernel traps
+// otherwise). Otherwise as w4a16_matmul, whose result on the selected layer
+// this equals bit for bit.
+extern "C" int w4a16_matmul_layered(const void* x, const void* w8, const void* scales,
+                                    const void* zeros, void* out, void* partial, int S, int K2,
+                                    int N, int group_size, int splits, int x_bf16, int s_bf16,
+                                    int out_bf16, const void* layer_idx, int n_layers,
+                                    void* stream) {
+    if (layer_idx == nullptr) return (int)cudaErrorInvalidValue;
+    return run<1>(x, w8, scales, zeros, out, partial, S, K2, N, group_size, splits, x_bf16,
+                  s_bf16, out_bf16, Layer{(const int*)layer_idx, n_layers}, stream);
 }
 
 // The packed gate|up form: w8 [K2, 2*I], scales/zeros [2*K2/group_size, 2*I]
@@ -405,5 +449,5 @@ extern "C" int w4a16_gate_up_silu(const void* x, const void* w8, const void* sca
                                   int I, int group_size, int splits, int x_bf16, int s_bf16,
                                   int out_bf16, void* stream) {
     return run<2>(x, w8, scales, zeros, out, partial, S, K2, I, group_size, splits, x_bf16,
-                  s_bf16, out_bf16, stream);
+                  s_bf16, out_bf16, Layer{nullptr, 0}, stream);
 }

@@ -85,7 +85,9 @@ class ModelRuntime:
     `forward(params, kv, input_ids, position_ids, attn_mask, write_offset)` returns
     (fp32 logits, kv) and updates the KV cache the caller owns in place. The
     params must already live on `device` (see models/convert.py or the random
-    constructors below)."""
+    constructors below). A runtime staged by parallel.pipeline.shard_runtime_pp
+    holds its layer blocks in params["stages"]; its forward and init_kv follow
+    the stages."""
 
     def __init__(self, cfg: ModelConfig, params: dict, max_length: int,
                  dtype=torch.bfloat16, family: str = "llama", n_layers: Optional[int] = None,
@@ -101,7 +103,17 @@ class ModelRuntime:
         self.args = StaticModelArgs.from_config(cfg, n_layers=n_layers)
 
     @property
+    def stage_devices(self):
+        """The device of each pipeline stage, or None for an unstaged runtime."""
+        stages = self.params.get("stages")
+        return None if stages is None else tuple(s.device for s in stages)
+
+    @property
     def forward(self) -> Callable:
+        if self.stage_devices is not None:
+            from ..parallel.pipeline import pp_forward
+
+            return pp_forward(self)
         args = self.args
 
         def fwd(params, kv, input_ids, position_ids, attn_mask, write_offset):
@@ -111,6 +123,10 @@ class ModelRuntime:
         return fwd
 
     def init_kv(self, kv_dtype=None) -> KVCache:
+        if self.stage_devices is not None:
+            from ..parallel.pipeline import init_staged_kv
+
+            return init_staged_kv(self, kv_dtype)
         return init_kv_cache(self.cfg, self.max_length, dtype=kv_dtype or self.dtype,
                              num_layers=self.args.n_layers, device=self.device)
 

@@ -10,10 +10,15 @@ int8 mode (`dtype="int8"`): int8 values with one fp32 scale per (layer, head,
 slot), `[num_layers, kv_heads, max_length]` with no trailing 1; each written row
 is quantized on its own, so a row's bytes do not depend on what else was
 written with it.
+
+A staged (pipeline-parallel) model keeps one KVCache per stage, over that
+stage's layers and on its device (`StagedKVCache`); the stage's layers call
+`update_layer` on their own cache with their local layer index, and
+`gather_compact` compacts every stage.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,6 +34,11 @@ class KVCache(NamedTuple):
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
+
+
+class StagedKVCache(NamedTuple):
+    """The KV caches of a staged model, one KVCache per stage (in stage order)."""
+    stages: Tuple[KVCache, ...]
 
 
 def is_int8(dtype) -> bool:
@@ -83,12 +93,21 @@ def update_layer(kv: KVCache, layer_idx: int, k_new: torch.Tensor, v_new: torch.
     return kv
 
 
-def gather_compact(kv: KVCache, local_indices: torch.Tensor, offset: int, accept_len) -> KVCache:
+def gather_compact(kv, local_indices: torch.Tensor, offset: int, accept_len):
     """Copy accepted tree slots down to the linear prefix; zero the rest of the window.
 
     `local_indices` [tree_size] are tree-local slot ids; entries at or past
     `accept_len` (an int or a 0-d tensor) are ignored and their destination
-    slots are zeroed, as in the JAX package. int8 scales move with their rows."""
+    slots are zeroed, as in the JAX package. int8 scales move with their rows.
+    A StagedKVCache is compacted stage by stage, the indices and accept length
+    copied to each stage's device (no host read)."""
+    if isinstance(kv, StagedKVCache):
+        for stage in kv.stages:
+            dev = stage.k.device
+            alen = accept_len.to(dev, non_blocking=True) \
+                if isinstance(accept_len, torch.Tensor) else accept_len
+            gather_compact(stage, local_indices.to(dev, non_blocking=True), offset, alen)
+        return kv
     T = local_indices.shape[0]
     pos = torch.arange(T, device=local_indices.device)
     idx = local_indices.long()

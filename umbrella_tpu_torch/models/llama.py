@@ -11,6 +11,10 @@ Param tree (all linear weights stored [in, out]):
           wo [n, Hq, H]; gate_up [n, H, 2I] or gate/up; down [n, I, H];
           optional bqkv or bq/bk/bv.
   Linear entries may instead be per-layer tuples of AwqTensor / Int4FTensor.
+A staged (pipeline-parallel) model keeps each stage's AWQ entries as stacked
+AwqTensors and hands a layer its weights as AwqLayerViews
+(`split_scan_layers`, `view_scan_layer`; parallel/pipeline.py); the forward
+below never does.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from ..ops.attention import attend
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_params
 from ..ops.select import embed_lookup
-from ..quantization.awq import AwqTensor, awq_gate_up_silu, awq_matmul
+from ..quantization.awq import AwqLayerView, AwqTensor, awq_gate_up_silu, awq_matmul
 from ..quantization.int4f import Int4FTensor, int4f_matmul
 from .kv_cache import KVCache, update_layer
 
@@ -53,16 +57,34 @@ class StaticModelArgs(NamedTuple):
 
 def _linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
             act_int8: bool = False) -> torch.Tensor:
-    """Dense or quantized linear: w is a [in, out] tensor, an AwqTensor or an
-    Int4FTensor; `act_int8` routes AwqTensors through W4A8."""
+    """Dense or quantized linear: w is a [in, out] tensor, an AwqTensor, an
+    AwqLayerView (one layer of stacked W4 weights) or an Int4FTensor;
+    `act_int8` routes AWQ weights through W4A8."""
     if isinstance(w, Int4FTensor):
         return int4f_matmul(x, w, b)
-    if isinstance(w, AwqTensor):
+    if isinstance(w, (AwqTensor, AwqLayerView)):
         return awq_matmul(x, w, b, act_int8=act_int8)
     y = (x.float() @ w.float()).to(x.dtype)
     if b is not None:
         y = y + b.to(x.dtype)
     return y
+
+
+def split_scan_layers(layers: dict):
+    """Split a layer block into its stacked AwqTensor entries (kept whole, for
+    the layered W4A16 kernel) and the rest (indexed per layer)."""
+    awq = {k: v for k, v in layers.items() if isinstance(v, AwqTensor)}
+    dense = {k: v for k, v in layers.items() if not isinstance(v, AwqTensor)}
+    return awq, dense
+
+
+def view_scan_layer(awq: dict, dense_sliced: dict, layer_idx: torch.Tensor) -> dict:
+    """One layer's weights: the dense entries already indexed, and an
+    AwqLayerView of each stacked AWQ entry at `layer_idx` (an int32 tensor)."""
+    lw = dict(dense_sliced)
+    for k, v in awq.items():
+        lw[k] = AwqLayerView(v, layer_idx)
+    return lw
 
 
 def _attn_projections(args: StaticModelArgs, lw: dict, hidden):

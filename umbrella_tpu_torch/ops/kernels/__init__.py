@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
 
 Every wrapper counts its own launches (`wrapper.launches`) so a run can show
-which kernels it went through.
+which kernels it went through; `w4a16_matmul` counts its layered mode apart
+(`layered_launches`, reported as "w4a16_matmul_layered").
 """
 from .embed_gather import embed_gather
 from .tree_attention import (attend_flash, attend_flash_batched, attend_flash_batched_int8,
@@ -24,9 +25,12 @@ KERNELS = {
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    counts = {name: fn.launches for name, fn in KERNELS.items()}
+    counts["w4a16_matmul_layered"] = w4a16_matmul.layered_launches
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    w4a16_matmul.layered_launches = 0

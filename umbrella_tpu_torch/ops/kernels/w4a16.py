@@ -2,8 +2,11 @@
 packed gate|up weight: CUDA kernels in `csrc/w4a16.cu` and their plain
 versions `w4a16_matmul_ref` and `w4a16_gate_up_silu_ref`.
 
-Replaces `umbrella_tpu/ops/pallas/w4a16.py::w4a16_matmul` (plain mode) and
-`::w4a16_gate_up_silu`.
+Replaces `umbrella_tpu/ops/pallas/w4a16.py::w4a16_matmul` (plain and layered
+mode) and `::w4a16_gate_up_silu`. Layered mode: the weight is a stack of
+layers ([n, K/2, N] packed bytes, [n, G, N] scales and zeros) and the layer is
+an int32 tensor on the device, which the kernel reads itself: the host never
+reads it.
 """
 from __future__ import annotations
 
@@ -28,6 +31,13 @@ def _dequant_halves_bf16(q) -> torch.Tensor:
     return ((nib - z) * s).to(torch.bfloat16)
 
 
+def select_layer(q, layer_idx: torch.Tensor):
+    """Layer `layer_idx` (an int32 tensor of one element) of a stacked AwqTensor,
+    selected on the tensors' device without a host read."""
+    i = layer_idx.reshape(1).to(torch.long)
+    return type(q)(*(t.index_select(0, i)[0] for t in q))
+
+
 def w4a16_matmul_ref(x: torch.Tensor, q, out_dtype=None) -> torch.Tensor:
     """Plain version with the kernel's rounding: x and the dequantized weight in
     bf16, products summed in fp32, output in out_dtype (default x.dtype)."""
@@ -47,30 +57,40 @@ def w4a16_gate_up_silu_ref(x: torch.Tensor, q, out_dtype=None) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _fn(name: str):
     fn = getattr(build.library("w4a16"), name)
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    layered = [ctypes.c_void_p, ctypes.c_int] if name.endswith("_layered") else []
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + layered + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(name: str, x: torch.Tensor, q, n_out: int, n_ranges: int, out_dtype) -> torch.Tensor:
+def _launch(name: str, x: torch.Tensor, q, n_out: int, n_ranges: int, out_dtype,
+            layer_idx=None) -> torch.Tensor:
     """Check the operands, allocate the output [S, n_out] and the split-K scratch,
-    launch C entry point `name` over `n_ranges` weight column ranges of n_out."""
+    launch C entry point `name` over `n_ranges` weight column ranges of n_out
+    (on the layer `layer_idx` of stacked weights, for the layered entry point)."""
     S, K = x.shape
-    K2, N = q.w8.shape
-    G = q.scales.shape[0]
+    K2, N = q.w8.shape[-2:]
+    G = q.scales.shape[-2]
+    stack = tuple(q.w8.shape[:-2])  # (n_layers,) in layered mode
     if K != 2 * K2 or K % G or K2 % (K // G) or (K // G) % 32:
         raise ValueError(f"{name}: x {tuple(x.shape)} vs w8 {tuple(q.w8.shape)}, "
                          f"{G} groups (K/2 must be a multiple of the group size, and the "
                          "group size of 32)")
-    if q.w8.dtype not in (torch.int8, torch.uint8) or q.scales.shape != (G, N) \
-            or q.zeros.shape != (G, N) or q.zeros.dtype != q.scales.dtype \
-            or N != n_ranges * n_out:
+    if q.w8.dtype not in (torch.int8, torch.uint8) or q.scales.shape != (*stack, G, N) \
+            or q.zeros.shape != (*stack, G, N) or q.zeros.dtype != q.scales.dtype \
+            or N != n_ranges * n_out or len(stack) != (layer_idx is not None):
         raise ValueError(f"{name}: malformed AwqTensor")
     if x.dtype not in _FLOATS or q.scales.dtype not in _FLOATS or out_dtype not in _FLOATS:
         raise ValueError(f"{name}: unsupported dtypes {x.dtype}/{q.scales.dtype}/{out_dtype}")
     for t in (x, q.w8, q.scales, q.zeros):
         if not t.is_contiguous() or t.device != x.device:
             raise ValueError(f"{name}: inputs must be contiguous on one device")
+    layered = ()
+    if layer_idx is not None:
+        if not isinstance(layer_idx, torch.Tensor) or layer_idx.dtype != torch.int32 \
+                or layer_idx.numel() != 1 or layer_idx.device != x.device:
+            raise ValueError(f"{name}: layer_idx must be one int32 on {x.device}")
+        layered = (build.ptr(layer_idx), stack[0])
     if x.data_ptr() % 16:
         x = x.clone()  # the kernel reads x in 16-byte vectors
     out = torch.empty((S, n_out), dtype=out_dtype, device=x.device)
@@ -83,20 +103,32 @@ def _launch(name: str, x: torch.Tensor, q, n_out: int, n_ranges: int, out_dtype)
                           build.ptr(out), build.ptr(partial), S, K2, n_out, K // G, splits,
                           int(x.dtype == torch.bfloat16),
                           int(q.scales.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-                          build.stream(x.device)),
+                          *layered, build.stream(x.device)),
                 name)
     return out
 
 
-def w4a16_matmul(x: torch.Tensor, q, out_dtype=None) -> torch.Tensor:
+def w4a16_matmul(x: torch.Tensor, q, out_dtype=None, layer_idx=None) -> torch.Tensor:
     """x [S, K] @ split-halves W4 AwqTensor [K, N] -> [S, N] in out_dtype (default
-    x.dtype; fp32 accumulation either way). CUDA tensors launch the kernel; CPU
-    tensors take the plain version."""
+    x.dtype; fp32 accumulation either way). Layered mode: q is stacked ([n, K/2,
+    N] w8, [n, G, N] scales/zeros) and `layer_idx` one int32 on x's device.
+    CUDA tensors launch the kernel (counted in `launches`, or `layered_launches`
+    in layered mode); CPU tensors take the plain version (on the selected
+    layer)."""
     out_dtype = out_dtype or x.dtype
+    if (layer_idx is not None) != (q.w8.dim() == 3):
+        raise ValueError("w4a16_matmul: layer_idx goes with a stacked [n, K/2, N] weight, "
+                         f"got w8 {tuple(q.w8.shape)} and layer_idx {layer_idx}")
     if not x.is_cuda:
+        if layer_idx is not None:
+            q = select_layer(q, layer_idx)
         return w4a16_matmul_ref(x, q, out_dtype)
-    out = _launch("w4a16_matmul", x, q, q.n, 1, out_dtype)
-    w4a16_matmul.launches += 1
+    if layer_idx is None:
+        out = _launch("w4a16_matmul", x, q, q.n, 1, out_dtype)
+        w4a16_matmul.launches += 1
+    else:
+        out = _launch("w4a16_matmul_layered", x, q, q.n, 1, out_dtype, layer_idx)
+        w4a16_matmul.layered_launches += 1
     return out
 
 
@@ -115,4 +147,5 @@ def w4a16_gate_up_silu(x: torch.Tensor, q, out_dtype=None) -> torch.Tensor:
 
 
 w4a16_matmul.launches = 0
+w4a16_matmul.layered_launches = 0
 w4a16_gate_up_silu.launches = 0

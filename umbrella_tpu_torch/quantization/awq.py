@@ -13,7 +13,9 @@ Then  x @ W == x[:, :K/2] @ deq(lo(w8)) + x[:, K/2:] @ deq(hi(w8)).
 Routing mirrors the JAX package: below FP16_MATMUL_HEURISTIC_TOKENS a CUDA input
 runs a hand-written kernel (W4A16, or W4A8 with `act_int8`); above it, and on
 the CPU, the weight is dequantized in x.dtype and multiplied with fp32
-accumulation.
+accumulation. An `AwqLayerView` (one layer of stacked weights, the staged
+pipeline's layer blocks) goes to the W4A16 kernel's layered mode; the W4A8 and
+dequantize routes select the layer first, on the device.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.kernels.w4a8 import w4a8_matmul
-from ..ops.kernels.w4a16 import w4a16_gate_up_silu, w4a16_matmul
+from ..ops.kernels.w4a16 import select_layer, w4a16_gate_up_silu, w4a16_matmul
 from ..utils import setup_logger
 
 logger = setup_logger()
@@ -85,6 +87,15 @@ class AwqTensor(NamedTuple):
     @property
     def group_size(self) -> int:
         return self.k // self.scales.shape[-2]
+
+
+class AwqLayerView(NamedTuple):
+    """One layer of a stacked AwqTensor ([n, K/2, N] w8, [n, G, N] scales and
+    zeros), addressed by an int32 tensor of one element on the stack's device:
+    the layered W4A16 kernel reads the index and the layer in place, so neither
+    a per-layer copy nor a host read is made."""
+    q: AwqTensor
+    layer: torch.Tensor
 
 
 def has_awq_layers(layers: dict) -> bool:
@@ -190,24 +201,33 @@ def dequantize(q: AwqTensor, dtype=torch.bfloat16) -> torch.Tensor:
     return (w - zeros) * scales
 
 
-def awq_matmul(x: torch.Tensor, q: AwqTensor, bias: Optional[torch.Tensor] = None,
+def awq_matmul(x: torch.Tensor, q, bias: Optional[torch.Tensor] = None,
                prefer_fused: Optional[bool] = None, out_dtype=None,
                act_int8: bool = False) -> torch.Tensor:
     """y = x @ W for split-halves W4 weights; x [..., K] -> [..., N] in out_dtype
-    (default x.dtype; fp32 accumulation either way).
+    (default x.dtype; fp32 accumulation either way). `q` is an AwqTensor or an
+    AwqLayerView.
 
     `prefer_fused` (default: a CUDA input below FP16_MATMUL_HEURISTIC_TOKENS)
-    picks a kernel -- W4A16, or W4A8 (per-row int8 activations) with
-    `act_int8` -- over dequantizing the weight for a dense product, which stays
-    in x.dtype whatever `act_int8` says. A CPU input given prefer_fused=True
-    runs the kernel's plain version."""
+    picks a kernel -- W4A16 (layered mode for a view), or W4A8 (per-row int8
+    activations) with `act_int8` -- over dequantizing the weight for a dense
+    product, which stays in x.dtype whatever `act_int8` says. A CPU input given
+    prefer_fused=True runs the kernel's plain version."""
+    layer_idx = None
+    if isinstance(q, AwqLayerView):
+        q, layer_idx = q.q, q.layer
     tokens = int(np.prod(x.shape[:-1]))
     out_dtype = out_dtype or x.dtype
     if prefer_fused is None:
         prefer_fused = x.is_cuda and tokens < FP16_MATMUL_HEURISTIC_TOKENS
+    if layer_idx is not None and not (prefer_fused and not act_int8):
+        q, layer_idx = select_layer(q, layer_idx), None  # W4A8 and dequantize take one layer
     if prefer_fused:
-        kernel = w4a8_matmul if act_int8 else w4a16_matmul
-        y = kernel(x.reshape(tokens, x.shape[-1]).contiguous(), q, out_dtype=out_dtype)
+        x2 = x.reshape(tokens, x.shape[-1]).contiguous()
+        if act_int8:
+            y = w4a8_matmul(x2, q, out_dtype=out_dtype)
+        else:
+            y = w4a16_matmul(x2, q, out_dtype=out_dtype, layer_idx=layer_idx)
         y = y.reshape(*x.shape[:-1], q.n)
     else:
         w = dequantize(q, dtype=x.dtype)
@@ -220,7 +240,8 @@ def awq_matmul(x: torch.Tensor, q: AwqTensor, bias: Optional[torch.Tensor] = Non
 def awq_gate_up_silu(x: torch.Tensor, q: AwqTensor, out_dtype=None,
                      fused: bool = False) -> torch.Tensor:
     """silu(x @ W_gate) * (x @ W_up) for a packed gate_up AwqTensor ([K, 2I], gate
-    columns first). Default: composed, one W4A16 product and an elementwise
+    columns first; not a view: a staged layer's gate_up goes through awq_matmul,
+    as in the JAX package). Default: composed, one W4A16 product and an elementwise
     epilogue (the JAX package's default). `fused=True` runs the one-kernel
     w4a16_gate_up_silu on a CUDA input below FP16_MATMUL_HEURISTIC_TOKENS, and
     otherwise warns and composes, as the JAX package does."""

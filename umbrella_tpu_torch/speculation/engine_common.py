@@ -6,8 +6,16 @@ with one device-to-host read per step (accept length, EOS flag and the committed
 block). A CUDA-graph version of the JAX package's one-dispatch decode loop is
 later work (ROADMAP queue A).
 
-Greedy decoding only: temperature >= 0.05 or a repetition penalty raises
-NotImplementedError (ROADMAP queue A, item 7).
+Below temperature 0.05 the verify is greedy; above it, it samples top-k/top-p
+from a torch.Generator seeded with `seed` on the engine's device (the JAX
+package's `_key`), with the repetition penalty when it is set. The first token
+after a prefill is the target's argmax either way, as in the JAX package.
+
+`pipeline_parallel: N` stages the target over N devices (parallel/pipeline.py):
+cuda:i .. cuda:i+N-1 from the engine's cuda:i, one card a stage, and raises
+when there are fewer; on the CPU every stage is the CPU. A target the caller
+staged already (shard_runtime_pp, which may put several stages on one card)
+keeps its stages. The draft stays whole on the engine's device.
 """
 from __future__ import annotations
 
@@ -32,7 +40,6 @@ PREFILL_CHUNK = 512
 _NOT_PORTED = {
     "offload": "ROADMAP queue A, item 12",
     "tensor_parallel": "ROADMAP queue A, item 13",
-    "pipeline_parallel": "ROADMAP queue A, item 13",
     "expert_parallel": "ROADMAP queue A, item 13",
     "num_cache_layers": "ROADMAP queue A, item 12",
 }
@@ -115,31 +122,57 @@ class SpecEngineBase(BaseEngine):
         self.kv_dtype = kwargs.pop("kv_dtype", None)  # None => model dtype
         # kept for config parity; the exact top-k serves every recall (ops/sampling)
         self.draft_topk_recall = float(kwargs.pop("draft_topk_recall", 0.99))
+        # pipeline_parallel: N stages the TARGET's layer blocks over N devices
+        self.pipeline_parallel = int(kwargs.pop("pipeline_parallel", 0) or 0)
+        parallel = [int(kwargs.get(k, 0) or 0) for k in ("tensor_parallel", "expert_parallel")]
+        if sum(int(n > 1) for n in parallel + [self.pipeline_parallel]) > 1:
+            raise ValueError("tensor_parallel / pipeline_parallel / expert_parallel are "
+                             "mutually exclusive")
+        if self.pipeline_parallel > 1 and kwargs.get("offload"):
+            raise ValueError("pipeline_parallel and offload are mutually exclusive: PP "
+                             "stages resident layer blocks over devices")
         for key, item in _NOT_PORTED.items():
-            if kwargs.get(key):
+            value = kwargs.get(key)
+            if value and not (key.endswith("_parallel") and int(value) <= 1):
                 raise NotImplementedError(f"'{key}' is not ported yet ({item})")
         self.config = kwargs
-        self._check_greedy()
-
-    def _check_greedy(self):
-        if self.temperature >= 0.05:
-            raise NotImplementedError(
-                f"temperature={self.temperature}: stochastic sampling is not ported yet "
-                "(ROADMAP queue A, item 7); use temperature < 0.05 (greedy)")
-        if abs(self.repetition_penalty - 1.0) > 0.01:
-            raise NotImplementedError(
-                f"repetition_penalty={self.repetition_penalty} is not ported yet "
-                "(ROADMAP queue A, item 7)")
 
     # ------------------------------------------------------------ model setup
 
     def _load_model(self, spec) -> ModelRuntime:
         return load_runtime(spec, self.max_length, self.dtype, self.device, self.config)
 
+    def _pipeline_devices(self):
+        """The stage devices for `pipeline_parallel` over an unstaged target: one
+        card per stage from the engine's card on (raises if there are fewer), or
+        the CPU for every stage."""
+        pp = self.pipeline_parallel
+        if self.device.type != "cuda":
+            return [self.device] * pp
+        first, count = self.device.index, torch.cuda.device_count()
+        if first + pp > count:
+            raise RuntimeError(
+                f"pipeline_parallel={pp} needs {pp} CUDA devices from {self.device}, have "
+                f"{count}; to put several stages on one card, stage the target yourself "
+                "(parallel.pipeline.shard_runtime_pp)")
+        return [torch.device("cuda", first + i) for i in range(pp)]
+
     def _init_models_and_state(self):
+        target = self.target_model_name
+        staged = isinstance(target, ModelRuntime) and target.stage_devices is not None
+        if staged and self.pipeline_parallel > 1 \
+                and len(target.stage_devices) != self.pipeline_parallel:
+            raise ValueError(f"target is staged in {len(target.stage_devices)} stages, "
+                             f"pipeline_parallel={self.pipeline_parallel}")
+        stage_devices = self._pipeline_devices() \
+            if self.pipeline_parallel > 1 and not staged else None
         self.draft_model = quantize_draft_runtime(self._load_model(self.draft_model_name),
                                                   self.config.get("quantize_draft"), self.dtype)
-        self.target_model = self._load_model(self.target_model_name)
+        self.target_model = self._load_model(target)
+        if stage_devices is not None:
+            from ..parallel.pipeline import shard_runtime_pp
+
+            shard_runtime_pp(self.target_model, stage_devices)
         if self.tokenizer is None:
             self.tokenizer = load_tokenizer(self.target_model_name)
         if self.eos_token_ids is None:
@@ -150,6 +183,7 @@ class SpecEngineBase(BaseEngine):
         self.kv_draft = self.draft_model.init_kv(kv_dtype=self.kv_dtype)
         self.kv_target = self.target_model.init_kv(kv_dtype=self.kv_dtype)
         self.num_nodes = 0
+        self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
 
     # ------------------------------------------------------------ prefill
 
@@ -261,7 +295,6 @@ class SpecEngineBase(BaseEngine):
         self.repetition_penalty = generation_args.pop("repetition_penalty",
                                                       self.repetition_penalty)
         self.topk = generation_args.pop("topk", self.topk)
-        self._check_greedy()
 
     def reset(self):
         self.num_nodes = 0
@@ -331,7 +364,7 @@ class SpecEngineBase(BaseEngine):
         return True, None
 
     def generate(self, **api_args):
-        """Greedy generation for one request. Returns api_args with
+        """Generation for one request (greedy below temperature 0.05). Returns api_args with
         generated_text, generated_tokens, avg_accept_tokens and
         time_per_output_token (ms); the engine is reset afterwards."""
         self.update_generation_args(**api_args)

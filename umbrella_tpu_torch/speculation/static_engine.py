@@ -1,4 +1,4 @@
-"""Static-tree speculation engine (Sequoia growmap trees), greedy.
+"""Static-tree speculation engine (Sequoia growmap trees).
 
 Counterpart of `umbrella_tpu/speculation/static_engine.py`, run eagerly: one
 `build_tree()` (the draft's level forwards and top-k expansion) and one
@@ -101,8 +101,8 @@ class StaticEngine(SpecEngineBase):
                 self.tokens[dst:dst + new_tokens.shape[0]] = new_tokens
 
     def verify(self) -> bool:
-        """Target forward over the tree, accept rule, commit; returns the continue flag."""
-        self._check_greedy()
+        """Target forward over the tree, sampling (greedy below temperature 0.05),
+        accept rule, commit; returns the continue flag."""
         nn, T = self.num_nodes, self.tree_size
         ids = self.tokens[nn:nn + T]
         pos = nn + self._depth
@@ -111,5 +111,8 @@ class StaticEngine(SpecEngineBase):
             self.target_model.params, self.kv_target, ids, pos, mask, nn)
         accept_len, eos_found, block = verify_tail(
             logits, self.kv_target, self.kv_draft, self.tokens, nn, self._bitmap,
-            self._parents, self._node_in_path, self._eos_arr, tree_size=T)
+            self._parents, self._node_in_path, self._eos_arr, tree_size=T,
+            greedy=self.temperature < 0.05, use_pen=abs(self.repetition_penalty - 1.0) > 0.01,
+            generator=self._gen, temperature=self.temperature, topp=self.topp,
+            penalty=self.repetition_penalty, topk=self.topk)
         return self._commit_verify_result(accept_len, eos_found, block)

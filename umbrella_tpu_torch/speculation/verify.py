@@ -1,8 +1,9 @@
-"""Verify-phase math: Sequoia token-match acceptance (greedy branch).
+"""Verify-phase math: Sequoia token-match acceptance, greedy or stochastic.
 
 Counterpart of `umbrella_tpu/speculation/verify.py`, with native gathers where
-the JAX package uses one-hot selects. Everything stays on the device; the engine
-reads (accept_len, eos_found, block) back once per step.
+the JAX package uses one-hot selects and a `torch.Generator` where it threads a
+`jax.random` key. Everything stays on the device; the engine reads
+(accept_len, eos_found, block) back once per step.
 """
 from __future__ import annotations
 
@@ -51,12 +52,22 @@ def accept_and_commit(ids, sampled, old_block, bitmap, parents, node_in_path, eo
 
 
 def verify_tail(logits, kv_t, kv_d, tokens, num_nodes: int, bitmap, parents, node_in_path,
-                eos_arr, *, tree_size: int):
-    """Greedy-sample the target logits over the tree, run the accept rule, write
+                eos_arr, *, tree_size: int, greedy: bool = True, use_pen: bool = False,
+                generator=None, temperature: float = 1.0, topp: float = 1.0,
+                penalty: float = 1.0, topk: int = 32):
+    """Sample the target logits over the tree (argmax if `greedy`, else top-k /
+    top-p at `temperature` from `generator`; with `use_pen`, after the
+    repetition penalty over tokens[:num_nodes + 1]), run the accept rule, write
     accepted + bonus tokens into `tokens`, and compact both KV caches in place.
     Returns (accept_len, eos_found, block[tree_size + 1]) as device tensors."""
     ids = tokens[num_nodes:num_nodes + tree_size]
-    sampled = S.greedy_sample(logits).to(torch.int32)
+    if use_pen:
+        logits = S.apply_repetition_penalty(logits, tokens[:num_nodes + 1], num_nodes + 1,
+                                            penalty)
+    if greedy:
+        sampled = S.greedy_sample(logits).to(torch.int32)
+    else:
+        sampled = S.sample_top_k_top_p_rows(generator, logits, temperature, topk, topp)
     old_block = tokens[num_nodes:num_nodes + tree_size + 1]
     block, path, accept_len, eos_found = accept_and_commit(
         ids[None], sampled[None], old_block[None], bitmap, parents, node_in_path, eos_arr)
