@@ -7,10 +7,14 @@ are compiled together, one nvcc process each, the first time any kernel is
 needed; nothing is built when a module is imported.
 
 Every C entry point launches on the stream it is given and returns
-`cudaGetLastError()`; `check` raises on a nonzero code.
+`cudaGetLastError()`; `check` raises on a nonzero code. A wrapper launches
+inside `on_device(tensor)`, which makes the tensor's card current and gives
+that card's current stream: the runtime launches on the current device, so an
+operand on `cuda:1` must not meet a launch on `cuda:0`.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -111,7 +115,11 @@ def split_k(n_col_tiles: int, n_chunks: int) -> int:
     return max(1, min(n_chunks // 4, -(-SPLIT_K_TARGET_BLOCKS // n_col_tiles)))
 
 
-def stream(device) -> ctypes.c_void_p:
+@contextlib.contextmanager
+def on_device(t):
+    """Make tensor `t`'s card the current device for the block and give its
+    current stream (a ctypes pointer) to launch on."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(t.device):
+        yield ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

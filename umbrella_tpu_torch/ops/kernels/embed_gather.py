@@ -41,9 +41,10 @@ def embed_gather(embed: torch.Tensor, input_ids: torch.Tensor) -> torch.Tensor:
     S = ids.shape[0]
     V, H = embed.shape
     out = torch.empty((S, H), dtype=embed.dtype, device=embed.device)
-    build.check(_fn()(build.ptr(embed), build.ptr(ids), build.ptr(out), S, V,
-                      H * embed.element_size(), build.stream(embed.device)),
-                "embed_gather")
+    with build.on_device(embed) as st:
+        build.check(_fn()(build.ptr(embed), build.ptr(ids), build.ptr(out), S, V,
+                          H * embed.element_size(), st),
+                    "embed_gather")
     embed_gather.launches += 1
     return out
 

@@ -167,12 +167,13 @@ def _launch(what: str, q, k_cache, v_cache, mask, k_scale, v_scale, kv_limits, s
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: q and the caches must be 16-byte aligned")
     out = torch.empty_like(q)
-    build.check(_fn()(build.ptr(q), build.ptr(k_cache), build.ptr(v_cache), build.ptr(k_scale),
-                      build.ptr(v_scale), build.ptr(mask), build.ptr(kv_limits),
-                      build.ptr(slots), build.ptr(out), B, S, H, KVH, L, D, Bc,
-                      int(layer_idx), int(kv_limit), float(scale), float(soft_cap),
-                      int(q.dtype == torch.bfloat16), int(quant), build.stream(q.device)),
-                what)
+    with build.on_device(q) as st:
+        build.check(_fn()(build.ptr(q), build.ptr(k_cache), build.ptr(v_cache), build.ptr(k_scale),
+                          build.ptr(v_scale), build.ptr(mask), build.ptr(kv_limits),
+                          build.ptr(slots), build.ptr(out), B, S, H, KVH, L, D, Bc,
+                          int(layer_idx), int(kv_limit), float(scale), float(soft_cap),
+                          int(q.dtype == torch.bfloat16), int(quant), st),
+                    what)
     return out
 
 

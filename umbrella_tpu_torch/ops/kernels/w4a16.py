@@ -54,6 +54,65 @@ def w4a16_gate_up_silu_ref(x: torch.Tensor, q, out_dtype=None) -> torch.Tensor:
     return (g * torch.sigmoid(g) * u).to(out_dtype or x.dtype)
 
 
+# the kernel's tiles: a stage holds 64 packed rows; a consumer warpgroup owns
+# 64 weight columns (a block two: 128 columns of one range, or 64 of each of
+# the gate and up ranges); every wgmma is 64 tokens wide, and a block takes up
+# to 4 of them (256 rows) on each dequantized fragment
+_ROWS, _COLS, _TOK, _MAX_TT = 64, 64, 64, 4
+# blocks in one wave: one block per SM of an H100 SXM (132 SMs). A constant,
+# not read from the card, so a row's summation order -- and with it every
+# result -- is the same on any card for the same matrix shape.
+_WAVE = 132
+# fewest stages of K a split may take
+_MIN_CHUNKS_PER_SPLIT = 8
+
+
+def _plan(S: int, K: int, N: int, n_ranges: int, group_size: int) -> dict:
+    """The kernel's launch plan for x [S, K] times `n_ranges` weight column
+    ranges of width N (1: plain, 2: fused gate|up): wgmma token tiles per block
+    (ceil(min(S, 256) / 64)), super-tiles of 256 rows, column tiles, and splits
+    of K. Column tiles and splits depend on N and K only -- never on S -- so a
+    row's summation order is the same in every batch. Raises ValueError for a
+    shape the kernel does not take (TMA needs 16-byte row strides; a stage of
+    64 packed rows must not straddle a group)."""
+    if group_size <= 0 or group_size % _ROWS or K % (2 * group_size):
+        raise ValueError(f"w4a16: K={K} must be a multiple of 2 x group size and the group "
+                         f"size ({group_size}) a multiple of {_ROWS}")
+    if N <= 0 or (n_ranges * N) % 16:
+        raise ValueError(f"w4a16: weight width {n_ranges * N} must be a multiple of 16")
+    n_chunks = K // 2 // _ROWS
+    col_tiles = -(-N // (_COLS * (2 if n_ranges == 1 else 1)))
+    splits = max(1, min(n_chunks // _MIN_CHUNKS_PER_SPLIT, _WAVE // col_tiles))
+    return dict(token_tiles=-(-min(S, _MAX_TT * _TOK) // _TOK),
+                super_tiles=-(-S // (_MAX_TT * _TOK)), col_tiles=col_tiles, splits=splits)
+
+
+def _check(name: str, x: torch.Tensor, q, n_out: int, n_ranges: int, out_dtype,
+           layer_idx=None) -> dict:
+    """Check the operands of C entry point `name` (on any device); returns the
+    launch plan. Raises ValueError on what the kernel does not take."""
+    S, K = x.shape
+    K2, N = q.w8.shape[-2:]
+    G = q.scales.shape[-2]
+    stack = tuple(q.w8.shape[:-2])  # (n_layers,) in layered mode
+    if K != 2 * K2 or K % G:
+        raise ValueError(f"{name}: x {tuple(x.shape)} vs w8 {tuple(q.w8.shape)}, {G} groups")
+    if q.w8.dtype not in (torch.int8, torch.uint8) or q.scales.shape != (*stack, G, N) \
+            or q.zeros.shape != (*stack, G, N) or q.zeros.dtype != q.scales.dtype \
+            or N != n_ranges * n_out or len(stack) != (layer_idx is not None):
+        raise ValueError(f"{name}: malformed AwqTensor")
+    if x.dtype not in _FLOATS or q.scales.dtype not in _FLOATS or out_dtype not in _FLOATS:
+        raise ValueError(f"{name}: unsupported dtypes {x.dtype}/{q.scales.dtype}/{out_dtype}")
+    for t in (x, q.w8, q.scales, q.zeros):
+        if not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"{name}: inputs must be contiguous on one device")
+    if layer_idx is not None and (not isinstance(layer_idx, torch.Tensor)
+                                  or layer_idx.dtype != torch.int32
+                                  or layer_idx.numel() != 1 or layer_idx.device != x.device):
+        raise ValueError(f"{name}: layer_idx must be one int32 on {x.device}")
+    return _plan(S, K, n_out, n_ranges, K // G)
+
+
 @functools.lru_cache(maxsize=None)
 def _fn(name: str):
     fn = getattr(build.library("w4a16"), name)
@@ -68,43 +127,26 @@ def _launch(name: str, x: torch.Tensor, q, n_out: int, n_ranges: int, out_dtype,
     """Check the operands, allocate the output [S, n_out] and the split-K scratch,
     launch C entry point `name` over `n_ranges` weight column ranges of n_out
     (on the layer `layer_idx` of stacked weights, for the layered entry point)."""
+    plan = _check(name, x, q, n_out, n_ranges, out_dtype, layer_idx)
+    if q.w8.data_ptr() % 16:
+        raise ValueError(f"{name}: w8 must be 16-byte aligned (TMA)")
     S, K = x.shape
-    K2, N = q.w8.shape[-2:]
     G = q.scales.shape[-2]
-    stack = tuple(q.w8.shape[:-2])  # (n_layers,) in layered mode
-    if K != 2 * K2 or K % G or K2 % (K // G) or (K // G) % 32:
-        raise ValueError(f"{name}: x {tuple(x.shape)} vs w8 {tuple(q.w8.shape)}, "
-                         f"{G} groups (K/2 must be a multiple of the group size, and the "
-                         "group size of 32)")
-    if q.w8.dtype not in (torch.int8, torch.uint8) or q.scales.shape != (*stack, G, N) \
-            or q.zeros.shape != (*stack, G, N) or q.zeros.dtype != q.scales.dtype \
-            or N != n_ranges * n_out or len(stack) != (layer_idx is not None):
-        raise ValueError(f"{name}: malformed AwqTensor")
-    if x.dtype not in _FLOATS or q.scales.dtype not in _FLOATS or out_dtype not in _FLOATS:
-        raise ValueError(f"{name}: unsupported dtypes {x.dtype}/{q.scales.dtype}/{out_dtype}")
-    for t in (x, q.w8, q.scales, q.zeros):
-        if not t.is_contiguous() or t.device != x.device:
-            raise ValueError(f"{name}: inputs must be contiguous on one device")
-    layered = ()
-    if layer_idx is not None:
-        if not isinstance(layer_idx, torch.Tensor) or layer_idx.dtype != torch.int32 \
-                or layer_idx.numel() != 1 or layer_idx.device != x.device:
-            raise ValueError(f"{name}: layer_idx must be one int32 on {x.device}")
-        layered = (build.ptr(layer_idx), stack[0])
+    # the kernel takes bf16 x: fp32 x is rounded once here, as the plain version does
+    x = x.to(torch.bfloat16)
     if x.data_ptr() % 16:
-        x = x.clone()  # the kernel reads x in 16-byte vectors
+        x = x.clone()  # TMA reads x from a 16-byte aligned base
     out = torch.empty((S, n_out), dtype=out_dtype, device=x.device)
-    # a block owns one 64-column tile of every range, so the split follows the
-    # tiles of one range and K: never S
-    splits = build.split_k(-(-n_out // 64), K2 // 32)
+    splits = plan["splits"]
     partial = (torch.empty((splits, n_ranges, S, n_out), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
-    build.check(_fn(name)(build.ptr(x), build.ptr(q.w8), build.ptr(q.scales), build.ptr(q.zeros),
-                          build.ptr(out), build.ptr(partial), S, K2, n_out, K // G, splits,
-                          int(x.dtype == torch.bfloat16),
-                          int(q.scales.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-                          *layered, build.stream(x.device)),
-                name)
+    layered = () if layer_idx is None else (build.ptr(layer_idx), q.w8.shape[0])
+    with build.on_device(x) as st:
+        build.check(_fn(name)(build.ptr(x), build.ptr(q.w8), build.ptr(q.scales),
+                              build.ptr(q.zeros), build.ptr(out), build.ptr(partial), S, K // 2,
+                              n_out, K // G, splits, 1, int(q.scales.dtype == torch.bfloat16),
+                              int(out_dtype == torch.bfloat16), *layered, st),
+                    name)
     return out
 
 

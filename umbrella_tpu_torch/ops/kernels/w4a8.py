@@ -119,11 +119,13 @@ def w4a8_matmul(x: torch.Tensor, q, out_dtype=None) -> torch.Tensor:
     splits = kernel_splits(q)
     partial = (torch.empty((splits, S, N), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
-    build.check(_fn()(build.ptr(xq), build.ptr(sx), build.ptr(rs), build.ptr(q.w8),
-                      build.ptr(q.scales), build.ptr(q.zeros), build.ptr(out), build.ptr(partial),
-                      S, K2, N, gs, splits, int(q.scales.dtype == torch.bfloat16),
-                      int(out_dtype == torch.bfloat16), build.stream(x.device)),
-                "w4a8_matmul")
+    with build.on_device(x) as st:
+        build.check(_fn()(build.ptr(xq), build.ptr(sx), build.ptr(rs), build.ptr(q.w8),
+                          build.ptr(q.scales), build.ptr(q.zeros), build.ptr(out),
+                          build.ptr(partial), S, K2, N, gs, splits,
+                          int(q.scales.dtype == torch.bfloat16),
+                          int(out_dtype == torch.bfloat16), st),
+                    "w4a8_matmul")
     w4a8_matmul.launches += 1
     return out
 

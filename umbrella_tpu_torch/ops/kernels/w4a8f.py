@@ -79,10 +79,11 @@ def w4a8f_matmul(x: torch.Tensor, q, out_dtype=None) -> torch.Tensor:
     splits = build.split_k(-(-N // 64), K2 // 32)
     partial = (torch.empty((splits, S, N), dtype=torch.int32, device=x.device)
                if splits > 1 else None)
-    build.check(_fn()(build.ptr(xq), build.ptr(sx), build.ptr(rsum), build.ptr(q.w8),
-                      build.ptr(b), build.ptr(out), build.ptr(partial), S, K2, N, splits,
-                      int(out_dtype == torch.bfloat16), build.stream(x.device)),
-                "w4a8f_matmul")
+    with build.on_device(x) as st:
+        build.check(_fn()(build.ptr(xq), build.ptr(sx), build.ptr(rsum), build.ptr(q.w8),
+                          build.ptr(b), build.ptr(out), build.ptr(partial), S, K2, N, splits,
+                          int(out_dtype == torch.bfloat16), st),
+                    "w4a8f_matmul")
     w4a8f_matmul.launches += 1
     return out
 

@@ -446,7 +446,7 @@ class BatchedStaticEngine:
         event = None
         if dev.type == "cuda":
             event = torch.cuda.Event()
-            event.record()
+            event.record(torch.cuda.current_stream(dev))  # this engine's card, not the current one
         return dict(meta=meta, tokens=tokens, event=event)
 
     def sync_segment(self, handle: dict) -> np.ndarray:
