@@ -9,11 +9,22 @@ lines tagged with its name:
   kernels          call each kernel's wrapper at the main paths' shapes and hold
                    it against its plain PyTorch version on the card; time the
                    kernel, the plain version and a PyTorch library yardstick,
-                   and compute the card's bound for the same work. The W4A16
-                   layered mode runs on 4-layer stacks at each 70B layer shape
-                   (split K and not), bit for bit the plain mode on each
-                   layer; an index past the stack must trap (checked in a
-                   child process).
+                   and compute the card's bound for the same work. Includes
+                   every check of `w4a16`.
+  w4a16            (only when named in --phases; part of `kernels`) the W4A16
+                   family alone: the plain mode at the four 8B layer shapes,
+                   S=1..300, bf16/fp32 x, scales and out, timed at S=24, 127
+                   and 224; eye(K) @ W equal to the dequantized weight bit for
+                   bit; the fused gate-up-SiLU; the layered mode on 4-layer
+                   stacks at each 70B layer shape (split K and not), bit for
+                   bit the plain mode on each layer, and an index past the
+                   stack must trap (in a child process); row j of S=300 equal
+                   to row j at S=1, 24, 127 and 224, bitwise, for plain,
+                   layered and fused, bf16 and fp32 x.
+  multi-card       the static and the batched engine built on the last card
+                   while cuda:0 is current: 16 tokens each must equal the same
+                   engines' tokens on cuda:0 (needs 2+ cards: `chiprun --chips
+                   2`; on one card it prints "skipped: 1 card" and passes).
   lossless         full widths, 4 layers, early exit 2, fp32 activations:
                    greedy static-tree generate() must equal the port's own
                    greedy autoregressive decode for 64 tokens.
@@ -112,11 +123,35 @@ def log(msg):
 
 
 def cuda_ms(torch, fn, iters=20, warmup=3):
-    """Mean device time of fn() in ms, from CUDA events around `iters` calls."""
+    """Mean device time of fn() in ms: `iters` calls captured in one CUDA graph
+    and replayed between CUDA events, so the host's launch time is not counted
+    (a kernel shorter than its launch would otherwise time the host). A call
+    that cannot be captured is timed by events around `iters` back-to-back
+    calls instead (host time included where it is the longer)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        del graph
+        return start.elapsed_time(end) / iters
+    except RuntimeError as e:
+        log(f"[timing] not capturable, timed by events: {str(e).splitlines()[0]}")
+        torch.cuda.synchronize()
     start.record()
     for _ in range(iters):
         fn()
@@ -154,24 +189,15 @@ def kernel_checks(torch, dev):
 
     from umbrella_tpu_torch.ops.kernels.embed_gather import embed_gather, embed_gather_ref
     from umbrella_tpu_torch.ops.kernels.tree_attention import attend_dense, attend_flash
-    from umbrella_tpu_torch.ops.kernels.w4a16 import (_dequant_halves_bf16, w4a16_matmul,
-                                                      w4a16_matmul_ref)
     from umbrella_tpu_torch.ops.kernels.w4a8f import (quantize_activations_int8, w4a8f_matmul,
                                                       w4a8f_matmul_ref)
     from umbrella_tpu_torch.ops.masks import causal_mask_rows, tree_mask_rows
-    from umbrella_tpu_torch.quantization.awq import quantize_pack_device
     from umbrella_tpu_torch.quantization.int4f import quantize_int4f
     from umbrella_tpu_torch.sequoia import growmap_from_spec
 
-    gen = torch.Generator(device=dev).manual_seed(1)
+    gen, randn, err = kernel_inputs(torch, dev)
     bf16, f32 = torch.bfloat16, torch.float32
     report = {}
-
-    def randn(*shape, scale=1.0, dtype=bf16):
-        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
-
-    def err(a, b):
-        return (a.float() - b.float()).abs().max().item(), b.float().abs().max().item()
 
     # -- embed_gather: exact (a copy)
     V, H = CFG_8B["vocab_size"], CFG_8B["hidden_size"]
@@ -237,43 +263,6 @@ def kernel_checks(torch, dev):
     torch.cuda.empty_cache()
     report.update(attention_int8_and_batched_checks(torch, dev, gen, randn, err))
 
-    # -- w4a16_matmul: the four AWQ layer shapes, ragged S; bf16 and fp32 output
-    w_max, w_rel, shapes_ms = 0.0, 0.0, {}
-    for name, (K, N) in LAYER_SHAPES.items():
-        q = quantize_pack_device(torch.randn((K, N), generator=gen, device=dev) * 0.02, 128, bf16)
-        for S in (1, 24, 127):
-            x = randn(S, K)
-            for od, tol in ((f32, 1e-4), (bf16, 2 ** -7)):
-                got = w4a16_matmul(x, q, out_dtype=od)
-                ref = w4a16_matmul_ref(x, q, out_dtype=od)
-                e, m = err(got, ref)
-                check(e <= tol * m, f"w4a16 {name} S={S} {od}: err {e} vs max {m}")
-                w_max, w_rel = max(w_max, e), max(w_rel, e / m)
-        # the lossless phase's dtypes: fp32 activations and fp32 scales
-        q32 = q._replace(scales=q.scales.float(), zeros=q.zeros.float())
-        for S in (1, 127):
-            x = randn(S, K, dtype=f32)
-            e, m = err(w4a16_matmul(x, q32), w4a16_matmul_ref(x, q32))
-            check(e <= 1e-4 * m, f"w4a16 {name} S={S} fp32 x/scales: err {e} vs max {m}")
-            w_max, w_rel = max(w_max, e), max(w_rel, e / m)
-        del q32
-        x = randn(127, K)
-        w_deq = _dequant_halves_bf16(q)
-        G = K // 128
-        by, bb = bound(127 * K * 2 + K // 2 * N + 2 * G * N * 2 + 127 * N * 2,
-                       2 * 127 * K * N, "bf16")
-        shapes_ms[name] = dict(
-            ms=cuda_ms(torch, lambda: w4a16_matmul(x, q)),
-            plain_ms=cuda_ms(torch, lambda: w4a16_matmul_ref(x, q), iters=5),
-            library_ms=cuda_ms(torch, lambda: torch.matmul(x, w_deq)),
-            bound_ms=by, bound_by=bb)
-        log(f"[kernels] w4a16_matmul {name} K={K} N={N} S=127 {shapes_ms[name]}")
-        del q, w_deq
-    report["w4a16_matmul"] = dict(
-        shape="x [127,4096] bf16 @ W4 [4096,28672] (gate_up), bf16 out",
-        tolerance="max abs err <= 1e-4 * max|plain| (fp32 out), 2**-7 * max|plain| (bf16 out)",
-        max_abs_err=w_max, max_rel_err=w_rel, per_shape=shapes_ms, **shapes_ms["gate_up"])
-
     # -- w4a8f_matmul: layer shapes (bf16 out) and the lm_head (fp32 out)
     f_max, f_rel, shapes_ms = 0.0, 0.0, {}
     for name, (K, N) in dict(LAYER_SHAPES, lm_head=(4096, V)).items():
@@ -308,9 +297,218 @@ def kernel_checks(torch, dev):
         tolerance="max abs err <= 1e-6 * max|plain| (integer part exact, same fp32 epilogue)",
         max_abs_err=f_max, max_rel_err=f_rel, per_shape=shapes_ms, **shapes_ms["lm_head S=24"])
     torch.cuda.empty_cache()
-    report.update(gate_up_kernel_checks(torch, dev, gen, randn, err))
-    report.update(layered_kernel_checks(torch, dev, gen, randn, err))
+    report.update(w4a8_kernel_checks(torch, dev, gen, randn, err))
+    report.update(w4a16_checks(torch, dev, gen, randn, err))
     return report
+
+
+def kernel_inputs(torch, dev):
+    """The kernel checks' seeded generator, a randn(*shape, scale, dtype) on the
+    card, and err(got, ref) -> (max abs err, max |ref|)."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item(), b.float().abs().max().item()
+
+    return gen, randn, err
+
+
+def w4a16_phase(torch, dev):
+    """The W4A16 family alone (phase `w4a16`): the cheap loop for its kernel."""
+    gen, randn, err = kernel_inputs(torch, dev)
+    return w4a16_checks(torch, dev, gen, randn, err)
+
+
+def w4a16_checks(torch, dev, gen, randn, err):
+    """The W4A16 kernel family (plain, layered, fused gate-up-SiLU), each held
+    against its plain version, row invariance bitwise, and timings."""
+    report = {}
+    report.update(w4a16_plain_checks(torch, dev, gen, randn, err))
+    report.update(gate_up_silu_checks(torch, dev, gen, randn, err))
+    report.update(layered_kernel_checks(torch, dev, gen, randn, err))
+    report["w4a16_matmul"]["row_invariance"] = w4a16_row_invariance(torch, dev, gen, randn)
+    return report
+
+
+def w4a16_bound(K, N, S, out_cols, G):
+    """Least time for x [S, K] bf16 @ W4 [K, N] g128 -> [S, out_cols] bf16:
+    packed weights, scales and zeros, x and y once; 2*S*K*N bf16 operations."""
+    return bound(K // 2 * N + 2 * G * N * 2 + S * K * 2 + S * out_cols * 2, 2 * S * K * N,
+                 "bf16")
+
+
+def w4a16_plain_checks(torch, dev, gen, randn, err):
+    """w4a16_matmul at the four 8B AWQ layer shapes: S=1, 24, 127, 224 and 300
+    (a super-tile past 256 rows) against the plain version with bf16 and fp32
+    output, and fp32 x with fp32 scales (the lossless phases' dtypes); times at
+    S=24 (a draft level), 127 (a verify pass) and 224 ([serve]'s rows).
+    Library yardstick: torch.matmul on the pre-dequantized bf16 weight."""
+    from umbrella_tpu_torch.ops.kernels.w4a16 import (_dequant_halves_bf16, _plan, w4a16_matmul,
+                                                      w4a16_matmul_ref)
+    from umbrella_tpu_torch.quantization.awq import quantize_pack_device
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    w_max, w_rel, shapes_ms = 0.0, 0.0, {}
+    for name, (K, N) in LAYER_SHAPES.items():
+        q = quantize_pack_device(torch.randn((K, N), generator=gen, device=dev) * 0.02, 128, bf16)
+        for S in (1, 24, 127, 224, 300):
+            x = randn(S, K)
+            for od, tol in ((f32, 1e-4), (bf16, 2 ** -7)):
+                got = w4a16_matmul(x, q, out_dtype=od)
+                ref = w4a16_matmul_ref(x, q, out_dtype=od)
+                e, m = err(got, ref)
+                check(e <= tol * m, f"w4a16 {name} S={S} {od}: err {e} vs max {m}")
+                w_max, w_rel = max(w_max, e), max(w_rel, e / m)
+        q32 = q._replace(scales=q.scales.float(), zeros=q.zeros.float())
+        for S in (1, 127):
+            x = randn(S, K, dtype=f32)
+            e, m = err(w4a16_matmul(x, q32), w4a16_matmul_ref(x, q32))
+            check(e <= 1e-4 * m, f"w4a16 {name} S={S} fp32 x/scales: err {e} vs max {m}")
+            w_max, w_rel = max(w_max, e), max(w_rel, e / m)
+        del q32
+        w_deq = _dequant_halves_bf16(q)
+        for S in (24, 127, 224):
+            x = randn(S, K)
+            by, bb = w4a16_bound(K, N, S, N, K // 128)
+            shapes_ms[f"{name} S={S}"] = dict(
+                splits=_plan(S, K, N, 1, 128)["splits"],
+                ms=cuda_ms(torch, lambda: w4a16_matmul(x, q)),
+                plain_ms=cuda_ms(torch, lambda: w4a16_matmul_ref(x, q), iters=5),
+                library_ms=cuda_ms(torch, lambda: torch.matmul(x, w_deq)),
+                bound_ms=by, bound_by=bb)
+            log(f"[kernels] w4a16_matmul {name} K={K} N={N} S={S} {shapes_ms[f'{name} S={S}']}")
+        del q, w_deq
+    torch.cuda.empty_cache()
+    exact = w4a16_dequant_exact(torch, dev, gen)
+    return {"w4a16_matmul": dict(
+        dequant_bit_exact=exact,
+        shape="x [127,4096] bf16 @ W4 [4096,28672] (gate_up), bf16 out",
+        tolerance="max abs err <= 1e-4 * max|plain| (fp32 out), 2**-7 * max|plain| (bf16 out)",
+        max_abs_err=w_max, max_rel_err=w_rel, per_shape=shapes_ms,
+        **shapes_ms["gate_up S=127"])}
+
+
+def w4a16_dequant_exact(torch, dev, gen):
+    """eye(K) @ W through the kernel (fp32 out) equals the plain version's
+    dequantized weight bit for bit: with bf16 scales and integer zeros (the
+    kernel's packed bf16x2 form), fp32 scales, and bf16 scales with zeros
+    off the integers (both the fp32 form) -- at the 8B wo shape."""
+    from umbrella_tpu_torch.ops.kernels.w4a16 import _dequant_halves_bf16, w4a16_matmul
+    from umbrella_tpu_torch.quantization.awq import quantize_pack_device
+
+    K, N = LAYER_SHAPES["wo"]
+    q = quantize_pack_device(torch.randn((K, N), generator=gen, device=dev) * 0.02, 128,
+                             torch.bfloat16)
+    eye = torch.eye(K, device=dev, dtype=torch.bfloat16)
+    forms = {"bf16 scales, integer zeros": q,
+             "fp32 scales": q._replace(scales=q.scales.float(), zeros=q.zeros.float()),
+             "bf16 scales, zeros + 0.5": q._replace(zeros=q.zeros + 0.5)}
+    held = {}
+    for name, qq in forms.items():
+        got = w4a16_matmul(eye, qq, out_dtype=torch.float32)
+        held[name] = bool(torch.equal(got, _dequant_halves_bf16(qq).float()))
+        check(held[name], f"w4a16 eye(K) @ W ({name}) differs from the dequantized weight")
+    log(f"[kernels] w4a16 dequantization bit for bit (eye(K) @ W, 8B wo): {held}")
+    return held
+
+
+def w4a16_row_invariance(torch, dev, gen, randn):
+    """Row j of S=300 equals row j at S=1, 24, 127 and 224, bitwise, for the
+    plain mode, the layered mode (layer 1 of a stack of 2) and the fused
+    gate-up-SiLU, with bf16 and fp32 x, at the 8B gate_up shape (unsplit) and
+    the 70B wo shape (K split; for the fused form a gate|up pair of its
+    width)."""
+    from umbrella_tpu_torch.ops.kernels.w4a16 import _plan, w4a16_gate_up_silu, w4a16_matmul
+    from umbrella_tpu_torch.quantization.awq import AwqTensor, quantize_pack_device
+
+    shapes = {"8B gate_up": LAYER_SHAPES["gate_up"], "70B wo": LAYER_SHAPES_70B["wo"]}
+    held = {}
+    for name, (K, N) in shapes.items():
+        stack = [quantize_pack_device(torch.randn((K, N), generator=gen, device=dev) * 0.02, 128,
+                                      torch.bfloat16) for _ in range(2)]
+        stack = AwqTensor(*(torch.stack([q[f] for q in stack]) for f in range(3)))
+        plain = AwqTensor(*(t[1] for t in stack))
+        idx = torch.tensor(1, dtype=torch.int32, device=dev)
+        forms = {"plain": lambda x: w4a16_matmul(x, plain),
+                 "layered": lambda x: w4a16_matmul(x, stack, layer_idx=idx),
+                 "fused": lambda x: w4a16_gate_up_silu(x, plain)}
+        for xd in (torch.bfloat16, torch.float32):
+            x = randn(300, K, dtype=xd)
+            for form, fn in forms.items():
+                whole = fn(x)
+                for S in (1, 24, 127, 224):
+                    check(torch.equal(fn(x[:S].contiguous()), whole[:S]),
+                          f"w4a16 {form} {name} {xd}: rows of S={S} differ from S=300's")
+        held[name] = dict(splits=_plan(300, K, N, 1, 128)["splits"],
+                          fused_splits=_plan(300, K, N // 2, 2, 128)["splits"])
+        del stack, plain
+        torch.cuda.empty_cache()
+    check(any(v["splits"] > 1 for v in held.values()),
+          "w4a16 row invariance: no shape splits K")
+    log(f"[kernels] w4a16 row invariance held (S=1, 24, 127, 224 vs 300; plain, layered, "
+        f"fused; bf16 and fp32 x): {held}")
+    return dict(rows="S=1, 24, 127, 224 vs 300", forms=["plain", "layered", "fused"],
+                x_dtypes=["bf16", "fp32"], shapes=held)
+
+
+def gate_up_silu_checks(torch, dev, gen, randn, err):
+    """w4a16_gate_up_silu at the 8B gate_up shape [4096, 28672], S=24, 127 and
+    224, bf16 and fp32 x, against its plain version; times beside the plain
+    mode's on the same weight. Library yardstick: torch.matmul on the
+    pre-dequantized bf16 weight + F.silu * mul."""
+    import torch.nn.functional as F
+
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.ops.kernels.w4a16 import (_dequant_halves_bf16, w4a16_gate_up_silu,
+                                                      w4a16_gate_up_silu_ref, w4a16_matmul)
+    from umbrella_tpu_torch.quantization.awq import awq_gate_up_silu, quantize_pack_device
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    K, N = LAYER_SHAPES["gate_up"]
+    I, G = N // 2, K // 128
+    q = quantize_pack_device(torch.randn((K, N), generator=gen, device=dev) * 0.02, 128, bf16)
+    w_deq = _dequant_halves_bf16(q)
+    s_max, s_rel = 0.0, 0.0
+    for S in (24, 127, 224):
+        for xd in (bf16, f32):
+            x = randn(S, K, dtype=xd)
+            e, m = err(w4a16_gate_up_silu(x, q), w4a16_gate_up_silu_ref(x, q))
+            tol = 2 ** -7 if xd == bf16 else 1e-4
+            check(e <= tol * m, f"w4a16_gate_up_silu S={S} {xd}: err {e} vs max {m}")
+            s_max, s_rel = max(s_max, e), max(s_rel, e / m)
+    xs = {S: randn(S, K) for S in (24, 127, 224)}
+    gs_ms = {}
+    for S, x in xs.items():
+        def lib():
+            gu = torch.matmul(x, w_deq)
+            return F.silu(gu[:, :I]) * gu[:, I:]
+
+        by, bb = w4a16_bound(K, N, S, I, G)
+        gs_ms[f"S={S}"] = dict(
+            ms=cuda_ms(torch, lambda: w4a16_gate_up_silu(x, q)),
+            plain_mode_ms=cuda_ms(torch, lambda: w4a16_matmul(x, q)),
+            plain_ms=cuda_ms(torch, lambda: w4a16_gate_up_silu_ref(x, q), iters=5),
+            library_ms=cuda_ms(torch, lib), bound_ms=by, bound_by=bb)
+    log(f"[kernels] w4a16_gate_up_silu gate_up {gs_ms}")
+    # no shipped config reaches the fused form (nor does the JAX package's
+    # default): its launches come from awq_gate_up_silu(fused=True), the opt-in
+    reset_launch_counts()
+    for x in xs.values():
+        awq_gate_up_silu(x, q, fused=True)
+    torch.cuda.synchronize()
+    fused_counts = launch_counts()
+    check(fused_counts["w4a16_gate_up_silu"] == len(xs),
+          f"awq_gate_up_silu(fused=True) launched {fused_counts['w4a16_gate_up_silu']} kernels")
+    del q, w_deq
+    torch.cuda.empty_cache()
+    return {"w4a16_gate_up_silu": dict(
+        shape="x [127,4096] bf16 @ packed W4 gate|up [4096,28672] -> [127,14336] bf16",
+        tolerance="max abs err <= 2**-7 * max|plain| (bf16 out), 1e-4 * max|plain| (fp32 x)",
+        max_abs_err=s_max, max_rel_err=s_rel, per_shape=gs_ms, launches=fused_counts,
+        launches_per_step={"w4a16_gate_up_silu": None}, **gs_ms["S=127"])}
 
 
 def layered_kernel_checks(torch, dev, gen, randn, err):
@@ -318,13 +516,12 @@ def layered_kernel_checks(torch, dev, gen, randn, err):
     layer shapes (wqkv, wo, gate_up, down; g128), S=127 (a verify pass) and
     S=24 (a draft level): on every layer equal to the plain mode on that layer
     bit for bit, and within 2**-7 x max|y| of the plain version (bf16 out).
-    wqkv, wo and down split K over blocks (partial sums, then a fixed-order
-    reduction), gate_up does not: both routes are held. An index past the
-    stack traps (in a child process: a trap ends the CUDA context). Times
+    wo and down split K over blocks (partial sums, then a fixed-order
+    reduction), wqkv and gate_up do not: both routes are held. An index past
+    the stack traps (in a child process: a trap ends the CUDA context). Times
     beside the plain mode's on the same layer; library yardstick: torch.matmul
     on the pre-dequantized bf16 layer. The reported row is gate_up."""
-    from umbrella_tpu_torch.ops.kernels import build
-    from umbrella_tpu_torch.ops.kernels.w4a16 import (_dequant_halves_bf16, select_layer,
+    from umbrella_tpu_torch.ops.kernels.w4a16 import (_dequant_halves_bf16, _plan, select_layer,
                                                       w4a16_matmul, w4a16_matmul_ref)
     from umbrella_tpu_torch.quantization.awq import AwqTensor, quantize_pack_device
 
@@ -334,7 +531,7 @@ def layered_kernel_checks(torch, dev, gen, randn, err):
     e_max, e_rel, per_shape = 0.0, 0.0, {}
     for name, (K, N) in LAYER_SHAPES_70B.items():
         G = K // 128
-        splits = build.split_k(-(-N // 64), K // 2 // 32)
+        splits = _plan(127, K, N, 1, 128)["splits"]
         stacked = [quantize_pack_device(torch.randn((K, N), generator=gen, device=dev) * 0.02,
                                         128, bf16) for _ in range(n)]
         stacked = AwqTensor(*(torch.stack([q[f] for q in stacked]) for f in range(3)))
@@ -351,8 +548,7 @@ def layered_kernel_checks(torch, dev, gen, randn, err):
                 e_max, e_rel = max(e_max, e), max(e_rel, e / m)
             layer2 = AwqTensor(*(t[2] for t in stacked))
             w_deq = _dequant_halves_bf16(layer2)
-            by, bb = bound(K // 2 * N + 2 * G * N * 2 + S * K * 2 + S * N * 2, 2 * S * K * N,
-                           "bf16")
+            by, bb = w4a16_bound(K, N, S, N, G)
             per_shape[f"{name} S={S}"] = dict(
                 K=K, N=N, splits=splits,
                 ms=cuda_ms(torch, lambda: w4a16_matmul(x, stacked, layer_idx=idx[2])),
@@ -412,44 +608,34 @@ def layered_index_trap():
                 f"rc {out.returncode}: {lines[-1] if lines else ''}")
 
 
-def gate_up_kernel_checks(torch, dev, gen, randn, err):
-    """w4a8_matmul and w4a16_gate_up_silu at the 8B gate_up shape [4096, 28672],
-    S=127 (a verify pass) and S=24 (a draft level), bf16 and fp32 x, each
-    against its plain version; w4a8_matmul's row invariance bitwise. Library
-    yardstick: torch.matmul on the pre-dequantized bf16 weight (+ F.silu * mul
-    for the fused form)."""
-    import torch.nn.functional as F
-
-    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+def w4a8_kernel_checks(torch, dev, gen, randn, err):
+    """w4a8_matmul at the 8B gate_up shape [4096, 28672], S=127 (a verify pass)
+    and S=24 (a draft level), bf16 and fp32 x, against its plain version; its
+    row invariance bitwise. Library yardstick: torch.matmul on the
+    pre-dequantized bf16 weight."""
     from umbrella_tpu_torch.ops.kernels.w4a8 import w4a8_matmul, w4a8_matmul_ref
-    from umbrella_tpu_torch.ops.kernels.w4a16 import (_dequant_halves_bf16, w4a16_gate_up_silu,
-                                                      w4a16_gate_up_silu_ref, w4a16_matmul)
-    from umbrella_tpu_torch.quantization.awq import awq_gate_up_silu, quantize_pack_device
+    from umbrella_tpu_torch.ops.kernels.w4a16 import _dequant_halves_bf16, w4a16_matmul
+    from umbrella_tpu_torch.quantization.awq import quantize_pack_device
 
     bf16, f32 = torch.bfloat16, torch.float32
     K, N = LAYER_SHAPES["gate_up"]
-    I, G = N // 2, K // 128
+    G = K // 128
     q = quantize_pack_device(torch.randn((K, N), generator=gen, device=dev) * 0.02, 128, bf16)
     w_deq = _dequant_halves_bf16(q)
-    report = {}
-    a_max, a_rel, s_max, s_rel = 0.0, 0.0, 0.0, 0.0
+    a_max, a_rel = 0.0, 0.0
     for S in (24, 127):
         for xd in (bf16, f32):
             x = randn(S, K, dtype=xd)
             e, m = err(w4a8_matmul(x, q), w4a8_matmul_ref(x, q))
             check(e <= 1e-6 * m, f"w4a8 gate_up S={S} {xd}: err {e} vs max {m}")
             a_max, a_rel = max(a_max, e), max(a_rel, e / m)
-            e, m = err(w4a16_gate_up_silu(x, q), w4a16_gate_up_silu_ref(x, q))
-            tol = 2 ** -7 if xd == bf16 else 1e-4
-            check(e <= tol * m, f"w4a16_gate_up_silu S={S} {xd}: err {e} vs max {m}")
-            s_max, s_rel = max(s_max, e), max(s_rel, e / m)
     x = randn(127, K)
     whole = w4a8_matmul(x, q)
     alone = w4a8_matmul(x[:1].clone(), q)
     check(torch.equal(whole[:1], alone), "w4a8_matmul: row 0 alone differs from row 0 of S=127")
-    xs = {S: randn(S, K) for S in (24, 127)}
-    w8_ms, gs_ms = {}, {}
-    for S, x in xs.items():
+    w8_ms = {}
+    for S in (24, 127):
+        x = randn(S, K)
         by, bb = bound(K // 2 * N + 2 * G * N * 2 + S * K * 2 + S * N * 2, 2 * S * K * N, "int8")
         w8_ms[f"S={S}"] = dict(
             ms=cuda_ms(torch, lambda: w4a8_matmul(x, q)),
@@ -457,46 +643,15 @@ def gate_up_kernel_checks(torch, dev, gen, randn, err):
             library_ms=cuda_ms(torch, lambda: torch.matmul(x, w_deq)),
             w4a16_ms=cuda_ms(torch, lambda: w4a16_matmul(x, q)),
             bound_ms=by, bound_by=bb)
-
-        def lib():
-            gu = torch.matmul(x, w_deq)
-            return F.silu(gu[:, :I]) * gu[:, I:]
-
-        def composed():
-            gu = w4a16_matmul(x, q)
-            return F.silu(gu[:, :I]) * gu[:, I:]
-
-        by, bb = bound(K // 2 * N + 2 * G * N * 2 + S * K * 2 + S * I * 2, 2 * S * K * N, "bf16")
-        gs_ms[f"S={S}"] = dict(
-            ms=cuda_ms(torch, lambda: w4a16_gate_up_silu(x, q)),
-            plain_ms=cuda_ms(torch, lambda: w4a16_gate_up_silu_ref(x, q), iters=5),
-            library_ms=cuda_ms(torch, lib), composed_ms=cuda_ms(torch, composed),
-            bound_ms=by, bound_by=bb)
     log(f"[kernels] w4a8_matmul gate_up {w8_ms}")
-    log(f"[kernels] w4a16_gate_up_silu gate_up {gs_ms}")
-    report["w4a8_matmul"] = dict(
+    del q, w_deq
+    torch.cuda.empty_cache()
+    return {"w4a8_matmul": dict(
         shape="x [127,4096] bf16 @ W4 [4096,28672] (gate_up), int8 activations, bf16 out",
         tolerance="max abs err <= 1e-6 * max|plain| (integer products exact, the same fp32 "
                   "fix-up order); row 0 alone equals row 0 of S=127 bitwise",
         max_abs_err=a_max, max_rel_err=a_rel, row_invariant=True, per_shape=w8_ms,
-        **w8_ms["S=127"])
-    # no shipped config reaches the fused form (nor does the JAX package's
-    # default): its launches come from awq_gate_up_silu(fused=True), the opt-in
-    reset_launch_counts()
-    for x in xs.values():
-        awq_gate_up_silu(x, q, fused=True)
-    torch.cuda.synchronize()
-    fused_counts = launch_counts()
-    check(fused_counts["w4a16_gate_up_silu"] == len(xs),
-          f"awq_gate_up_silu(fused=True) launched {fused_counts['w4a16_gate_up_silu']} kernels")
-    report["w4a16_gate_up_silu"] = dict(
-        shape="x [127,4096] bf16 @ packed W4 gate|up [4096,28672] -> [127,14336] bf16",
-        tolerance="max abs err <= 2**-7 * max|plain| (bf16 out), 1e-4 * max|plain| (fp32 x)",
-        max_abs_err=s_max, max_rel_err=s_rel, per_shape=gs_ms, launches=fused_counts,
-        launches_per_step={"w4a16_gate_up_silu": None}, **gs_ms["S=127"])
-    del q, w_deq
-    torch.cuda.empty_cache()
-    return report
+        **w8_ms["S=127"])}
 
 
 def attention_int8_and_batched_checks(torch, dev, gen, randn, err):
@@ -1041,7 +1196,10 @@ def profile_window(torch, tag, fn, count_steps):
                    and e.name.startswith("aten::"))
     kernels = sum(1 for e in events if e.device_type == cuda)
     steps = count_steps(out)
+    # the W4A16 family's kernels (w4a16_kernel and w4a16_sum_partials)
+    w4a16 = sum(v for k, v in by_name.items() if "w4a16" in k)
     res = dict(steps=steps, wall_ms=wall_ms, device_busy_ms=busy,
+               device_busy_ms_per_step=busy / steps, w4a16_device_ms_per_step=w4a16 / steps,
                device_idle_share=1.0 - busy / wall_ms, host_ops_per_step=host_ops / steps,
                device_kernels_per_step=kernels / steps,
                top_kernels_ms={k[:90]: v for k, v in top})
@@ -1108,6 +1266,51 @@ def batched_lossless_check(torch, dev):
           f"[batched-lossless] batched and single-slot tokens differ: {same} {parted}")
     for name in ("attend_flash_batched", "w4a16_matmul", "w4a8f_matmul", "embed_gather"):
         check(counts[name] > 0, f"[batched-lossless] kernel {name} was never launched")
+    return res
+
+
+MULTI_CARD_TOKENS = 16
+
+
+def multi_card_phase(torch, dev):
+    """The static and the batched engine built on the last card while cuda:0
+    is current (4 layers, bf16; the batched engine with int8 KV, B=4): 16
+    tokens from each must equal the same engines' tokens on cuda:0, with every
+    kernel of the path launched on the last card (the ctypes kernels launch
+    on their tensors' card, not the current one). Skipped on one card."""
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        log("[multi-card] skipped: 1 card")
+        return dict(skipped="1 card")
+    torch.cuda.set_device(0)
+    prompt = random_requests(5, 1, MULTI_CARD_TOKENS)[0]["input_ids"]
+    reqs = random_requests(6, 4, MULTI_CARD_TOKENS)
+    tokens, counts = {}, {}
+    for d in (dev, torch.device("cuda", n_cards - 1)):
+        target, draft = build_target(torch, d, n_layers=4, exit_layer=2, dtype=torch.bfloat16)
+        reset_launch_counts()
+        eng = make_engine(torch, d, target, draft, torch.bfloat16)
+        static = eng.generate(input_ids=prompt,
+                              max_new_tokens=MULTI_CARD_TOKENS)["generated_tokens"]
+        del eng
+        eng = batched_engine(torch, d, target, draft, 4, (2, 3), "int8", torch.bfloat16)
+        batched = [o["generated_tokens"] for o in eng.run(reqs)]
+        torch.cuda.synchronize(d)
+        check(torch.cuda.current_device() == 0, "[multi-card] an engine changed the current card")
+        tokens[str(d)], counts[str(d)] = dict(static=static, batched=batched), launch_counts()
+        del eng, target, draft
+        torch.cuda.empty_cache()
+    first, last = tokens.values()
+    res = dict(cards=n_cards, current=0, tokens=tokens, launches=counts)
+    log(f"[multi-card] {json.dumps(res)}")
+    check(first == last, "[multi-card] the engines on the last card give other tokens than on "
+          "cuda:0")
+    for name in ("embed_gather", "attend_flash", "attend_flash_batched_int8", "w4a16_matmul",
+                 "w4a8f_matmul"):
+        check(list(counts.values())[-1][name] > 0,
+              f"[multi-card] kernel {name} never launched on the last card")
     return res
 
 
@@ -1737,8 +1940,11 @@ LAUNCHES_FROM = {"attend_flash_int8": "lossless-int8", "attend_flash_batched": "
                  "w4a16_gate_up_silu": "kernels", "w4a16_matmul_layered": "pp-config"}
 CHECKPOINT_PHASES = ("checkpoint", "code-config", "code-config-w4a8", "serve-config",
                      "pp-config")
-PHASES = ("kernels", "lossless", "lossless-int8", "lossless-w4a8", "batched-lossless",
-          "pp-lossless", "main", "serve", "serve-bf16", "serve-stochastic") + CHECKPOINT_PHASES
+PHASES = ("kernels", "multi-card", "lossless", "lossless-int8", "lossless-w4a8",
+          "batched-lossless", "pp-lossless", "main", "serve", "serve-bf16",
+          "serve-stochastic") + CHECKPOINT_PHASES
+# phases that run only when named in --phases: `w4a16` is a subset of `kernels`
+SUBSET_PHASES = ("w4a16",)
 
 
 def run(torch, phases):
@@ -1772,6 +1978,8 @@ def run(torch, phases):
 
     prompt = np.random.default_rng(0).integers(0, 120000, size=PROMPT_LEN).astype(np.int32)
     report = phase("kernels", kernel_checks, torch, dev)
+    phase("w4a16", w4a16_phase, torch, dev)
+    phase("multi-card", multi_card_phase, torch, dev)
     phase("lossless", lossless_check, torch, dev, prompt.tolist())
     phase("lossless-int8", lossless_check, torch, dev, prompt.tolist(), "int8")
     phase("lossless-w4a8", lossless_check, torch, dev, prompt.tolist(), None, "int8")
@@ -1870,7 +2078,7 @@ def main():
     phases = PHASES
     if len(sys.argv) > 2 and sys.argv[1] == "--phases":  # a subset, for debugging
         phases = tuple(sys.argv[2].split(","))
-        unknown = set(phases) - set(PHASES)
+        unknown = set(phases) - set(PHASES) - set(SUBSET_PHASES)
         if unknown:
             print(f"chip_smoke: unknown phases {sorted(unknown)}", file=sys.stderr)
             return 2

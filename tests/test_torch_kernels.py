@@ -351,3 +351,98 @@ def test_awq_dispatch_rules_on_the_cpu(monkeypatch, caplog):
     want = (torch.nn.functional.silu(torch.from_numpy(d[:, :64])) * torch.from_numpy(d[:, 64:]))
     np.testing.assert_array_equal(composed.reshape(6, 64).numpy(), want.numpy())
     assert w4a16_gate_up_silu_ref(x.reshape(6, 256), q).shape == (6, 64)
+
+
+# ---- the W4A16 kernel's launch plan and operand checks (pure Python: the
+# kernel itself runs only on the card, where chip_smoke.py holds it)
+
+# (K, N per range, ranges): the 8B and 70B layer shapes, a fused gate|up pair,
+# and a small one
+PLAN_SHAPES = [(4096, 6144, 1), (4096, 4096, 1), (4096, 28672, 1), (14336, 4096, 1),
+               (8192, 10240, 1), (8192, 8192, 1), (8192, 57344, 1), (28672, 8192, 1),
+               (4096, 14336, 2), (8192, 4096, 2), (256, 48, 1)]
+PLAN_ROWS = [1, 24, 127, 224, 300, 2047]
+
+
+@pytest.mark.parametrize("K,N,ranges", PLAN_SHAPES)
+def test_w4a16_plan_splits_and_tiles_ignore_the_row_count(K, N, ranges):
+    """Column tiles and splits of K come from N and K only: every S gets the
+    same summation order per row (row invariance by construction)."""
+    from umbrella_tpu_torch.ops.kernels.w4a16 import _plan
+
+    plans = [_plan(S, K, N, ranges, 128) for S in PLAN_ROWS]
+    assert len({(p["col_tiles"], p["splits"]) for p in plans}) == 1
+    p = plans[0]
+    assert p["col_tiles"] == -(-N // (128 if ranges == 1 else 64))
+    # one wave of blocks at most, and at least 8 stages of 64 packed rows a split
+    assert p["splits"] == 1 or (p["col_tiles"] * p["splits"] <= 132
+                                and K // 2 // 64 // p["splits"] >= 8)
+
+
+@pytest.mark.parametrize("S", PLAN_ROWS)
+def test_w4a16_plan_token_tiles(S):
+    """ceil(min(S, 256) / 64) wgmma token tiles a block; S > 256 takes
+    super-tiles of 256 rows."""
+    from umbrella_tpu_torch.ops.kernels.w4a16 import _plan
+
+    p = _plan(S, 4096, 28672, 1, 128)
+    assert p["token_tiles"] == -(-min(S, 256) // 64)
+    assert p["super_tiles"] == -(-S // 256)
+
+
+def _cpu_awq(K, N, group_size=128, layers=()):
+    from umbrella_tpu_torch.quantization.awq import AwqTensor
+
+    G = K // group_size
+    return AwqTensor(torch.zeros((*layers, K // 2, N), dtype=torch.int8),
+                     torch.ones((*layers, G, N), dtype=torch.bfloat16),
+                     torch.zeros((*layers, G, N), dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("case", ["n_not_16", "k_not_2g", "group_not_64", "layer_int64",
+                                  "layer_other_device", "layer_two_elements"])
+def test_w4a16_check_raises_on_what_the_kernel_does_not_take(case):
+    """The wrapper's operand checks raise ValueError (never a fallback): N not
+    a multiple of 16 (TMA row strides), K not a multiple of 2 x group size, a
+    group size not a multiple of 64 (a stage would straddle groups), and a
+    layer index that is not one int32 on x's device."""
+    from umbrella_tpu_torch.ops.kernels.w4a16 import _check
+
+    x = torch.zeros((3, 512), dtype=torch.bfloat16)
+    q, n, idx = _cpu_awq(512, 256), 256, None
+    if case == "n_not_16":
+        q, n = _cpu_awq(512, 200), 200
+    elif case == "k_not_2g":
+        x, q = torch.zeros((3, 384), dtype=torch.bfloat16), _cpu_awq(384, 256)
+    elif case == "group_not_64":
+        q = _cpu_awq(512, 256, group_size=32)
+    else:
+        q = _cpu_awq(512, 256, layers=(2,))
+        idx = {"layer_int64": torch.tensor(1),
+               "layer_other_device": torch.tensor(1, dtype=torch.int32, device="meta"),
+               "layer_two_elements": torch.tensor([0, 1], dtype=torch.int32)}[case]
+    with pytest.raises(ValueError):
+        _check("w4a16_matmul", x, q, n, 1, torch.bfloat16, idx)
+
+
+def test_w4a16_check_passes_the_shipped_shapes():
+    """The operand checks take an 8B layer shape, its stacked form with an int32
+    index, and a fused gate|up pair; they return the launch plan."""
+    from umbrella_tpu_torch.ops.kernels.w4a16 import _check, _plan
+
+    x = torch.zeros((127, 1024), dtype=torch.float32)
+    assert _check("w4a16_matmul", x, _cpu_awq(1024, 768), 768, 1, torch.float32) == \
+        _plan(127, 1024, 768, 1, 128)
+    idx = torch.tensor(1, dtype=torch.int32)
+    assert _check("w4a16_matmul_layered", x, _cpu_awq(1024, 768, layers=(3,)), 768, 1,
+                  torch.bfloat16, idx)["splits"] >= 1
+    assert _check("w4a16_gate_up_silu", x, _cpu_awq(1024, 768), 384, 2,
+                  torch.bfloat16)["col_tiles"] == 6
+
+
+def test_w4a16_gate_up_silu_raises_on_an_odd_width():
+    """An odd packed gate|up width has no gate/up halves: ValueError on any device."""
+    from umbrella_tpu_torch.ops.kernels.w4a16 import w4a16_gate_up_silu
+
+    with pytest.raises(ValueError):
+        w4a16_gate_up_silu(torch.zeros((2, 256), dtype=torch.bfloat16), _cpu_awq(256, 251))

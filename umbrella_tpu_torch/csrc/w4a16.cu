@@ -10,83 +10,232 @@
 // (_w4a16_kernel, plain and layered mode) and ::w4a16_gate_up_silu
 // (_w4a16_gusilu_kernel).
 // Numerics kept from them: the weight is dequantized as (nibble - z) * s in
-// fp32 and rounded to bf16, x is rounded to bf16, the products accumulate in
-// fp32; the plain product writes its output in its own dtype, the fused one
+// fp32 (__fsub_rn, then __fmul_rn: no FMA contraction) and rounded once to
+// bf16, x is bf16 (the wrapper rounds fp32 x once), the products accumulate
+// in fp32; the plain product writes its output in its own dtype, the fused one
 // applies g * sigmoid(g) * u to the fp32 sums and rounds once.
 //
-// Bound on this card: at S=127 the 8B gate_up matrix [4096, 28672] is 58.7 MB
-// of packed weights and 29.8 GFLOP, i.e. ~508 FLOP per weight byte: the bf16
-// tensor cores (989 TFLOP/s) need 30 us, the weight stream at 3.35 TB/s 18 us,
-// so the two are close; at draft-sized S the weight stream alone bounds it.
-// Design: a BM x 64 output tile per block of 8 warps with WMMA bf16 16x16x16
-// fragments and fp32 accumulators; BM is 32 for draft-sized S (2 x 4 warps,
-// one fragment each) and 128 above (4 x 2 warps, 2 x 2 fragments), so a verify
-// pass's 127 rows read each weight byte once. The K loop walks w8 in chunks of
-// 32 packed rows; each chunk is read once with 4-byte vector loads and
-// dequantized into TWO bf16 shared-memory tiles (its low-nibble rows and its
-// high-nibble rows) beside the matching BM x 32 x tiles (16-byte vector
-// loads); a thread keeps its four columns' scales and zeros in registers until
-// the group changes. The next chunk's loads are issued into registers before
-// the current chunk's products, so their latency overlaps the tensor work.
-// The fused gate-up-SiLU form (NW = 2 weight column ranges) gives one block a
-// gate tile and the matching up tile: both are staged from the same K chunk,
-// share the x fragments, and keep two accumulator sets; the epilogue reads the
-// gate sums into registers and then combines them with the up sums.
-// Matrices with few column tiles split K over `splits` blocks (the wrapper
-// picks splits from N and K only, never from S, so a row's summation order
-// does not depend on the batch): each writes an fp32 partial tile and a
-// second kernel sums the partials in a fixed order -- for the fused form the
-// SiLU epilogue runs there, on the full-K sums.
-// No atomics, so results are deterministic. Ragged S and N are masked.
-// Layered mode (w4a16_matmul_layered, the TPU kernel's scalar-prefetch form):
-// w8/scales/zeros are stacks [n_layers, ...] and the layer index is an int32
-// on the device. Thread 0 of each block reads it once, traps on an index
-// outside [0, n_layers) (no read outside the stack), and the block offsets its
-// three weight pointers by the layer strides; the rest is the plain mode's
-// code, so layer i's result equals the plain mode on stack[i] bit for bit. The
-// host never reads the index, so the launch can be captured in a CUDA graph.
-// Not yet: TMA and wgmma.
+// Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): operations 2*S*K*N,
+// bytes the packed weights (K*N/2) plus the g128 scales and zeros. 70B gate_up
+// [8192, 57344]: 0.121 ms at S=127 (operations), 0.075 ms at S=24 (bytes);
+// 70B wqkv / wo / down at S=127: 0.022 / 0.017 / 0.060 ms; 8B gate_up [4096,
+// 28672]: 0.030 ms at S=127, 0.053 ms at S=224 (operations). So the weight
+// stream bounds the draft's rows and the tensor cores bound a verify pass.
+//
+// Design (Hopper: TMA, mbarriers, wgmma; sm_90a only):
+// - A and B swapped: the kernel computes Y^T = W^T x^T, so the output columns
+//   run along wgmma's 64-row M and the tokens along its N. Each consumer
+//   warpgroup owns 64 weight columns and dequantizes its weight straight into
+//   the register A fragment of a dense bf16 wgmma.mma_async m64n64k16; x is the
+//   B operand, a K-major bf16 tile in shared memory (x's own row-major
+//   layout). The weight never makes a shared-memory round trip in bf16.
+// - Fixed token width: every wgmma is 64 tokens wide whatever S is; a block
+//   issues TT = ceil(min(S, 256) / 64) of them on each dequantized fragment,
+//   so for S <= 256 (every decode path: 1-24 draft, 127 verify, 224 serve)
+//   each weight byte is read and dequantized once. S > 256 (prefill) takes
+//   super-tiles of 256 rows along the grid's y. A row's instruction sequence
+//   never depends on S: results are row-invariant.
+// - A TMA ring: one producer warp keeps 3-8 stages in flight (as many as
+//   shared memory holds at this TT); a stage holds two 64 x 64 packed-weight
+//   boxes (one per consumer warpgroup, 8 KB) and the two matching x boxes,
+//   x[:, r0:r0+64] and x[:, K/2+r0:K/2+r0+64] (64*TT rows each, 128-byte
+//   swizzle, rows past S zero-filled by TMA). 24-64 KB of weights are in
+//   flight per SM, against the ~2 KB per block of the WMMA kernel this
+//   replaces. Consumers wait on a stage's full barrier and release its empty
+//   barrier once the wgmma groups that read it have completed.
+// - Bank conflicts: a thread's A fragment needs packed rows 2c, 2c+1, 2c+8,
+//   2c+9 of a 16-row step, which are 128 B apart in a 64-byte-wide box; the
+//   weight boxes use CU_TENSOR_MAP_SWIZZLE_64B, which spreads those rows over
+//   four 16-byte chunks (conflict-free reads). The fragment's M rows are
+//   permuted so that a thread's two rows are adjacent columns: one 16-bit
+//   shared load per packed row, and each thread stores column pairs, so every
+//   32-byte sector of y is written whole without a transpose through shared
+//   memory.
+// - Layered mode by construction: the weight tensor map is 3-D [n_layers,
+//   K/2, ldw]; thread 0 reads the int32 layer index once on the device, traps
+//   outside [0, n_layers), and the producer passes it as the outermost TMA
+//   coordinate (scales and zeros are offset by it). The plain mode is the
+//   same code on a stack of one at index 0, so layer i equals the plain mode
+//   on stack[i] bit for bit. The host never reads the index, so the launch
+//   can be captured in a CUDA graph.
+// - Fused gate-up-SiLU (NW = 2): warpgroup 0 takes a 64-column gate tile and
+//   warpgroup 1 the matching up tile from the same stages' x; the up sums
+//   pass to warpgroup 0 through shared memory for the epilogue.
+// - Split K from the column tiles and K only (never S), fp32 partials summed
+//   in a fixed order by w4a16_sum_partials (the fused form's SiLU runs there). No
+//   atomics: results are deterministic.
+// - The TMA descriptors are encoded on the host at each launch with
+//   cuTensorMapEncodeTiled, fetched once through cudaGetDriverEntryPoint (no
+//   -lcuda), and passed as __grid_constant__ kernel parameters.
+// Registers: TT x 32 fp32 accumulators (128 at TT = 4) fit the 224 registers
+// a thread of a 288-thread block may hold, so no setmaxnreg is needed.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int kBN = 64, kBR = 32;
-constexpr int kXLD = kBR + 8;  // bf16 elements per staged x row (multiple of 8)
-constexpr int kWLD = kBN + 8;  // bf16 elements per staged w row
-constexpr int kCLD = kBN + 4;  // floats per staged output row
-constexpr int kThreads = 256;
+constexpr int kRows = 64;    // packed rows (K/2 direction) per stage
+constexpr int kCols = 64;    // weight columns per consumer warpgroup
+constexpr int kTok = 64;     // wgmma token width
+constexpr int kMaxTT = 4;    // token tiles per block: S <= 256 in one pass
+constexpr int kConsumerThreads = 256;  // two consumer warpgroups
+constexpr int kThreads = kConsumerThreads + 128;  // + a producer warpgroup (one thread issues)
+// registers a thread: the producer gives most of its share to the consumers
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kWBox = kRows * kCols;             // bytes of one weight box
+constexpr int kXTile = kTok * kRows * 2;         // bytes of one 64-token x tile
+constexpr int kSmemMax = 232448;
+constexpr int kMaxStages = 8;
 
-// bf16 tiles are held as raw 16-bit words so the union stays trivial
-template <int BM, int NW>
-struct Tiles {
-    uint16_t x[2][BM * kXLD];
-    uint16_t w[NW][2][kBR * kWLD];
-};
-template <int BM, int NW>
-union __align__(32) Smem {
-    Tiles<BM, NW> t;
-    float c[BM * kCLD];
+struct Params {
+    const void* scales;
+    const void* zeros;
+    void* out;
+    float* partial;  // [splits, NW, S, N] when the K range is split, else null
+    const int* layer_idx;
+    int n_layers, S, K2, N, ldw, group_size, n_chunks, chunks_per_split, stages, s_bf16,
+        out_bf16;
+    int x_rows;  // rows of an x box: S rounded up to 8, at most 64 * TT
 };
 
-__device__ __forceinline__ __nv_bfloat16* bf(uint16_t* p) {
-    return reinterpret_cast<__nv_bfloat16*>(p);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// returns once the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "LAB_WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+        "@P1 bra DONE;\n"
+        "bra LAB_WAIT;\n"
+        "DONE:\n"
+        "}\n" ::"r"(bar),
+        "r"(parity)
+        : "memory");
+}
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                       int c1) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+        : "memory");
+}
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                       int c1, int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+
+// wgmma descriptor of a K-major bf16 tile with 128-byte rows, 128-byte swizzle
+// (8-row atoms 1024 bytes apart)
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
+    return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+           ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+#ifdef W4A16_DBG_NO_SYNC
+__device__ __forceinline__ void wgmma_fence() {}
+__device__ __forceinline__ void wgmma_commit() {}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {}
+#else
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+#endif
+// keeps a register's value where it is until this point (the async wgmma
+// reads A fragments and writes accumulators behind the compiler's back)
+__device__ __forceinline__ void fence_reg(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+__device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+// the next dequantization's inputs: it cannot be hoisted above the last wait
+// (ptxas serializes wgmma where a fragment is written inside a pipeline stage)
+template <int J>
+__device__ __forceinline__ void fence_bytes(uint32_t (&bs)[J][4]) {
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) fence_reg(bs[j][i]);
+}
+
+// d[64 x 64 fp32] += A[64 x 16 bf16, registers] * B[16 x 64 bf16, shared]
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t desc_b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ float load_f(const void* p, long long i, int is_bf16) {
+    return is_bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
+                   : reinterpret_cast<const float*>(p)[i];
+}
+
+// (nibble - z) * s in fp32, rounded once; two values packed as bf16x2 (a low)
+__device__ __forceinline__ float deq(uint32_t nib, float z, float s) {
+    const float n = __fsub_rn(__uint_as_float(0x4B000000u | nib), 8388608.0f);  // exact
+    return __fmul_rn(__fsub_rn(n, z), s);
 }
 __device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(a, b);  // a in the low half
+    __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
     return *reinterpret_cast<uint32_t*>(&h);
 }
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-    return __float2bfloat16(v);
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+    uint32_t d;
+    asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+    return d;
+}
+// The packed form, for bf16 scales and integer zeros in [0, 127]: two nibbles
+// (in bits 0-3 and 16-19 of w) become the bf16 values 128 + nibble, and
+// ((128 + n) - (128 + z)) * s is computed in bf16x2. The difference is a small
+// integer, exact in bf16, and the product of it with a bf16 scale is exact
+// before its one rounding to bf16: the same bits as the fp32 form.
+__device__ __forceinline__ uint32_t deq2(uint32_t w, uint32_t z128, uint32_t s) {
+    const uint32_t v = (w & 0x000F000Fu) | 0x43004300u;
+    __nv_bfloat162 r = __hmul2(__hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                                       *reinterpret_cast<const __nv_bfloat162*>(&z128)),
+                               *reinterpret_cast<const __nv_bfloat162*>(&s));
+    return *reinterpret_cast<uint32_t*>(&r);
+}
+__device__ __forceinline__ uint32_t bf16x2_of(float v) {  // v exact in bf16, in both halves
+    return pack_bf16x2(v, v);
 }
 
 // g * sigmoid(g) * u in fp32, in that order (the TPU kernel's epilogue)
@@ -94,237 +243,353 @@ __device__ __forceinline__ float silu_mul(float g, float u) {
     return __fmul_rn(__fmul_rn(g, 1.0f / (1.0f + expf(-g))), u);
 }
 
-// 8 consecutive x values held in registers between their load and their
-// staging as 8 bf16 (16 bytes) in shared memory
-template <typename TX> struct X8;
-template <> struct X8<__nv_bfloat16> {
-    uint4 v;
-    __device__ __forceinline__ void zero() { v = make_uint4(0, 0, 0, 0); }
-    __device__ __forceinline__ void load(const __nv_bfloat16* src) {
-        v = *reinterpret_cast<const uint4*>(src);
-    }
-    __device__ __forceinline__ uint4 bf16() const { return v; }
-};
-template <> struct X8<float> {
-    float4 a, b;
-    __device__ __forceinline__ void zero() { a = b = make_float4(0.f, 0.f, 0.f, 0.f); }
-    __device__ __forceinline__ void load(const float* src) {
-        a = *reinterpret_cast<const float4*>(src);
-        b = *reinterpret_cast<const float4*>(src + 4);
-    }
-    __device__ __forceinline__ uint4 bf16() const {
-        return make_uint4(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w), pack_bf16x2(b.x, b.y),
-                          pack_bf16x2(b.z, b.w));
-    }
-};
+__device__ __forceinline__ void store2(void* out, long long o, float a, float b, int is_bf16) {
+    if (is_bf16)
+        *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(out) + o) =
+            __floats2bfloat162_rn(a, b);
+    else
+        *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + o) = make_float2(a, b);
+}
 
-// NW weight column ranges of width N each, range r starting at column r * N of
-// the [K/2, ldw] packed matrix: NW = 1 is the plain product (ldw = N), NW = 2
-// the fused gate (r = 0) and up (r = 1) product (ldw = 2N).
-template <int BM, int NW, typename TX, typename TS, typename TO>
-__global__ void __launch_bounds__(kThreads)
-w4a16_kernel(const TX* __restrict__ x, const uint8_t* __restrict__ w8,
-             const TS* __restrict__ scales, const TS* __restrict__ zeros, TO* __restrict__ out,
-             float* __restrict__ partial, int S, int K2, int N, int ldw, int group_size,
-             int chunks_per_split, const int* __restrict__ layer_idx, int n_layers) {
-    constexpr int WM = BM == 128 ? 4 : 2, WN = 8 / WM;
-    constexpr int FM = BM / WM / 16, FN = kBN / WN / 16;
-    constexpr int XV = (8 * BM + kThreads - 1) / kThreads;  // x vectors per thread
-    constexpr int E = BM * kBN / kThreads;                  // epilogue elements per thread
-    __shared__ Smem<BM, NW> sm;
-    __shared__ int layer;
-    const int tid = threadIdx.x, warp = tid >> 5;
-    if (layer_idx != nullptr) {  // layered mode: select this block's layer of the stacks
-        if (tid == 0) {
-            const int li = *layer_idx;
-            if (li < 0 || li >= n_layers) __trap();
-            layer = li;
+// NW weight column ranges of width N, range r starting at column r * N of the
+// [K/2, ldw] packed matrix: NW = 1 is the plain product (ldw = N; a block
+// covers 128 columns, 64 per consumer warpgroup), NW = 2 the fused gate
+// (r = 0) and up (r = 1) product (ldw = 2N; a block covers 64 output columns,
+// warpgroup r the range r's).
+template <int TT, int NW>
+__global__ void __launch_bounds__(kThreads, 1)
+w4a16_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+             const Params p) {
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                               ~uintptr_t(1023));
+    constexpr int kXBox = TT * kXTile;               // one x half of a stage
+    constexpr int kStage = 2 * kXBox + 2 * kWBox;    // multiple of 1024
+    const int stages = p.stages;
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + stages * kStage);
+    uint64_t* empty = full + kMaxStages;
+    int* layer_sm = reinterpret_cast<int*>(empty + kMaxStages);
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+    if (tid == 0) {
+        int li = 0;
+        if (p.layer_idx != nullptr) {  // layered mode: the stack's layer, read on the device
+            li = *p.layer_idx;
+            if (li < 0 || li >= p.n_layers) __trap();
         }
-        __syncthreads();
-        const long long groups = 2LL * K2 / group_size;
-        w8 += (long long)layer * K2 * ldw;
-        scales += (long long)layer * groups * ldw;
-        zeros += (long long)layer * groups * ldw;
+        *layer_sm = li;
+        for (int s = 0; s < stages; ++s) {
+            mbar_init(smem_u32(full + s), 1);
+            mbar_init(smem_u32(empty + s), kConsumerThreads / 32);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-    const int wm = warp / WN, wn = warp % WN;
-    const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * BM, kz = blockIdx.z;
-    const long long K = 2LL * K2;
-    const int n_chunks = K2 / kBR;
-    const int c_begin = kz * chunks_per_split;
-    const int c_end = min(n_chunks, c_begin + chunks_per_split);
+    __syncthreads();
+    const int layer = *layer_sm;
+    const int bx = blockIdx.x, kz = blockIdx.z, s0 = blockIdx.y * kMaxTT * kTok;
+    const int c_begin = kz * p.chunks_per_split;
+    const int c_end = min(p.n_chunks, c_begin + p.chunks_per_split);
+    // first weight column of consumer warpgroup r, and of its output
+    auto wcol = [&](int r) { return NW == 1 ? bx * 2 * kCols + r * kCols : r * p.N + bx * kCols; };
 
-    // this thread's weight columns and rows within a chunk
-    const int cg = tid & 15, rr = tid >> 4;  // columns n0+4cg..+3, rows rr and rr+16
-    const int ncol = n0 + 4 * cg;
-    const bool vec_ok = (N & 3) == 0 && (ldw & 3) == 0 && ncol + 3 < N;
-
-    X8<TX> xr[XV];
-    uint32_t wr[NW][2];
-    // scales/zeros of the staged chunk's groups, and of the loaded chunk's
-    float s_lo[NW][4], z_lo[NW][4], s_hi[NW][4], z_hi[NW][4];
-    float ns_lo[NW][4], nz_lo[NW][4], ns_hi[NW][4], nz_hi[NW][4];
-    int loaded_group = -1;
-
-    auto load = [&](int ch) {  // chunk ch -> registers
-        const int r0 = ch * kBR;
+    if (warp >= kConsumerThreads / 32) {  // producer warpgroup: one thread keeps the ring full
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+        if (warp == kConsumerThreads / 32 && lane == 0) {
+            const uint32_t bytes = 2 * p.x_rows * kRows * 2 + 2 * kWBox;
+            for (int c = c_begin, it = 0; c < c_end; ++c, ++it) {
+                const int s = it % stages;
+                if (it >= stages) mbar_wait(smem_u32(empty + s), ((it / stages) & 1) ^ 1);
+                uint8_t* st = smem + s * kStage;
+                const uint32_t bar = smem_u32(full + s);
+                mbar_expect_tx(bar, bytes);
+                tma_2d(smem_u32(st), &tm_x, bar, c * kRows, s0);
+                tma_2d(smem_u32(st + kXBox), &tm_x, bar, p.K2 + c * kRows, s0);
 #pragma unroll
-        for (int v = 0; v < XV; ++v) {
-            const int i = tid + v * kThreads;
-            xr[v].zero();
-            if (i < 8 * BM) {
-                const int half = i / (4 * BM), rem = i % (4 * BM);
-                const int row = rem >> 2, seg = rem & 3, srow = m0 + row;
-                if (srow < S)
-                    xr[v].load(x + (long long)srow * K + (long long)half * K2 + r0 + 8 * seg);
+                for (int r = 0; r < 2; ++r)
+                    tma_3d(smem_u32(st + 2 * kXBox + r * kWBox), &tm_w, bar, wcol(r), c * kRows,
+                           layer);
             }
         }
+        return;
+    }
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+
+    // consumer warpgroup wg; in its 64 x 16 A fragment this thread holds M rows
+    // g and g + 8 of warp w's 16, which stand for the adjacent weight columns
+    // lc and lc + 1 (the permutation the epilogue undoes)
+    const int wg = warp >> 2, w = warp & 3, c4 = lane & 3, g = lane >> 2;
+    const int lc = 16 * w + 2 * g;
+    const int col = wcol(wg) + lc;  // weight column in [0, ldw)
+    const int out_col = (NW == 1 ? wcol(wg) : bx * kCols) + lc;
+    const bool col_ok = out_col < p.N;
+    const long long groups = 2LL * p.K2 / p.group_size;
+    const long long sz_base = (long long)layer * groups * p.ldw + col;
+
+    float acc[TT][32];
 #pragma unroll
-        for (int r = 0; r < NW; ++r) {
+    for (int t = 0; t < TT; ++t)
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const uint8_t* src =
-                    w8 + (long long)(r0 + rr + 16 * h) * ldw + (long long)r * N + ncol;
-                uint32_t bytes = 0;
-                if (vec_ok) {
-                    bytes = *reinterpret_cast<const uint32_t*>(src);
-                } else {
+        for (int i = 0; i < 32; ++i) acc[t][i] = 0.f;
+
+    // scales and zeros of the two columns for the chunk's low and high groups:
+    // [lo s, lo z, hi s, hi z][column]; the next chunk's are loaded a chunk early
+    float sz[4][2], nsz[4][2];
+    int cur_group = -1, next_group = -1;
+    auto load_sz = [&](float (&dst)[4][2], int chunk) {
+        const int glo = chunk * kRows / p.group_size;
+        const int ghi = (p.K2 + chunk * kRows) / p.group_size;
 #pragma unroll
-                    for (int c = 0; c < 4; ++c)
-                        if (ncol + c < N) bytes |= (uint32_t)src[c] << (8 * c);
-                }
-                wr[r][h] = bytes;
-            }
-        }
-        const int group = r0 / group_size;  // a chunk never straddles a group
-        if (group != loaded_group) {
-            loaded_group = group;
-            const int g_hi = (K2 + r0) / group_size;
-#pragma unroll
-            for (int r = 0; r < NW; ++r) {
-#pragma unroll
-                for (int c = 0; c < 4; ++c) {
-                    const bool ok = ncol + c < N;
-                    const long long col = (long long)r * N + ncol + c;
-                    ns_lo[r][c] = ok ? to_f(scales[(long long)group * ldw + col]) : 0.f;
-                    nz_lo[r][c] = ok ? to_f(zeros[(long long)group * ldw + col]) : 0.f;
-                    ns_hi[r][c] = ok ? to_f(scales[(long long)g_hi * ldw + col]) : 0.f;
-                    nz_hi[r][c] = ok ? to_f(zeros[(long long)g_hi * ldw + col]) : 0.f;
-                }
-            }
+        for (int h = 0; h < 2; ++h) {
+            const long long i = sz_base + h;
+            const long long lo = (long long)glo * p.ldw + i, hi = (long long)ghi * p.ldw + i;
+            dst[0][h] = col_ok ? load_f(p.scales, lo, p.s_bf16) : 0.f;
+            dst[1][h] = col_ok ? load_f(p.zeros, lo, p.s_bf16) : 0.f;
+            dst[2][h] = col_ok ? load_f(p.scales, hi, p.s_bf16) : 0.f;
+            dst[3][h] = col_ok ? load_f(p.zeros, hi, p.s_bf16) : 0.f;
         }
     };
-    auto stage = [&]() {  // registers -> shared tiles, dequantizing the weights
-#pragma unroll
-        for (int v = 0; v < XV; ++v) {
-            const int i = tid + v * kThreads;
-            if (i < 8 * BM) {
-                const int half = i / (4 * BM), rem = i % (4 * BM);
-                *reinterpret_cast<uint4*>(sm.t.x[half] + (rem >> 2) * kXLD + 8 * (rem & 3)) =
-                    xr[v].bf16();
-            }
-        }
-#pragma unroll
-        for (int r = 0; r < NW; ++r) {
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-                s_lo[r][c] = ns_lo[r][c];
-                z_lo[r][c] = nz_lo[r][c];
-                s_hi[r][c] = ns_hi[r][c];
-                z_hi[r][c] = nz_hi[r][c];
-            }
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int row = rr + 16 * h;
-                float lo[4], hi[4];
-#pragma unroll
-                for (int c = 0; c < 4; ++c) {
-                    const uint32_t b = (wr[r][h] >> (8 * c)) & 0xFFu;
-                    lo[c] = ((float)(b & 0xFu) - z_lo[r][c]) * s_lo[r][c];
-                    hi[c] = ((float)(b >> 4) - z_hi[r][c]) * s_hi[r][c];
-                }
-                *reinterpret_cast<uint2*>(sm.t.w[r][0] + row * kWLD + 4 * cg) =
-                    make_uint2(pack_bf16x2(lo[0], lo[1]), pack_bf16x2(lo[2], lo[3]));
-                *reinterpret_cast<uint2*>(sm.t.w[r][1] + row * kWLD + 4 * cg) =
-                    make_uint2(pack_bf16x2(hi[0], hi[1]), pack_bf16x2(hi[2], hi[3]));
-            }
-        }
-    };
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NW][FM][FN];
-#pragma unroll
-    for (int r = 0; r < NW; ++r)
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-#pragma unroll
-            for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[r][i][j], 0.f);
-
-    if (c_begin < c_end) load(c_begin);
-    for (int ch = c_begin; ch < c_end; ++ch) {
-        stage();
-        __syncthreads();
-        if (ch + 1 < c_end) load(ch + 1);  // in flight during this chunk's products
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-#pragma unroll
-            for (int kk = 0; kk < kBR; kk += 16) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[FM];
-#pragma unroll
-                for (int i = 0; i < FM; ++i)
-                    wmma::load_matrix_sync(a[i], bf(sm.t.x[half]) + (wm * FM + i) * 16 * kXLD + kk,
-                                           kXLD);
-#pragma unroll
-                for (int r = 0; r < NW; ++r) {
-                    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-                        b[FN];
-#pragma unroll
-                    for (int j = 0; j < FN; ++j)
-                        wmma::load_matrix_sync(
-                            b[j], bf(sm.t.w[r][half]) + kk * kWLD + (wn * FN + j) * 16, kWLD);
-#pragma unroll
-                    for (int i = 0; i < FM; ++i)
-#pragma unroll
-                        for (int j = 0; j < FN; ++j)
-                            wmma::mma_sync(acc[r][i][j], a[i], b[j], acc[r][i][j]);
-                }
-            }
-        }
-        __syncthreads();
+    if (c_begin < c_end) {
+        load_sz(nsz, c_begin);
+        next_group = c_begin * kRows / p.group_size;
     }
 
-    float gate[NW == 2 ? E : 1];  // the fused form's gate sums, held for the up pass
+#ifdef W4A16_GROUP_STAGE
+    uint32_t fragS[2][kRows / 16][2][4];
 #pragma unroll
-    for (int r = 0; r < NW; ++r) {
-        if (r > 0) __syncthreads();  // every thread has read the previous range's sums
+    for (int b = 0; b < 2; ++b)
 #pragma unroll
-        for (int i = 0; i < FM; ++i)
+        for (int j = 0; j < kRows / 16; ++j)
 #pragma unroll
-            for (int j = 0; j < FN; ++j)
-                wmma::store_matrix_sync(sm.c + (wm * FM + i) * 16 * kCLD + (wn * FN + j) * 16,
-                                        acc[r][i][j], kCLD, wmma::mem_row_major);
-        __syncthreads();
+            for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int e = 0; e < E; ++e) {
-            const int i = tid + e * kThreads;
-            const int row = i / kBN, col = i % kBN;
-            const float v = sm.c[row * kCLD + col];
-            if (m0 + row >= S || n0 + col >= N) continue;
-            const long long o = (long long)(m0 + row) * N + n0 + col;
-            if (partial != nullptr)
-                partial[(long long)(kz * NW + r) * S * N + o] = v;
-            else if (NW == 1)
-                out[o] = from_f<TO>(v);
-            else if (r == 0)
-                gate[NW == 2 ? e : 0] = v;
-            else
-                out[o] = from_f<TO>(silu_mul(gate[NW == 2 ? e : 0], v));
+                for (int i = 0; i < 4; ++i) fragS[b][j][h][i] = 0u;
+#endif
+    uint32_t frag[2][2][4];
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) frag[b][h][i] = 0u;
+
+    // the packed form's constants: [half][column] 128 + z and s, as bf16x2
+    uint32_t z2[2][2], s2[2][2];
+    bool packed = false;
+    for (int c = c_begin, it = 0; c < c_end; ++c, ++it) {
+        const int s = it % stages;
+        if (next_group != cur_group) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                sz[i][0] = nsz[i][0];
+                sz[i][1] = nsz[i][1];
+            }
+            cur_group = next_group;
+            packed = p.s_bf16 != 0;
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int cc = 0; cc < 2; ++cc) {
+                    const float z = sz[2 * h + 1][cc];
+                    packed = packed && z == rintf(z) && z >= 0.f && z <= 127.f;
+                    z2[h][cc] = bf16x2_of(128.f + z);
+                    s2[h][cc] = bf16x2_of(sz[2 * h][cc]);
+                }
+#ifdef W4A16_DBG_NO_FAST
+            packed = false;
+#endif
+#ifdef W4A16_DBG_FORCE_PACKED
+            packed = true;
+#endif
+        }
+        if (c + 1 < c_end) {  // a chunk never straddles a group (group_size % 64 == 0)
+            const int ng = (c + 1) * kRows / p.group_size;
+            if (ng != cur_group) {
+                load_sz(nsz, c + 1);
+                next_group = ng;
+            }
+        }
+        mbar_wait(smem_u32(full + s), (it / stages) & 1);
+        const uint8_t* st = smem + s * kStage;
+        const uint8_t* wbox = st + 2 * kXBox + wg * kWBox;
+        const uint32_t x_lo = smem_u32(st), x_hi = smem_u32(st + kXBox);
+        // the stage's bytes of this thread, all loaded at once: step j's packed
+        // rows 16j + 2c4 + {0, 1, 8, 9}, columns lc and lc + 1. The box is
+        // 64-byte swizzled: 16-byte chunk ^= (row / 2) % 4
+        uint32_t bs[kRows / 16][4];
+#pragma unroll
+        for (int j = 0; j < kRows / 16; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const int row = 16 * j + 2 * c4 + (q & 1) + 8 * (q >> 1);
+                const int off = row * kCols + lc;
+                const int phys = off ^ (((off >> 7) & 3) << 4);
+                bs[j][q] = *reinterpret_cast<const uint16_t*>(wbox + phys);
+            }
+#pragma unroll
+        for (int j = 0; j < kRows / 16; ++j) {
+            const uint32_t* b = bs[j];
+            // the A fragment of half h (0: low nibbles, x's first half; 1: high):
+            // a0 column lc, k 2c4..+1; a1 column lc+1; a2, a3 the same at k + 8
+            auto dequant = [&](uint32_t* a, int h) {
+                const int sh = 4 * h;
+#pragma unroll
+                for (int q = 0; q < 2; ++q) {
+                    const uint32_t r0 = b[2 * q], r1 = b[2 * q + 1];
+#ifdef W4A16_DBG_NO_DEQ
+                    a[2 * q] = (r0 >> sh) | (r1 << 16);
+                    a[2 * q + 1] = (r0 >> (8 + sh)) | (r1 << 8);
+#else
+                    if (packed) {  // column lc: bytes 0 of r0 and r1; lc + 1: bytes 1
+                        a[2 * q] = deq2(prmt(r0, r1, 0x6420u) >> sh, z2[h][0], s2[h][0]);
+                        a[2 * q + 1] = deq2(prmt(r0, r1, 0x7531u) >> sh, z2[h][1], s2[h][1]);
+                    } else {
+                        const float s0_ = sz[2 * h][0], z0 = sz[2 * h + 1][0];
+                        const float s1_ = sz[2 * h][1], z1 = sz[2 * h + 1][1];
+                        a[2 * q] = pack_bf16x2(deq((r0 >> sh) & 0xFu, z0, s0_),
+                                               deq((r1 >> sh) & 0xFu, z0, s0_));
+                        a[2 * q + 1] = pack_bf16x2(deq((r0 >> (8 + sh)) & 0xFu, z1, s1_),
+                                                   deq((r1 >> (8 + sh)) & 0xFu, z1, s1_));
+                    }
+#endif
+                }
+            };
+            auto issue = [&](const uint32_t* a, int h) {
+                const uint32_t xb = (h == 0 ? x_lo : x_hi) + 32 * j;
+#ifndef W4A16_DBG_NO_MMA
+#pragma unroll
+                for (int t = 0; t < TT; ++t) wgmma_rs(acc[t], a, desc_sw128(xb + t * kXTile));
+#else
+                if (xb == 0xFFFFFFFFu) acc[0][0] += __uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3]);
+#endif
+            };
+#if defined(W4A16_GROUP_STAGE)
+            {
+                uint32_t(&fa)[2][4] = fragS[it & 1][j];
+                dequant(fa[0], 0);
+                dequant(fa[1], 1);
+                if (j == kRows / 16 - 1) {
+                    wgmma_fence();
+#pragma unroll
+                    for (int jj = 0; jj < kRows / 16; ++jj) {
+                        const uint32_t xl = x_lo + 32 * jj, xh = x_hi + 32 * jj;
+#pragma unroll
+                        for (int t = 0; t < TT; ++t)
+                            wgmma_rs(acc[t], fragS[it & 1][jj][0], desc_sw128(xl + t * kXTile));
+#pragma unroll
+                        for (int t = 0; t < TT; ++t)
+                            wgmma_rs(acc[t], fragS[it & 1][jj][1], desc_sw128(xh + t * kXTile));
+                    }
+                    wgmma_commit();
+                    wgmma_wait<1>();
+#pragma unroll
+                    for (int jj = 0; jj < kRows / 16; ++jj)
+#pragma unroll
+                        for (int h = 0; h < 2; ++h)
+#pragma unroll
+                            for (int i = 0; i < 4; ++i) fence_reg(fragS[(it & 1) ^ 1][jj][h][i]);
+                    if (it > 0 && lane == 0) mbar_arrive(smem_u32(empty + (it - 1) % stages));
+                }
+            }
+#elif defined(W4A16_GROUP_J)
+            // one wgmma group a step: both halves' fragments, double-buffered by j
+            {
+                uint32_t(&fa)[2][4] = frag[j & 1];
+                dequant(fa[0], 0);
+                dequant(fa[1], 1);
+                wgmma_fence();
+                issue(fa[0], 0);
+                issue(fa[1], 1);
+                wgmma_commit();
+                wgmma_wait<1>();  // the previous step's group is done
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) fence_reg(frag[(j & 1) ^ 1][h][i]);
+                fence_bytes(bs);
+                if (j == 0 && it > 0 && lane == 0)
+                    mbar_arrive(smem_u32(empty + (it - 1) % stages));  // all its groups are done
+            }
+#else
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {  // one wgmma group a fragment, double-buffered
+                uint32_t* a = frag[0][h];
+                dequant(a, h);
+                wgmma_fence();
+                issue(a, h);
+                wgmma_commit();
+#ifdef W4A16_DBG_WAIT0
+                wgmma_wait<0>();
+#else
+                wgmma_wait<1>();  // the other fragment's group is done: it may be rewritten
+#endif
+                // the other fragment's registers stay put until here
+#pragma unroll
+                for (int i = 0; i < 4; ++i) fence_reg(frag[0][h ^ 1][i]);
+                fence_bytes(bs);
+                if (j == 0 && h == 0 && it > 0 && lane == 0)
+                    mbar_arrive(smem_u32(empty + (it - 1) % stages));  // all its groups are done
+            }
+#endif
         }
     }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int t = 0; t < TT; ++t)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) fence_reg(acc[t][i]);
+
+    // acc[t][4i + 2h + e]: column out_col + h, token s0 + 64t + 8i + 2c4 + e
+    const int S = p.S, N = p.N;
+    if (p.partial != nullptr || NW == 1) {
+        const int r = NW == 1 ? 0 : wg;
+#pragma unroll
+        for (int t = 0; t < TT; ++t)
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int tok = s0 + t * kTok + 8 * i + 2 * c4 + e;
+                    if (tok >= S || !col_ok) continue;
+                    const long long o = (long long)tok * N + out_col;
+                    const float v0 = acc[t][4 * i + e], v1 = acc[t][4 * i + 2 + e];
+                    if (p.partial != nullptr)
+                        store2(p.partial, (long long)(kz * NW + r) * S * N + o, v0, v1, 0);
+                    else
+                        store2(p.out, o, v0, v1, p.out_bf16);
+                }
+        return;
+    }
+    // fused, unsplit: the up sums pass to warpgroup 0 through the (drained) ring
+    float* up = reinterpret_cast<float*>(smem);
+    const int ti = tid & 127;
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumerThreads) : "memory");
+    if (wg == 1) {
+#pragma unroll
+        for (int t = 0; t < TT; ++t)
+#pragma unroll
+            for (int i = 0; i < 32; ++i) up[(t * 32 + i) * 128 + ti] = acc[t][i];
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumerThreads) : "memory");
+    if (wg == 1) return;
+#pragma unroll
+    for (int t = 0; t < TT; ++t)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int tok = s0 + t * kTok + 8 * i + 2 * c4 + e;
+                if (tok >= S || !col_ok) continue;
+                const int k0 = 4 * i + e, k1 = 4 * i + 2 + e;
+                store2(p.out, (long long)tok * N + out_col,
+                       silu_mul(acc[t][k0], up[(t * 32 + k0) * 128 + ti]),
+                       silu_mul(acc[t][k1], up[(t * 32 + k1) * 128 + ti]), p.out_bf16);
+            }
 }
 
 // partial [splits, NW, S, N]: sums over the splits in order, then the epilogue
-template <int NW, typename TO>
-__global__ void sum_partials(const float* __restrict__ partial, TO* __restrict__ out,
-                             long long count, int splits) {
+template <int NW>
+__global__ void w4a16_sum_partials(const float* __restrict__ partial, void* __restrict__ out,
+                             long long count, int splits, int out_bf16) {
     for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < count;
          i += (long long)gridDim.x * blockDim.x) {
         float s[NW];
@@ -333,68 +598,102 @@ __global__ void sum_partials(const float* __restrict__ partial, TO* __restrict__
         for (int z = 0; z < splits; ++z)
 #pragma unroll
             for (int r = 0; r < NW; ++r) s[r] += partial[(long long)(z * NW + r) * count + i];
-        out[i] = from_f<TO>(NW == 1 ? s[0] : silu_mul(s[0], s[NW - 1]));
+        const float v = NW == 1 ? s[0] : silu_mul(s[0], s[NW - 1]);
+        if (out_bf16)
+            reinterpret_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(v);
+        else
+            reinterpret_cast<float*>(out)[i] = v;
     }
 }
 
-// the layered mode's index and stack depth (nullptr, 0 in plain mode)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded
+EncodeTiled encoder() {
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* f = nullptr;
+        cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
+                                         &q);
+#else
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+        if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(f);
+    }
+    return fn;
+}
+
+// the layered mode's index and stack depth (nullptr, 1 in plain mode)
 struct Layer {
     const int* idx;
     int n;
 };
 
-template <int BM, int NW, typename TX, typename TS, typename TO>
-void launch_main(const void* x, const void* w8, const void* scales, const void* zeros, void* out,
-                 void* partial, int S, int K2, int N, int group_size, int splits, int per,
-                 Layer layer, cudaStream_t st) {
-    dim3 grid((N + kBN - 1) / kBN, (S + BM - 1) / BM, splits);
-    w4a16_kernel<BM, NW, TX, TS, TO><<<grid, kThreads, 0, st>>>(
-        (const TX*)x, (const uint8_t*)w8, (const TS*)scales, (const TS*)zeros, (TO*)out,
-        splits > 1 ? (float*)partial : nullptr, S, K2, N, NW * N, group_size, per, layer.idx,
-        layer.n);
-}
+#ifdef W4A16_DBG_L2_NONE
+constexpr CUtensorMapL2promotion kWeightPromotion = CU_TENSOR_MAP_L2_PROMOTION_NONE;
+#else
+constexpr CUtensorMapL2promotion kWeightPromotion = CU_TENSOR_MAP_L2_PROMOTION_L2_256B;
+#endif
 
-template <int NW, typename TX, typename TS, typename TO>
-int launch(const void* x, const void* w8, const void* scales, const void* zeros, void* out,
-           void* partial, int S, int K2, int N, int group_size, int splits, Layer layer,
-           cudaStream_t st) {
-    const int n_chunks = K2 / kBR;
-    const int per = (n_chunks + splits - 1) / splits;
-    // the row tile changes which rows share a block, never a row's summation order
-    if (S <= 32)
-        launch_main<32, NW, TX, TS, TO>(x, w8, scales, zeros, out, partial, S, K2, N, group_size,
-                                        splits, per, layer, st);
-    else
-        launch_main<128, NW, TX, TS, TO>(x, w8, scales, zeros, out, partial, S, K2, N,
-                                         group_size, splits, per, layer, st);
+template <int TT, int NW>
+int launch(const void* x, const void* w8, Params p, int splits, cudaStream_t st) {
+    constexpr int kStage = 2 * TT * kXTile + 2 * kWBox;
+    // rows past S in a stage's x tiles are left as they were: they feed only
+    // the accumulators of tokens past S, which are never stored
+    p.x_rows = p.S < TT * kTok ? (p.S + 7) / 8 * 8 : TT * kTok;
+#ifdef W4A16_DBG_FULL_XBOX
+    p.x_rows = TT * kTok;
+#endif
+    EncodeTiled encode = encoder();
+    if (encode == nullptr) return (int)cudaErrorNotSupported;
+    CUtensorMap tm_x, tm_w;
+    {  // x [S, K] bf16: boxes of 64 k x 64*TT tokens, 128-byte swizzle (the wgmma B layout)
+        const cuuint64_t dims[2] = {(cuuint64_t)2 * p.K2, (cuuint64_t)p.S};
+        const cuuint64_t strides[1] = {(cuuint64_t)2 * p.K2 * 2};
+        const cuuint32_t box[2] = {kRows, (cuuint32_t)p.x_rows}, es[2] = {1, 1};
+        if (encode(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims,
+                   strides, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
+            CUDA_SUCCESS)
+            return (int)cudaErrorInvalidValue;
+    }
+    {  // w8 [n_layers, K2, ldw] bytes: boxes of 64 columns x 64 packed rows x 1 layer
+        const cuuint64_t dims[3] = {(cuuint64_t)p.ldw, (cuuint64_t)p.K2, (cuuint64_t)p.n_layers};
+        const cuuint64_t strides[2] = {(cuuint64_t)p.ldw, (cuuint64_t)p.ldw * p.K2};
+        const cuuint32_t box[3] = {kCols, kRows, 1}, es[3] = {1, 1, 1};
+        if (encode(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(w8), dims, strides,
+                   box, es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                   kWeightPromotion, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
+            CUDA_SUCCESS)
+            return (int)cudaErrorInvalidValue;
+    }
+    p.stages = (kSmemMax - 1024 - 256) / kStage;
+    if (p.stages > kMaxStages) p.stages = kMaxStages;
+    const int smem = 1024 + p.stages * kStage + 256;
+    static unsigned configured = 0;  // one bit per device
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (!(configured >> dev & 1u)) {
+        cudaError_t e = cudaFuncSetAttribute(w4a16_kernel<TT, NW>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return (int)e;
+        configured |= 1u << dev;
+    }
+    const int col_tiles = NW == 1 ? (p.N + 2 * kCols - 1) / (2 * kCols) : (p.N + kCols - 1) / kCols;
+    const int super_tiles = (p.S + kMaxTT * kTok - 1) / (kMaxTT * kTok);
+    dim3 grid(col_tiles, super_tiles, splits);
+    w4a16_kernel<TT, NW><<<grid, kThreads, smem, st>>>(tm_x, tm_w, p);
     if (splits > 1) {
-        const long long count = (long long)S * N;
+        const long long count = (long long)p.S * p.N;
         const int blocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
-        sum_partials<NW, TO><<<blocks, 256, 0, st>>>((const float*)partial, (TO*)out, count,
-                                                     splits);
+        w4a16_sum_partials<NW><<<blocks, 256, 0, st>>>(p.partial, p.out, count, splits, p.out_bf16);
     }
     return (int)cudaGetLastError();
-}
-
-template <int NW, typename TX, typename TS>
-int dispatch_out(int out_bf16, const void* x, const void* w8, const void* s, const void* z,
-                 void* out, void* partial, int S, int K2, int N, int gs, int splits, Layer layer,
-                 cudaStream_t st) {
-    if (out_bf16)
-        return launch<NW, TX, TS, __nv_bfloat16>(x, w8, s, z, out, partial, S, K2, N, gs, splits,
-                                                 layer, st);
-    return launch<NW, TX, TS, float>(x, w8, s, z, out, partial, S, K2, N, gs, splits, layer, st);
-}
-
-template <int NW, typename TX>
-int dispatch_scales(int s_bf16, int out_bf16, const void* x, const void* w8, const void* s,
-                    const void* z, void* out, void* partial, int S, int K2, int N, int gs,
-                    int splits, Layer layer, cudaStream_t st) {
-    if (s_bf16)
-        return dispatch_out<NW, TX, __nv_bfloat16>(out_bf16, x, w8, s, z, out, partial, S, K2, N,
-                                                   gs, splits, layer, st);
-    return dispatch_out<NW, TX, float>(out_bf16, x, w8, s, z, out, partial, S, K2, N, gs, splits,
-                                       layer, st);
 }
 
 template <int NW>
@@ -402,29 +701,51 @@ int run(const void* x, const void* w8, const void* scales, const void* zeros, vo
         void* partial, int S, int K2, int N, int group_size, int splits, int x_bf16, int s_bf16,
         int out_bf16, Layer layer, void* stream) {
     if (S <= 0 || N <= 0) return 0;
-    if (group_size % kBR != 0 || K2 % group_size != 0 || splits < 1 ||
-        (splits > 1 && partial == nullptr) || (layer.idx != nullptr && layer.n < 1))
+    // TMA: 16-byte aligned bases and row strides; a chunk of 64 packed rows
+    // never straddles a group
+    if (!x_bf16 || group_size <= 0 || group_size % kRows != 0 || K2 % group_size != 0 ||
+        (NW * N) % 16 != 0 || splits < 1 || (splits > 1 && partial == nullptr) || layer.n < 1 ||
+        (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w8)) % 16 != 0)
         return (int)cudaErrorInvalidValue;
+    Params p;
+    p.scales = scales;
+    p.zeros = zeros;
+    p.out = out;
+    p.partial = splits > 1 ? (float*)partial : nullptr;
+    p.layer_idx = layer.idx;
+    p.n_layers = layer.n;
+    p.S = S;
+    p.K2 = K2;
+    p.N = N;
+    p.ldw = NW * N;
+    p.group_size = group_size;
+    p.n_chunks = K2 / kRows;
+    p.chunks_per_split = (p.n_chunks + splits - 1) / splits;
+    p.stages = 0;
+    p.s_bf16 = s_bf16;
+    p.out_bf16 = out_bf16;
     cudaStream_t st = (cudaStream_t)stream;
-    if (x_bf16)
-        return dispatch_scales<NW, __nv_bfloat16>(s_bf16, out_bf16, x, w8, scales, zeros, out,
-                                                  partial, S, K2, N, group_size, splits, layer,
-                                                  st);
-    return dispatch_scales<NW, float>(s_bf16, out_bf16, x, w8, scales, zeros, out, partial, S,
-                                      K2, N, group_size, splits, layer, st);
+    const int rows = S < kMaxTT * kTok ? S : kMaxTT * kTok;
+    switch ((rows + kTok - 1) / kTok) {
+        case 1: return launch<1, NW>(x, w8, p, splits, st);
+        case 2: return launch<2, NW>(x, w8, p, splits, st);
+        case 3: return launch<3, NW>(x, w8, p, splits, st);
+        default: return launch<4, NW>(x, w8, p, splits, st);
+    }
 }
 
 }  // namespace
 
-// x [S, 2*K2] (fp32 or bf16), w8 [K2, N] uint8, scales/zeros [2*K2/group_size, N]
-// (fp32 or bf16, one dtype), out [S, N] (fp32 or bf16), partial fp32
-// [splits, S, N] scratch when splits > 1; all contiguous. group_size must be a
-// multiple of 32 and K2 a multiple of group_size; x must be 16-byte aligned.
+// x [S, 2*K2] bf16 (the wrapper rounds fp32 x once), w8 [K2, N] uint8,
+// scales/zeros [2*K2/group_size, N] (fp32 or bf16, one dtype), out [S, N]
+// (fp32 or bf16), partial fp32 [splits, S, N] scratch when splits > 1; all
+// contiguous. group_size must be a multiple of 64, K2 a multiple of
+// group_size, N a multiple of 16, and x and w8 16-byte aligned.
 extern "C" int w4a16_matmul(const void* x, const void* w8, const void* scales, const void* zeros,
                             void* out, void* partial, int S, int K2, int N, int group_size,
                             int splits, int x_bf16, int s_bf16, int out_bf16, void* stream) {
     return run<1>(x, w8, scales, zeros, out, partial, S, K2, N, group_size, splits, x_bf16,
-                  s_bf16, out_bf16, Layer{nullptr, 0}, stream);
+                  s_bf16, out_bf16, Layer{nullptr, 1}, stream);
 }
 
 // Layered mode: w8 [n_layers, K2, N], scales/zeros [n_layers, 2*K2/group_size, N]
@@ -449,5 +770,5 @@ extern "C" int w4a16_gate_up_silu(const void* x, const void* w8, const void* sca
                                   int I, int group_size, int splits, int x_bf16, int s_bf16,
                                   int out_bf16, void* stream) {
     return run<2>(x, w8, scales, zeros, out, partial, S, K2, I, group_size, splits, x_bf16,
-                  s_bf16, out_bf16, Layer{nullptr, 0}, stream);
+                  s_bf16, out_bf16, Layer{nullptr, 1}, stream);
 }

@@ -179,10 +179,10 @@ def w4a16_gate_up_silu(x: torch.Tensor, q, out_dtype=None) -> torch.Tensor:
     AwqTensor [K, 2I] (gate columns first) -> [S, I] in out_dtype (default
     x.dtype). CUDA tensors launch the kernel; CPU tensors take the plain version."""
     out_dtype = out_dtype or x.dtype
-    if not x.is_cuda:
-        return w4a16_gate_up_silu_ref(x, q, out_dtype)
     if q.n % 2:
         raise ValueError(f"w4a16_gate_up_silu: gate|up width {q.n} is odd")
+    if not x.is_cuda:
+        return w4a16_gate_up_silu_ref(x, q, out_dtype)
     out = _launch("w4a16_gate_up_silu", x, q, q.n // 2, 2, out_dtype)
     w4a16_gate_up_silu.launches += 1
     return out
