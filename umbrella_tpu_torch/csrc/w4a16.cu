@@ -103,6 +103,13 @@ struct Params {
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+// a 16-bit shared-memory load (a generic load of a shared address takes the
+// slow path; the aligned dynamic-smem pointer no longer says it is shared)
+__device__ __forceinline__ uint32_t lds_u16(const void* p) {
+    uint16_t v;
+    asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(smem_u32(p)));
+    return v;
+}
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
@@ -152,12 +159,6 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
            ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-#ifdef W4A16_DBG_NO_SYNC
-__device__ __forceinline__ void wgmma_fence() {}
-__device__ __forceinline__ void wgmma_commit() {}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {}
-#else
 __device__ __forceinline__ void wgmma_fence() {
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -168,7 +169,6 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
     asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
-#endif
 // keeps a register's value where it is until this point (the async wgmma
 // reads A fragments and writes accumulators behind the compiler's back)
 __device__ __forceinline__ void fence_reg(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
@@ -201,11 +201,6 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t d
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
           "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ float load_f(const void* p, long long i, int is_bf16) {
-    return is_bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
-                   : reinterpret_cast<const float*>(p)[i];
 }
 
 // (nibble - z) * s in fp32, rounded once; two values packed as bf16x2 (a low)
@@ -263,8 +258,9 @@ w4a16_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ C
     extern __shared__ uint8_t smem_raw[];
     uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                                ~uintptr_t(1023));
-    constexpr int kXBox = TT * kXTile;               // one x half of a stage
-    constexpr int kStage = 2 * kXBox + 2 * kWBox;    // multiple of 1024
+    constexpr int kXBox = TT * kXTile;             // one x half of a stage
+    constexpr int kStage = 2 * kXBox + 2 * kWBox;  // multiple of 1024
+    constexpr int kSteps = kRows / 16;             // k16 steps a stage
     const int stages = p.stages;
     uint64_t* full = reinterpret_cast<uint64_t*>(smem + stages * kStage);
     uint64_t* empty = full + kMaxStages;
@@ -289,16 +285,17 @@ w4a16_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ C
     const int bx = blockIdx.x, kz = blockIdx.z, s0 = blockIdx.y * kMaxTT * kTok;
     const int c_begin = kz * p.chunks_per_split;
     const int c_end = min(p.n_chunks, c_begin + p.chunks_per_split);
-    // first weight column of consumer warpgroup r, and of its output
+    // first weight column of consumer warpgroup r
     auto wcol = [&](int r) { return NW == 1 ? bx * 2 * kCols + r * kCols : r * p.N + bx * kCols; };
 
     if (warp >= kConsumerThreads / 32) {  // producer warpgroup: one thread keeps the ring full
         asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
         if (warp == kConsumerThreads / 32 && lane == 0) {
             const uint32_t bytes = 2 * p.x_rows * kRows * 2 + 2 * kWBox;
+            int s = 0;
+            uint32_t phase = 0;
             for (int c = c_begin, it = 0; c < c_end; ++c, ++it) {
-                const int s = it % stages;
-                if (it >= stages) mbar_wait(smem_u32(empty + s), ((it / stages) & 1) ^ 1);
+                if (it >= stages) mbar_wait(smem_u32(empty + s), phase ^ 1);
                 uint8_t* st = smem + s * kStage;
                 const uint32_t bar = smem_u32(full + s);
                 mbar_expect_tx(bar, bytes);
@@ -308,6 +305,10 @@ w4a16_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ C
                 for (int r = 0; r < 2; ++r)
                     tma_3d(smem_u32(st + 2 * kXBox + r * kWBox), &tm_w, bar, wcol(r), c * kRows,
                            layer);
+                if (++s == stages) {
+                    s = 0;
+                    phase ^= 1;
+                }
             }
         }
         return;
@@ -322,49 +323,90 @@ w4a16_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ C
     const int col = wcol(wg) + lc;  // weight column in [0, ldw)
     const int out_col = (NW == 1 ? wcol(wg) : bx * kCols) + lc;
     const bool col_ok = out_col < p.N;
-    const long long groups = 2LL * p.K2 / p.group_size;
-    const long long sz_base = (long long)layer * groups * p.ldw + col;
+    // this thread's weight box in a stage; its two byte columns of row r are
+    // at r * 64 + (lc ^ (((r / 2) % 4) << 4)) there (the 64-byte swizzle:
+    // 16-byte chunk ^= (r / 2) % 4)
+    const uint32_t wbox_off = wg * kWBox + 2 * kXBox;
 
+    // zeroed before the first wgmma.fence: a register write inside a wgmma
+    // pipeline stage makes ptxas serialize every wgmma of the kernel
     float acc[TT][32];
 #pragma unroll
     for (int t = 0; t < TT; ++t)
 #pragma unroll
-        for (int i = 0; i < 32; ++i) acc[t][i] = 0.f;
+        for (int i = 0; i < 32; ++i) {
+            acc[t][i] = 0.f;
+            fence_reg(acc[t][i]);
+        }
 
-    // scales and zeros of the two columns for the chunk's low and high groups:
-    // [lo s, lo z, hi s, hi z][column]; the next chunk's are loaded a chunk early
-    float sz[4][2], nsz[4][2];
-    int cur_group = -1, next_group = -1;
-    auto load_sz = [&](float (&dst)[4][2], int chunk) {
-        const int glo = chunk * kRows / p.group_size;
-        const int ghi = (p.K2 + chunk * kRows) / p.group_size;
+    // scales and zeros of the two columns for the current group's low and
+    // high halves: sz[lo s, lo z, hi s, hi z][column]; the packed form's
+    // constants z2 (128 + z) and s2 as bf16x2, [half][column]. The next
+    // group's raw bits are loaded a group early and converted when it starts.
+    const int cpg = p.group_size / kRows;  // chunks a group
+    const long long sz_row = (long long)layer * 2 * p.K2 / p.group_size;  // the layer's first row
+    const int hi_groups = p.K2 / p.group_size;
+    uint32_t raw[4][2];
+    auto load_raw = [&](int grp) {  // [lo s, lo z, hi s, hi z][column]
+        const long long lo = (sz_row + grp) * p.ldw + col;
+        const long long hi = (sz_row + hi_groups + grp) * p.ldw + col;
+        if (!col_ok) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const long long i = sz_base + h;
-            const long long lo = (long long)glo * p.ldw + i, hi = (long long)ghi * p.ldw + i;
-            dst[0][h] = col_ok ? load_f(p.scales, lo, p.s_bf16) : 0.f;
-            dst[1][h] = col_ok ? load_f(p.zeros, lo, p.s_bf16) : 0.f;
-            dst[2][h] = col_ok ? load_f(p.scales, hi, p.s_bf16) : 0.f;
-            dst[3][h] = col_ok ? load_f(p.zeros, hi, p.s_bf16) : 0.f;
+            for (int i = 0; i < 4; ++i) raw[i][0] = raw[i][1] = 0u;
+        } else if (p.s_bf16) {  // both columns' bf16 in one 32-bit load
+            const uint32_t* sc = reinterpret_cast<const uint32_t*>(
+                reinterpret_cast<const __nv_bfloat16*>(p.scales) + lo);
+            const uint32_t* ze = reinterpret_cast<const uint32_t*>(
+                reinterpret_cast<const __nv_bfloat16*>(p.zeros) + lo);
+            const long long d = (hi - lo) / 2;
+            raw[0][0] = __ldg(sc);
+            raw[1][0] = __ldg(ze);
+            raw[2][0] = __ldg(sc + d);
+            raw[3][0] = __ldg(ze + d);
+        } else {
+            const float2 a = __ldg(reinterpret_cast<const float2*>(
+                               reinterpret_cast<const float*>(p.scales) + lo)),
+                         b = __ldg(reinterpret_cast<const float2*>(
+                               reinterpret_cast<const float*>(p.zeros) + lo)),
+                         c = __ldg(reinterpret_cast<const float2*>(
+                               reinterpret_cast<const float*>(p.scales) + hi)),
+                         d = __ldg(reinterpret_cast<const float2*>(
+                               reinterpret_cast<const float*>(p.zeros) + hi));
+            raw[0][0] = __float_as_uint(a.x), raw[0][1] = __float_as_uint(a.y);
+            raw[1][0] = __float_as_uint(b.x), raw[1][1] = __float_as_uint(b.y);
+            raw[2][0] = __float_as_uint(c.x), raw[2][1] = __float_as_uint(c.y);
+            raw[3][0] = __float_as_uint(d.x), raw[3][1] = __float_as_uint(d.y);
         }
     };
-    if (c_begin < c_end) {
-        load_sz(nsz, c_begin);
-        next_group = c_begin * kRows / p.group_size;
-    }
+    float sz[4][2];
+    uint32_t z2[2][2], s2[2][2];
+    bool packed = false;
+    auto start_group = [&]() {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            if (p.s_bf16) {
+                sz[i][0] = __uint_as_float(raw[i][0] << 16);
+                sz[i][1] = __uint_as_float(raw[i][0] & 0xFFFF0000u);
+            } else {
+                sz[i][0] = __uint_as_float(raw[i][0]);
+                sz[i][1] = __uint_as_float(raw[i][1]);
+            }
+        }
+        packed = p.s_bf16 != 0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int cc = 0; cc < 2; ++cc) {
+                const float z = sz[2 * h + 1][cc];
+                packed = packed && z == rintf(z) && z >= 0.f && z <= 127.f;
+                z2[h][cc] = bf16x2_of(128.f + z);
+                s2[h][cc] = bf16x2_of(sz[2 * h][cc]);
+            }
+    };
+    int grp = c_begin / cpg, left = 0;
+    if (c_begin < c_end) load_raw(grp);
 
-#ifdef W4A16_GROUP_STAGE
-    uint32_t fragS[2][kRows / 16][2][4];
-#pragma unroll
-    for (int b = 0; b < 2; ++b)
-#pragma unroll
-        for (int j = 0; j < kRows / 16; ++j)
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-#pragma unroll
-                for (int i = 0; i < 4; ++i) fragS[b][j][h][i] = 0u;
-#endif
-    uint32_t frag[2][2][4];
+    uint32_t frag[2][2][4];  // [step parity][half][register]
 #pragma unroll
     for (int b = 0; b < 2; ++b)
 #pragma unroll
@@ -372,164 +414,82 @@ w4a16_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ C
 #pragma unroll
             for (int i = 0; i < 4; ++i) frag[b][h][i] = 0u;
 
-    // the packed form's constants: [half][column] 128 + z and s, as bf16x2
-    uint32_t z2[2][2], s2[2][2];
-    bool packed = false;
-    for (int c = c_begin, it = 0; c < c_end; ++c, ++it) {
-        const int s = it % stages;
-        if (next_group != cur_group) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                sz[i][0] = nsz[i][0];
-                sz[i][1] = nsz[i][1];
-            }
-            cur_group = next_group;
-            packed = p.s_bf16 != 0;
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-#pragma unroll
-                for (int cc = 0; cc < 2; ++cc) {
-                    const float z = sz[2 * h + 1][cc];
-                    packed = packed && z == rintf(z) && z >= 0.f && z <= 127.f;
-                    z2[h][cc] = bf16x2_of(128.f + z);
-                    s2[h][cc] = bf16x2_of(sz[2 * h][cc]);
-                }
-#ifdef W4A16_DBG_NO_FAST
-            packed = false;
-#endif
-#ifdef W4A16_DBG_FORCE_PACKED
-            packed = true;
-#endif
+    int s = 0, s_prev = 0;
+    uint32_t phase = 0;
+    for (int c = c_begin; c < c_end; ++c) {
+        if (c == c_begin || left == 0) {  // a chunk never straddles a group
+            if (c != c_begin) ++grp;
+            left = c == c_begin ? cpg - (c_begin - grp * cpg) : cpg;
+            start_group();
+            if (c + left < c_end) load_raw(grp + 1);
         }
-        if (c + 1 < c_end) {  // a chunk never straddles a group (group_size % 64 == 0)
-            const int ng = (c + 1) * kRows / p.group_size;
-            if (ng != cur_group) {
-                load_sz(nsz, c + 1);
-                next_group = ng;
-            }
-        }
-        mbar_wait(smem_u32(full + s), (it / stages) & 1);
+        --left;
+        mbar_wait(smem_u32(full + s), phase);
         const uint8_t* st = smem + s * kStage;
-        const uint8_t* wbox = st + 2 * kXBox + wg * kWBox;
-        const uint32_t x_lo = smem_u32(st), x_hi = smem_u32(st + kXBox);
         // the stage's bytes of this thread, all loaded at once: step j's packed
-        // rows 16j + 2c4 + {0, 1, 8, 9}, columns lc and lc + 1. The box is
-        // 64-byte swizzled: 16-byte chunk ^= (row / 2) % 4
-        uint32_t bs[kRows / 16][4];
+        // rows 16j + 2c4 + {0, 1, 8, 9}, columns lc and lc + 1
+        uint32_t bs[kSteps][4];
 #pragma unroll
-        for (int j = 0; j < kRows / 16; ++j)
+        for (int j = 0; j < kSteps; ++j)
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
                 const int row = 16 * j + 2 * c4 + (q & 1) + 8 * (q >> 1);
-                const int off = row * kCols + lc;
-                const int phys = off ^ (((off >> 7) & 3) << 4);
-                bs[j][q] = *reinterpret_cast<const uint16_t*>(wbox + phys);
+                bs[j][q] = lds_u16(st + wbox_off + row * kCols + (lc ^ (((row >> 1) & 3) << 4)));
             }
+        const uint64_t d_lo = desc_sw128(smem_u32(st)), d_hi = desc_sw128(smem_u32(st + kXBox));
 #pragma unroll
-        for (int j = 0; j < kRows / 16; ++j) {
-            const uint32_t* b = bs[j];
-            // the A fragment of half h (0: low nibbles, x's first half; 1: high):
-            // a0 column lc, k 2c4..+1; a1 column lc+1; a2, a3 the same at k + 8
-            auto dequant = [&](uint32_t* a, int h) {
-                const int sh = 4 * h;
-#pragma unroll
-                for (int q = 0; q < 2; ++q) {
-                    const uint32_t r0 = b[2 * q], r1 = b[2 * q + 1];
-#ifdef W4A16_DBG_NO_DEQ
-                    a[2 * q] = (r0 >> sh) | (r1 << 16);
-                    a[2 * q + 1] = (r0 >> (8 + sh)) | (r1 << 8);
-#else
-                    if (packed) {  // column lc: bytes 0 of r0 and r1; lc + 1: bytes 1
-                        a[2 * q] = deq2(prmt(r0, r1, 0x6420u) >> sh, z2[h][0], s2[h][0]);
-                        a[2 * q + 1] = deq2(prmt(r0, r1, 0x7531u) >> sh, z2[h][1], s2[h][1]);
-                    } else {
-                        const float s0_ = sz[2 * h][0], z0 = sz[2 * h + 1][0];
-                        const float s1_ = sz[2 * h][1], z1 = sz[2 * h + 1][1];
-                        a[2 * q] = pack_bf16x2(deq((r0 >> sh) & 0xFu, z0, s0_),
-                                               deq((r1 >> sh) & 0xFu, z0, s0_));
-                        a[2 * q + 1] = pack_bf16x2(deq((r0 >> (8 + sh)) & 0xFu, z1, s1_),
-                                                   deq((r1 >> (8 + sh)) & 0xFu, z1, s1_));
-                    }
-#endif
-                }
-            };
-            auto issue = [&](const uint32_t* a, int h) {
-                const uint32_t xb = (h == 0 ? x_lo : x_hi) + 32 * j;
-#ifndef W4A16_DBG_NO_MMA
-#pragma unroll
-                for (int t = 0; t < TT; ++t) wgmma_rs(acc[t], a, desc_sw128(xb + t * kXTile));
-#else
-                if (xb == 0xFFFFFFFFu) acc[0][0] += __uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3]);
-#endif
-            };
-#if defined(W4A16_GROUP_STAGE)
-            {
-                uint32_t(&fa)[2][4] = fragS[it & 1][j];
-                dequant(fa[0], 0);
-                dequant(fa[1], 1);
-                if (j == kRows / 16 - 1) {
-                    wgmma_fence();
-#pragma unroll
-                    for (int jj = 0; jj < kRows / 16; ++jj) {
-                        const uint32_t xl = x_lo + 32 * jj, xh = x_hi + 32 * jj;
-#pragma unroll
-                        for (int t = 0; t < TT; ++t)
-                            wgmma_rs(acc[t], fragS[it & 1][jj][0], desc_sw128(xl + t * kXTile));
-#pragma unroll
-                        for (int t = 0; t < TT; ++t)
-                            wgmma_rs(acc[t], fragS[it & 1][jj][1], desc_sw128(xh + t * kXTile));
-                    }
-                    wgmma_commit();
-                    wgmma_wait<1>();
-#pragma unroll
-                    for (int jj = 0; jj < kRows / 16; ++jj)
-#pragma unroll
-                        for (int h = 0; h < 2; ++h)
-#pragma unroll
-                            for (int i = 0; i < 4; ++i) fence_reg(fragS[(it & 1) ^ 1][jj][h][i]);
-                    if (it > 0 && lane == 0) mbar_arrive(smem_u32(empty + (it - 1) % stages));
-                }
-            }
-#elif defined(W4A16_GROUP_J)
-            // one wgmma group a step: both halves' fragments, double-buffered by j
-            {
-                uint32_t(&fa)[2][4] = frag[j & 1];
-                dequant(fa[0], 0);
-                dequant(fa[1], 1);
-                wgmma_fence();
-                issue(fa[0], 0);
-                issue(fa[1], 1);
-                wgmma_commit();
-                wgmma_wait<1>();  // the previous step's group is done
+        for (int j = 0; j < kSteps; ++j) {
+            uint32_t(&fa)[2][4] = frag[j & 1];
+            // the A fragments of both halves (0: low nibbles, x's first half;
+            // 1: high): a0 column lc, k 2c4..+1; a1 column lc+1; a2, a3 the
+            // same at k + 8
+            if (packed) {
 #pragma unroll
                 for (int h = 0; h < 2; ++h)
 #pragma unroll
-                    for (int i = 0; i < 4; ++i) fence_reg(frag[(j & 1) ^ 1][h][i]);
-                fence_bytes(bs);
-                if (j == 0 && it > 0 && lane == 0)
-                    mbar_arrive(smem_u32(empty + (it - 1) % stages));  // all its groups are done
-            }
-#else
+                    for (int q = 0; q < 2; ++q) {  // column lc: bytes 0; lc + 1: bytes 1
+                        const uint32_t r0 = bs[j][2 * q], r1 = bs[j][2 * q + 1];
+                        fa[h][2 * q] = deq2(prmt(r0, r1, 0x6420u) >> (4 * h), z2[h][0], s2[h][0]);
+                        fa[h][2 * q + 1] =
+                            deq2(prmt(r0, r1, 0x7531u) >> (4 * h), z2[h][1], s2[h][1]);
+                    }
+            } else {
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {  // one wgmma group a fragment, double-buffered
-                uint32_t* a = frag[0][h];
-                dequant(a, h);
-                wgmma_fence();
-                issue(a, h);
-                wgmma_commit();
-#ifdef W4A16_DBG_WAIT0
-                wgmma_wait<0>();
-#else
-                wgmma_wait<1>();  // the other fragment's group is done: it may be rewritten
-#endif
-                // the other fragment's registers stay put until here
+                for (int h = 0; h < 2; ++h)
 #pragma unroll
-                for (int i = 0; i < 4; ++i) fence_reg(frag[0][h ^ 1][i]);
-                fence_bytes(bs);
-                if (j == 0 && h == 0 && it > 0 && lane == 0)
-                    mbar_arrive(smem_u32(empty + (it - 1) % stages));  // all its groups are done
+                    for (int q = 0; q < 2; ++q) {
+                        const uint32_t r0 = bs[j][2 * q], r1 = bs[j][2 * q + 1];
+                        const int sh = 4 * h;
+                        fa[h][2 * q] =
+                            pack_bf16x2(deq((r0 >> sh) & 0xFu, sz[2 * h + 1][0], sz[2 * h][0]),
+                                        deq((r1 >> sh) & 0xFu, sz[2 * h + 1][0], sz[2 * h][0]));
+                        fa[h][2 * q + 1] = pack_bf16x2(
+                            deq((r0 >> (8 + sh)) & 0xFu, sz[2 * h + 1][1], sz[2 * h][1]),
+                            deq((r1 >> (8 + sh)) & 0xFu, sz[2 * h + 1][1], sz[2 * h][1]));
+                    }
             }
-#endif
+            // one wgmma group a step: both halves, TT token tiles each
+            wgmma_fence();
+#pragma unroll
+            for (int t = 0; t < TT; ++t)
+                wgmma_rs(acc[t], fa[0], d_lo + (uint64_t)(2 * j + t * (kXTile >> 4)));
+#pragma unroll
+            for (int t = 0; t < TT; ++t)
+                wgmma_rs(acc[t], fa[1], d_hi + (uint64_t)(2 * j + t * (kXTile >> 4)));
+            wgmma_commit();
+            wgmma_wait<1>();  // the previous step's group is done: its fragments are free
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) fence_reg(frag[(j & 1) ^ 1][h][i]);
+            fence_bytes(bs);
+            if (j == 0 && c > c_begin && lane == 0)
+                mbar_arrive(smem_u32(empty + s_prev));  // all the previous stage's groups are done
+        }
+        s_prev = s;
+        if (++s == stages) {
+            s = 0;
+            phase ^= 1;
         }
     }
     wgmma_wait<0>();
@@ -634,21 +594,12 @@ struct Layer {
     int n;
 };
 
-#ifdef W4A16_DBG_L2_NONE
-constexpr CUtensorMapL2promotion kWeightPromotion = CU_TENSOR_MAP_L2_PROMOTION_NONE;
-#else
-constexpr CUtensorMapL2promotion kWeightPromotion = CU_TENSOR_MAP_L2_PROMOTION_L2_256B;
-#endif
-
 template <int TT, int NW>
 int launch(const void* x, const void* w8, Params p, int splits, cudaStream_t st) {
     constexpr int kStage = 2 * TT * kXTile + 2 * kWBox;
     // rows past S in a stage's x tiles are left as they were: they feed only
     // the accumulators of tokens past S, which are never stored
     p.x_rows = p.S < TT * kTok ? (p.S + 7) / 8 * 8 : TT * kTok;
-#ifdef W4A16_DBG_FULL_XBOX
-    p.x_rows = TT * kTok;
-#endif
     EncodeTiled encode = encoder();
     if (encode == nullptr) return (int)cudaErrorNotSupported;
     CUtensorMap tm_x, tm_w;
@@ -668,7 +619,7 @@ int launch(const void* x, const void* w8, Params p, int splits, cudaStream_t st)
         const cuuint32_t box[3] = {kCols, kRows, 1}, es[3] = {1, 1, 1};
         if (encode(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(w8), dims, strides,
                    box, es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
-                   kWeightPromotion, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
             CUDA_SUCCESS)
             return (int)cudaErrorInvalidValue;
     }
