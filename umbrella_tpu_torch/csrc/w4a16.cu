@@ -24,25 +24,33 @@
 //
 // Design (Hopper: TMA, mbarriers, wgmma; sm_90a only):
 // - A and B swapped: the kernel computes Y^T = W^T x^T, so the output columns
-//   run along wgmma's 64-row M and the tokens along its N. Each consumer
-//   warpgroup owns 64 weight columns and dequantizes its weight straight into
-//   the register A fragment of a dense bf16 wgmma.mma_async m64n64k16; x is the
-//   B operand, a K-major bf16 tile in shared memory (x's own row-major
-//   layout). The weight never makes a shared-memory round trip in bf16.
-// - Fixed token width: every wgmma is 64 tokens wide whatever S is; a block
-//   issues TT = ceil(min(S, 256) / 64) of them on each dequantized fragment,
-//   so for S <= 256 (every decode path: 1-24 draft, 127 verify, 224 serve)
-//   each weight byte is read and dequantized once. S > 256 (prefill) takes
-//   super-tiles of 256 rows along the grid's y. A row's instruction sequence
-//   never depends on S: results are row-invariant.
-// - A TMA ring: one producer warp keeps 3-8 stages in flight (as many as
-//   shared memory holds at this TT); a stage holds two 64 x 64 packed-weight
-//   boxes (one per consumer warpgroup, 8 KB) and the two matching x boxes,
-//   x[:, r0:r0+64] and x[:, K/2+r0:K/2+r0+64] (64*TT rows each, 128-byte
-//   swizzle, rows past S zero-filled by TMA). 24-64 KB of weights are in
-//   flight per SM, against the ~2 KB per block of the WMMA kernel this
-//   replaces. Consumers wait on a stage's full barrier and release its empty
-//   barrier once the wgmma groups that read it have completed.
+//   run along wgmma's 64-row M and the tokens along its N. Each of two
+//   consumer warpgroups owns 64 weight columns and dequantizes its weight
+//   straight into the register A fragment of a dense bf16 wgmma.mma_async
+//   (m64nNk16); x is the B operand, a K-major bf16 tile in shared memory (x's
+//   own row-major layout). The weight never makes a shared-memory round trip
+//   in bf16.
+// - Token tiles of 64: a block takes TT = ceil(min(S, 256) / 64) of them and
+//   issues one wgmma of width N = 64 * TT on each dequantized fragment, so for
+//   S <= 256 (every decode path: 1-24 draft, 127 verify, 224 serve) each
+//   weight byte is read and dequantized once. S > 256 (prefill) takes
+//   super-tiles of 256 rows along the grid's y. A row's summation order (K
+//   split, steps, halves) never depends on S, and a wgmma computes a token's
+//   column alike at every width (chip_smoke.py holds rows of S = 1, 24, 127,
+//   224 and 300 equal bit for bit): results are row-invariant. One wide
+//   wgmma instead of TT of width 64 halved the time of the MMA path on the card
+//   (each instruction has a fixed cost that an n64 one does not amortize).
+// - A TMA ring: one thread of a producer warpgroup keeps 3-8 stages in flight
+//   (as many as shared memory holds at this TT); a stage holds two 64 x 64
+//   packed-weight boxes (one per consumer warpgroup, 8 KB) and the two
+//   matching x boxes, x[:, r0:r0+64] and x[:, K/2+r0:K/2+r0+64] (S rows
+//   rounded up to 8, 128-byte swizzle; rows past S are zero-filled by TMA or
+//   left stale, and feed only accumulators that are never stored). 24-64 KB
+//   of weights are in flight per SM, against the ~2 KB per block of the WMMA
+//   kernel this replaces. Consumers wait on a stage's full barrier, read its
+//   bytes (16 ld.shared a thread), and release its empty barrier once the
+//   wgmma groups that read its x have completed. setmaxnreg gives the
+//   consumers 232 registers and the producer 40.
 // - Bank conflicts: a thread's A fragment needs packed rows 2c, 2c+1, 2c+8,
 //   2c+9 of a 16-row step, which are 128 B apart in a 64-byte-wide box; the
 //   weight boxes use CU_TENSOR_MAP_SWIZZLE_64B, which spreads those rows over
@@ -51,6 +59,11 @@
 //   shared load per packed row, and each thread stores column pairs, so every
 //   32-byte sector of y is written whole without a transpose through shared
 //   memory.
+// - Dequantization: bf16 scales with integer zeros in [0, 127] (every AWQ
+//   checkpoint) take a packed bf16x2 form, 5 instructions per 2 weights and
+//   bit for bit the fp32 form (see deq2); other scales and zeros take the
+//   fp32 form. chip_smoke.py holds eye(K) @ W equal to the plain version's
+//   dequantized weight for both.
 // - Layered mode by construction: the weight tensor map is 3-D [n_layers,
 //   K/2, ldw]; thread 0 reads the int32 layer index once on the device, traps
 //   outside [0, n_layers), and the producer passes it as the outermost TMA
@@ -62,13 +75,14 @@
 //   warpgroup 1 the matching up tile from the same stages' x; the up sums
 //   pass to warpgroup 0 through shared memory for the epilogue.
 // - Split K from the column tiles and K only (never S), fp32 partials summed
-//   in a fixed order by w4a16_sum_partials (the fused form's SiLU runs there). No
-//   atomics: results are deterministic.
+//   in a fixed order by w4a16_sum_partials (the fused form's SiLU runs
+//   there). No atomics: results are deterministic.
 // - The TMA descriptors are encoded on the host at each launch with
 //   cuTensorMapEncodeTiled, fetched once through cudaGetDriverEntryPoint (no
 //   -lcuda), and passed as __grid_constant__ kernel parameters.
-// Registers: TT x 32 fp32 accumulators (128 at TT = 4) fit the 224 registers
-// a thread of a 288-thread block may hold, so no setmaxnreg is needed.
+// What bounds it now (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py): at the
+// 70B gate_up shape the MMA path alone takes ~2x the operations bound and
+// the TMA weight stream alone ~1.5x the bytes bound; see PERF.md.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,6 +102,8 @@ constexpr int kWBox = kRows * kCols;             // bytes of one weight box
 constexpr int kXTile = kTok * kRows * 2;         // bytes of one 64-token x tile
 constexpr int kSmemMax = 232448;
 constexpr int kMaxStages = 8;
+// 16-row steps in one wgmma group (a wgmma.fence, commit and wait each)
+constexpr int kStepsPerGroup = 2;
 
 struct Params {
     const void* scales;
@@ -183,23 +199,79 @@ __device__ __forceinline__ void fence_bytes(uint32_t (&bs)[J][4]) {
         for (int i = 0; i < 4; ++i) fence_reg(bs[j][i]);
 }
 
-// d[64 x 64 fp32] += A[64 x 16 bf16, registers] * B[16 x 64 bf16, shared]
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t desc_b) {
+// d[64 x 64*TT fp32] += A[64 x 16 bf16, registers] * B[16 x 64*TT bf16,
+// shared]: one instruction for all TT token tiles of a fragment (d holds
+// token tile t's 32 accumulators at d[32t..32t+31], the n64 layout's)
+#define W4A16_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define W4A16_D16(i) W4A16_D4(i), W4A16_D4(i + 4), W4A16_D4(i + 8), W4A16_D4(i + 12)
+#define W4A16_D32(i) W4A16_D16(i), W4A16_D16(i + 16)
+#define W4A16_D64(i) W4A16_D32(i), W4A16_D32(i + 32)
+#define W4A16_D96(i) W4A16_D64(i), W4A16_D32(i + 64)
+#define W4A16_D128(i) W4A16_D64(i), W4A16_D64(i + 64)
+template <int TT>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t desc_b);
+template <>
+__device__ __forceinline__ void wgmma_rs<1>(float* d, const uint32_t* a, uint64_t desc_b) {
     asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-          "+f"(d[31])
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : W4A16_D32(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<2>(float* d, const uint32_t* a, uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : W4A16_D64(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<3>(float* d, const uint32_t* a, uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, {%96, %97, %98, %99}, %100, p, 1, 1, 0;\n}\n"
+        : W4A16_D96(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<4>(float* d, const uint32_t* a, uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+        : W4A16_D128(0)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
@@ -406,15 +478,19 @@ w4a16_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ C
     int grp = c_begin / cpg, left = 0;
     if (c_begin < c_end) load_raw(grp);
 
-    uint32_t frag[2][2][4];  // [step parity][half][register]
+    // the A fragments of a group of steps, double-buffered by group:
+    // [buffer][step in the group][half][register]
+    uint32_t frag[2][kStepsPerGroup][2][4];
 #pragma unroll
     for (int b = 0; b < 2; ++b)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+        for (int jj = 0; jj < kStepsPerGroup; ++jj)
 #pragma unroll
-            for (int i = 0; i < 4; ++i) frag[b][h][i] = 0u;
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) frag[b][jj][h][i] = 0u;
 
-    int s = 0, s_prev = 0;
+    int s = 0, s_prev = 0, buf = 0;
     uint32_t phase = 0;
     for (int c = c_begin; c < c_end; ++c) {
         if (c == c_begin || left == 0) {  // a chunk never straddles a group
@@ -438,52 +514,62 @@ w4a16_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ C
             }
         const uint64_t d_lo = desc_sw128(smem_u32(st)), d_hi = desc_sw128(smem_u32(st + kXBox));
 #pragma unroll
-        for (int j = 0; j < kSteps; ++j) {
-            uint32_t(&fa)[2][4] = frag[j & 1];
-            // the A fragments of both halves (0: low nibbles, x's first half;
-            // 1: high): a0 column lc, k 2c4..+1; a1 column lc+1; a2, a3 the
-            // same at k + 8
-            if (packed) {
+        for (int j0 = 0; j0 < kSteps; j0 += kStepsPerGroup) {
+            uint32_t(&fb)[kStepsPerGroup][2][4] = frag[buf];
+            // the A fragments of both halves of each step (0: low nibbles,
+            // x's first half; 1: high): a0 column lc, k 2c4..+1; a1 column
+            // lc+1; a2, a3 the same at k + 8
 #pragma unroll
-                for (int h = 0; h < 2; ++h)
+            for (int jj = 0; jj < kStepsPerGroup; ++jj) {
+                const uint32_t* b = bs[j0 + jj];
+                if (packed) {
 #pragma unroll
-                    for (int q = 0; q < 2; ++q) {  // column lc: bytes 0; lc + 1: bytes 1
-                        const uint32_t r0 = bs[j][2 * q], r1 = bs[j][2 * q + 1];
-                        fa[h][2 * q] = deq2(prmt(r0, r1, 0x6420u) >> (4 * h), z2[h][0], s2[h][0]);
-                        fa[h][2 * q + 1] =
-                            deq2(prmt(r0, r1, 0x7531u) >> (4 * h), z2[h][1], s2[h][1]);
-                    }
-            } else {
+                    for (int h = 0; h < 2; ++h)
 #pragma unroll
-                for (int h = 0; h < 2; ++h)
+                        for (int q = 0; q < 2; ++q) {  // column lc: bytes 0; lc + 1: bytes 1
+                            const uint32_t r0 = b[2 * q], r1 = b[2 * q + 1];
+                            fb[jj][h][2 * q] =
+                                deq2(prmt(r0, r1, 0x6420u) >> (4 * h), z2[h][0], s2[h][0]);
+                            fb[jj][h][2 * q + 1] =
+                                deq2(prmt(r0, r1, 0x7531u) >> (4 * h), z2[h][1], s2[h][1]);
+                        }
+                } else {
 #pragma unroll
-                    for (int q = 0; q < 2; ++q) {
-                        const uint32_t r0 = bs[j][2 * q], r1 = bs[j][2 * q + 1];
-                        const int sh = 4 * h;
-                        fa[h][2 * q] =
-                            pack_bf16x2(deq((r0 >> sh) & 0xFu, sz[2 * h + 1][0], sz[2 * h][0]),
-                                        deq((r1 >> sh) & 0xFu, sz[2 * h + 1][0], sz[2 * h][0]));
-                        fa[h][2 * q + 1] = pack_bf16x2(
-                            deq((r0 >> (8 + sh)) & 0xFu, sz[2 * h + 1][1], sz[2 * h][1]),
-                            deq((r1 >> (8 + sh)) & 0xFu, sz[2 * h + 1][1], sz[2 * h][1]));
-                    }
+                    for (int h = 0; h < 2; ++h)
+#pragma unroll
+                        for (int q = 0; q < 2; ++q) {
+                            const uint32_t r0 = b[2 * q], r1 = b[2 * q + 1];
+                            const int sh = 4 * h;
+                            const float z0 = sz[2 * h + 1][0], s0_ = sz[2 * h][0];
+                            const float z1 = sz[2 * h + 1][1], s1_ = sz[2 * h][1];
+                            fb[jj][h][2 * q] = pack_bf16x2(deq((r0 >> sh) & 0xFu, z0, s0_),
+                                                           deq((r1 >> sh) & 0xFu, z0, s0_));
+                            fb[jj][h][2 * q + 1] =
+                                pack_bf16x2(deq((r0 >> (8 + sh)) & 0xFu, z1, s1_),
+                                            deq((r1 >> (8 + sh)) & 0xFu, z1, s1_));
+                        }
+                }
             }
-            // one wgmma group a step: both halves, TT token tiles each
+            // one wgmma group: each step's low half, then its high half, TT
+            // token tiles each (the summation order of every output)
             wgmma_fence();
 #pragma unroll
-            for (int t = 0; t < TT; ++t)
-                wgmma_rs(acc[t], fa[0], d_lo + (uint64_t)(2 * j + t * (kXTile >> 4)));
-#pragma unroll
-            for (int t = 0; t < TT; ++t)
-                wgmma_rs(acc[t], fa[1], d_hi + (uint64_t)(2 * j + t * (kXTile >> 4)));
+            for (int jj = 0; jj < kStepsPerGroup; ++jj) {
+                const uint64_t k_off = 2 * (j0 + jj);
+                wgmma_rs<TT>(&acc[0][0], fb[jj][0], d_lo + k_off);
+                wgmma_rs<TT>(&acc[0][0], fb[jj][1], d_hi + k_off);
+            }
             wgmma_commit();
-            wgmma_wait<1>();  // the previous step's group is done: its fragments are free
+            wgmma_wait<1>();  // the previous group is done: its fragments are free
 #pragma unroll
-            for (int h = 0; h < 2; ++h)
+            for (int jj = 0; jj < kStepsPerGroup; ++jj)
 #pragma unroll
-                for (int i = 0; i < 4; ++i) fence_reg(frag[(j & 1) ^ 1][h][i]);
+                for (int h = 0; h < 2; ++h)
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) fence_reg(frag[buf ^ 1][jj][h][i]);
             fence_bytes(bs);
-            if (j == 0 && c > c_begin && lane == 0)
+            buf ^= 1;
+            if (j0 == 0 && c > c_begin && lane == 0)
                 mbar_arrive(smem_u32(empty + s_prev));  // all the previous stage's groups are done
         }
         s_prev = s;
