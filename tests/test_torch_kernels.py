@@ -446,3 +446,31 @@ def test_w4a16_gate_up_silu_raises_on_an_odd_width():
 
     with pytest.raises(ValueError):
         w4a16_gate_up_silu(torch.zeros((2, 256), dtype=torch.bfloat16), _cpu_awq(256, 251))
+
+
+def test_launches_enter_the_tensors_card(monkeypatch):
+    """build.on_device makes the tensor's card current around a launch and
+    hands over that card's current stream, so a kernel on a cuda:1 tensor is
+    never launched against the current device (cuda:0)."""
+    import contextlib
+    import types
+
+    from umbrella_tpu_torch.ops.kernels import build
+
+    entered, asked = [], []
+
+    @contextlib.contextmanager
+    def fake_device(dev):
+        entered.append(dev)
+        yield
+
+    def fake_stream(dev):
+        asked.append(dev)
+        return types.SimpleNamespace(cuda_stream=4242)
+
+    monkeypatch.setattr(torch.cuda, "device", fake_device)
+    monkeypatch.setattr(torch.cuda, "current_stream", fake_stream)
+    t = types.SimpleNamespace(device=torch.device("cuda", 1))
+    with build.on_device(t) as st:
+        assert entered == [torch.device("cuda", 1)]
+    assert asked == [torch.device("cuda", 1)] and st.value == 4242
