@@ -23,8 +23,8 @@ lines tagged with its name:
                    layered and fused, bf16 and fp32 x.
   multi-card       the static and the batched engine built on the last card
                    while cuda:0 is current: 16 tokens each must equal the same
-                   engines' tokens on cuda:0 (needs 2+ cards: `chiprun --chips
-                   2`; on one card it prints "skipped: 1 card" and passes).
+                   engines' tokens on cuda:0 (needs a host with 2+ cards; on
+                   one card it prints "skipped: 1 card" and passes).
   lossless         full widths, 4 layers, early exit 2, fp32 activations:
                    greedy static-tree generate() must equal the port's own
                    greedy autoregressive decode for 64 tokens.

@@ -381,12 +381,13 @@ def test_w4a16_plan_splits_and_tiles_ignore_the_row_count(K, N, ranges):
 
 @pytest.mark.parametrize("S", PLAN_ROWS)
 def test_w4a16_plan_token_tiles(S):
-    """ceil(min(S, 256) / 64) wgmma token tiles a block; S > 256 takes
-    super-tiles of 256 rows."""
+    """ceil(min(S, 256) / 64) token tiles a block, in one wgmma of 64 tokens a
+    tile (32 for S <= 32); S > 256 takes super-tiles of 256 rows."""
     from umbrella_tpu_torch.ops.kernels.w4a16 import _plan
 
     p = _plan(S, 4096, 28672, 1, 128)
     assert p["token_tiles"] == -(-min(S, 256) // 64)
+    assert p["token_width"] == (32 if S <= 32 else 64 * p["token_tiles"])
     assert p["super_tiles"] == -(-S // 256)
 
 

@@ -30,18 +30,19 @@
 //   (m64nNk16); x is the B operand, a K-major bf16 tile in shared memory (x's
 //   own row-major layout). The weight never makes a shared-memory round trip
 //   in bf16.
-// - Token tiles of 64: a block takes TT = ceil(min(S, 256) / 64) of them and
-//   issues one wgmma of width N = 64 * TT on each dequantized fragment, so for
-//   S <= 256 (every decode path: 1-24 draft, 127 verify, 224 serve) each
-//   weight byte is read and dequantized once. S > 256 (prefill) takes
-//   super-tiles of 256 rows along the grid's y. A row's summation order (K
-//   split, steps, halves) never depends on S, and a wgmma computes a token's
-//   column alike at every width (chip_smoke.py holds rows of S = 1, 24, 127,
-//   224 and 300 equal bit for bit): results are row-invariant. One wide
-//   wgmma instead of TT of width 64 halved the time of the MMA path on the card
-//   (each instruction has a fixed cost that an n64 one does not amortize).
+// - Token width: a block covers NT tokens, S rounded up to 32 (S <= 32, the
+//   draft's levels) or to 64, at most 256, and issues one wgmma of width NT
+//   on each dequantized fragment, so for S <= 256 (every decode path: 1-24
+//   draft, 127 verify, 224 serve) each weight byte is read and dequantized
+//   once. S > 256 (prefill) takes super-tiles of 256 rows along the grid's y.
+//   A row's summation order (K split, steps, halves) never depends on S, and
+//   a wgmma computes a token's column alike at every width (chip_smoke.py
+//   holds rows of S = 1, 24, 127, 224 and 300 equal bit for bit): results
+//   are row-invariant. One wgmma of width NT, rather than NT / 64 of width
+//   64, cut the MMA path's time on the card by a fifth (an instruction has a
+//   fixed cost that a narrow one does not amortize).
 // - A TMA ring: one thread of a producer warpgroup keeps 3-8 stages in flight
-//   (as many as shared memory holds at this TT); a stage holds two 64 x 64
+//   (as many as shared memory holds at this NT); a stage holds two 64 x 64
 //   packed-weight boxes (one per consumer warpgroup, 8 KB) and the two
 //   matching x boxes, x[:, r0:r0+64] and x[:, K/2+r0:K/2+r0+64] (S rows
 //   rounded up to 8, 128-byte swizzle; rows past S are zero-filled by TMA or
@@ -92,14 +93,12 @@ namespace {
 
 constexpr int kRows = 64;    // packed rows (K/2 direction) per stage
 constexpr int kCols = 64;    // weight columns per consumer warpgroup
-constexpr int kTok = 64;     // wgmma token width
-constexpr int kMaxTT = 4;    // token tiles per block: S <= 256 in one pass
+constexpr int kMaxTok = 256;  // tokens a block: S <= 256 in one pass
 constexpr int kConsumerThreads = 256;  // two consumer warpgroups
 constexpr int kThreads = kConsumerThreads + 128;  // + a producer warpgroup (one thread issues)
 // registers a thread: the producer gives most of its share to the consumers
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kWBox = kRows * kCols;             // bytes of one weight box
-constexpr int kXTile = kTok * kRows * 2;         // bytes of one 64-token x tile
 constexpr int kSmemMax = 232448;
 constexpr int kMaxStages = 8;
 // 16-row steps in one wgmma group (a wgmma.fence, commit and wait each)
@@ -113,7 +112,7 @@ struct Params {
     const int* layer_idx;
     int n_layers, S, K2, N, ldw, group_size, n_chunks, chunks_per_split, stages, s_bf16,
         out_bf16;
-    int x_rows;  // rows of an x box: S rounded up to 8, at most 64 * TT
+    int x_rows;  // rows of an x box: S rounded up to 8, at most NT
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -124,6 +123,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ uint32_t lds_u16(const void* p) {
     uint16_t v;
     asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(smem_u32(p)));
+    return v;
+}
+__device__ __forceinline__ float lds_f32(uint32_t addr) {
+    float v;
+    asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
     return v;
 }
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -199,19 +203,30 @@ __device__ __forceinline__ void fence_bytes(uint32_t (&bs)[J][4]) {
         for (int i = 0; i < 4; ++i) fence_reg(bs[j][i]);
 }
 
-// d[64 x 64*TT fp32] += A[64 x 16 bf16, registers] * B[16 x 64*TT bf16,
-// shared]: one instruction for all TT token tiles of a fragment (d holds
-// token tile t's 32 accumulators at d[32t..32t+31], the n64 layout's)
+// d[64 x NT fp32] += A[64 x 16 bf16, registers] * B[16 x NT bf16, shared]:
+// one instruction for all NT tokens of a block (d[4i + 2h + e] holds M row
+// g + 8h, token 8i + 2c + e, the n8 blocks of the wgmma accumulator layout)
 #define W4A16_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define W4A16_D16(i) W4A16_D4(i), W4A16_D4(i + 4), W4A16_D4(i + 8), W4A16_D4(i + 12)
 #define W4A16_D32(i) W4A16_D16(i), W4A16_D16(i + 16)
 #define W4A16_D64(i) W4A16_D32(i), W4A16_D32(i + 32)
 #define W4A16_D96(i) W4A16_D64(i), W4A16_D32(i + 64)
 #define W4A16_D128(i) W4A16_D64(i), W4A16_D64(i + 64)
-template <int TT>
+template <int NT>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t desc_b);
 template <>
-__device__ __forceinline__ void wgmma_rs<1>(float* d, const uint32_t* a, uint64_t desc_b) {
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : W4A16_D16(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t desc_b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -223,7 +238,7 @@ __device__ __forceinline__ void wgmma_rs<1>(float* d, const uint32_t* a, uint64_
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 template <>
-__device__ __forceinline__ void wgmma_rs<2>(float* d, const uint32_t* a, uint64_t desc_b) {
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t desc_b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -238,7 +253,7 @@ __device__ __forceinline__ void wgmma_rs<2>(float* d, const uint32_t* a, uint64_
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 template <>
-__device__ __forceinline__ void wgmma_rs<3>(float* d, const uint32_t* a, uint64_t desc_b) {
+__device__ __forceinline__ void wgmma_rs<192>(float* d, const uint32_t* a, uint64_t desc_b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
@@ -255,7 +270,7 @@ __device__ __forceinline__ void wgmma_rs<3>(float* d, const uint32_t* a, uint64_
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 template <>
-__device__ __forceinline__ void wgmma_rs<4>(float* d, const uint32_t* a, uint64_t desc_b) {
+__device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a, uint64_t desc_b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -323,14 +338,14 @@ __device__ __forceinline__ void store2(void* out, long long o, float a, float b,
 // covers 128 columns, 64 per consumer warpgroup), NW = 2 the fused gate
 // (r = 0) and up (r = 1) product (ldw = 2N; a block covers 64 output columns,
 // warpgroup r the range r's).
-template <int TT, int NW>
+template <int NT, int NW>
 __global__ void __launch_bounds__(kThreads, 1)
 w4a16_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
              const Params p) {
     extern __shared__ uint8_t smem_raw[];
     uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                                ~uintptr_t(1023));
-    constexpr int kXBox = TT * kXTile;             // one x half of a stage
+    constexpr int kXBox = NT * kRows * 2;          // one x half of a stage
     constexpr int kStage = 2 * kXBox + 2 * kWBox;  // multiple of 1024
     constexpr int kSteps = kRows / 16;             // k16 steps a stage
     const int stages = p.stages;
@@ -354,7 +369,7 @@ w4a16_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ C
     }
     __syncthreads();
     const int layer = *layer_sm;
-    const int bx = blockIdx.x, kz = blockIdx.z, s0 = blockIdx.y * kMaxTT * kTok;
+    const int bx = blockIdx.x, kz = blockIdx.z, s0 = blockIdx.y * kMaxTok;
     const int c_begin = kz * p.chunks_per_split;
     const int c_end = min(p.n_chunks, c_begin + p.chunks_per_split);
     // first weight column of consumer warpgroup r
@@ -402,14 +417,12 @@ w4a16_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ C
 
     // zeroed before the first wgmma.fence: a register write inside a wgmma
     // pipeline stage makes ptxas serialize every wgmma of the kernel
-    float acc[TT][32];
+    float acc[NT / 2];
 #pragma unroll
-    for (int t = 0; t < TT; ++t)
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-            acc[t][i] = 0.f;
-            fence_reg(acc[t][i]);
-        }
+    for (int i = 0; i < NT / 2; ++i) {
+        acc[i] = 0.f;
+        fence_reg(acc[i]);
+    }
 
     // scales and zeros of the two columns for the current group's low and
     // high halves: sz[lo s, lo z, hi s, hi z][column]; the packed form's
@@ -550,14 +563,14 @@ w4a16_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ C
                         }
                 }
             }
-            // one wgmma group: each step's low half, then its high half, TT
-            // token tiles each (the summation order of every output)
+            // one wgmma group: each step's low half, then its high half, all
+            // NT tokens each (the summation order of every output)
             wgmma_fence();
 #pragma unroll
             for (int jj = 0; jj < kStepsPerGroup; ++jj) {
                 const uint64_t k_off = 2 * (j0 + jj);
-                wgmma_rs<TT>(&acc[0][0], fb[jj][0], d_lo + k_off);
-                wgmma_rs<TT>(&acc[0][0], fb[jj][1], d_hi + k_off);
+                wgmma_rs<NT>(acc, fb[jj][0], d_lo + k_off);
+                wgmma_rs<NT>(acc, fb[jj][1], d_hi + k_off);
             }
             wgmma_commit();
             wgmma_wait<1>();  // the previous group is done: its fragments are free
@@ -580,56 +593,48 @@ w4a16_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ C
     }
     wgmma_wait<0>();
 #pragma unroll
-    for (int t = 0; t < TT; ++t)
-#pragma unroll
-        for (int i = 0; i < 32; ++i) fence_reg(acc[t][i]);
+    for (int i = 0; i < NT / 2; ++i) fence_reg(acc[i]);
 
-    // acc[t][4i + 2h + e]: column out_col + h, token s0 + 64t + 8i + 2c4 + e
+    // acc[4i + 2h + e]: column out_col + h, token s0 + 8i + 2c4 + e
     const int S = p.S, N = p.N;
     if (p.partial != nullptr || NW == 1) {
         const int r = NW == 1 ? 0 : wg;
 #pragma unroll
-        for (int t = 0; t < TT; ++t)
+        for (int i = 0; i < NT / 8; ++i)
 #pragma unroll
-            for (int i = 0; i < 8; ++i)
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int tok = s0 + t * kTok + 8 * i + 2 * c4 + e;
-                    if (tok >= S || !col_ok) continue;
-                    const long long o = (long long)tok * N + out_col;
-                    const float v0 = acc[t][4 * i + e], v1 = acc[t][4 * i + 2 + e];
-                    if (p.partial != nullptr)
-                        store2(p.partial, (long long)(kz * NW + r) * S * N + o, v0, v1, 0);
-                    else
-                        store2(p.out, o, v0, v1, p.out_bf16);
-                }
+            for (int e = 0; e < 2; ++e) {
+                const int tok = s0 + 8 * i + 2 * c4 + e;
+                if (tok >= S || !col_ok) continue;
+                const long long o = (long long)tok * N + out_col;
+                const float v0 = acc[4 * i + e], v1 = acc[4 * i + 2 + e];
+                if (p.partial != nullptr)
+                    store2(p.partial, (long long)(kz * NW + r) * S * N + o, v0, v1, 0);
+                else
+                    store2(p.out, o, v0, v1, p.out_bf16);
+            }
         return;
     }
-    // fused, unsplit: the up sums pass to warpgroup 0 through the (drained) ring
-    float* up = reinterpret_cast<float*>(smem);
-    const int ti = tid & 127;
+    // fused, unsplit: the up sums pass to warpgroup 0 through the (drained)
+    // ring, as [accumulator][thread] floats
+    const uint32_t up = smem_u32(smem) + 4 * (tid & 127);
     asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumerThreads) : "memory");
     if (wg == 1) {
 #pragma unroll
-        for (int t = 0; t < TT; ++t)
-#pragma unroll
-            for (int i = 0; i < 32; ++i) up[(t * 32 + i) * 128 + ti] = acc[t][i];
+        for (int i = 0; i < NT / 2; ++i)
+            asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(up + 512 * i), "f"(acc[i]) : "memory");
     }
     asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumerThreads) : "memory");
     if (wg == 1) return;
 #pragma unroll
-    for (int t = 0; t < TT; ++t)
+    for (int i = 0; i < NT / 8; ++i)
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                const int tok = s0 + t * kTok + 8 * i + 2 * c4 + e;
-                if (tok >= S || !col_ok) continue;
-                const int k0 = 4 * i + e, k1 = 4 * i + 2 + e;
-                store2(p.out, (long long)tok * N + out_col,
-                       silu_mul(acc[t][k0], up[(t * 32 + k0) * 128 + ti]),
-                       silu_mul(acc[t][k1], up[(t * 32 + k1) * 128 + ti]), p.out_bf16);
-            }
+        for (int e = 0; e < 2; ++e) {
+            const int tok = s0 + 8 * i + 2 * c4 + e;
+            if (tok >= S || !col_ok) continue;
+            const int k0 = 4 * i + e, k1 = 4 * i + 2 + e;
+            store2(p.out, (long long)tok * N + out_col, silu_mul(acc[k0], lds_f32(up + 512 * k0)),
+                   silu_mul(acc[k1], lds_f32(up + 512 * k1)), p.out_bf16);
+        }
 }
 
 // partial [splits, NW, S, N]: sums over the splits in order, then the epilogue
@@ -657,7 +662,7 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver the runtime already loaded
+// cuTensorMapEncodeTiled from the CUDA driver that the runtime already loaded
 EncodeTiled encoder() {
     static EncodeTiled fn = nullptr;
     if (fn == nullptr) {
@@ -680,16 +685,16 @@ struct Layer {
     int n;
 };
 
-template <int TT, int NW>
+template <int NT, int NW>
 int launch(const void* x, const void* w8, Params p, int splits, cudaStream_t st) {
-    constexpr int kStage = 2 * TT * kXTile + 2 * kWBox;
+    constexpr int kStage = 2 * NT * kRows * 2 + 2 * kWBox;
     // rows past S in a stage's x tiles are left as they were: they feed only
     // the accumulators of tokens past S, which are never stored
-    p.x_rows = p.S < TT * kTok ? (p.S + 7) / 8 * 8 : TT * kTok;
+    p.x_rows = p.S < NT ? (p.S + 7) / 8 * 8 : NT;
     EncodeTiled encode = encoder();
     if (encode == nullptr) return (int)cudaErrorNotSupported;
     CUtensorMap tm_x, tm_w;
-    {  // x [S, K] bf16: boxes of 64 k x 64*TT tokens, 128-byte swizzle (the wgmma B layout)
+    {  // x [S, K] bf16: boxes of 64 k x x_rows tokens, 128-byte swizzle (the wgmma B layout)
         const cuuint64_t dims[2] = {(cuuint64_t)2 * p.K2, (cuuint64_t)p.S};
         const cuuint64_t strides[1] = {(cuuint64_t)2 * p.K2 * 2};
         const cuuint32_t box[2] = {kRows, (cuuint32_t)p.x_rows}, es[2] = {1, 1};
@@ -716,15 +721,15 @@ int launch(const void* x, const void* w8, Params p, int splits, cudaStream_t st)
     int dev = 0;
     cudaGetDevice(&dev);
     if (!(configured >> dev & 1u)) {
-        cudaError_t e = cudaFuncSetAttribute(w4a16_kernel<TT, NW>,
+        cudaError_t e = cudaFuncSetAttribute(w4a16_kernel<NT, NW>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (e != cudaSuccess) return (int)e;
         configured |= 1u << dev;
     }
     const int col_tiles = NW == 1 ? (p.N + 2 * kCols - 1) / (2 * kCols) : (p.N + kCols - 1) / kCols;
-    const int super_tiles = (p.S + kMaxTT * kTok - 1) / (kMaxTT * kTok);
+    const int super_tiles = (p.S + kMaxTok - 1) / kMaxTok;
     dim3 grid(col_tiles, super_tiles, splits);
-    w4a16_kernel<TT, NW><<<grid, kThreads, smem, st>>>(tm_x, tm_w, p);
+    w4a16_kernel<NT, NW><<<grid, kThreads, smem, st>>>(tm_x, tm_w, p);
     if (splits > 1) {
         const long long count = (long long)p.S * p.N;
         const int blocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
@@ -762,13 +767,14 @@ int run(const void* x, const void* w8, const void* scales, const void* zeros, vo
     p.s_bf16 = s_bf16;
     p.out_bf16 = out_bf16;
     cudaStream_t st = (cudaStream_t)stream;
-    const int rows = S < kMaxTT * kTok ? S : kMaxTT * kTok;
-    switch ((rows + kTok - 1) / kTok) {
-        case 1: return launch<1, NW>(x, w8, p, splits, st);
-        case 2: return launch<2, NW>(x, w8, p, splits, st);
-        case 3: return launch<3, NW>(x, w8, p, splits, st);
-        default: return launch<4, NW>(x, w8, p, splits, st);
-    }
+    // the block's token width: the rows rounded up to 32 (S <= 32, the draft's
+    // levels) or to 64, at most 256
+    const int rows = S < kMaxTok ? S : kMaxTok;
+    if (rows <= 32) return launch<32, NW>(x, w8, p, splits, st);
+    if (rows <= 64) return launch<64, NW>(x, w8, p, splits, st);
+    if (rows <= 128) return launch<128, NW>(x, w8, p, splits, st);
+    if (rows <= 192) return launch<192, NW>(x, w8, p, splits, st);
+    return launch<256, NW>(x, w8, p, splits, st);
 }
 
 }  // namespace

@@ -56,8 +56,8 @@ def w4a16_gate_up_silu_ref(x: torch.Tensor, q, out_dtype=None) -> torch.Tensor:
 
 # the kernel's tiles: a stage holds 64 packed rows; a consumer warpgroup owns
 # 64 weight columns (a block two: 128 columns of one range, or 64 of each of
-# the gate and up ranges); every wgmma is 64 tokens wide, and a block takes up
-# to 4 of them (256 rows) on each dequantized fragment
+# the gate and up ranges); a block takes up to 4 token tiles of 64 (256 rows)
+# in one wgmma on each dequantized fragment
 _ROWS, _COLS, _TOK, _MAX_TT = 64, 64, 64, 4
 # blocks in one wave: one block per SM of an H100 SXM (132 SMs). A constant,
 # not read from the card, so a row's summation order -- and with it every
@@ -69,9 +69,10 @@ _MIN_CHUNKS_PER_SPLIT = 8
 
 def _plan(S: int, K: int, N: int, n_ranges: int, group_size: int) -> dict:
     """The kernel's launch plan for x [S, K] times `n_ranges` weight column
-    ranges of width N (1: plain, 2: fused gate|up): wgmma token tiles per block
-    (ceil(min(S, 256) / 64)), super-tiles of 256 rows, column tiles, and splits
-    of K. Column tiles and splits depend on N and K only -- never on S -- so a
+    ranges of width N (1: plain, 2: fused gate|up): token tiles of 64 per block
+    (ceil(min(S, 256) / 64)) and the width of the block's one wgmma a fragment
+    (32 for S <= 32, else 64 per tile), super-tiles of 256 rows, column tiles,
+    and splits of K. Column tiles and splits depend on N and K only -- never on S -- so a
     row's summation order is the same in every batch. Raises ValueError for a
     shape the kernel does not take (TMA needs 16-byte row strides; a stage of
     64 packed rows must not straddle a group)."""
@@ -83,7 +84,9 @@ def _plan(S: int, K: int, N: int, n_ranges: int, group_size: int) -> dict:
     n_chunks = K // 2 // _ROWS
     col_tiles = -(-N // (_COLS * (2 if n_ranges == 1 else 1)))
     splits = max(1, min(n_chunks // _MIN_CHUNKS_PER_SPLIT, _WAVE // col_tiles))
-    return dict(token_tiles=-(-min(S, _MAX_TT * _TOK) // _TOK),
+    rows = min(S, _MAX_TT * _TOK)
+    tiles = -(-rows // _TOK)
+    return dict(token_tiles=tiles, token_width=32 if rows <= 32 else _TOK * tiles,
                 super_tiles=-(-S // (_MAX_TT * _TOK)), col_tiles=col_tiles, splits=splits)
 
 
