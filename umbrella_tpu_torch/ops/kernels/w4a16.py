@@ -72,10 +72,10 @@ def _plan(S: int, K: int, N: int, n_ranges: int, group_size: int) -> dict:
     ranges of width N (1: plain, 2: fused gate|up): token tiles of 64 per block
     (ceil(min(S, 256) / 64)) and the width of the block's one wgmma a fragment
     (32 for S <= 32, else 64 per tile), super-tiles of 256 rows, column tiles,
-    and splits of K. Column tiles and splits depend on N and K only -- never on S -- so a
-    row's summation order is the same in every batch. Raises ValueError for a
-    shape the kernel does not take (TMA needs 16-byte row strides; a stage of
-    64 packed rows must not straddle a group)."""
+    and splits of K. Column tiles and splits depend on N and K only -- never
+    on S -- so a row's summation order is the same in every batch. Raises
+    ValueError for a shape the kernel does not take (TMA needs 16-byte row
+    strides; a stage of 64 packed rows must not straddle a group)."""
     if group_size <= 0 or group_size % _ROWS or K % (2 * group_size):
         raise ValueError(f"w4a16: K={K} must be a multiple of 2 x group size and the group "
                          f"size ({group_size}) a multiple of {_ROWS}")
