@@ -47,11 +47,10 @@
 //   matching x boxes, x[:, r0:r0+64] and x[:, K/2+r0:K/2+r0+64] (S rows
 //   rounded up to 8, 128-byte swizzle; rows past S are zero-filled by TMA or
 //   left stale, and feed only accumulators that are never stored). 24-64 KB
-//   of weights are in flight per SM, against the ~2 KB per block of the WMMA
-//   kernel this replaces. Consumers wait on a stage's full barrier, read its
-//   bytes (16 ld.shared a thread), and release its empty barrier once the
-//   wgmma groups that read its x have completed. setmaxnreg gives the
-//   consumers 232 registers and the producer 40.
+//   of weights are in flight per SM. Consumers wait on a stage's full
+//   barrier, read its bytes (16 ld.shared a thread), and release its empty
+//   barrier once the wgmma groups that read its x have completed. setmaxnreg
+//   gives the consumers 232 registers and the producer 40.
 // - Bank conflicts: a thread's A fragment needs packed rows 2c, 2c+1, 2c+8,
 //   2c+9 of a 16-row step, which are 128 B apart in a 64-byte-wide box; the
 //   weight boxes use CU_TENSOR_MAP_SWIZZLE_64B, which spreads those rows over
