@@ -38,9 +38,8 @@
 //   A row's summation order (K split, steps, halves) never depends on S, and
 //   a wgmma computes a token's column alike at every width (chip_smoke.py
 //   holds rows of S = 1, 24, 127, 224 and 300 equal bit for bit): results
-//   are row-invariant. One wgmma of width NT, rather than NT / 64 of width
-//   64, cut the MMA path's time on the card by a fifth (an instruction has a
-//   fixed cost that a narrow one does not amortize).
+//   are row-invariant. One wide wgmma reads each A fragment once and
+//   amortizes an instruction's fixed cost better than NT / 64 of width 64.
 // - A TMA ring: one thread of a producer warpgroup keeps 3-8 stages in flight
 //   (as many as shared memory holds at this NT); a stage holds two 64 x 64
 //   packed-weight boxes (one per consumer warpgroup, 8 KB) and the two
@@ -80,9 +79,8 @@
 // - The TMA descriptors are encoded on the host at each launch with
 //   cuTensorMapEncodeTiled, fetched once through cudaGetDriverEntryPoint (no
 //   -lcuda), and passed as __grid_constant__ kernel parameters.
-// What bounds it now (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py): at the
-// 70B gate_up shape the MMA path alone takes ~2x the operations bound and
-// the TMA weight stream alone ~1.5x the bytes bound; see PERF.md.
+// What bounds it now: scripts/w4a16_breakdown.py times the kernel without its
+// MMA, without its dequantization, and with neither; PERF.md has the numbers.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
