@@ -3,20 +3,24 @@
 
     python3 scripts/w4a16_breakdown.py
 
-Builds `umbrella_tpu_torch/csrc/w4a16.cu` and three variants of it, each with
-a part of the main loop taken out by a source patch (applied to a copy under
-build/breakdown/), and times all four at the 70B gate_up shape (S=127 and
-S=24) and the 8B gate_up shape (S=127):
+Builds `umbrella_tpu_torch/csrc/w4a16.cu` and four variants of it, each
+changed by a source patch (applied to a copy under build/breakdown/), and
+times all five at the 70B gate_up shape (S=127 and S=24) and the 8B gate_up
+shape (S=127):
   kernel      the kernel as it is;
+  fp32-form   the kernel with its packed bf16x2 dequantization turned off:
+              every weight takes the fp32 form (the same bits);
   no-mma      no wgmma (the dequantized fragments are kept live): the TMA
               stream plus the dequantization;
   no-dequant  each fragment made from the raw bytes by one XOR: the TMA
               stream plus the MMA path;
   stream      neither, and no wgmma fence/commit/wait: the TMA stream alone.
-The variants compute wrong results; only the kernel is checked (against the
-plain version). Times are chip_smoke.cuda_ms (CUDA-graph replay). Prints one
-JSON line with the times in ms, the bounds, and the card's name and power
-limit.
+The last three compute wrong results; the kernel and fp32-form are checked
+against the plain version. Times are chip_smoke.cuda_ms (CUDA-graph replay);
+the variants are timed in the order of ROUNDS, kernel and fp32-form twice
+(first and last), so that their difference can be read against the spread of
+one variant's two runs. Prints one JSON line with each variant's times in
+ms, the bounds, and the card's name and power limit.
 """
 import ctypes
 import json
@@ -39,9 +43,12 @@ _NO_DEQUANT = ("                if (true) {\n"
                "                } else if (packed) {\n")
 _SYNC = [("            wgmma_fence();\n", ""),
          ("            wgmma_commit();\n            wgmma_wait<1>();", "")]
-VARIANTS = {"kernel": [], "no-mma": [(_WGMMA, _NO_WGMMA)],
+VARIANTS = {"kernel": [], "fp32-form": [("        packed = p.s_bf16 != 0;\n",
+                                          "        packed = false;\n")],
+            "no-mma": [(_WGMMA, _NO_WGMMA)],
             "no-dequant": [(_DEQUANT, _NO_DEQUANT)],
             "stream": [(_WGMMA, _NO_WGMMA), (_DEQUANT, _NO_DEQUANT)] + _SYNC}
+ROUNDS = ["kernel", "fp32-form", "no-mma", "no-dequant", "stream", "fp32-form", "kernel"]
 
 
 def build_variants(build):
@@ -93,18 +100,18 @@ def main():
             weights[(K, N)] = quantize_pack_device(w, 128, torch.bfloat16)
         xs[(K, S)] = torch.randn((S, K), generator=gen, device=dev).to(torch.bfloat16)
     times = {}
-    for name, lib in libs.items():
-        build._libs["w4a16"] = ctypes.CDLL(lib)
+    for name in ROUNDS:
+        build._libs["w4a16"] = ctypes.CDLL(libs[name])
         W._fn.cache_clear()
         for K, N, S in SHAPES:
             q, x = weights[(K, N)], xs[(K, S)]
-            if name == "kernel":
+            if name in ("kernel", "fp32-form"):
                 y, ref = W.w4a16_matmul(x, q), W.w4a16_matmul_ref(x, q)
                 err = (y.float() - ref.float()).abs().max().item()
                 if err > 2 ** -7 * ref.float().abs().max().item():
-                    raise AssertionError(f"kernel K={K} N={N} S={S}: max abs err {err}")
-            times[f"{name} K={K} N={N} S={S}"] = chip_smoke.cuda_ms(
-                torch, lambda: W.w4a16_matmul(x, q))
+                    raise AssertionError(f"{name} K={K} N={N} S={S}: max abs err {err}")
+            times.setdefault(f"{name} K={K} N={N} S={S}", []).append(chip_smoke.cuda_ms(
+                torch, lambda: W.w4a16_matmul(x, q)))
     bounds = {f"K={K} N={N} S={S}": chip_smoke.w4a16_bound(K, N, S, N, K // 128)
               for K, N, S in SHAPES}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -379,6 +379,23 @@ def test_w4a16_plan_splits_and_tiles_ignore_the_row_count(K, N, ranges):
                                 and K // 2 // 64 // p["splits"] >= 8)
 
 
+@pytest.mark.parametrize("n_col_tiles,n_chunks,min_chunks,blocks",
+                         [(64, 64, 8, 132), (448, 64, 8, 132), (96, 64, 4, 528),
+                          (2004, 64, 4, 528), (2, 20, 8, 132)])
+def test_split_k_stays_within_one_wave(n_col_tiles, n_chunks, min_chunks, blocks):
+    """build.split_k, the one split policy of the W4 kernels: the grid stays
+    within `blocks` blocks and each split takes at least `min_chunks` chunks,
+    unless the K range is not split at all; it is the most splits that do."""
+    from umbrella_tpu_torch.ops.kernels import build
+
+    splits = build.split_k(n_col_tiles, n_chunks, min_chunks, blocks)
+    assert splits >= 1
+    if splits > 1:
+        assert n_col_tiles * splits <= blocks and n_chunks // splits >= min_chunks
+    more = splits + 1
+    assert n_col_tiles * more > blocks or n_chunks // more < min_chunks
+
+
 @pytest.mark.parametrize("S", PLAN_ROWS)
 def test_w4a16_plan_token_tiles(S):
     """ceil(min(S, 256) / 64) token tiles a block, in one wgmma of 64 tokens a
@@ -400,13 +417,14 @@ def _cpu_awq(K, N, group_size=128, layers=()):
                      torch.zeros((*layers, G, N), dtype=torch.bfloat16))
 
 
-@pytest.mark.parametrize("case", ["n_not_16", "k_not_2g", "group_not_64", "layer_int64",
-                                  "layer_other_device", "layer_two_elements"])
+@pytest.mark.parametrize("case", ["n_not_16", "k_not_2g", "k_not_128", "group_48", "group_96",
+                                  "layer_int64", "layer_other_device", "layer_two_elements"])
 def test_w4a16_check_raises_on_what_the_kernel_does_not_take(case):
     """The wrapper's operand checks raise ValueError (never a fallback): N not
-    a multiple of 16 (TMA row strides), K not a multiple of 2 x group size, a
-    group size not a multiple of 64 (a stage would straddle groups), and a
-    layer index that is not one int32 on x's device."""
+    a multiple of 16 (TMA row strides), K not a multiple of 2 x group size or
+    of 128 (whole stages of 64 packed rows), a group size other than 32 or a
+    multiple of 64 (a stage holds half a group or whole groups), and a layer
+    index that is not one int32 on x's device."""
     from umbrella_tpu_torch.ops.kernels.w4a16 import _check
 
     x = torch.zeros((3, 512), dtype=torch.bfloat16)
@@ -415,8 +433,10 @@ def test_w4a16_check_raises_on_what_the_kernel_does_not_take(case):
         q, n = _cpu_awq(512, 200), 200
     elif case == "k_not_2g":
         x, q = torch.zeros((3, 384), dtype=torch.bfloat16), _cpu_awq(384, 256)
-    elif case == "group_not_64":
-        q = _cpu_awq(512, 256, group_size=32)
+    elif case == "k_not_128":
+        x, q = torch.zeros((3, 320), dtype=torch.bfloat16), _cpu_awq(320, 256, group_size=32)
+    elif case in ("group_48", "group_96"):
+        x, q = torch.zeros((3, 384), dtype=torch.bfloat16), _cpu_awq(384, 256, int(case[-2:]))
     else:
         q = _cpu_awq(512, 256, layers=(2,))
         idx = {"layer_int64": torch.tensor(1),
@@ -426,14 +446,16 @@ def test_w4a16_check_raises_on_what_the_kernel_does_not_take(case):
         _check("w4a16_matmul", x, q, n, 1, torch.bfloat16, idx)
 
 
-def test_w4a16_check_passes_the_shipped_shapes():
-    """The operand checks take an 8B layer shape, its stacked form with an int32
-    index, and a fused gate|up pair; they return the launch plan."""
+@pytest.mark.parametrize("group_size", [32, 64, 128])
+def test_w4a16_check_passes_the_shipped_shapes(group_size):
+    """The operand checks take an 8B layer shape at the AWQ group sizes, its
+    stacked form with an int32 index, and a fused gate|up pair; they return
+    the launch plan, whose splits do not depend on the group size."""
     from umbrella_tpu_torch.ops.kernels.w4a16 import _check, _plan
 
     x = torch.zeros((127, 1024), dtype=torch.float32)
-    assert _check("w4a16_matmul", x, _cpu_awq(1024, 768), 768, 1, torch.float32) == \
-        _plan(127, 1024, 768, 1, 128)
+    assert _check("w4a16_matmul", x, _cpu_awq(1024, 768, group_size), 768, 1,
+                  torch.float32) == _plan(127, 1024, 768, 1, 128)
     idx = torch.tensor(1, dtype=torch.int32)
     assert _check("w4a16_matmul_layered", x, _cpu_awq(1024, 768, layers=(3,)), 768, 1,
                   torch.bfloat16, idx)["splits"] >= 1

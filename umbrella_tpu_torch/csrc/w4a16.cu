@@ -62,7 +62,9 @@
 //   checkpoint) take a packed bf16x2 form, 5 instructions per 2 weights and
 //   bit for bit the fp32 form (see deq2); other scales and zeros take the
 //   fp32 form. chip_smoke.py holds eye(K) @ W equal to the plain version's
-//   dequantized weight for both.
+//   dequantized weight for both; scripts/w4a16_breakdown.py times the kernel
+//   with the fp32 form alone. A group is whole stages (g64, g128) or half a
+//   stage (g32: the second group starts half-way through the stage).
 // - Layered mode by construction: the weight tensor map is 3-D [n_layers,
 //   K/2, ldw]; thread 0 reads the int32 layer index once on the device, traps
 //   outside [0, n_layers), and the producer passes it as the outermost TMA
@@ -330,12 +332,13 @@ __device__ __forceinline__ void store2(void* out, long long o, float a, float b,
         *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + o) = make_float2(a, b);
 }
 
+// G32: the group size is 32 (else a multiple of 64).
 // NW weight column ranges of width N, range r starting at column r * N of the
 // [K/2, ldw] packed matrix: NW = 1 is the plain product (ldw = N; a block
 // covers 128 columns, 64 per consumer warpgroup), NW = 2 the fused gate
 // (r = 0) and up (r = 1) product (ldw = 2N; a block covers 64 output columns,
 // warpgroup r the range r's).
-template <int NT, int NW>
+template <int NT, int NW, bool G32>
 __global__ void __launch_bounds__(kThreads, 1)
 w4a16_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
              const Params p) {
@@ -425,7 +428,11 @@ w4a16_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ C
     // high halves: sz[lo s, lo z, hi s, hi z][column]; the packed form's
     // constants z2 (128 + z) and s2 as bf16x2, [half][column]. The next
     // group's raw bits are loaded a group early and converted when it starts.
-    const int cpg = p.group_size / kRows;  // chunks a group
+    // chunks a group; group size 32 (two groups a chunk) starts the second
+    // group half-way through the chunk. A template parameter: a run-time test
+    // in the step loop slowed every group size.
+    constexpr bool g32 = G32;
+    const int cpg = g32 ? 1 : p.group_size / kRows;
     const long long sz_row = (long long)layer * 2 * p.K2 / p.group_size;  // the layer's first row
     const int hi_groups = p.K2 / p.group_size;
     uint32_t raw[4][2];
@@ -485,7 +492,7 @@ w4a16_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ C
                 s2[h][cc] = bf16x2_of(sz[2 * h][cc]);
             }
     };
-    int grp = c_begin / cpg, left = 0;
+    int grp = g32 ? 2 * c_begin : c_begin / cpg, left = 0;
     if (c_begin < c_end) load_raw(grp);
 
     // the A fragments of a group of steps, double-buffered by group:
@@ -503,7 +510,11 @@ w4a16_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ C
     int s = 0, s_prev = 0, buf = 0;
     uint32_t phase = 0;
     for (int c = c_begin; c < c_end; ++c) {
-        if (c == c_begin || left == 0) {  // a chunk never straddles a group
+        if (g32) {  // the chunk's first group; its second is loaded now
+            if (c != c_begin) ++grp;
+            start_group();
+            load_raw(grp + 1);
+        } else if (c == c_begin || left == 0) {  // a chunk never straddles a group
             if (c != c_begin) ++grp;
             left = c == c_begin ? cpg - (c_begin - grp * cpg) : cpg;
             start_group();
@@ -525,6 +536,11 @@ w4a16_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ C
         const uint64_t d_lo = desc_sw128(smem_u32(st)), d_hi = desc_sw128(smem_u32(st + kXBox));
 #pragma unroll
         for (int j0 = 0; j0 < kSteps; j0 += kStepsPerGroup) {
+            if (g32 && j0 == kSteps / 2) {  // the chunk's second group
+                ++grp;
+                start_group();
+                if (c + 1 < c_end) load_raw(grp + 1);
+            }
             uint32_t(&fb)[kStepsPerGroup][2][4] = frag[buf];
             // the A fragments of both halves of each step (0: low nibbles,
             // x's first half; 1: high): a0 column lc, k 2c4..+1; a1 column
@@ -682,7 +698,7 @@ struct Layer {
     int n;
 };
 
-template <int NT, int NW>
+template <int NT, int NW, bool G32>
 int launch(const void* x, const void* w8, Params p, int splits, cudaStream_t st) {
     constexpr int kStage = 2 * NT * kRows * 2 + 2 * kWBox;
     // rows past S in a stage's x tiles are left as they were: they feed only
@@ -718,7 +734,7 @@ int launch(const void* x, const void* w8, Params p, int splits, cudaStream_t st)
     int dev = 0;
     cudaGetDevice(&dev);
     if (!(configured >> dev & 1u)) {
-        cudaError_t e = cudaFuncSetAttribute(w4a16_kernel<NT, NW>,
+        cudaError_t e = cudaFuncSetAttribute(w4a16_kernel<NT, NW, G32>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (e != cudaSuccess) return (int)e;
         configured |= 1u << dev;
@@ -726,7 +742,7 @@ int launch(const void* x, const void* w8, Params p, int splits, cudaStream_t st)
     const int col_tiles = NW == 1 ? (p.N + 2 * kCols - 1) / (2 * kCols) : (p.N + kCols - 1) / kCols;
     const int super_tiles = (p.S + kMaxTok - 1) / kMaxTok;
     dim3 grid(col_tiles, super_tiles, splits);
-    w4a16_kernel<NT, NW><<<grid, kThreads, smem, st>>>(tm_x, tm_w, p);
+    w4a16_kernel<NT, NW, G32><<<grid, kThreads, smem, st>>>(tm_x, tm_w, p);
     if (splits > 1) {
         const long long count = (long long)p.S * p.N;
         const int blocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
@@ -735,14 +751,27 @@ int launch(const void* x, const void* w8, Params p, int splits, cudaStream_t st)
     return (int)cudaGetLastError();
 }
 
+// the block's token width: the rows rounded up to 32 (S <= 32, the draft's
+// levels) or to 64, at most 256
+template <int NW, bool G32>
+int launch_rows(const void* x, const void* w8, const Params& p, int splits, cudaStream_t st) {
+    const int rows = p.S < kMaxTok ? p.S : kMaxTok;
+    if (rows <= 32) return launch<32, NW, G32>(x, w8, p, splits, st);
+    if (rows <= 64) return launch<64, NW, G32>(x, w8, p, splits, st);
+    if (rows <= 128) return launch<128, NW, G32>(x, w8, p, splits, st);
+    if (rows <= 192) return launch<192, NW, G32>(x, w8, p, splits, st);
+    return launch<256, NW, G32>(x, w8, p, splits, st);
+}
+
 template <int NW>
 int run(const void* x, const void* w8, const void* scales, const void* zeros, void* out,
         void* partial, int S, int K2, int N, int group_size, int splits, int x_bf16, int s_bf16,
         int out_bf16, Layer layer, void* stream) {
     if (S <= 0 || N <= 0) return 0;
-    // TMA: 16-byte aligned bases and row strides; a chunk of 64 packed rows
-    // never straddles a group
-    if (!x_bf16 || group_size <= 0 || group_size % kRows != 0 || K2 % group_size != 0 ||
+    // TMA: 16-byte aligned bases and row strides; K2 in whole chunks of 64
+    // packed rows, and a group is half a chunk or whole chunks
+    if (!x_bf16 || group_size <= 0 || (group_size != kRows / 2 && group_size % kRows != 0) ||
+        K2 % group_size != 0 || K2 % kRows != 0 ||
         (NW * N) % 16 != 0 || splits < 1 || (splits > 1 && partial == nullptr) || layer.n < 1 ||
         (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w8)) % 16 != 0)
         return (int)cudaErrorInvalidValue;
@@ -764,14 +793,8 @@ int run(const void* x, const void* w8, const void* scales, const void* zeros, vo
     p.s_bf16 = s_bf16;
     p.out_bf16 = out_bf16;
     cudaStream_t st = (cudaStream_t)stream;
-    // the block's token width: the rows rounded up to 32 (S <= 32, the draft's
-    // levels) or to 64, at most 256
-    const int rows = S < kMaxTok ? S : kMaxTok;
-    if (rows <= 32) return launch<32, NW>(x, w8, p, splits, st);
-    if (rows <= 64) return launch<64, NW>(x, w8, p, splits, st);
-    if (rows <= 128) return launch<128, NW>(x, w8, p, splits, st);
-    if (rows <= 192) return launch<192, NW>(x, w8, p, splits, st);
-    return launch<256, NW>(x, w8, p, splits, st);
+    return group_size == kRows / 2 ? launch_rows<NW, true>(x, w8, p, splits, st)
+                                   : launch_rows<NW, false>(x, w8, p, splits, st);
 }
 
 }  // namespace
@@ -779,8 +802,8 @@ int run(const void* x, const void* w8, const void* scales, const void* zeros, vo
 // x [S, 2*K2] bf16 (the wrapper rounds fp32 x once), w8 [K2, N] uint8,
 // scales/zeros [2*K2/group_size, N] (fp32 or bf16, one dtype), out [S, N]
 // (fp32 or bf16), partial fp32 [splits, S, N] scratch when splits > 1; all
-// contiguous. group_size must be a multiple of 64, K2 a multiple of
-// group_size, N a multiple of 16, and x and w8 16-byte aligned.
+// contiguous. group_size must be 32 or a multiple of 64, K2 a multiple of 64
+// and of group_size, N a multiple of 16, and x and w8 16-byte aligned.
 extern "C" int w4a16_matmul(const void* x, const void* w8, const void* scales, const void* zeros,
                             void* out, void* partial, int S, int K2, int N, int group_size,
                             int splits, int x_bf16, int s_bf16, int out_bf16, void* stream) {

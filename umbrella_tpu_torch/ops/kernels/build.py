@@ -101,18 +101,19 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-# blocks to aim for when K is split: about four per SM of an H100 SXM (132 SMs).
-# A constant, not read from the card, so a row's summation order -- and with
-# it every result -- is the same on any card for the same matrix shape.
-SPLIT_K_TARGET_BLOCKS = 4 * 132
+# an H100 SXM's SMs. A constant, not read from the card, so a row's summation
+# order -- and with it every result -- is the same on any card for the same
+# matrix shape.
+SMS = 132
 
 
-def split_k(n_col_tiles: int, n_chunks: int) -> int:
-    """How many blocks share one output tile's K range: enough to reach
-    SPLIT_K_TARGET_BLOCKS, with at least four K chunks per block. A function of
-    the matrix shape only -- never of the row count -- so a row's summation
-    order is the same in every batch."""
-    return max(1, min(n_chunks // 4, -(-SPLIT_K_TARGET_BLOCKS // n_col_tiles)))
+def split_k(n_col_tiles: int, n_chunks: int, min_chunks: int, blocks: int) -> int:
+    """How many blocks share one output tile's K range of `n_chunks` chunks: as
+    many as keep the grid within `blocks` blocks (one wave of the kernel), each
+    split taking at least `min_chunks` chunks. A function of the matrix shape
+    only -- never of the row count -- so a row's summation order is the same
+    in every batch."""
+    return max(1, min(n_chunks // min_chunks, blocks // n_col_tiles))
 
 
 @contextlib.contextmanager

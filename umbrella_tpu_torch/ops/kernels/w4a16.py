@@ -54,17 +54,12 @@ def w4a16_gate_up_silu_ref(x: torch.Tensor, q, out_dtype=None) -> torch.Tensor:
     return (g * torch.sigmoid(g) * u).to(out_dtype or x.dtype)
 
 
-# the kernel's tiles: a stage holds 64 packed rows; a consumer warpgroup owns
-# 64 weight columns (a block two: 128 columns of one range, or 64 of each of
-# the gate and up ranges); a block takes up to 4 token tiles of 64 (256 rows)
-# in one wgmma on each dequantized fragment
+# the kernel's tiles: a stage holds 64 packed rows (a quantization group is
+# half a stage or whole stages); a consumer warpgroup owns 64 weight columns (a
+# block two: 128 columns of one range, or 64 of each of the gate and up
+# ranges); a block takes up to 4 token tiles of 64 (256 rows) in one wgmma on
+# each dequantized fragment
 _ROWS, _COLS, _TOK, _MAX_TT = 64, 64, 64, 4
-# blocks in one wave: one block per SM of an H100 SXM (132 SMs). A constant,
-# not read from the card, so a row's summation order -- and with it every
-# result -- is the same on any card for the same matrix shape.
-_WAVE = 132
-# fewest stages of K a split may take
-_MIN_CHUNKS_PER_SPLIT = 8
 
 
 def _plan(S: int, K: int, N: int, n_ranges: int, group_size: int) -> dict:
@@ -72,18 +67,20 @@ def _plan(S: int, K: int, N: int, n_ranges: int, group_size: int) -> dict:
     ranges of width N (1: plain, 2: fused gate|up): token tiles of 64 per block
     (ceil(min(S, 256) / 64)) and the width of the block's one wgmma a fragment
     (32 for S <= 32, else 64 per tile), super-tiles of 256 rows, column tiles,
-    and splits of K. Column tiles and splits depend on N and K only -- never
-    on S -- so a row's summation order is the same in every batch. Raises
-    ValueError for a shape the kernel does not take (TMA needs 16-byte row
-    strides; a stage of 64 packed rows must not straddle a group)."""
-    if group_size <= 0 or group_size % _ROWS or K % (2 * group_size):
-        raise ValueError(f"w4a16: K={K} must be a multiple of 2 x group size and the group "
-                         f"size ({group_size}) a multiple of {_ROWS}")
+    and splits of K (build.split_k: one block a SM, at least 8 stages a
+    split). Column tiles and splits depend on N and K only -- never on S -- so
+    a row's summation order is the same in every batch. Raises ValueError for
+    a shape the kernel does not take (TMA needs 16-byte row strides; K/2 is
+    whole stages, and a group is half a stage or whole stages)."""
+    if (group_size != _ROWS // 2 and (group_size <= 0 or group_size % _ROWS)) \
+            or K % (2 * group_size) or K % (2 * _ROWS):
+        raise ValueError(f"w4a16: K={K} must be a multiple of {2 * _ROWS} and of 2 x group "
+                         f"size, and the group size ({group_size}) {_ROWS // 2} or a multiple "
+                         f"of {_ROWS}")
     if N <= 0 or (n_ranges * N) % 16:
         raise ValueError(f"w4a16: weight width {n_ranges * N} must be a multiple of 16")
-    n_chunks = K // 2 // _ROWS
     col_tiles = -(-N // (_COLS * (2 if n_ranges == 1 else 1)))
-    splits = max(1, min(n_chunks // _MIN_CHUNKS_PER_SPLIT, _WAVE // col_tiles))
+    splits = build.split_k(col_tiles, K // 2 // _ROWS, 8, build.SMS)
     rows = min(S, _MAX_TT * _TOK)
     tiles = -(-rows // _TOK)
     return dict(token_tiles=tiles, token_width=32 if rows <= 32 else _TOK * tiles,
