@@ -382,18 +382,23 @@ def test_w4a16_plan_splits_and_tiles_ignore_the_row_count(K, N, ranges):
 @pytest.mark.parametrize("n_col_tiles,n_chunks,min_chunks,blocks",
                          [(64, 64, 8, 132), (448, 64, 8, 132), (96, 64, 4, 528),
                           (2004, 64, 4, 528), (2, 20, 8, 132)])
-def test_split_k_stays_within_one_wave(n_col_tiles, n_chunks, min_chunks, blocks):
-    """build.split_k, the one split policy of the W4 kernels: the grid stays
-    within `blocks` blocks and each split takes at least `min_chunks` chunks,
-    unless the K range is not split at all; it is the most splits that do."""
+@pytest.mark.parametrize("fill", [False, True])
+def test_split_k_policy(n_col_tiles, n_chunks, min_chunks, blocks, fill):
+    """build.split_k, the one split policy of the W4 kernels: each split takes
+    at least `min_chunks` chunks (unless the K range is not split at all);
+    without `fill` the grid stays within `blocks` blocks and one more split
+    would not, with `fill` one split fewer would leave it below `blocks`."""
     from umbrella_tpu_torch.ops.kernels import build
 
-    splits = build.split_k(n_col_tiles, n_chunks, min_chunks, blocks)
+    splits = build.split_k(n_col_tiles, n_chunks, min_chunks, blocks, fill=fill)
     assert splits >= 1
-    if splits > 1:
-        assert n_col_tiles * splits <= blocks and n_chunks // splits >= min_chunks
-    more = splits + 1
-    assert n_col_tiles * more > blocks or n_chunks // more < min_chunks
+    assert splits == 1 or n_chunks // splits >= min_chunks
+    if fill:
+        assert splits == 1 or n_col_tiles * (splits - 1) < blocks
+        assert n_col_tiles * splits >= blocks or n_chunks // (splits + 1) < min_chunks
+    else:
+        assert splits == 1 or n_col_tiles * splits <= blocks
+        assert n_col_tiles * (splits + 1) > blocks or n_chunks // (splits + 1) < min_chunks
 
 
 @pytest.mark.parametrize("S", PLAN_ROWS)

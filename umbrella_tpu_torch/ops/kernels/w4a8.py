@@ -48,7 +48,7 @@ def kernel_splits(q) -> int:
     operations is the same at any row count."""
     K2, N = q.w8.shape
     G2 = q.scales.shape[0] // 2
-    return build.split_k(-(-N // 64), G2, 4, 4 * build.SMS)
+    return build.split_k(-(-N // 64), G2, 4, 4 * build.SMS, fill=True)
 
 
 def w4a8_matmul_ref(x: torch.Tensor, q, out_dtype=None) -> torch.Tensor:

@@ -76,7 +76,7 @@ def w4a8f_matmul(x: torch.Tensor, q, out_dtype=None) -> torch.Tensor:
         raise ValueError("w4a8f_matmul: inputs must be contiguous on one device")
     xq, sx, rsum = quantize_activations_int8(x, q.a)
     out = torch.empty((S, N), dtype=out_dtype, device=x.device)
-    splits = build.split_k(-(-N // 64), K2 // 32, 4, 4 * build.SMS)
+    splits = build.split_k(-(-N // 64), K2 // 32, 4, 4 * build.SMS, fill=True)
     partial = (torch.empty((splits, S, N), dtype=torch.int32, device=x.device)
                if splits > 1 else None)
     with build.on_device(x) as st:
