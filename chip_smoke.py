@@ -81,8 +81,8 @@ from. `--phases a,b` runs a subset (no report).
 
 Weights are random (seeded). The script needs CUDA and the repository's
 umbrella_tpu_torch package beside it; without either it exits with code 2.
-The whole script takes about nine minutes on one H100, the kernels' build
-(~20 s) included; `--phases w4a16` about a minute.
+The whole script takes seven to nine minutes on one H100, the kernels' build
+(20-30 s) included; `--phases w4a16` about a minute.
 """
 import json
 import os
