@@ -10,7 +10,7 @@ lines tagged with its name:
                    it against its plain PyTorch version on the card; time the
                    kernel, the plain version and a PyTorch library yardstick,
                    and compute the card's bound for the same work. Includes
-                   every check of `w4a16`.
+                   every check of `w4a16` and of `w4a8`.
   w4a16            (only when named in --phases; part of `kernels`) the W4A16
                    family alone: the plain mode at the four 8B layer shapes,
                    S=1, 24, 48, 127, 160, 224 and 300 (every token width of
@@ -23,6 +23,17 @@ lines tagged with its name:
                    process); row j of S=300 equal to row j at each other row
                    count, bitwise, for plain, layered and fused, bf16 and
                    fp32 x.
+  w4a8             (only when named in --phases; part of `kernels`) the int8 W4
+                   family (csrc/w4a8.cu) alone: the fused quantizer bit for bit
+                   the plain quantizers (Int4F x * a with row sums, AWQ x with
+                   sums per group of 128 and 32); w4a8f_matmul at the four 8B
+                   layer shapes and the lm_head, bf16 and fp32 out, S=1, 24,
+                   48, 127, 160, 224, 300 and 384 (every token width 32-256
+                   and a second super-tile); w4a8_matmul at 8B gate_up and
+                   down (K split), g128 and g32, bf16 and fp32 x and scales,
+                   S=1, 24, 48, 127, 160, 224, 300 and 512: both exact against
+                   their plain versions (max abs err 0.0), and the rows of
+                   every S bit for bit the rows of the largest S; timings.
   multi-card       the static and the batched engine built on the last card
                    while cuda:0 is current: 16 tokens each must equal the same
                    engines' tokens on cuda:0 (needs a host with 2+ cards; on
@@ -197,10 +208,7 @@ def kernel_checks(torch, dev):
 
     from umbrella_tpu_torch.ops.kernels.embed_gather import embed_gather, embed_gather_ref
     from umbrella_tpu_torch.ops.kernels.tree_attention import attend_dense, attend_flash
-    from umbrella_tpu_torch.ops.kernels.w4a8f import (quantize_activations_int8, w4a8f_matmul,
-                                                      w4a8f_matmul_ref)
     from umbrella_tpu_torch.ops.masks import causal_mask_rows, tree_mask_rows
-    from umbrella_tpu_torch.quantization.int4f import quantize_int4f
     from umbrella_tpu_torch.sequoia import growmap_from_spec
 
     gen, randn, err = kernel_inputs(torch, dev)
@@ -271,41 +279,7 @@ def kernel_checks(torch, dev):
     torch.cuda.empty_cache()
     report.update(attention_int8_and_batched_checks(torch, dev, gen, randn, err))
 
-    # -- w4a8f_matmul: layer shapes (bf16 out) and the lm_head (fp32 out)
-    f_max, f_rel, shapes_ms = 0.0, 0.0, {}
-    for name, (K, N) in dict(LAYER_SHAPES, lm_head=(4096, V)).items():
-        od = f32 if name == "lm_head" else bf16
-        q = quantize_int4f(torch.randn((K, N), generator=gen, device=dev) * 0.02, refine=0)
-        for S in (1, 24, 127):
-            x = randn(S, K)
-            got = w4a8f_matmul(x, q, out_dtype=od)
-            ref = w4a8f_matmul_ref(x, q, out_dtype=od)
-            e, m = err(got, ref)
-            check(e <= 1e-6 * m, f"w4a8f {name} S={S}: err {e} vs max {m}")
-            f_max, f_rel = max(f_max, e), max(f_rel, e / m)
-        w32 = q.w8.to(torch.int32)
-        w_int8 = torch.cat([(w32 & 0xF) - 8, ((w32 >> 4) & 0xF) - 8]).to(torch.int8)
-        del w32
-        for S in (24, 127):  # a draft level's rows, and a verify pass's
-            x = randn(S, K)
-            xq = quantize_activations_int8(x, q.a)[0]
-            by, bb = bound(S * K * 2 + K // 2 * N + N * 4 + K * 4 + S * N * od.itemsize,
-                           2 * S * K * N, "int8")
-            shapes_ms[f"{name} S={S}"] = dict(
-                ms=cuda_ms(torch, lambda: w4a8f_matmul(x, q, out_dtype=od)),
-                plain_ms=cuda_ms(torch, lambda: w4a8f_matmul_ref(x, q, out_dtype=od), iters=3,
-                                 warmup=1),
-                library_ms=library_ms(torch, lambda: torch._int_mm(xq, w_int8)),
-                bound_ms=by, bound_by=bb)
-        log(f"[kernels] w4a8f_matmul {name} K={K} N={N} "
-            f"{shapes_ms[f'{name} S=24']} | {shapes_ms[f'{name} S=127']}")
-        del q, w_int8
-    report["w4a8f_matmul"] = dict(
-        shape="x [24,4096] bf16 @ Int4F [4096,128256] (lm_head at a draft level), fp32 out",
-        tolerance="max abs err <= 1e-6 * max|plain| (integer part exact, same fp32 epilogue)",
-        max_abs_err=f_max, max_rel_err=f_rel, per_shape=shapes_ms, **shapes_ms["lm_head S=24"])
-    torch.cuda.empty_cache()
-    report.update(w4a8_kernel_checks(torch, dev, gen, randn, err))
+    report.update(w4a8_checks(torch, dev, gen, randn, err))
     report.update(w4a16_checks(torch, dev, gen, randn, err))
     return report
 
@@ -668,37 +642,190 @@ def layered_index_trap():
                 f"rc {out.returncode}: {lines[-1] if lines else ''}")
 
 
-def w4a8_kernel_checks(torch, dev, gen, randn, err):
-    """w4a8_matmul at the 8B gate_up shape [4096, 28672], S=127 (a verify pass)
-    and S=24 (a draft level), bf16 and fp32 x, against its plain version; its
-    row invariance bitwise. Library yardstick: torch.matmul on the
-    pre-dequantized bf16 weight."""
-    from umbrella_tpu_torch.ops.kernels.w4a8 import w4a8_matmul, w4a8_matmul_ref
+def w4a8_phase(torch, dev):
+    """The int8 W4 kernels alone (phase `w4a8`): the cheap loop for them."""
+    gen, randn, err = kernel_inputs(torch, dev)
+    return w4a8_checks(torch, dev, gen, randn, err)
+
+
+# row counts that reach every token width of the int8 kernel (Int4F 32, 64,
+# 128, 192 and 256; AWQ 32 and 64) and its super-tiles; Int4F up to
+# INT8_KERNEL_MAX_TOKENS, AWQ up to a 512-token prefill chunk
+W4A8F_ROWS = (1, 24, 48, 127, 160, 224, 300, 384)
+W4A8_ROWS = (1, 24, 48, 127, 160, 224, 300, 512)
+
+
+def w4a8_checks(torch, dev, gen, randn, err):
+    """The int8 W4 kernel family (csrc/w4a8.cu): the fused quantizer, the Int4F
+    and the AWQ products, each held bit for bit against its plain version, rows
+    of every S bit for bit the same rows of the largest S, and timings."""
+    report = {}
+    report.update(w4a8_quantize_checks(torch, dev, gen, randn))
+    report.update(w4a8f_checks(torch, dev, gen, randn, err))
+    report.update(w4a8_awq_checks(torch, dev, gen, randn, err))
+    return report
+
+
+def w4a8_quantize_checks(torch, dev, gen, randn):
+    """The fused quantizer (one launch: xq, sx and the row sums) bit for bit
+    the plain quantizers: x * a with the whole row's sum (Int4F) and x with
+    sums per group of 128 and 32 (AWQ), K = 4096 and 14336, bf16 and fp32 x,
+    S = 1, 24, 127 and 384. Timed at the Int4F lm_head's call, x [127, 4096]
+    bf16."""
+    from umbrella_tpu_torch.ops.kernels.w4a8 import (group_rowsums, quantize_activations_w4a8,
+                                                     quantize_rows)
+    from umbrella_tpu_torch.ops.kernels.w4a8f import quantize_activations_int8
+
+    held = 0
+    for K in (4096, 14336):
+        a = torch.rand(K, generator=gen, device=dev) + 0.5
+        for S in (1, 24, 127, 384):
+            for xd in (torch.bfloat16, torch.float32):
+                x = randn(S, K, dtype=xd) * torch.rand(S, 1, generator=gen, device=dev).to(xd) * 8
+                xq, sx, rs = quantize_rows(x, a)
+                rq, rsx, rrs = quantize_activations_int8(x, a)
+                check(torch.equal(xq, rq) and torch.equal(sx, rsx[:, 0]) and torch.equal(rs, rrs),
+                      f"w4a8_quantize Int4F K={K} S={S} {xd}: differs from the plain version")
+                rq, rsx = quantize_activations_w4a8(x)
+                for gs in (128, 32):
+                    xq, sx, rs = quantize_rows(x, None, gs)
+                    check(torch.equal(xq, rq) and torch.equal(sx, rsx[:, 0])
+                          and torch.equal(rs, group_rowsums(rq, gs)),
+                          f"w4a8_quantize AWQ g{gs} K={K} S={S} {xd}: differs from the plain "
+                          "version")
+                held += 3
+    S, K = 127, 4096
+    x, a = randn(S, K), torch.rand(K, generator=gen, device=dev) + 0.5
+    by, bb = bound(S * K * 2 + K * 4 + S * K + S * 4 + S * 4, 0, "int8")
+    row = dict(
+        shape="x [127,4096] bf16 * a -> xq int8, sx fp32, rowsum int32 (the Int4F lm_head's call)",
+        tolerance="bit for bit (xq, sx and the row sums equal the plain quantizer's)",
+        max_abs_err=0.0, cases_held=held,
+        ms=cuda_ms(torch, lambda: quantize_rows(x, a)),
+        events_ms=cuda_ms(torch, lambda: quantize_rows(x, a), graph=False),
+        plain_ms=cuda_ms(torch, lambda: quantize_activations_int8(x, a)),
+        library_ms=None, bound_ms=by, bound_by=bb)
+    log(f"[kernels] w4a8_quantize {row}")
+    return {"w4a8_quantize": row}
+
+
+def w4a8f_checks(torch, dev, gen, randn, err):
+    """w4a8f_matmul at the four 8B layer shapes and the lm_head, bf16 x with fp32
+    and bf16 output at every W4A8F_ROWS count, and fp32 x at S=1, 127 and 384:
+    equal to the plain version bit for bit (exact integer sums, the same fp32
+    epilogue), and the rows of every S equal to the same rows of S=384. Times
+    at S=24 (a draft level), 127 (a verify pass) and 224 ([serve-config]'s
+    rows), by graph replay (`ms`) and by events around back-to-back calls
+    (`events_ms`, the host's time per call included). Library yardstick:
+    torch._int_mm on the unpacked int8 weight."""
+    from umbrella_tpu_torch.ops.kernels.w4a8 import _plan
+    from umbrella_tpu_torch.ops.kernels.w4a8f import (quantize_activations_int8, w4a8f_matmul,
+                                                      w4a8f_matmul_ref)
+    from umbrella_tpu_torch.quantization.int4f import quantize_int4f
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    big = W4A8F_ROWS[-1]
+    per_shape, splits = {}, {}
+    for name, (K, N) in dict(LAYER_SHAPES, lm_head=(4096, CFG_8B["vocab_size"])).items():
+        q = quantize_int4f(torch.randn((K, N), generator=gen, device=dev) * 0.02, refine=0)
+        splits[name] = _plan(1, K, N)["splits"]
+        cases = [(bf16, f32, W4A8F_ROWS), (bf16, bf16, W4A8F_ROWS), (f32, f32, (1, 127, big))]
+        for xd, od, rows in cases:
+            x = randn(big, K, dtype=xd)
+            ref = w4a8f_matmul_ref(x, q, out_dtype=od)
+            whole = w4a8f_matmul(x, q, out_dtype=od)
+            for S in rows:
+                got = whole if S == big else w4a8f_matmul(x[:S].contiguous(), q, out_dtype=od)
+                check(torch.equal(got, ref[:S]), f"w4a8f {name} S={S} x {xd} out {od}: max abs "
+                      f"err {err(got, ref[:S])[0]} (must be exact)")
+                check(torch.equal(got, whole[:S]),
+                      f"w4a8f {name} S={S} x {xd} out {od}: rows differ from S={big}'s")
+            del ref, whole
+        w32 = q.w8.to(torch.int32)
+        w_int8 = torch.cat([(w32 & 0xF) - 8, ((w32 >> 4) & 0xF) - 8]).to(torch.int8)
+        del w32
+        od = f32 if name == "lm_head" else bf16
+        for S in (24, 127, 224):
+            x = randn(S, K)
+            xq = quantize_activations_int8(x, q.a)[0]
+            by, bb = bound(S * K * 2 + K // 2 * N + N * 4 + K * 4 + S * N * od.itemsize,
+                           2 * S * K * N, "int8")
+            per_shape[f"{name} S={S}"] = dict(
+                splits=splits[name], token_width=_plan(S, K, N)["token_width"],
+                ms=cuda_ms(torch, lambda: w4a8f_matmul(x, q, out_dtype=od)),
+                events_ms=cuda_ms(torch, lambda: w4a8f_matmul(x, q, out_dtype=od), graph=False),
+                plain_ms=cuda_ms(torch, lambda: w4a8f_matmul_ref(x, q, out_dtype=od), iters=3,
+                                 warmup=1),
+                library_ms=library_ms(torch, lambda: torch._int_mm(xq, w_int8)),
+                bound_ms=by, bound_by=bb)
+            log(f"[kernels] w4a8f_matmul {name} K={K} N={N} S={S} {per_shape[f'{name} S={S}']}")
+        del q, w_int8
+        torch.cuda.empty_cache()
+    check(any(v > 1 for v in splits.values()) and any(v == 1 for v in splits.values()),
+          "w4a8f: the shapes no longer cover both the split-K and the unsplit route")
+    rows = f"S={', '.join(map(str, W4A8F_ROWS))}"
+    log(f"[kernels] w4a8f_matmul exact and row-invariant ({rows}; splits {splits})")
+    return {"w4a8f_matmul": dict(
+        shape="x [24,4096] bf16 @ Int4F [4096,128256] (lm_head at a draft level), fp32 out",
+        tolerance=f"bit for bit the plain version (max abs err 0.0) at the 8B layer shapes and "
+                  f"the lm_head, {rows}, bf16 and fp32 out; rows of every S equal to S={big}'s",
+        max_abs_err=0.0, max_rel_err=0.0, splits_by_shape=splits, row_invariance=rows,
+        per_shape=per_shape, **per_shape["lm_head S=24"])}
+
+
+def w4a8_awq_checks(torch, dev, gen, randn, err):
+    """w4a8_matmul at the 8B gate_up shape and the 8B down shape (K split 4
+    ways), group sizes 128 and 32, bf16 and fp32 scales, bf16 and fp32 x (out
+    in x's dtype), at every W4A8_ROWS count: equal to the plain version bit for
+    bit (exact integer products, the same fp32 fix-up order and split order),
+    and the rows of every S equal to the same rows of S=512. Times at gate_up
+    g128 S=24 and 127 (graph replay and events), beside w4a16_matmul on the
+    same weight. Library yardstick: torch.matmul on the pre-dequantized bf16
+    weight."""
+    from umbrella_tpu_torch.ops.kernels.w4a8 import _plan, w4a8_matmul, w4a8_matmul_ref
     from umbrella_tpu_torch.ops.kernels.w4a16 import _dequant_halves_bf16, w4a16_matmul
     from umbrella_tpu_torch.quantization.awq import quantize_pack_device
 
     bf16, f32 = torch.bfloat16, torch.float32
+    big = W4A8_ROWS[-1]
+    splits, held = {}, 0
+    for name in ("gate_up", "down"):
+        K, N = LAYER_SHAPES[name]
+        for gs in (128, 32):
+            qb = quantize_pack_device(torch.randn((K, N), generator=gen, device=dev) * 0.02, gs,
+                                      bf16)
+            splits[f"{name} g{gs}"] = _plan(1, K, N, gs)["splits"]
+            forms = {"bf16": qb, "fp32": qb._replace(scales=qb.scales.float(),
+                                                     zeros=qb.zeros.float())}
+            for sd, q in forms.items():
+                for xd in (bf16, f32):
+                    x = randn(big, K, dtype=xd)
+                    ref = w4a8_matmul_ref(x, q)
+                    whole = w4a8_matmul(x, q)
+                    for S in W4A8_ROWS:
+                        got = whole if S == big else w4a8_matmul(x[:S].contiguous(), q)
+                        tag = f"w4a8 {name} g{gs} {sd} scales, x {xd}, S={S}"
+                        check(torch.equal(got, ref[:S]),
+                              f"{tag}: max abs err {err(got, ref[:S])[0]} (must be exact)")
+                        check(torch.equal(got, whole[:S]), f"{tag}: rows differ from S={big}'s")
+                        held += 1
+                    del ref, whole
+            del qb, forms
+            torch.cuda.empty_cache()
+    check(any(v > 1 for v in splits.values()) and any(v == 1 for v in splits.values()),
+          "w4a8: the shapes no longer cover both the split-K and the unsplit route")
     K, N = LAYER_SHAPES["gate_up"]
     G = K // 128
     q = quantize_pack_device(torch.randn((K, N), generator=gen, device=dev) * 0.02, 128, bf16)
     w_deq = _dequant_halves_bf16(q)
-    a_max, a_rel = 0.0, 0.0
-    for S in (24, 127):
-        for xd in (bf16, f32):
-            x = randn(S, K, dtype=xd)
-            e, m = err(w4a8_matmul(x, q), w4a8_matmul_ref(x, q))
-            check(e <= 1e-6 * m, f"w4a8 gate_up S={S} {xd}: err {e} vs max {m}")
-            a_max, a_rel = max(a_max, e), max(a_rel, e / m)
-    x = randn(127, K)
-    whole = w4a8_matmul(x, q)
-    alone = w4a8_matmul(x[:1].clone(), q)
-    check(torch.equal(whole[:1], alone), "w4a8_matmul: row 0 alone differs from row 0 of S=127")
     w8_ms = {}
     for S in (24, 127):
         x = randn(S, K)
         by, bb = bound(K // 2 * N + 2 * G * N * 2 + S * K * 2 + S * N * 2, 2 * S * K * N, "int8")
         w8_ms[f"S={S}"] = dict(
+            token_width=_plan(S, K, N, 128)["token_width"], splits=splits["gate_up g128"],
             ms=cuda_ms(torch, lambda: w4a8_matmul(x, q)),
+            events_ms=cuda_ms(torch, lambda: w4a8_matmul(x, q), graph=False),
             plain_ms=cuda_ms(torch, lambda: w4a8_matmul_ref(x, q), iters=3, warmup=1),
             library_ms=cuda_ms(torch, lambda: torch.matmul(x, w_deq)),
             w4a16_ms=cuda_ms(torch, lambda: w4a16_matmul(x, q)),
@@ -706,12 +833,15 @@ def w4a8_kernel_checks(torch, dev, gen, randn, err):
     log(f"[kernels] w4a8_matmul gate_up {w8_ms}")
     del q, w_deq
     torch.cuda.empty_cache()
+    rows = f"S={', '.join(map(str, W4A8_ROWS))}"
+    log(f"[kernels] w4a8_matmul exact and row-invariant ({held} cases, {rows}; splits {splits})")
     return {"w4a8_matmul": dict(
-        shape="x [127,4096] bf16 @ W4 [4096,28672] (gate_up), int8 activations, bf16 out",
-        tolerance="max abs err <= 1e-6 * max|plain| (integer products exact, the same fp32 "
-                  "fix-up order); row 0 alone equals row 0 of S=127 bitwise",
-        max_abs_err=a_max, max_rel_err=a_rel, row_invariant=True, per_shape=w8_ms,
-        **w8_ms["S=127"])}
+        shape="x [127,4096] bf16 @ W4 [4096,28672] g128 (gate_up), int8 activations, bf16 out",
+        tolerance=f"bit for bit the plain version (max abs err 0.0) at 8B gate_up and down, "
+                  f"g128 and g32, bf16 and fp32 scales and x, {rows}; rows of every S equal "
+                  f"to S={big}'s",
+        max_abs_err=0.0, max_rel_err=0.0, cases_held=held, splits_by_shape=splits,
+        row_invariance=rows, per_shape=w8_ms, **w8_ms["S=127"])}
 
 
 def attention_int8_and_batched_checks(torch, dev, gen, randn, err):
@@ -978,7 +1108,7 @@ def lossless_check(torch, dev, prompt, kv_dtype=None, awq_act="bf16"):
           f"{tag} spec and AR decode differ at token {same}: {toks} vs {ar}")
     attn = "attend_flash_int8" if kv_dtype == "int8" else "attend_flash"
     w4 = "w4a8_matmul" if awq_act == "int8" else "w4a16_matmul"
-    for name in (attn, w4, "w4a8f_matmul", "embed_gather"):
+    for name in (attn, w4, "w4a8f_matmul", "w4a8_quantize", "embed_gather"):
         check(counts[name] > 0, f"{tag} kernel {name} was never launched")
     return res
 
@@ -1259,10 +1389,13 @@ def profile_window(torch, tag, fn, count_steps):
                    and e.name.startswith("aten::"))
     kernels = sum(1 for e in events if e.device_type == cuda)
     steps = count_steps(out)
-    # the W4A16 family's kernels (w4a16_kernel and w4a16_sum_partials)
+    # the W4A16 family's kernels (w4a16_kernel and w4a16_sum_partials); the
+    # int8 W4 family's (w4a8_kernel, w4a8_sum_partials, quantize_rows)
     w4a16 = sum(v for k, v in by_name.items() if "w4a16" in k)
+    w4a8 = sum(v for k, v in by_name.items() if "w4a8" in k or "quantize_rows" in k)
     res = dict(steps=steps, wall_ms=wall_ms, device_busy_ms=busy,
                device_busy_ms_per_step=busy / steps, w4a16_device_ms_per_step=w4a16 / steps,
+               w4a8_device_ms_per_step=w4a8 / steps,
                device_idle_share=1.0 - busy / wall_ms, host_ops_per_step=host_ops / steps,
                device_kernels_per_step=kernels / steps,
                top_kernels_ms={k[:90]: v for k, v in top})
@@ -1327,7 +1460,8 @@ def batched_lossless_check(torch, dev):
     log(f"[batched-lossless] {json.dumps(res)}")
     check(min(same) >= BATCHED_LOSSLESS_TOKENS,
           f"[batched-lossless] batched and single-slot tokens differ: {same} {parted}")
-    for name in ("attend_flash_batched", "w4a16_matmul", "w4a8f_matmul", "embed_gather"):
+    for name in ("attend_flash_batched", "w4a16_matmul", "w4a8f_matmul", "w4a8_quantize",
+                 "embed_gather"):
         check(counts[name] > 0, f"[batched-lossless] kernel {name} was never launched")
     return res
 
@@ -1371,7 +1505,7 @@ def multi_card_phase(torch, dev):
     check(first == last, "[multi-card] the engines on the last card give other tokens than on "
           "cuda:0")
     for name in ("embed_gather", "attend_flash", "attend_flash_batched_int8", "w4a16_matmul",
-                 "w4a8f_matmul"):
+                 "w4a8f_matmul", "w4a8_quantize"):
         check(list(counts.values())[-1][name] > 0,
               f"[multi-card] kernel {name} never launched on the last card")
     return res
@@ -1427,7 +1561,7 @@ def serve_phase(torch, dev, target, draft, tag, batch, tree, kv_dtype, n_request
     wall = time.time() - t0
     counts = launch_counts()
     steps = eng.steps_dispatched - steps0
-    for name in (attn_kernel, "w4a16_matmul", "w4a8f_matmul", "embed_gather"):
+    for name in (attn_kernel, "w4a16_matmul", "w4a8f_matmul", "w4a8_quantize", "embed_gather"):
         check(counts[name] > 0, f"{tag} kernel {name} was never launched")
     for r, o in zip(reqs, outs):
         toks = o["generated_tokens"]
@@ -1821,7 +1955,8 @@ def code_config_phase(torch, dev, ckpt, prompt, tag, target):
     eos = set(eng.eos_token_ids)
     check(len(toks) >= CONFIG_NEW_TOKENS or toks[-1] in eos, f"{tag} stopped early: {len(toks)}")
     check(all(0 <= t < 128256 for t in toks), f"{tag} token out of range")
-    kernels = ("embed_gather", "attend_flash", "w4a16_matmul") + (("w4a8_matmul",) if w4a8 else ())
+    kernels = ("embed_gather", "attend_flash", "w4a16_matmul") + (
+        ("w4a8_matmul", "w4a8_quantize") if w4a8 else ())
     for name in kernels:
         check(counts[name] > 0, f"{tag} kernel {name} was never launched")
     check(w4a8 or counts["w4a8_matmul"] == 0, f"{tag} a W4A16 target ran W4A8")
@@ -1871,7 +2006,8 @@ def serve_config_phase(torch, dev, ckpt):
             len(toks) >= SERVE_CONFIG_NEW_TOKENS or toks[-1] in eos),
             f"[serve-config] request got {len(toks)} tokens")
         check(all(0 <= t < 128256 for t in toks), "[serve-config] token out of range")
-    for name in ("attend_flash_batched_int8", "w4a16_matmul", "w4a8f_matmul", "embed_gather"):
+    for name in ("attend_flash_batched_int8", "w4a16_matmul", "w4a8f_matmul", "w4a8_quantize",
+                 "embed_gather"):
         check(counts[name] > 0, f"[serve-config] kernel {name} was never launched")
     steps = eng.steps_dispatched - steps0
     res = dict(batch=eng.batch_size, requests=len(reqs), new_tokens=SERVE_CONFIG_NEW_TOKENS,
@@ -1985,16 +2121,19 @@ KERNEL_META = {
     "attend_flash_batched_int8": ("umbrella_tpu_torch/csrc/tree_attention.cu",
                                   "umbrella_tpu/ops/pallas/tree_attention.py:338"),
     "w4a16_matmul": ("umbrella_tpu_torch/csrc/w4a16.cu", "umbrella_tpu/ops/pallas/w4a16.py:233"),
-    "w4a8f_matmul": ("umbrella_tpu_torch/csrc/w4a8f.cu", "umbrella_tpu/ops/pallas/w4a8f.py:97"),
+    "w4a8f_matmul": ("umbrella_tpu_torch/csrc/w4a8.cu", "umbrella_tpu/ops/pallas/w4a8f.py:97"),
     "w4a16_gate_up_silu": ("umbrella_tpu_torch/csrc/w4a16.cu",
                            "umbrella_tpu/ops/pallas/w4a16.py:158"),
     "w4a8_matmul": ("umbrella_tpu_torch/csrc/w4a8.cu", "umbrella_tpu/ops/pallas/w4a8.py:85"),
+    # the int8 W4 kernels' fused quantizer: the activation quantization that the
+    # jitted w4a8f_matmul runs before its pallas_call (w4a8_matmul's at :100-102)
+    "w4a8_quantize": ("umbrella_tpu_torch/csrc/w4a8.cu", "umbrella_tpu/ops/pallas/w4a8f.py:105"),
     # w4a16_matmul's layered mode: the same function's scalar-prefetch pallas_call
     "w4a16_matmul_layered": ("umbrella_tpu_torch/csrc/w4a16.cu",
                              "umbrella_tpu/ops/pallas/w4a16.py:303"),
 }
 # the kernels of the static main path (phase 4)
-MAIN_KERNELS = ("embed_gather", "attend_flash", "w4a16_matmul", "w4a8f_matmul")
+MAIN_KERNELS = ("embed_gather", "attend_flash", "w4a16_matmul", "w4a8f_matmul", "w4a8_quantize")
 # the phase whose run a kernel's `launches` is read from: its main path. No
 # shipped config reaches w4a16_gate_up_silu (nor does the JAX package's default
 # routing): its launches are awq_gate_up_silu(fused=True)'s, in [kernels]
@@ -2006,8 +2145,9 @@ CHECKPOINT_PHASES = ("checkpoint", "code-config", "code-config-w4a8", "serve-con
 PHASES = ("kernels", "multi-card", "lossless", "lossless-int8", "lossless-w4a8",
           "batched-lossless", "pp-lossless", "main", "serve", "serve-bf16",
           "serve-stochastic") + CHECKPOINT_PHASES
-# phases that run only when named in --phases: `w4a16` is a subset of `kernels`
-SUBSET_PHASES = ("w4a16",)
+# phases that run only when named in --phases: `w4a16` and `w4a8` are subsets
+# of `kernels`
+SUBSET_PHASES = ("w4a16", "w4a8")
 
 
 def run(torch, phases):
@@ -2042,6 +2182,7 @@ def run(torch, phases):
     prompt = np.random.default_rng(0).integers(0, 120000, size=PROMPT_LEN).astype(np.int32)
     report = phase("kernels", kernel_checks, torch, dev)
     phase("w4a16", w4a16_phase, torch, dev)
+    phase("w4a8", w4a8_phase, torch, dev)
     phase("multi-card", multi_card_phase, torch, dev)
     phase("lossless", lossless_check, torch, dev, prompt.tolist())
     phase("lossless-int8", lossless_check, torch, dev, prompt.tolist(), "int8")

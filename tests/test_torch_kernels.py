@@ -84,8 +84,9 @@ def test_w4a16_ref_matches_pallas_kernel(S):
 
 @pytest.mark.parametrize("S", SIZES)
 def test_w4a8f_ref_matches_pallas_kernel(S):
-    """Tolerance: the int8 activations, their scales and the int32 dot are exact;
-    the fp32 output is within 1e-6 relative."""
+    """Tolerance: the int8 activations, their scales and row sums equal the
+    jitted JAX quantizer's, and the int32 dot is exact; the fp32 output is
+    within 1e-6 relative."""
     rng = np.random.default_rng(300 + S)
     w = rng.standard_normal((256, 256)).astype(np.float32) * 0.05
     jq = jax_quantize_int4f(w, group_size=64)
@@ -94,7 +95,8 @@ def test_w4a8f_ref_matches_pallas_kernel(S):
                                        out_dtype=jnp.float32))
     q = params_from_numpy({"q": jq})["q"]
     xq, sx, rsum = quantize_activations_int8(_t(x), q.a)
-    jxq, jsx, jrsum = (np.asarray(a) for a in jax_quantize_act(jnp.asarray(x), jq.a))
+    # jitted, as the JAX package runs it (inside the jitted w4a8f_matmul)
+    jxq, jsx, jrsum = (np.asarray(a) for a in jax.jit(jax_quantize_act)(jnp.asarray(x), jq.a))
     np.testing.assert_array_equal(xq.numpy(), jxq)
     np.testing.assert_array_equal(sx.numpy(), jsx)
     np.testing.assert_array_equal(rsum.numpy(), jrsum)
@@ -105,6 +107,24 @@ def test_w4a8f_ref_matches_pallas_kernel(S):
     got = w4a8f_matmul_ref(_t(x), q, out_dtype=torch.float32).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
     np.testing.assert_array_equal(w4a8f_matmul(_t(x), q, out_dtype=torch.float32).numpy(), got)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_int4f_quantizer_matches_jitted_jax_bit_for_bit(seed):
+    """The JAX package runs quantize_activations_int8 only under jit, where XLA
+    turns `/ 127.0` into a multiply by the fp32 reciprocal; eager JAX divides.
+    On rows where the two scales differ in the last bit, the port's quantizer
+    must follow the jitted one (sx, xq and the row sums bit for bit)."""
+    rng = np.random.default_rng(700 + seed)
+    x = (rng.standard_normal((512, 256)) * rng.uniform(0.01, 30.0, (512, 1))).astype(np.float32)
+    a = rng.uniform(0.5, 2.0, 256).astype(np.float32)
+    jx, ja = jnp.asarray(x), jnp.asarray(a)
+    jitted = [np.asarray(t) for t in jax.jit(jax_quantize_act)(jx, ja)]
+    eager_sx = np.asarray(jax_quantize_act(jx, ja)[1])
+    assert (eager_sx != jitted[1]).any(), "no row where the divide and the reciprocal differ"
+    got = quantize_activations_int8(_t(x), _t(a))
+    for g, want in zip(got, jitted):
+        np.testing.assert_array_equal(g.numpy(), want)
 
 
 @pytest.mark.parametrize("S", SIZES)
@@ -237,7 +257,7 @@ def _w4a8_case(S, dtype, group_size, K=512, N=256):
     return jq, jx, xt, params_from_numpy({"q": jq})["q"]
 
 
-@pytest.mark.parametrize("group_size", [64, 128])
+@pytest.mark.parametrize("group_size", [32, 64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S", [1, 7, 33])
 def test_w4a8_ref_matches_pallas_kernel(S, dtype, group_size):
@@ -265,6 +285,21 @@ def test_w4a8_ref_matches_pallas_kernel(S, dtype, group_size):
     got = w4a8_matmul_ref(xt, q, out_dtype=torch.float32).numpy()
     assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
     np.testing.assert_array_equal(w4a8_matmul(xt, q, out_dtype=torch.float32).numpy(), got)
+
+
+@pytest.mark.parametrize("group_size", [32, 64, 128])
+def test_w4a8_ref_with_split_k_matches_pallas_kernel(group_size):
+    """At a shape whose K the kernel splits (whole groups a split, partial fp32
+    sums added in split order): the plain version within 1e-6 * max|y| of JAX's
+    w4a8_matmul (interpret), which sums all groups in one fp32 accumulator."""
+    from umbrella_tpu.ops.pallas.w4a8 import w4a8_matmul as jax_w4a8_matmul
+    from umbrella_tpu_torch.ops.kernels.w4a8 import kernel_splits, w4a8_matmul_ref
+
+    jq, jx, xt, q = _w4a8_case(9, "float32", group_size, K=2048, N=128)
+    assert kernel_splits(q) > 1
+    want = np.asarray(jax_w4a8_matmul(jx, jq, interpret=True, out_dtype=jnp.float32))
+    got = w4a8_matmul_ref(xt, q, out_dtype=torch.float32).numpy()
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
 
 
 def test_w4a8_ref_is_row_invariant():
@@ -502,3 +537,148 @@ def test_launches_enter_the_tensors_card(monkeypatch):
     with build.on_device(t) as st:
         assert entered == [torch.device("cuda", 1)]
     assert asked == [torch.device("cuda", 1)] and st.value == 4242
+
+
+# ---- the int8 W4 kernel's launch plan and operand checks (w4a8f_matmul and
+# w4a8_matmul; pure Python: the kernel runs only on the card)
+
+# (K, N): the 8B layer shapes, the 8B lm_head, the 70B layer shapes, the 1B
+# draft's, and a small one whose K/2 ends half-way through a stage
+INT8_PLAN_SHAPES = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096), (4096, 128256),
+                    (8192, 10240), (8192, 8192), (8192, 57344), (28672, 8192), (2048, 3072),
+                    (8192, 2048), (320, 48)]
+INT8_PLAN_ROWS = [1, 24, 48, 127, 160, 224, 300, 384, 512, 2047]
+
+
+@pytest.mark.parametrize("K,N,group_size", [
+    (K, N, g) for K, N in INT8_PLAN_SHAPES for g in (None, 32, 64, 128)
+    if g is None or (K // 2) % g == 0])
+def test_w4a8_plan_splits_and_tiles_ignore_the_row_count(K, N, group_size):
+    """Column tiles and splits of K come from N and K only (the same at every
+    S); each split is whole stages of 64 packed rows and, for AWQ, whole
+    groups; the splits cover K with none empty; one wave of 132 blocks at most
+    and at least 8 stages a split, unless K is not split."""
+    from umbrella_tpu_torch.ops.kernels.w4a8 import _plan
+
+    plans = [_plan(S, K, N, group_size) for S in INT8_PLAN_ROWS]
+    assert len({(p["col_tiles"], p["splits"], p["chunks_per_split"]) for p in plans}) == 1
+    p = plans[0]
+    n_chunks = -(-K // 2 // 64)
+    assert p["col_tiles"] == -(-N // 128)
+    assert (p["splits"] - 1) * p["chunks_per_split"] < n_chunks <= p["splits"] * p["chunks_per_split"]
+    if group_size is not None:
+        assert (2 * p["chunks_per_split"] * 32) % group_size == 0
+    assert p["splits"] == 1 or (p["col_tiles"] * p["splits"] <= 132
+                                and p["chunks_per_split"] >= 8)
+
+
+@pytest.mark.parametrize("S", INT8_PLAN_ROWS)
+@pytest.mark.parametrize("group_size", [None, 128])
+def test_w4a8_plan_token_tiles(S, group_size):
+    """Token width: S rounded up to 32 (S <= 32) or to 64, at most 256 for Int4F
+    and 64 for AWQ; super-tiles of that many rows beyond (so the lm_head's 384
+    rows take two, an AWQ prefill chunk of 2047 thirty-two)."""
+    from umbrella_tpu_torch.ops.kernels.w4a8 import _plan
+
+    cap = 256 if group_size is None else 64
+    p = _plan(S, 4096, 28672, group_size)
+    rows = min(S, cap)
+    assert p["token_width"] == (32 if rows <= 32 else -(-rows // 64) * 64)
+    assert p["token_width"] <= cap
+    assert p["super_tiles"] == -(-S // cap)
+
+
+def _cpu_int4f(K, N):
+    from umbrella_tpu_torch.quantization.int4f import Int4FTensor
+
+    return Int4FTensor(torch.zeros((K // 2, N), dtype=torch.int8), torch.ones(K),
+                       torch.ones(N))
+
+
+@pytest.mark.parametrize("case", ["k_mismatch", "k_not_64", "n_not_16", "x_fp16", "out_fp16",
+                                  "x_strided", "a_length", "w8_int32"])
+def test_w4a8f_check_raises_on_what_the_kernel_does_not_take(case):
+    """w4a8f_matmul's operand checks raise ValueError (never a fallback): x and
+    w8 of different K, K/2 not whole k32 steps, N not a multiple of 16 (TMA row
+    strides), fp16 x or output, strided x, a malformed Int4FTensor."""
+    from umbrella_tpu_torch.ops.kernels.w4a8f import _check
+
+    x, q, od = torch.zeros((3, 512)), _cpu_int4f(512, 256), torch.float32
+    if case == "k_mismatch":
+        q = _cpu_int4f(1024, 256)
+    elif case == "k_not_64":
+        x, q = torch.zeros((3, 480)), _cpu_int4f(480, 256)
+    elif case == "n_not_16":
+        q = _cpu_int4f(512, 200)
+    elif case == "x_fp16":
+        x = x.half()
+    elif case == "out_fp16":
+        od = torch.float16
+    elif case == "x_strided":
+        x = torch.zeros((512, 3)).t()
+    elif case == "a_length":
+        q = q._replace(a=torch.ones(256))
+    else:
+        q = q._replace(w8=q.w8.int())
+    with pytest.raises(ValueError):
+        _check(x, q, od)
+
+
+@pytest.mark.parametrize("case", ["groups_odd", "group_48", "k_mismatch",
+                                  "n_not_16", "scales_shape", "zeros_dtype", "x_fp16"])
+def test_w4a8_check_raises_on_what_the_kernel_does_not_take(case):
+    """w4a8_matmul's operand checks raise ValueError: an odd group count (no
+    low/high halves, so a group that does not divide K/2), a group size that is
+    not whole k32 steps, x and w8 of different K, N not a multiple of 16,
+    malformed scales or zeros, fp16 x."""
+    from umbrella_tpu_torch.ops.kernels.w4a8 import _check
+
+    x, q, od = torch.zeros((3, 512)), _cpu_awq(512, 256, 64), torch.float32
+    if case == "groups_odd":
+        x, q = torch.zeros((3, 384)), _cpu_awq(384, 256, 128)
+    elif case == "group_48":
+        x, q = torch.zeros((3, 384)), _cpu_awq(384, 256, 48)
+    elif case == "k_mismatch":
+        x = torch.zeros((3, 1024))
+    elif case == "n_not_16":
+        q = _cpu_awq(512, 200, 64)
+    elif case == "scales_shape":
+        q = q._replace(scales=q.scales[:, :128])
+    elif case == "zeros_dtype":
+        q = q._replace(zeros=q.zeros.float())
+    else:
+        x = x.half()
+    with pytest.raises(ValueError):
+        _check(x, q, od)
+
+
+@pytest.mark.parametrize("group_size", [32, 64, 96, 128])
+def test_w4a8_check_passes_the_shipped_shapes(group_size):
+    """The AWQ group sizes the kernel takes (any whole number of k32 steps that
+    divides K/2) pass at an 8B layer shape, with bf16 and fp32 x, and the Int4F
+    check passes the lm_head's shape; both return the launch plan."""
+    from umbrella_tpu_torch.ops.kernels import w4a8, w4a8f
+
+    K, N = 4608, 4096  # K/2 = 2304: whole groups of 32, 64, 96 and 128
+    for xd in (torch.bfloat16, torch.float32):
+        x = torch.zeros((127, K), dtype=xd)
+        p = w4a8._check(x, _cpu_awq(K, N, group_size), torch.bfloat16)
+        assert p["group_size"] == group_size and p["token_width"] == 64
+        assert p["super_tiles"] == 2
+    p = w4a8f._check(torch.zeros((24, 4096)), _cpu_int4f(4096, 128256), torch.float32)
+    assert p == dict(token_width=32, super_tiles=1, col_tiles=1002, splits=1, chunks_per_split=32)
+
+
+def test_quantize_rows_raises_on_what_the_kernel_does_not_take():
+    """The fused quantizer raises before any launch: fp16 or strided x, K not a
+    multiple of 64, a group size that is not whole k32 steps, a malformed a."""
+    from umbrella_tpu_torch.ops.kernels.w4a8 import quantize_rows
+
+    for x, a, gs in ((torch.zeros((2, 256)).half(), None, None),
+                     (torch.zeros((256, 2)).t(), None, None),
+                     (torch.zeros((2, 96)), None, None),
+                     (torch.zeros((2, 256)), None, 48),
+                     (torch.zeros((2, 256)), torch.ones(128), None),
+                     (torch.zeros((2, 256)), torch.ones(256, dtype=torch.float64), None)):
+        with pytest.raises(ValueError):
+            quantize_rows(x, a, gs)
