@@ -89,6 +89,10 @@ constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kWBox = kRows * kCols;  // bytes of one weight box
 constexpr int kSmemMax = 232448;
 constexpr int kMaxStages = 8;
+// AWQ group sizes up to this fold integer zero points into the weight bytes:
+// |xq . (nibble - z)| <= 127 * 15 * 2048 < 2^22 (small_int_to_float), and the
+// plain version's float(p) - rs * z is then exact
+constexpr int kFoldMaxGroup = 2048;
 
 enum Mode { kInt4F = 0, kAwq = 1 };
 // tokens a block: S up to this in one pass, super-tiles above
@@ -294,6 +298,16 @@ __device__ __forceinline__ void store2<int>(void* out, long long o, int a, int b
 __device__ __forceinline__ float int4f_out(int acc, int rowsum, float sx, float b) {
     return __fmul_rn(__fmul_rn(__int2float_rn(acc - 8 * rowsum), sx), b);
 }
+// four bytes of nibbles (0..15) minus z (0..15) in each byte, as s8: offset
+// by 128 so that no byte borrows from the next
+__device__ __forceinline__ uint32_t sub_bytes(uint32_t nib, uint32_t zz) {
+    return ((nib | 0x80808080u) - zz) ^ 0x80808080u;
+}
+// an int of magnitude below 2^22 as float, exactly: 1.5 * 2^23 + v, then less
+// 1.5 * 2^23 (two full-rate operations where a conversion is quarter-rate)
+__device__ __forceinline__ float small_int_to_float(int v) {
+    return __fsub_rn(__int_as_float(0x4B400000 + v), 12582912.0f);
+}
 // AWQ's fix-up of one group's product: acc + (float(p) - rs * z) * s
 __device__ __forceinline__ float awq_fix(float acc, int p, float rs, float z, float s) {
     return __fadd_rn(acc, __fmul_rn(__fsub_rn(__int2float_rn(p), __fmul_rn(rs, z)), s));
@@ -414,10 +428,13 @@ w4a8_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CU
         load_raw(raw, grp);
         load_raw(nxt, grp + 1);
     }
-    // folds the group's products into facc: per output the low half's group,
-    // then the high half's
-    auto fix_up = [&]() {
-        float sz[4][2];
+    // the group's scales and zeros as floats, sz[lo s, lo z, hi s, hi z][column];
+    // with `fold` the zero points are in the A fragments (zz: z in each byte,
+    // [half][column]; 0 without fold)
+    float sz[4][2];
+    uint32_t zz[2][2];
+    bool fold = false;
+    auto start_group = [&]() {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
             if (p.s_bf16) {
@@ -427,6 +444,33 @@ w4a8_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CU
                 sz[i][0] = __uint_as_float(raw[i][0]);
                 sz[i][1] = __uint_as_float(raw[i][1]);
             }
+        }
+        fold = p.group_size <= kFoldMaxGroup;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int cc = 0; cc < 2; ++cc) {
+                const float z = sz[2 * h + 1][cc];
+                fold = fold && z == rintf(z) && z >= 0.f && z <= 15.f;
+            }
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int cc = 0; cc < 2; ++cc)
+                zz[h][cc] = fold ? (uint32_t)sz[2 * h + 1][cc] * 0x01010101u : 0u;
+    };
+    // folds the group's products into facc: per output the low half's group,
+    // then the high half's
+    auto fix_up = [&]() {
+        if (fold) {  // p = xq . (nib - z) = the plain version's float(p) - rs * z, exactly
+#pragma unroll
+            for (int k = 0; k < kAcc; ++k) {
+                const int h = (k >> 1) & 1;
+                facc[k] = __fadd_rn(__fadd_rn(facc[k], __fmul_rn(small_int_to_float(plo[k]),
+                                                                 sz[0][h])),
+                                    __fmul_rn(small_int_to_float(phi[k]), sz[2][h]));
+            }
+            return;
         }
 #pragma unroll
         for (int i = 0; i < NT / 8; ++i)
@@ -445,7 +489,7 @@ w4a8_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CU
             }
     };
 
-    // the A fragments of one step, double-buffered: [buffer][half][register]
+    // the A fragments of one step, double-buffered: [step of the stage][half][register]
     uint32_t frag[2][2][4];
 #pragma unroll
     for (int b = 0; b < 2; ++b)
@@ -455,7 +499,7 @@ w4a8_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CU
             for (int i = 0; i < 4; ++i) frag[b][h][i] = 0u;
 
     const int t_end = min(p.n_steps, 2 * c_end);
-    int s = 0, s_prev = 0, buf = 0;
+    int s = 0, s_prev = 0;
     uint32_t phase = 0;
     for (int c = c_begin; c < c_end; ++c) {
         mbar_wait(smem_u32(full + s), phase);
@@ -480,12 +524,20 @@ w4a8_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CU
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
             const int t = 2 * c + j;
-            if (MODE == kAwq && t >= t_end) break;  // K/2 ends half-way through the chunk
-            uint32_t(&f)[2][4] = frag[buf];
+            if (MODE == kAwq && t >= t_end) continue;  // K/2 ends half-way through the chunk
+            // a stage's two steps take buffers 0 and 1: a run-time buffer index
+            // would put the fragments in local memory
+            uint32_t(&f)[2][4] = frag[j];
+            if (MODE == kAwq && left == spg) start_group();
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-                f[0][i] = wd[j][i] & 0x0F0F0F0Fu;
-                f[1][i] = (wd[j][i] >> 4) & 0x0F0F0F0Fu;
+                if (MODE == kAwq) {  // nibble - z per byte (registers 0, 2: column lc)
+                    f[0][i] = sub_bytes(wd[j][i] & 0x0F0F0F0Fu, zz[0][i & 1]);
+                    f[1][i] = sub_bytes((wd[j][i] >> 4) & 0x0F0F0F0Fu, zz[1][i & 1]);
+                } else {
+                    f[0][i] = wd[j][i] & 0x0F0F0F0Fu;
+                    f[1][i] = (wd[j][i] >> 4) & 0x0F0F0F0Fu;
+                }
             }
             // the step's low half (x's first half), then its high half
             wgmma_fence();
@@ -519,8 +571,7 @@ w4a8_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CU
 #pragma unroll
             for (int h = 0; h < 2; ++h)
 #pragma unroll
-                for (int i = 0; i < 4; ++i) fence_reg(frag[buf ^ 1][h][i]);
-            buf ^= 1;
+                for (int i = 0; i < 4; ++i) fence_reg(frag[j ^ 1][h][i]);
             if (j == 0 && c > c_begin && lane == 0)
                 mbar_arrive(smem_u32(empty + s_prev));  // all the previous stage's steps are done
         }
