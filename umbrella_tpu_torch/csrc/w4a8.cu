@@ -79,6 +79,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kRows = 64;  // packed rows (K/2 direction) a stage: two k32 steps
@@ -428,41 +430,52 @@ w4a8_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CU
         load_raw(raw, grp);
         load_raw(nxt, grp + 1);
     }
-    // the group's scales and zeros as floats, sz[lo s, lo z, hi s, hi z][column];
-    // with `fold` the zero points are in the A fragments (zz: z in each byte,
-    // [half][column]; 0 without fold)
-    float sz[4][2];
-    uint32_t zz[2][2];
-    bool fold = false;
-    auto start_group = [&]() {
+    // a group's scales and zeros as floats, [lo s, lo z, hi s, hi z][column]
+    auto scales_of = [&](const uint32_t(&r)[4][2], float(&sz)[4][2]) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
             if (p.s_bf16) {
-                sz[i][0] = __uint_as_float(raw[i][0] << 16);
-                sz[i][1] = __uint_as_float(raw[i][0] & 0xFFFF0000u);
+                sz[i][0] = __uint_as_float(r[i][0] << 16);
+                sz[i][1] = __uint_as_float(r[i][0] & 0xFFFF0000u);
             } else {
-                sz[i][0] = __uint_as_float(raw[i][0]);
-                sz[i][1] = __uint_as_float(raw[i][1]);
+                sz[i][0] = __uint_as_float(r[i][0]);
+                sz[i][1] = __uint_as_float(r[i][1]);
             }
         }
-        fold = p.group_size <= kFoldMaxGroup;
+    };
+    // whether the group's zero points go into the A fragments (`fold`: both
+    // columns' zeros of both halves are integers in [0, 15]), and then z in
+    // each byte, zz[half][column] (0 without fold)
+    struct Zeros {
+        uint32_t zz[2][2];
+        bool fold;
+    };
+    auto zeros_of = [&](const uint32_t(&r)[4][2]) {
+        float sz[4][2];
+        scales_of(r, sz);
+        Zeros z;
+        z.fold = p.group_size <= kFoldMaxGroup;
 #pragma unroll
         for (int h = 0; h < 2; ++h)
 #pragma unroll
             for (int cc = 0; cc < 2; ++cc) {
-                const float z = sz[2 * h + 1][cc];
-                fold = fold && z == rintf(z) && z >= 0.f && z <= 15.f;
+                const float v = sz[2 * h + 1][cc];
+                z.fold = z.fold && v == rintf(v) && v >= 0.f && v <= 15.f;
             }
 #pragma unroll
         for (int h = 0; h < 2; ++h)
 #pragma unroll
             for (int cc = 0; cc < 2; ++cc)
-                zz[h][cc] = fold ? (uint32_t)sz[2 * h + 1][cc] * 0x01010101u : 0u;
+                z.zz[h][cc] = z.fold ? (uint32_t)sz[2 * h + 1][cc] * 0x01010101u : 0u;
+        return z;
     };
+    Zeros zcur = {};  // the zeros of the group in progress
     // folds the group's products into facc: per output the low half's group,
     // then the high half's
     auto fix_up = [&]() {
-        if (fold) {  // p = xq . (nib - z) = the plain version's float(p) - rs * z, exactly
+        float sz[4][2];
+        scales_of(raw, sz);
+        if (zeros_of(raw).fold) {  // p = xq . (nib - z) = float(p) - rs * z, exactly
 #pragma unroll
             for (int k = 0; k < kAcc; ++k) {
                 const int h = (k >> 1) & 1;
@@ -489,19 +502,29 @@ w4a8_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CU
             }
     };
 
-    // the A fragments of one step, double-buffered: [step of the stage][half][register]
-    uint32_t frag[2][2][4];
+    // the A fragments of a stage's two steps, double-buffered by stage:
+    // [stage parity][step][half][register]. The parity is a compile-time index
+    // (the stage loop is unrolled by two): a run-time one would put the
+    // fragments in local memory.
+    uint32_t frag[2][2][2][4];
 #pragma unroll
     for (int b = 0; b < 2; ++b)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+        for (int j = 0; j < 2; ++j)
 #pragma unroll
-            for (int i = 0; i < 4; ++i) frag[b][h][i] = 0u;
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) frag[b][j][h][i] = 0u;
 
     const int t_end = min(p.n_steps, 2 * c_end);
     int s = 0, s_prev = 0;
     uint32_t phase = 0;
-    for (int c = c_begin; c < c_end; ++c) {
+    // one stage: its products are one wgmma group (cut where an AWQ group
+    // ends), in flight while the next stage's fragments are formed. Both
+    // steps' fragments are formed before the group starts: ptxas serializes
+    // wgmma where an input register is written inside a group.
+    auto stage = [&](auto parity, int c) {
+        constexpr int B = decltype(parity)::value;
         mbar_wait(smem_u32(full + s), phase);
         // the stage's words of this thread: [step][a register], each 4 k of one
         // column (a0: column lc, k 4c4..+3; a1: lc + 1; a2, a3: the same at k + 16)
@@ -521,70 +544,84 @@ w4a8_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CU
             }
         const uint32_t xst = smem_u32(smem + s * kStage);
         const uint64_t d_lo = desc_sw64(xst), d_hi = desc_sw64(xst + kXBox);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            const int t = 2 * c + j;
-            if (MODE == kAwq && t >= t_end) continue;  // K/2 ends half-way through the chunk
-            // a stage's two steps take buffers 0 and 1: a run-time buffer index
-            // would put the fragments in local memory
-            uint32_t(&f)[2][4] = frag[j];
-            if (MODE == kAwq && left == spg) start_group();
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                if (MODE == kAwq) {  // nibble - z per byte (registers 0, 2: column lc)
-                    f[0][i] = sub_bytes(wd[j][i] & 0x0F0F0F0Fu, zz[0][i & 1]);
-                    f[1][i] = sub_bytes((wd[j][i] >> 4) & 0x0F0F0F0Fu, zz[1][i & 1]);
-                } else {
-                    f[0][i] = wd[j][i] & 0x0F0F0F0Fu;
-                    f[1][i] = (wd[j][i] >> 4) & 0x0F0F0F0Fu;
-                }
-            }
-            // the step's low half (x's first half), then its high half
-            wgmma_fence();
-            if (MODE == kInt4F) {
-                wgmma_s8<NT>(acc, f[0], d_lo + 2 * j, 1);
-                wgmma_s8<NT>(acc, f[1], d_hi + 2 * j, 1);
-                wgmma_commit();
-                wgmma_wait<1>();  // the previous step is done: its fragments are free
-            } else {
-                const int keep = left != spg;  // a group's first step overwrites
-                wgmma_s8<NT>(plo, f[0], d_lo + 2 * j, keep);
-                wgmma_s8<NT>(phi, f[1], d_hi + 2 * j, keep);
-                wgmma_commit();
-                if (--left == 0) {  // the group's last step: fold its products in
-                    wgmma_wait<0>();
-#pragma unroll
-                    for (int i = 0; i < kAcc; ++i) {
-                        fence_reg(plo[i]);
-                        fence_reg(phi[i]);
-                    }
-                    fix_up();
-                    ++grp;
-                    left = spg;
-#pragma unroll
-                    for (int i = 0; i < 4; ++i) raw[i][0] = nxt[i][0], raw[i][1] = nxt[i][1];
-                    load_raw(nxt, grp + 1);
-                } else {
-                    wgmma_wait<1>();
-                }
-            }
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-#pragma unroll
-                for (int i = 0; i < 4; ++i) fence_reg(frag[j ^ 1][h][i]);
-            if (j == 0 && c > c_begin && lane == 0)
-                mbar_arrive(smem_u32(empty + s_prev));  // all the previous stage's steps are done
+        // both steps' fragments first (0: low nibbles, x's first half; 1: high),
+        // the zero points of each step's group folded in (AWQ)
+        Zeros zs[2];
+        if (MODE == kAwq) {
+            if (left == spg) zcur = zeros_of(raw);  // step 0 starts a group
+            zs[0] = zcur;
+            if (left == 1) zcur = zeros_of(nxt);  // step 0 ends it: step 1 starts the next
+            zs[1] = zcur;
         }
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                if (MODE == kAwq) {  // nibble - z per byte (registers 0, 2: column lc)
+                    frag[B][j][0][i] = sub_bytes(wd[j][i] & 0x0F0F0F0Fu, zs[j].zz[0][i & 1]);
+                    frag[B][j][1][i] = sub_bytes((wd[j][i] >> 4) & 0x0F0F0F0Fu, zs[j].zz[1][i & 1]);
+                } else {
+                    frag[B][j][0][i] = wd[j][i] & 0x0F0F0F0Fu;
+                    frag[B][j][1][i] = (wd[j][i] >> 4) & 0x0F0F0F0Fu;
+                }
+            }
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+            uint32_t(&f)[2][4] = frag[B][j];
+            if (MODE == kInt4F) {
+                wgmma_s8<NT>(acc, f[0], d_lo + 2 * j, 1);
+                wgmma_s8<NT>(acc, f[1], d_hi + 2 * j, 1);
+                continue;
+            }
+            if (2 * c + j >= t_end) continue;  // K/2 ends half-way through the stage
+            const int keep = left != spg;       // a group's first step overwrites
+            wgmma_s8<NT>(plo, f[0], d_lo + 2 * j, keep);
+            wgmma_s8<NT>(phi, f[1], d_hi + 2 * j, keep);
+            if (--left == 0) {  // the group's last step: fold its products in
+                wgmma_commit();
+                wgmma_wait<0>();
+#pragma unroll
+                for (int i = 0; i < kAcc; ++i) {
+                    fence_reg(plo[i]);
+                    fence_reg(phi[i]);
+                }
+                fix_up();
+                ++grp;
+                left = spg;
+#pragma unroll
+                for (int i = 0; i < 4; ++i) raw[i][0] = nxt[i][0], raw[i][1] = nxt[i][1];
+                load_raw(nxt, grp + 1);
+                wgmma_fence();
+            }
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done: its fragments are free
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) fence_reg(frag[B ^ 1][j][h][i]);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
             for (int i = 0; i < 4; ++i) fence_reg(wd[j][i]);
+        if (c > c_begin && lane == 0) mbar_arrive(smem_u32(empty + s_prev));
         s_prev = s;
         if (++s == stages) {
             s = 0;
             phase ^= 1;
         }
+    };
+    // parity 0 always follows parity 1 (or nothing): with a conditional second
+    // stage in the loop, ptxas could not tell the buffers apart and serialized
+    int c = c_begin;
+    for (; c + 1 < c_end; c += 2) {
+        stage(std::integral_constant<int, 0>{}, c);
+        stage(std::integral_constant<int, 1>{}, c + 1);
     }
+    if (c < c_end) stage(std::integral_constant<int, 0>{}, c);
     wgmma_wait<0>();
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) fence_reg(acc[i]);
