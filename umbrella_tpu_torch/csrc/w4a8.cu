@@ -91,6 +91,15 @@ constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kWBox = kRows * kCols;  // bytes of one weight box
 constexpr int kSmemMax = 232448;
 constexpr int kMaxStages = 8;
+constexpr int kBlockCols = 2 * kCols;  // weight columns a block
+// AWQ scale rows a stage: a stage's two k32 steps start at most two groups
+constexpr int kSzRows = 2;
+constexpr int kSzBox = kSzRows * kBlockCols * 4;  // bytes of one scale box (fp32 at most)
+// the first group that starts at or after chunk c's first step
+__device__ __forceinline__ int first_group(int c, int group_size) {
+    const int spg = group_size / 32;
+    return (2 * c + spg - 1) / spg;
+}
 // AWQ group sizes up to this fold integer zero points into the weight bytes:
 // |xq . (nibble - z)| <= 127 * 15 * 2048 < 2^22 (small_int_to_float), and the
 // plain version's float(p) - rs * z is then exact
@@ -119,6 +128,16 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ uint32_t lds_u16(uint32_t addr) {
     uint16_t v;
     asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
+    return v;
+}
+__device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
+    uint32_t v;
+    asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+    return v;
+}
+__device__ __forceinline__ float lds_f32(uint32_t addr) {
+    float v;
+    asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
     return v;
 }
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -318,12 +337,15 @@ __device__ __forceinline__ float awq_fix(float acc, int p, float rs, float z, fl
 template <int NT, int MODE>
 __global__ void __launch_bounds__(kThreads, 1)
 w4a8_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+            const __grid_constant__ CUtensorMap tm_s, const __grid_constant__ CUtensorMap tm_z,
             const Params p) {
     extern __shared__ uint8_t smem_raw[];
     uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                                ~uintptr_t(1023));
-    constexpr int kXBox = NT * kRows;              // one x half of a stage
-    constexpr int kStage = 2 * kXBox + 2 * kWBox;  // multiple of 1024
+    constexpr int kXBox = NT * kRows;  // one x half of a stage
+    // AWQ: the scale and zero rows of the groups that start in the stage
+    constexpr int kSzBytes = MODE == kAwq ? 4 * kSzBox : 0;
+    constexpr int kStage = 2 * kXBox + 2 * kWBox + kSzBytes;  // multiple of 1024
     constexpr int kAcc = NT / 2;                   // accumulators a thread
     const int stages = p.stages;
     uint64_t* full = reinterpret_cast<uint64_t*>(smem + stages * kStage);
@@ -346,13 +368,26 @@ w4a8_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CU
         asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
         if (warp == kConsumerThreads / 32 && lane == 0) {
             const uint32_t bytes = 2 * p.x_rows * kRows + 2 * kWBox;
+            const uint32_t sz_bytes = 4 * kSzRows * kBlockCols * (p.s_bf16 ? 2 : 4);
             int s = 0;
             uint32_t phase = 0;
             for (int c = c_begin, it = 0; c < c_end; ++c, ++it) {
                 if (it >= stages) mbar_wait(smem_u32(empty + s), phase ^ 1);
                 uint8_t* st = smem + s * kStage;
                 const uint32_t bar = smem_u32(full + s);
-                mbar_expect_tx(bar, bytes);
+                // AWQ: a group starts in this stage (step 2c or 2c + 1): its rows
+                // (and the next one's) of the low and high scales and zeros
+                const bool starts = MODE == kAwq && first_group(c, p.group_size) * (p.group_size / 32) <=
+                                                        2 * c + 1;
+                mbar_expect_tx(bar, bytes + (starts ? sz_bytes : 0));
+                if (starts) {
+                    const int g0 = first_group(c, p.group_size), col0 = bx * kBlockCols;
+                    uint8_t* sz = st + 2 * kXBox + 2 * kWBox;
+                    tma_2d(smem_u32(sz), &tm_s, bar, col0, g0);
+                    tma_2d(smem_u32(sz + kSzBox), &tm_z, bar, col0, g0);
+                    tma_2d(smem_u32(sz + 2 * kSzBox), &tm_s, bar, col0, p.G / 2 + g0);
+                    tma_2d(smem_u32(sz + 3 * kSzBox), &tm_z, bar, col0, p.G / 2 + g0);
+                }
                 tma_2d(smem_u32(st), &tm_x, bar, c * kRows, s0);
                 tma_2d(smem_u32(st + kXBox), &tm_x, bar, p.K2 + c * kRows, s0);
 #pragma unroll
@@ -394,52 +429,23 @@ w4a8_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CU
     for (int i = 0; i < (MODE == kAwq ? kAcc : 1); ++i) facc[i] = 0.f;
     int* plo = acc;
 
-    // AWQ: the group of the first step, steps left in it, and the scales and
-    // zeros of the two columns for the group's low and high halves
-    // ([lo s, lo z, hi s, hi z][column]), loaded a group ahead
+    // AWQ: the group of the first step and the steps left in it
     const int spg = p.group_size / 32, G2 = p.G / 2;
     int grp = (2 * c_begin) / (spg > 0 ? spg : 1), left = spg;
-    uint32_t raw[4][2], nxt[4][2];
-    auto load_raw = [&](uint32_t(&r)[4][2], int gi) {
-        const long long lo = (long long)gi * p.N + col, hi = (long long)(G2 + gi) * p.N + col;
-        if (!col_ok || gi >= G2) {
+    // the scales and zeros of group gi, which starts in the stage at st, for
+    // the thread's two columns as floats: sz[lo s, lo z, hi s, hi z][column]
+    auto scales_of = [&](const uint8_t* st, int c, int gi, float(&sz)[4][2]) {
+        const int e = (gi - first_group(c, p.group_size)) * kBlockCols + wg * kCols + lc;
+        const uint32_t base = smem_u32(st + 2 * kXBox + 2 * kWBox);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) r[i][0] = r[i][1] = 0u;
-        } else if (p.s_bf16) {  // both columns' bf16 in one 32-bit load
-            const uint32_t* sc = reinterpret_cast<const uint32_t*>(
-                reinterpret_cast<const __nv_bfloat16*>(p.scales) + lo);
-            const uint32_t* ze = reinterpret_cast<const uint32_t*>(
-                reinterpret_cast<const __nv_bfloat16*>(p.zeros) + lo);
-            const long long d = (hi - lo) / 2;
-            r[0][0] = __ldg(sc), r[1][0] = __ldg(ze), r[2][0] = __ldg(sc + d),
-            r[3][0] = __ldg(ze + d);
-        } else {
-            const float* sc = reinterpret_cast<const float*>(p.scales);
-            const float* ze = reinterpret_cast<const float*>(p.zeros);
-            const float2 a = __ldg(reinterpret_cast<const float2*>(sc + lo)),
-                         b = __ldg(reinterpret_cast<const float2*>(ze + lo)),
-                         c = __ldg(reinterpret_cast<const float2*>(sc + hi)),
-                         d = __ldg(reinterpret_cast<const float2*>(ze + hi));
-            r[0][0] = __float_as_uint(a.x), r[0][1] = __float_as_uint(a.y);
-            r[1][0] = __float_as_uint(b.x), r[1][1] = __float_as_uint(b.y);
-            r[2][0] = __float_as_uint(c.x), r[2][1] = __float_as_uint(c.y);
-            r[3][0] = __float_as_uint(d.x), r[3][1] = __float_as_uint(d.y);
-        }
-    };
-    if (MODE == kAwq && c_begin < c_end) {
-        load_raw(raw, grp);
-        load_raw(nxt, grp + 1);
-    }
-    // a group's scales and zeros as floats, [lo s, lo z, hi s, hi z][column]
-    auto scales_of = [&](const uint32_t(&r)[4][2], float(&sz)[4][2]) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            if (p.s_bf16) {
-                sz[i][0] = __uint_as_float(r[i][0] << 16);
-                sz[i][1] = __uint_as_float(r[i][0] & 0xFFFF0000u);
+        for (int i = 0; i < 4; ++i) {  // boxes: lo s, lo z, hi s, hi z
+            if (p.s_bf16) {  // both columns' bf16 in one 32-bit load
+                const uint32_t v = lds_u32(base + i * kSzBox + 2 * e);
+                sz[i][0] = __uint_as_float(v << 16);
+                sz[i][1] = __uint_as_float(v & 0xFFFF0000u);
             } else {
-                sz[i][0] = __uint_as_float(r[i][0]);
-                sz[i][1] = __uint_as_float(r[i][1]);
+                sz[i][0] = lds_f32(base + i * kSzBox + 4 * e);
+                sz[i][1] = lds_f32(base + i * kSzBox + 4 * e + 4);
             }
         }
     };
@@ -450,9 +456,7 @@ w4a8_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CU
         uint32_t zz[2][2];
         bool fold;
     };
-    auto zeros_of = [&](const uint32_t(&r)[4][2]) {
-        float sz[4][2];
-        scales_of(r, sz);
+    auto zeros_of = [&](const float(&sz)[4][2]) {
         Zeros z;
         z.fold = p.group_size <= kFoldMaxGroup;
 #pragma unroll
@@ -469,13 +473,12 @@ w4a8_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CU
                 z.zz[h][cc] = z.fold ? (uint32_t)sz[2 * h + 1][cc] * 0x01010101u : 0u;
         return z;
     };
-    Zeros zcur = {};  // the zeros of the group in progress
+    Zeros zcur = {};       // the zeros of the group in progress
+    float sz[4][2], sz_next[4][2];  // its scales and zeros, and the next group's
     // folds the group's products into facc: per output the low half's group,
     // then the high half's
-    auto fix_up = [&]() {
-        float sz[4][2];
-        scales_of(raw, sz);
-        if (zeros_of(raw).fold) {  // p = xq . (nib - z) = float(p) - rs * z, exactly
+    auto fix_up = [&](bool fold) {
+        if (fold) {  // p = xq . (nib - z) = float(p) - rs * z, exactly
 #pragma unroll
             for (int k = 0; k < kAcc; ++k) {
                 const int h = (k >> 1) & 1;
@@ -548,10 +551,18 @@ w4a8_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CU
         // the zero points of each step's group folded in (AWQ)
         Zeros zs[2];
         if (MODE == kAwq) {
-            if (left == spg) zcur = zeros_of(raw);  // step 0 starts a group
+            const uint8_t* st = smem + s * kStage;
+            if (left == spg) {  // step 0 starts a group
+                scales_of(st, c, grp, sz);
+                zcur = zeros_of(sz);
+            }
             zs[0] = zcur;
-            if (left == 1) zcur = zeros_of(nxt);  // step 0 ends it: step 1 starts the next
-            zs[1] = zcur;
+            if (left == 1 && 2 * c + 1 < t_end) {  // step 0 ends it: step 1 starts the next
+                scales_of(st, c, grp + 1, sz_next);
+                zs[1] = zeros_of(sz_next);
+            } else {
+                zs[1] = zcur;
+            }
         }
 #pragma unroll
         for (int j = 0; j < 2; ++j)
@@ -586,12 +597,14 @@ w4a8_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CU
                     fence_reg(plo[i]);
                     fence_reg(phi[i]);
                 }
-                fix_up();
+                fix_up(zs[j].fold);
                 ++grp;
                 left = spg;
+                if (j == 0) {  // the next group starts at step 1
 #pragma unroll
-                for (int i = 0; i < 4; ++i) raw[i][0] = nxt[i][0], raw[i][1] = nxt[i][1];
-                load_raw(nxt, grp + 1);
+                    for (int i = 0; i < 4; ++i) sz[i][0] = sz_next[i][0], sz[i][1] = sz_next[i][1];
+                    zcur = zs[1];
+                }
                 wgmma_fence();
             }
         }
@@ -745,31 +758,45 @@ EncodeTiled encoder() {
     return fn;
 }
 
-// a 2-D byte tensor [rows, cols] (row stride cols), boxes of box_cols x
-// box_rows, 64-byte swizzle, zero fill out of bounds
-bool encode_bytes(EncodeTiled encode, CUtensorMap* map, const void* base, int rows, int cols,
-                  int box_cols, int box_rows) {
+// a 2-D tensor [rows, cols] (row stride cols) of bytes (64-byte swizzle),
+// bf16 or fp32 (no swizzle), boxes of box_cols x box_rows, zero fill out of
+// bounds
+bool encode_2d(EncodeTiled encode, CUtensorMap* map, CUtensorMapDataType type, const void* base,
+               int rows, int cols, int box_cols, int box_rows) {
+    const int esize = type == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1
+                      : type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2 : 4;
     const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-    const cuuint64_t strides[1] = {(cuuint64_t)cols};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
     const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows}, es[2] = {1, 1};
-    return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides,
-                  box, es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+    return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, es,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  esize == 1 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int NT, int MODE>
 int launch(const void* xq, const void* w8, Params p, int splits, cudaStream_t st) {
-    constexpr int kStage = 2 * NT * kRows + 2 * kWBox;
+    constexpr int kStage = 2 * NT * kRows + 2 * kWBox + (MODE == kAwq ? 4 * kSzBox : 0);
     // rows past S in a stage's x tiles are left as they were: they feed only
     // the accumulators of tokens past S, which are never stored
     p.x_rows = p.S < NT ? (p.S + 7) / 8 * 8 : NT;
     EncodeTiled encode = encoder();
     if (encode == nullptr) return (int)cudaErrorNotSupported;
-    CUtensorMap tm_x, tm_w;
-    if (!encode_bytes(encode, &tm_x, xq, p.S, 2 * p.K2, kRows, p.x_rows) ||
-        !encode_bytes(encode, &tm_w, w8, p.K2, p.N, kCols, kRows))
+    const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+    CUtensorMap tm_x, tm_w, tm_s, tm_z;
+    if (!encode_2d(encode, &tm_x, u8, xq, p.S, 2 * p.K2, kRows, p.x_rows) ||
+        !encode_2d(encode, &tm_w, u8, w8, p.K2, p.N, kCols, kRows))
         return (int)cudaErrorInvalidValue;
+    if (MODE == kAwq) {  // scales and zeros [G, N]: boxes of a block's columns x kSzRows groups
+        const CUtensorMapDataType t =
+            p.s_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+        if (!encode_2d(encode, &tm_s, t, p.scales, p.G, p.N, kBlockCols, kSzRows) ||
+            !encode_2d(encode, &tm_z, t, p.zeros, p.G, p.N, kBlockCols, kSzRows))
+            return (int)cudaErrorInvalidValue;
+    } else {
+        tm_s = tm_z = tm_w;  // not read
+    }
     p.stages = (kSmemMax - 1024 - 256) / kStage;
     if (p.stages > kMaxStages) p.stages = kMaxStages;
     const int smem = 1024 + p.stages * kStage + 256;
@@ -782,10 +809,10 @@ int launch(const void* xq, const void* w8, Params p, int splits, cudaStream_t st
         if (e != cudaSuccess) return (int)e;
         configured |= 1u << dev;
     }
-    const int col_tiles = (p.N + 2 * kCols - 1) / (2 * kCols);
+    const int col_tiles = (p.N + kBlockCols - 1) / kBlockCols;
     const int super_tiles = (p.S + kMaxTok<MODE> - 1) / kMaxTok<MODE>;
     dim3 grid(super_tiles, col_tiles, splits);
-    w4a8_kernel<NT, MODE><<<grid, kThreads, smem, st>>>(tm_x, tm_w, p);
+    w4a8_kernel<NT, MODE><<<grid, kThreads, smem, st>>>(tm_x, tm_w, tm_s, tm_z, p);
     if (splits > 1) {
         const long long count = (long long)p.S * p.N;
         const int blocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
@@ -829,7 +856,9 @@ int run(Params p, const void* xq, const void* w8, int splits, int chunks_per_spl
         return (int)cudaErrorInvalidValue;
     if (MODE == kAwq && (p.group_size <= 0 || p.group_size % 32 != 0 || p.K2 % p.group_size != 0 ||
                          p.G != 2 * (p.K2 / p.group_size) ||
-                         (2 * chunks_per_split) % (p.group_size / 32) != 0))
+                         (2 * chunks_per_split) % (p.group_size / 32) != 0 ||
+                         (reinterpret_cast<uintptr_t>(p.scales) |
+                          reinterpret_cast<uintptr_t>(p.zeros)) % 16 != 0))
         return (int)cudaErrorInvalidValue;
     if (splits == 1) p.partial = nullptr;
     return launch_rows<MODE>(xq, w8, p, splits, (cudaStream_t)stream);

@@ -188,8 +188,8 @@ def w4a8_matmul(x: torch.Tensor, q, out_dtype=None) -> torch.Tensor:
     if not x.is_cuda:
         return w4a8_matmul_ref(x, q, out_dtype)
     plan = _check(x, q, out_dtype)
-    if q.w8.data_ptr() % 16:
-        raise ValueError("w4a8_matmul: w8 must be 16-byte aligned (TMA)")
+    if (q.w8.data_ptr() | q.scales.data_ptr() | q.zeros.data_ptr()) % 16:
+        raise ValueError("w4a8_matmul: w8, scales and zeros must be 16-byte aligned (TMA)")
     S, K = x.shape
     K2, N = q.w8.shape
     gs = plan["group_size"]
