@@ -6,13 +6,13 @@ NVIDIA GPU.
 
 Builds `umbrella_tpu_torch/csrc/w4a8.cu` and three variants of it, each changed
 by a source patch (applied to a copy under build/breakdown/), and times all
-five on the Int4F lm_head [4096, 128256] (S=24 and S=127), the Int4F 8B
+four on the Int4F lm_head [4096, 128256] (S=24 and S=127), the Int4F 8B
 gate_up [4096, 28672] (S=127) and the AWQ 8B gate_up g128 (S=24 and S=127):
   kernel      the kernel as it is (checked against the plain versions);
   no-mma      no wgmma (the fragments are kept live): the TMA stream plus the
               shared loads and the fragment forming (and AWQ's fix-ups);
-  no-fixup    AWQ only: the group fix-ups left out (ptxas then drops the
-              MMAs too, whose products nothing reads);
+  no-fixup    AWQ only: the group fix-ups left out (ptxas may then drop
+              the MMAs too, whose products nothing reads);
   stream      the consumers only wait for each stage and release it: the TMA
               stream alone.
 The variants compute wrong results. Times are chip_smoke.cuda_ms (CUDA-graph
@@ -38,7 +38,8 @@ VARIANTS = {
     "kernel": [],
     "no-mma": [(_INT4F_MMA, "                acc[j] += f[0][j] ^ f[1][j];\n"),
                (_AWQ_MMA, "            plo[j] += f[0][j] ^ f[1][j] ^ keep;\n")],
-    "no-fixup": [("    auto fix_up = [&]() {\n", "    auto fix_up = [&]() {\n        return;\n")],
+    "no-fixup": [("    auto fix_up = [&](bool fold) {\n",
+                  "    auto fix_up = [&](bool fold) {\n        return;\n")],
     "stream": [(_STAGE, _STAGE + "        if (true) {\n"
                 "            if (c > c_begin && lane == 0) mbar_arrive(smem_u32(empty + s_prev));\n"
                 "            s_prev = s;\n"

@@ -27,8 +27,7 @@
 // decode sizes. The 8B lm_head [4096, 128256] streams 263 MB: 0.078 ms;
 // its 2*S*K*N operations take 0.013 ms at S=24 and 0.067 ms at S=127. The 8B
 // gate_up [4096, 28672]: 58.7 MB (+3.7 MB of g128 scales and zeros for AWQ),
-// 0.019 ms. AWQ's per-group fp32 fix-up adds 6 ALU operations per output per
-// group and half, which at S=127 outweighs the weight stream.
+// 0.019 ms.
 //
 // Design (Hopper: TMA, mbarriers, wgmma; sm_90a only), the shape of
 // csrc/w4a16.cu:
@@ -47,9 +46,12 @@
 // - A TMA ring: one producer thread keeps up to 8 stages in flight; a stage
 //   holds 64 packed rows (two k32 steps): two 64 x 64 weight boxes (one per
 //   consumer warpgroup) and the two matching x boxes, x[:, r0:r0+64] and
-//   x[:, K/2+r0:K/2+r0+64], each of S rows rounded up to 8 (at most NT); all
-//   four with the 64-byte swizzle. setmaxnreg gives the consumers 232
-//   registers and the producer 40.
+//   x[:, K/2+r0:K/2+r0+64], each of S rows rounded up to 8 (at most NT), all
+//   four with the 64-byte swizzle; for AWQ also the low and high halves'
+//   scale and zero rows of the groups that start in the stage. A stage's
+//   products are one wgmma group (cut where an AWQ group ends), in flight
+//   while the next stage's fragments are formed (double-buffered by stage
+//   parity). setmaxnreg gives the consumers 232 registers, the producer 40.
 // - Token width NT: S rounded up to 32 or to 64, at most 256 (Int4F) or 64
 //   (AWQ: its two int32 product sets and the fp32 sums take 3 NT / 2
 //   registers a thread). S beyond that takes super-tiles along the grid's x,
@@ -62,9 +64,12 @@
 //   first step of a group overwrites them (wgmma's scale-d off), so nothing
 //   zeroes them; after a group's last step the warpgroup waits for its
 //   products and folds them into the fp32 sums in the plain version's order
-//   (__fsub_rn, __fmul_rn, __fadd_rn, no FMA). The two consumer warpgroups
-//   interleave, so one's fix-up runs beside the other's products. Any group
-//   size that is a multiple of 32 (a k32 step) and divides K/2.
+//   (__fsub_rn, __fmul_rn, __fadd_rn, no FMA). Integer zeros in [0, 15]
+//   (every AWQ checkpoint) go into the fragment bytes as nibble - z, so the
+//   product is the plain version's float(p) - rs * z exactly and the fix-up
+//   is a multiply and an add; other zeros take the row sums. The two consumer
+//   warpgroups interleave, so one's fix-up runs beside the other's products.
+//   Any group size that is a multiple of 32 (a k32 step) and divides K/2.
 // - Split K from the column tiles and K only (never S; the wrapper's plan,
 //   build.split_k), each split whole groups and whole stages; partials (int32
 //   for Int4F, fp32 for AWQ) are summed in split order by a second kernel,
@@ -74,6 +79,9 @@
 //   max |x (* a)| times the fp32 reciprocal of 127 (as XLA compiles the JAX
 //   package's `/ 127.0`), xq = clip(rint(x / sx), -127, 127), and the int32
 //   row sums (Int4F: the whole row; AWQ: per group).
+// What bounds it now: scripts/w4a8_breakdown.py times the kernel without its
+// MMA, without AWQ's fix-ups, and the TMA stream alone; PERF.md has the
+// numbers.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
