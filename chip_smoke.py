@@ -31,7 +31,8 @@ lines tagged with its name:
                    48, 127, 160, 224, 300 and 384 (every token width 32-256
                    and a second super-tile); w4a8_matmul at 8B gate_up and
                    down (K split), g128 and g32, bf16 and fp32 x and scales,
-                   S=1, 24, 48, 127, 160, 224, 300 and 512: both exact against
+                   integer zeros and zeros + 0.5 (the two fix-ups), S=1, 24,
+                   48, 127, 160, 224, 300 and 512: both exact against
                    their plain versions (max abs err 0.0), and the rows of
                    every S bit for bit the rows of the largest S; timings.
   multi-card       the static and the batched engine built on the last card
@@ -775,8 +776,9 @@ def w4a8f_checks(torch, dev, gen, randn, err):
 
 def w4a8_awq_checks(torch, dev, gen, randn, err):
     """w4a8_matmul at the 8B gate_up shape and the 8B down shape (K split 4
-    ways), group sizes 128 and 32, bf16 and fp32 scales, bf16 and fp32 x (out
-    in x's dtype), at every W4A8_ROWS count: equal to the plain version bit for
+    ways), group sizes 128 and 32, bf16 and fp32 scales, fp32 zeros off the
+    integers (the kernel's other fix-up), bf16 and fp32 x (out in x's dtype),
+    at every W4A8_ROWS count: equal to the plain version bit for
     bit (exact integer products, the same fp32 fix-up order and split order),
     and the rows of every S equal to the same rows of S=512. Times at gate_up
     g128 S=24 and 127 (graph replay and events), beside w4a16_matmul on the
@@ -795,8 +797,12 @@ def w4a8_awq_checks(torch, dev, gen, randn, err):
             qb = quantize_pack_device(torch.randn((K, N), generator=gen, device=dev) * 0.02, gs,
                                       bf16)
             splits[f"{name} g{gs}"] = _plan(1, K, N, gs)["splits"]
+            # integer zeros go into the weight bytes; zeros off the integers take
+            # the kernel's row-sum fix-up
             forms = {"bf16": qb, "fp32": qb._replace(scales=qb.scales.float(),
-                                                     zeros=qb.zeros.float())}
+                                                     zeros=qb.zeros.float()),
+                     "fp32, zeros + 0.5,": qb._replace(scales=qb.scales.float(),
+                                                       zeros=qb.zeros.float() + 0.5)}
             for sd, q in forms.items():
                 for xd in (bf16, f32):
                     x = randn(big, K, dtype=xd)
@@ -838,8 +844,8 @@ def w4a8_awq_checks(torch, dev, gen, randn, err):
     return {"w4a8_matmul": dict(
         shape="x [127,4096] bf16 @ W4 [4096,28672] g128 (gate_up), int8 activations, bf16 out",
         tolerance=f"bit for bit the plain version (max abs err 0.0) at 8B gate_up and down, "
-                  f"g128 and g32, bf16 and fp32 scales and x, {rows}; rows of every S equal "
-                  f"to S={big}'s",
+                  f"g128 and g32, bf16 and fp32 scales and x, integer zeros and zeros + 0.5, "
+                  f"{rows}; rows of every S equal to S={big}'s",
         max_abs_err=0.0, max_rel_err=0.0, cases_held=held, splits_by_shape=splits,
         row_invariance=rows, per_shape=w8_ms, **w8_ms["S=127"])}
 

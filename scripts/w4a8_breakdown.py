@@ -4,20 +4,23 @@ NVIDIA GPU.
 
     python3 scripts/w4a8_breakdown.py
 
-Builds `umbrella_tpu_torch/csrc/w4a8.cu` and three variants of it, each changed
+Builds `umbrella_tpu_torch/csrc/w4a8.cu` and four variants of it, each changed
 by a source patch (applied to a copy under build/breakdown/), and times all
-four on the Int4F lm_head [4096, 128256] (S=24 and S=127), the Int4F 8B
+five on the Int4F lm_head [4096, 128256] (S=24 and S=127), the Int4F 8B
 gate_up [4096, 28672] (S=127) and the AWQ 8B gate_up g128 (S=24 and S=127):
   kernel      the kernel as it is (checked against the plain versions);
+  no-fold     AWQ only: integer zero points not folded into the fragments
+              (every group takes the row-sum fix-up; also checked);
   no-mma      no wgmma (the fragments are kept live): the TMA stream plus the
               shared loads and the fragment forming (and AWQ's fix-ups);
   no-fixup    AWQ only: the group fix-ups left out (ptxas may then drop
               the MMAs too, whose products nothing reads);
   stream      the consumers only wait for each stage and release it: the TMA
               stream alone.
-The variants compute wrong results. Times are chip_smoke.cuda_ms (CUDA-graph
-replay), in the order of ROUNDS, the kernel first and last, so that a
-difference can be read against the spread of its two runs. Prints one JSON
+The other variants compute wrong results. Times are chip_smoke.cuda_ms (CUDA-graph
+replay), in the order of ROUNDS, the kernel first and last and no-fold second and
+second to last, so that a difference can be read against the spread of
+their two runs. Prints one JSON
 line with each variant's times in ms, the bounds, and the card's name and
 power limit.
 """
@@ -38,6 +41,7 @@ VARIANTS = {
     "kernel": [],
     "no-mma": [(_INT4F_MMA, "                acc[j] += f[0][j] ^ f[1][j];\n"),
                (_AWQ_MMA, "            plo[j] += f[0][j] ^ f[1][j] ^ keep;\n")],
+    "no-fold": [("        z.fold = p.group_size <= kFoldMaxGroup;\n", "        z.fold = false;\n")],
     "no-fixup": [("    auto fix_up = [&](bool fold) {\n",
                   "    auto fix_up = [&](bool fold) {\n        return;\n")],
     "stream": [(_STAGE, _STAGE + "        if (true) {\n"
@@ -47,8 +51,9 @@ VARIANTS = {
                 "            return;\n"
                 "        }\n")],
 }
-ROUNDS = ["kernel", "no-mma", "no-fixup", "stream", "kernel"]
-AWQ_ONLY = ("no-fixup",)
+ROUNDS = ["kernel", "no-fold", "no-mma", "no-fixup", "stream", "no-fold", "kernel"]
+AWQ_ONLY = ("no-fold", "no-fixup")
+CHECKED = ("kernel", "no-fold")
 # (name, K, N, S, group size or None for Int4F)
 CASES = [("int4f lm_head", 4096, 128256, 24, None), ("int4f lm_head", 4096, 128256, 127, None),
          ("int4f gate_up", 4096, 28672, 127, None), ("awq gate_up g128", 4096, 28672, 24, 128),
@@ -119,8 +124,8 @@ def main():
         for case, (fn, ref) in calls.items():
             if variant in AWQ_ONLY and case.startswith("int4f"):
                 continue
-            if variant == "kernel" and not torch.equal(fn(), ref()):
-                raise AssertionError(f"kernel {case}: differs from the plain version")
+            if variant in CHECKED and not torch.equal(fn(), ref()):
+                raise AssertionError(f"{variant} {case}: differs from the plain version")
             times.setdefault(f"{variant} {case}", []).append(chip_smoke.cuda_ms(torch, fn))
     bounds = {}
     for name, K, N, S, gs in CASES:

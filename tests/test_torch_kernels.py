@@ -293,10 +293,10 @@ def test_w4a8_ref_with_split_k_matches_pallas_kernel(group_size):
     sums added in split order): the plain version within 1e-6 * max|y| of JAX's
     w4a8_matmul (interpret), which sums all groups in one fp32 accumulator."""
     from umbrella_tpu.ops.pallas.w4a8 import w4a8_matmul as jax_w4a8_matmul
-    from umbrella_tpu_torch.ops.kernels.w4a8 import kernel_splits, w4a8_matmul_ref
+    from umbrella_tpu_torch.ops.kernels.w4a8 import _plan, w4a8_matmul_ref
 
     jq, jx, xt, q = _w4a8_case(9, "float32", group_size, K=2048, N=128)
-    assert kernel_splits(q) > 1
+    assert _plan(9, 2048, 128, group_size)["splits"] > 1
     want = np.asarray(jax_w4a8_matmul(jx, jq, interpret=True, out_dtype=jnp.float32))
     got = w4a8_matmul_ref(xt, q, out_dtype=torch.float32).numpy()
     assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
@@ -305,10 +305,10 @@ def test_w4a8_ref_with_split_k_matches_pallas_kernel(group_size):
 def test_w4a8_ref_is_row_invariant():
     """Bitwise: each row of a 33-row call equals that row alone, on a matrix
     whose K is split (the kernel's split is a function of N and K only)."""
-    from umbrella_tpu_torch.ops.kernels.w4a8 import kernel_splits, w4a8_matmul_ref
+    from umbrella_tpu_torch.ops.kernels.w4a8 import _plan, w4a8_matmul_ref
 
     _, _, xt, q = _w4a8_case(33, "bfloat16", 64, K=2048, N=64)
-    assert kernel_splits(q) > 1
+    assert _plan(33, 2048, 64, 64)["splits"] > 1
     whole = w4a8_matmul_ref(xt, q)
     for i in (0, 5, 32):
         assert torch.equal(whole[i:i + 1], w4a8_matmul_ref(xt[i:i + 1], q))
@@ -417,23 +417,17 @@ def test_w4a16_plan_splits_and_tiles_ignore_the_row_count(K, N, ranges):
 @pytest.mark.parametrize("n_col_tiles,n_chunks,min_chunks,blocks",
                          [(64, 64, 8, 132), (448, 64, 8, 132), (96, 64, 4, 528),
                           (2004, 64, 4, 528), (2, 20, 8, 132)])
-@pytest.mark.parametrize("fill", [False, True])
-def test_split_k_policy(n_col_tiles, n_chunks, min_chunks, blocks, fill):
+def test_split_k_policy(n_col_tiles, n_chunks, min_chunks, blocks):
     """build.split_k, the one split policy of the W4 kernels: each split takes
-    at least `min_chunks` chunks (unless the K range is not split at all);
-    without `fill` the grid stays within `blocks` blocks and one more split
-    would not, with `fill` one split fewer would leave it below `blocks`."""
+    at least `min_chunks` chunks (unless the K range is not split at all), the
+    grid stays within `blocks` blocks, and one more split would not."""
     from umbrella_tpu_torch.ops.kernels import build
 
-    splits = build.split_k(n_col_tiles, n_chunks, min_chunks, blocks, fill=fill)
+    splits = build.split_k(n_col_tiles, n_chunks, min_chunks, blocks)
     assert splits >= 1
     assert splits == 1 or n_chunks // splits >= min_chunks
-    if fill:
-        assert splits == 1 or n_col_tiles * (splits - 1) < blocks
-        assert n_col_tiles * splits >= blocks or n_chunks // (splits + 1) < min_chunks
-    else:
-        assert splits == 1 or n_col_tiles * splits <= blocks
-        assert n_col_tiles * (splits + 1) > blocks or n_chunks // (splits + 1) < min_chunks
+    assert splits == 1 or n_col_tiles * splits <= blocks
+    assert n_col_tiles * (splits + 1) > blocks or n_chunks // (splits + 1) < min_chunks
 
 
 @pytest.mark.parametrize("S", PLAN_ROWS)

@@ -107,17 +107,13 @@ def ptr(t) -> ctypes.c_void_p:
 SMS = 132
 
 
-def split_k(n_col_tiles: int, n_chunks: int, min_chunks: int, blocks: int,
-            fill: bool = False) -> int:
+def split_k(n_col_tiles: int, n_chunks: int, min_chunks: int, blocks: int) -> int:
     """How many blocks share one output tile's K range of `n_chunks` chunks,
     each split taking at least `min_chunks` chunks: the most that keep the grid
-    within `blocks` blocks (a kernel of one block a SM: `blocks` is one wave),
-    or with `fill` the fewest that bring it to `blocks` or more (small blocks,
-    several a SM, where a part-filled last wave costs little). A function of
-    the matrix shape only -- never of the row count -- so a row's summation
-    order is the same in every batch."""
-    per_tile = -(-blocks // n_col_tiles) if fill else blocks // n_col_tiles
-    return max(1, min(n_chunks // min_chunks, per_tile))
+    within `blocks` blocks (a kernel of one block a SM: `blocks` is one wave).
+    A function of the matrix shape only -- never of the row count -- so a
+    row's summation order is the same in every batch."""
+    return max(1, min(n_chunks // min_chunks, blocks // n_col_tiles))
 
 
 @contextlib.contextmanager

@@ -83,14 +83,6 @@ def _plan(S: int, K: int, N: int, group_size=None) -> dict:
                 splits=-(-n_chunks // per), chunks_per_split=per)
 
 
-def kernel_splits(q) -> int:
-    """How many blocks share a column tile's K range (`_plan`): a function of
-    the weight's shape only, so a row's order of operations is the same at any
-    row count."""
-    K2, N = q.w8.shape
-    return _plan(1, 2 * K2, N, 2 * K2 // q.scales.shape[0])["splits"]
-
-
 def w4a8_matmul_ref(x: torch.Tensor, q, out_dtype=None) -> torch.Tensor:
     """Plain version with the kernel's order of operations: per packed group
     (the low half's group, then the high half's) an exact integer product (in
