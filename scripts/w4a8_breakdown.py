@@ -9,8 +9,9 @@ by a source patch (applied to a copy under build/breakdown/), and times all
 five on the Int4F lm_head [4096, 128256] (S=24 and S=127), the Int4F 8B
 gate_up [4096, 28672] (S=127) and the AWQ 8B gate_up g128 (S=24 and S=127):
   kernel      the kernel as it is (checked against the plain versions);
-  no-fold     AWQ only: integer zero points not folded into the fragments
-              (every group takes the row-sum fix-up; also checked);
+  no-fold     AWQ only: integer zero points not folded into the fragments at
+              any token width (every group takes the row-sum fix-up; also
+              checked);
   no-mma      no wgmma (the fragments are kept live): the TMA stream plus the
               shared loads and the fragment forming (and AWQ's fix-ups);
   no-fixup    AWQ only: the group fix-ups left out (ptxas may then drop
@@ -41,7 +42,7 @@ VARIANTS = {
     "kernel": [],
     "no-mma": [(_INT4F_MMA, "                acc[j] += f[0][j] ^ f[1][j];\n"),
                (_AWQ_MMA, "            plo[j] += f[0][j] ^ f[1][j] ^ keep;\n")],
-    "no-fold": [("        z.fold = p.group_size <= kFoldMaxGroup;\n", "        z.fold = false;\n")],
+    "no-fold": [("constexpr int kFoldMinTokens = 64;", "constexpr int kFoldMinTokens = 512;")],
     "no-fixup": [("    auto fix_up = [&](bool fold) {\n",
                   "    auto fix_up = [&](bool fold) {\n        return;\n")],
     "stream": [(_STAGE, _STAGE + "        if (true) {\n"

@@ -64,10 +64,11 @@
 //   first step of a group overwrites them (wgmma's scale-d off), so nothing
 //   zeroes them; after a group's last step the warpgroup waits for its
 //   products and folds them into the fp32 sums in the plain version's order
-//   (__fsub_rn, __fmul_rn, __fadd_rn, no FMA). Integer zeros in [0, 15]
-//   (every AWQ checkpoint) go into the fragment bytes as nibble - z, so the
-//   product is the plain version's float(p) - rs * z exactly and the fix-up
-//   is a multiply and an add; other zeros take the row sums. The two consumer
+//   (__fsub_rn, __fmul_rn, __fadd_rn, no FMA). From 64 tokens, integer zeros
+//   in [0, 15] (every AWQ checkpoint) go into the fragment bytes as nibble -
+//   z, so the product is the plain version's float(p) - rs * z exactly and the
+//   fix-up is a multiply and an add; other zeros, and 32 tokens, take the row
+//   sums. The two consumer
 //   warpgroups interleave, so one's fix-up runs beside the other's products.
 //   Any group size that is a multiple of 32 (a k32 step) and divides K/2.
 // - Split K from the column tiles and K only (never S; the wrapper's plan,
@@ -112,6 +113,9 @@ __device__ __forceinline__ int first_group(int c, int group_size) {
 // |xq . (nibble - z)| <= 127 * 15 * 2048 < 2^22 (small_int_to_float), and the
 // plain version's float(p) - rs * z is then exact
 constexpr int kFoldMaxGroup = 2048;
+// ... at token widths from this up: at 32 tokens the row-sum fix-up was the
+// faster (scripts/w4a8_breakdown.py, no-fold; PERF.md)
+constexpr int kFoldMinTokens = 64;
 
 enum Mode { kInt4F = 0, kAwq = 1 };
 // tokens a block: S up to this in one pass, super-tiles above
@@ -466,7 +470,7 @@ w4a8_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CU
     };
     auto zeros_of = [&](const float(&sz)[4][2]) {
         Zeros z;
-        z.fold = p.group_size <= kFoldMaxGroup;
+        z.fold = NT >= kFoldMinTokens && p.group_size <= kFoldMaxGroup;
 #pragma unroll
         for (int h = 0; h < 2; ++h)
 #pragma unroll
