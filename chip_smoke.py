@@ -34,7 +34,9 @@ lines tagged with its name:
                    integer zeros and zeros + 0.5 (the two fix-ups), S=1, 24,
                    48, 127, 160, 224, 300 and 512: both exact against
                    their plain versions (max abs err 0.0), and the rows of
-                   every S bit for bit the rows of the largest S; timings.
+                   every S bit for bit the rows of the largest S; the same
+                   for both at K/2 = 160 (a last stage of one k32 step;
+                   AWQ g32 and g160); timings.
   multi-card       the static and the batched engine built on the last card
                    while cuda:0 is current: 16 tokens each must equal the same
                    engines' tokens on cuda:0 (needs a host with 2+ cards; on
@@ -666,7 +668,39 @@ def w4a8_checks(torch, dev, gen, randn, err):
     report.update(w4a8_quantize_checks(torch, dev, gen, randn))
     report.update(w4a8f_checks(torch, dev, gen, randn, err))
     report.update(w4a8_awq_checks(torch, dev, gen, randn, err))
+    report["w4a8_matmul"]["ragged_k"] = w4a8_ragged_k_checks(torch, dev, gen, randn, err)
     return report
+
+
+def w4a8_ragged_k_checks(torch, dev, gen, randn, err):
+    """K/2 = 160: the last stage holds one k32 step of two. w4a8f_matmul and
+    w4a8_matmul (g32, and g160: groups of 5 steps, which start and end
+    half-way through stages) at [320, 256], every row count of W4A8F_ROWS /
+    W4A8_ROWS: bit for bit the plain versions, rows of every S equal to the
+    largest S's."""
+    from umbrella_tpu_torch.ops.kernels.w4a8 import w4a8_matmul, w4a8_matmul_ref
+    from umbrella_tpu_torch.ops.kernels.w4a8f import w4a8f_matmul, w4a8f_matmul_ref
+    from umbrella_tpu_torch.quantization.awq import quantize_pack_device
+    from umbrella_tpu_torch.quantization.int4f import quantize_int4f
+
+    K, N = 320, 256
+    w = torch.randn((K, N), generator=gen, device=dev) * 0.02
+    cases = {"int4f": (w4a8f_matmul, w4a8f_matmul_ref, quantize_int4f(w, 32, refine=0),
+                       W4A8F_ROWS)}
+    for gs in (32, 160):
+        cases[f"awq g{gs}"] = (w4a8_matmul, w4a8_matmul_ref,
+                               quantize_pack_device(w, gs, torch.bfloat16), W4A8_ROWS)
+    for name, (fn, ref_fn, q, rows) in cases.items():
+        x = randn(rows[-1], K)
+        ref, whole = ref_fn(x, q), fn(x, q)
+        for S in rows:
+            got = whole if S == rows[-1] else fn(x[:S].contiguous(), q)
+            check(torch.equal(got, ref[:S]), f"w4a8 ragged K {name} S={S}: max abs err "
+                  f"{err(got, ref[:S])[0]} (must be exact)")
+            check(torch.equal(got, whole[:S]), f"w4a8 ragged K {name} S={S}: rows differ")
+    held = f"[{K},{N}]: {', '.join(cases)} exact and row-invariant"
+    log(f"[kernels] w4a8 ragged K/2 (last stage one step): {held}")
+    return held
 
 
 def w4a8_quantize_checks(torch, dev, gen, randn):
