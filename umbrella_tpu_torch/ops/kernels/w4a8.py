@@ -133,7 +133,8 @@ def quantize_rows(x: torch.Tensor, a=None, group_size=None):
     w4a8f.quantize_activations_int8 and group_rowsums. Counted in `launches`."""
     S, K = x.shape
     gs = K if group_size is None else group_size
-    if x.dtype not in _FLOATS or not x.is_contiguous() or K % 64 or gs % 32 or K % gs:
+    if x.dtype not in _FLOATS or not x.is_contiguous() or K % 64 or gs <= 0 or gs % 32 \
+            or K % gs:
         raise ValueError(f"quantize_rows: x {tuple(x.shape)} {x.dtype} (contiguous fp32 or "
                          f"bf16, K a multiple of 64) and group size {gs}")
     if a is not None and (a.dtype != torch.float32 or a.shape != (K,) or not a.is_contiguous()
