@@ -95,8 +95,8 @@ from. `--phases a,b` runs a subset (no report).
 
 Weights are random (seeded). The script needs CUDA and the repository's
 umbrella_tpu_torch package beside it; without either it exits with code 2.
-The whole script takes seven to nine minutes on one H100 (405 s on an H100
-80GB HBM3 at 700 W with the int8 W4 kernels of csrc/w4a8.cu), the kernels'
+The whole script takes six to nine minutes on one H100 (352-417 s on an
+H100 80GB HBM3 at 700 W with the int8 W4 kernels of csrc/w4a8.cu), the kernels'
 build (20-30 s) included; `--phases w4a16` about a minute, `--phases w4a8`
 about 45 s.
 """
