@@ -37,6 +37,17 @@ lines tagged with its name:
                    every S bit for bit the rows of the largest S; the same
                    for both at K/2 = 160 (a last stage of one k32 step;
                    AWQ g32 and g160); timings.
+  attention        (only when named in --phases; part of `kernels`) the
+                   attention kernels (csrc/tree_attention.cu) alone: each
+                   wrapper at the serving and verify shapes and the 70B verify
+                   shape q [127, 64, 128] (groups 8) against its plain version,
+                   timed beside SDPA and its bound; fp32 q and head dim 32 take
+                   the scalar kernel, bf16 q the tensor-core kernel; for bf16
+                   and int8 KV: rows of S=1, 24 and 127 bit for bit the same
+                   rows of S=512 (single slot, and one slot through `slots`),
+                   each slot of a B=32 launch bit for bit the slot alone, 1e6 /
+                   127 past a slot's kv_limit changes nothing, soft cap 30.0,
+                   rows with no live slot and kv_limit 0 exactly 0.
   multi-card       the static and the batched engine built on the last card
                    while cuda:0 is current: 16 tokens each must equal the same
                    engines' tokens on cuda:0 (needs a host with 2+ cards; on
@@ -91,14 +102,17 @@ lines tagged with its name:
   report           one JSON line of kernels, the card's name and power limit,
                    and the final {"ok": true, ...} line.
 Every kernel must have launched in the phase that its `launches` is read
-from. `--phases a,b` runs a subset (no report).
+from; in [main], [serve], [serve-bf16], [code-config], [serve-config] and
+[pp-config] (bf16) every attention launch must be the tensor-core kernel's,
+in [lossless], [lossless-int8] and [lossless-w4a8] (fp32) the scalar
+kernel's. `--phases a,b` runs a subset (no report).
 
 Weights are random (seeded). The script needs CUDA and the repository's
 umbrella_tpu_torch package beside it; without either it exits with code 2.
-The whole script takes six to nine minutes on one H100 (352-417 s on an
-H100 80GB HBM3 at 700 W with the int8 W4 kernels of csrc/w4a8.cu), the kernels'
-build (20-30 s) included; `--phases w4a16` about a minute, `--phases w4a8`
-about 45 s.
+The whole script takes five to seven minutes on one H100 (291-418 s on an
+H100 80GB HBM3 at 700 W with the tensor-core attention kernel), the
+kernels' build (20-30 s) included; `--phases w4a16` about a minute,
+`--phases w4a8` about 45 s, `--phases attention` about a minute.
 """
 import json
 import os
@@ -205,6 +219,15 @@ def check(cond, what):
         raise AssertionError(what)
 
 
+def check_tc_route(counts, tag):
+    """Every attention launch of a bf16 path took the tensor-core kernel."""
+    n = sum(counts[k] for k in ("attend_flash", "attend_flash_int8", "attend_flash_batched",
+                                "attend_flash_batched_int8"))
+    check(n > 0 and counts["attend_flash_scalar"] == 0,
+          f"{tag}: {counts['attend_flash_scalar']} of {n} attention launches took the scalar "
+          f"kernel (bf16 q must take the tensor-core kernel)")
+
+
 # ---------------------------------------------------------------- phase 2
 
 
@@ -212,9 +235,6 @@ def kernel_checks(torch, dev):
     import torch.nn.functional as F
 
     from umbrella_tpu_torch.ops.kernels.embed_gather import embed_gather, embed_gather_ref
-    from umbrella_tpu_torch.ops.kernels.tree_attention import attend_dense, attend_flash
-    from umbrella_tpu_torch.ops.masks import causal_mask_rows, tree_mask_rows
-    from umbrella_tpu_torch.sequoia import growmap_from_spec
 
     gen, randn, err = kernel_inputs(torch, dev)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -240,6 +260,33 @@ def kernel_checks(torch, dev):
     log(f"[kernels] embed_gather {report['embed_gather']}")
     del embed
 
+    report.update(attention_checks(torch, dev, gen, randn, err))
+
+    report.update(w4a8_checks(torch, dev, gen, randn, err))
+    report.update(w4a16_checks(torch, dev, gen, randn, err))
+    return report
+
+
+def attention_phase(torch, dev):
+    """The attention kernels alone (phase `attention`): the cheap loop for them."""
+    gen, randn, err = kernel_inputs(torch, dev)
+    return attention_checks(torch, dev, gen, randn, err)
+
+
+def attention_checks(torch, dev, gen, randn, err):
+    """The tree_attention family (csrc/tree_attention.cu): attend_flash at the
+    verify shape (and the 70B verify shape), the int8 and batched kernels at
+    the serving shapes, each against its plain version with timings; then
+    the tensor-core kernel's properties: rows bit for bit the same across S
+    and B, limit isolation, soft cap, empty rows, and the kernel each dtype
+    takes."""
+    import torch.nn.functional as F
+
+    from umbrella_tpu_torch.ops.kernels.tree_attention import attend_dense, attend_flash
+    from umbrella_tpu_torch.ops.masks import causal_mask_rows, tree_mask_rows
+    from umbrella_tpu_torch.sequoia import growmap_from_spec
+
+    report = {}
     # -- attend_flash: bf16, layered [4, 8, 2048, 128] cache, odd kv_limit
     nH, KVH, D = 32, 8, 128
     kc = randn(4, KVH, MAX_LEN, D)
@@ -282,10 +329,11 @@ def kernel_checks(torch, dev):
     log(f"[kernels] attend_flash {report['attend_flash']}")
     del kc, vc
     torch.cuda.empty_cache()
+    report["attend_flash"]["per_shape"] = {"70B verify q [127,64,128]": attention_70b_verify(
+        torch, dev, randn, err)}
+    torch.cuda.empty_cache()
     report.update(attention_int8_and_batched_checks(torch, dev, gen, randn, err))
-
-    report.update(w4a8_checks(torch, dev, gen, randn, err))
-    report.update(w4a16_checks(torch, dev, gen, randn, err))
+    report["attend_flash"]["tensor_core_checks"] = attention_tc_checks(torch, dev, gen, randn, err)
     return report
 
 
@@ -1047,6 +1095,223 @@ def attention_int8_and_batched_checks(torch, dev, gen, randn, err):
     return report
 
 
+def attention_70b_verify(torch, dev, randn, err):
+    """attend_flash at the 70B verify shape that [pp-config] runs 80 times a
+    step: q [127, 64, 128] against 8 kv heads (groups 8) of a [2, 8, 8192, 128]
+    bf16 cache (the pp4 config's max_length), the 24x6 tree mask at kv_limit
+    428; timed beside its plain version, SDPA and its bound."""
+    import torch.nn.functional as F
+
+    from umbrella_tpu_torch.ops.kernels.tree_attention import attend_dense, attend_flash
+    from umbrella_tpu_torch.ops.masks import tree_mask_rows
+    from umbrella_tpu_torch.sequoia import growmap_from_spec
+
+    nH, KVH, D, L = CFG_70B["num_attention_heads"], CFG_70B["num_key_value_heads"], 128, 8192
+    gm = growmap_from_spec(24, 6, acc=ACC_24x6)
+    nn, S = 301, gm.size
+    limit = nn + S
+    kc, vc = randn(2, KVH, L, D), randn(2, KVH, L, D)
+    mask = tree_mask_rows(nn, torch.as_tensor(gm.bitmap, device=dev), L)
+    q = randn(S, nH, D)
+    e_max, e_rel = 0.0, 0.0
+    for layer in (0, 1):
+        e, m = err(attend_flash(q, kc, vc, mask, limit, layer),
+                   attend_dense(q, kc[layer], vc[layer], mask))
+        check(e <= 2e-2 * m, f"attend_flash 70B verify layer={layer}: err {e} vs max {m}")
+        e_max, e_rel = max(e_max, e), max(e_rel, e / m)
+    qs = q.transpose(0, 1)[None]
+    ks, vs, ms_ = kc[1:2, :, :limit], vc[1:2, :, :limit], mask[None, None, :, :limit]
+    by, bb = bound(2 * S * nH * D * 2 + 2 * limit * KVH * D * 2 + S * limit,
+                   4 * S * nH * limit * D, "bf16")
+    res = dict(
+        shape=f"q [{S},{nH},{D}] bf16 vs [2,{KVH},{L},{D}] cache (groups {nH // KVH}), tree "
+              f"mask, kv_limit={limit}",
+        max_abs_err=e_max, max_rel_err=e_rel,
+        ms=cuda_ms(torch, lambda: attend_flash(q, kc, vc, mask, limit, 1)),
+        plain_ms=cuda_ms(torch, lambda: attend_dense(q, kc[1], vc[1], mask)),
+        library_ms=library_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=ms_, enable_gqa=True)),
+        bound_ms=by, bound_by=bb)
+    log(f"[kernels] attend_flash 70B verify {res}")
+    return res
+
+
+def attention_tc_checks(torch, dev, gen, randn, err):
+    """What the tensor-core kernel (bf16 q) must hold beyond its tolerance,
+    each for bf16 and int8 KV (8B widths, [2, (Bc,) 8, 2048, 128] caches):
+    - which kernel: fp32 q and head dim 32 take the scalar kernel, bf16 q at
+      head dim 128 the tensor-core kernel;
+    - row invariance, bitwise: rows of S = 1, 24 and 127 equal the same rows
+      of S = 512 (single slot, and one batched slot through `slots`) under
+      the same mask rows and kv_limit; the mask lets even positions see only
+      columns < 128, so a short launch skips KV tiles that the long one runs
+      for the rows beside them. Each slot's rows of a B=32 decode launch
+      equal the slot launched alone through `slots`;
+    - limit isolation: 1e6 (bf16) or 127 with scales 1e6 (int8) past a slot's
+      kv_limit, and its mask set past the limit, leave the output as it was,
+      and so does a mask that starts 1 byte past a 16-byte boundary;
+    - soft cap 30.0 at the verify shape (scores reach +-40), and a cache of
+      odd length L = 301, within tolerance;
+    - empty rows: rows with no live slot, and kv_limit 0, give exactly 0."""
+    from umbrella_tpu_torch.models.kv_cache import _quantize_block
+    from umbrella_tpu_torch.ops.kernels import tree_attention as ta
+    from umbrella_tpu_torch.ops.masks import causal_mask_rows, tree_mask_rows, \
+        tree_mask_rows_batched
+    from umbrella_tpu_torch.sequoia import growmap_from_spec
+
+    nH, KVH, D, L = 32, 8, 128, MAX_LEN
+    held = {}
+
+    def caches(shape):
+        """bf16 K and V at `shape` + (D,), and their int8 forms with fp32 scales."""
+        k, v = randn(*shape, D), randn(*shape, D)
+        (kq, ks), (vq, vs) = _quantize_block(k), _quantize_block(v)
+        return {"bf16": (k, v, {}), "int8": (kq, vq, dict(k_scale=ks, v_scale=vs))}
+
+    def close(name, got, ref):
+        e, m = err(got, ref)
+        check(e <= 2e-2 * m, f"{name}: err {e} vs max {m}")
+
+    # -- which kernel each dtype takes
+    small = torch.randn((2, KVH, 256, D), generator=gen, device=dev)
+    q32 = torch.randn((24, nH, D), generator=gen, device=dev)
+    m24 = causal_mask_rows(100, 24, 256, device=dev)
+    routes = {}
+    for name, args in (("fp32 D=128", (q32, small, small)),
+                       ("bf16 D=128", (q32.bfloat16(), small.bfloat16(), small.bfloat16())),
+                       ("bf16 D=32", (q32[..., :32].bfloat16().contiguous(),
+                                      small[..., :32].bfloat16().contiguous(),
+                                      small[..., :32].bfloat16().contiguous()))):
+        n0, s0 = ta.attend_flash.launches, ta.attend_flash.scalar_launches
+        got = ta.attend_flash(*args, m24, 124, 1)
+        close(f"route {name}", got, ta.attend_flash_ref(args[0], args[1][1], args[2][1], m24, 124))
+        check(ta.attend_flash.launches == n0 + 1, f"route {name}: not counted")
+        routes[name] = "scalar" if ta.attend_flash.scalar_launches == s0 + 1 else "tensor-core"
+    check(routes == {"fp32 D=128": "scalar", "bf16 D=128": "tensor-core", "bf16 D=32": "scalar"},
+          f"kernel routes {routes}")
+    held["routes"] = routes
+    del small
+
+    # -- single slot: row invariance, soft cap, empty rows, limit isolation
+    nn, S_big = 301, 512
+    limit = nn + S_big
+    band = causal_mask_rows(nn, S_big, L, device=dev)
+    band[0::2, 128:] = False
+    gm = growmap_from_spec(24, 6, acc=ACC_24x6)
+    tree = tree_mask_rows(nn, torch.as_tensor(gm.bitmap, device=dev), L)
+    T = gm.size
+    q = randn(S_big, nH, D)
+    for kind, (k, v, sc) in caches((2, KVH, L)).items():
+        ref_sc = {n: t[1] for n, t in sc.items()}
+        whole = ta.attend_flash(q, k, v, band, limit, 1, **sc)
+        close(f"band mask {kind} S={S_big}", whole,
+              ta.attend_flash_ref(q, k[1], v[1], band, limit, **ref_sc))
+        for S in (1, 24, 127):
+            got = ta.attend_flash(q[:S].contiguous(), k, v, band[:S].contiguous(), limit, 1,
+                                  **sc)
+            check(torch.equal(got, whole[:S]), f"attend_flash {kind}: rows of S={S} differ "
+                  f"from S={S_big}'s (max {err(got, whole[:S])[0]})")
+        qv = randn(T, nH, D, scale=8.0)  # scores reach +-40: the cap bites
+        close(f"soft cap 30 {kind}",
+              ta.attend_flash(qv, k, v, tree, nn + T, 1, soft_cap=30.0, **sc),
+              ta.attend_flash_ref(qv, k[1], v[1], tree, nn + T, soft_cap=30.0, **ref_sc))
+        dead = tree.clone()
+        dead[[0, 3, T - 1]] = False
+        got = ta.attend_flash(qv, k, v, dead, nn + T, 1, **sc)
+        check(torch.count_nonzero(got[[0, 3, T - 1]]) == 0, f"empty rows {kind}: not 0")
+        close(f"empty rows {kind}", got, ta.attend_flash_ref(qv, k[1], v[1], dead, nn + T,
+                                                             **ref_sc))
+        check(torch.count_nonzero(ta.attend_flash(qv, k, v, tree, 0, 1, **sc)) == 0,
+              f"kv_limit 0 {kind}: not 0")
+        base = ta.attend_flash(qv, k, v, tree, nn + T, 1, **sc)
+        k2, v2 = k.clone(), v.clone()
+        k2[1, :, nn + T:] = 127 if kind == "int8" else 1e6
+        v2[1, :, nn + T:] = 127 if kind == "int8" else 1e6
+        sc2 = {n: t.clone() for n, t in sc.items()}
+        for t in sc2.values():
+            t[1, :, nn + T:] = 1e6
+        wide_mask = tree.clone()
+        wide_mask[:, nn + T:] = True
+        got = ta.attend_flash(qv, k2, v2, wide_mask, nn + T, 1, **sc2)
+        check(torch.equal(got, base), f"limit isolation {kind}: output moved (max "
+              f"{err(got, base)[0]})")
+        # the same mask rows from an address 1 byte past a 16-byte boundary
+        flat = torch.zeros(tree.numel() + 16, dtype=torch.bool, device=dev)
+        shifted = flat[1:1 + tree.numel()].view(tree.shape)
+        shifted.copy_(tree)
+        got = ta.attend_flash(qv, k, v, shifted, nn + T, 1, **sc)
+        check(torch.equal(got, base), f"misaligned mask {kind}: output moved")
+        del k2, v2, sc2
+    # an odd cache length: TMA zero-fills past L, and the mask and scale
+    # windows start off the rows' 16-byte boundaries
+    odd = causal_mask_rows(270, 24, 301, device=dev)
+    q_odd = randn(24, nH, D)
+    for kind, (k, v, sc) in caches((2, KVH, 301)).items():
+        close(f"L=301 {kind}", ta.attend_flash(q_odd, k, v, odd, 294, 1, **sc),
+              ta.attend_flash_ref(q_odd, k[1], v[1], odd, 294, **{n: t[1] for n, t in sc.items()}))
+    held["single_slot"] = (f"bf16 and int8 KV: rows of S=1, 24, 127 equal S={S_big}'s bitwise "
+                           f"(band mask, kv_limit {limit}); soft cap 30 within tolerance; rows "
+                           f"with no live slot and kv_limit 0 exactly 0; 1e6 / 127 past the "
+                           f"limit (mask set there), and a mask 1 byte off a 16-byte boundary, "
+                           f"leave the output bit for bit; L=301 within tolerance")
+    torch.cuda.empty_cache()
+
+    # -- batched: a B=32 launch's slots vs each slot alone; prefill rows through slots
+    B, g = 32, growmap_from_spec(2, 3)
+    T = g.size
+    limits = torch.randint(135, 301, (B,), generator=gen, device=dev, dtype=torch.int32)
+    mask = tree_mask_rows_batched(limits - T, torch.as_tensor(g.bitmap, device=dev), L)
+    q = randn(B, T, nH, D)
+    qp = randn(1, S_big, nH, D)
+    slot5 = torch.full((1,), 5, dtype=torch.int32, device=dev)
+    lim5 = torch.full((1,), limit, dtype=torch.int32, device=dev)
+    for kind, (k, v, sc) in caches((2, B, KVH, L)).items():
+        whole = ta.attend_flash_batched(q, k, v, mask, limits, 1, **sc)
+        close(f"batched {kind}", whole, ta.attend_flash_batched_ref(q, k, v, mask, limits, 1,
+                                                                    **sc))
+        for b in (0, 5, B - 1):
+            one = torch.full((1,), b, dtype=torch.int32, device=dev)
+            got = ta.attend_flash_batched(q[b:b + 1].contiguous(), k, v,
+                                          mask[b:b + 1].contiguous(), limits[b:b + 1].contiguous(),
+                                          1, slots=one, **sc)
+            check(torch.equal(got, whole[b:b + 1]), f"batched {kind}: slot {b} alone differs "
+                  f"from the B={B} launch (max {err(got, whole[b:b + 1])[0]})")
+        pre = ta.attend_flash_batched(qp, k, v, band[None], lim5, 1, slots=slot5, **sc)
+        for S in (1, 24, 127):
+            got = ta.attend_flash_batched(qp[:, :S].contiguous(), k, v,
+                                          band[None, :S].contiguous(), lim5, 1, slots=slot5,
+                                          **sc)
+            check(torch.equal(got, pre[:, :S]), f"batched {kind}: rows of S={S} differ from "
+                  f"S={S_big}'s")
+        b = 3
+        lim_b = int(limits[b])
+        k2, v2 = k.clone(), v.clone()
+        k2[1, b, :, lim_b:] = 127 if kind == "int8" else 1e6
+        v2[1, b, :, lim_b:] = 127 if kind == "int8" else 1e6
+        sc2 = {n: t.clone() for n, t in sc.items()}
+        for t in sc2.values():
+            t[1, b, :, lim_b:] = 1e6
+        wide_mask = mask.clone()
+        wide_mask[b, :, lim_b:] = True
+        got = ta.attend_flash_batched(q, k2, v2, wide_mask, limits, 1, **sc2)
+        check(torch.equal(got, whole), f"batched limit isolation {kind}: output moved")
+        del k2, v2, sc2
+        zl = limits.clone()
+        zl[[2, 7]] = 0
+        got = ta.attend_flash_batched(q, k, v, mask, zl, 1, **sc)
+        check(torch.count_nonzero(got[[2, 7]]) == 0, f"batched kv_limit 0 {kind}: not 0")
+        close(f"batched kv_limit 0 {kind}", got,
+              ta.attend_flash_batched_ref(q, k, v, mask, zl, 1, **sc))
+        del k, v, sc
+        torch.cuda.empty_cache()
+    held["batched"] = (f"bf16 and int8 KV: slots 0, 5, {B - 1} of a B={B} decode launch equal "
+                       f"each slot alone through slots, bitwise; prefill rows of S=1, 24, 127 "
+                       f"equal S={S_big}'s through slots; limit isolation bit for bit; "
+                       f"kv_limit 0 slots exactly 0")
+    log(f"[kernels] attention tensor-core checks held: {json.dumps(held)}")
+    return held
+
+
 # ---------------------------------------------------------------- phases 3-4
 
 
@@ -1152,6 +1417,8 @@ def lossless_check(torch, dev, prompt, kv_dtype=None, awq_act="bf16"):
     w4 = "w4a8_matmul" if awq_act == "int8" else "w4a16_matmul"
     for name in (attn, w4, "w4a8f_matmul", "w4a8_quantize", "embed_gather"):
         check(counts[name] > 0, f"{tag} kernel {name} was never launched")
+    check(counts["attend_flash_scalar"] == counts[attn], f"{tag}: fp32 q must take the scalar "
+          f"attention kernel ({counts['attend_flash_scalar']} of {counts[attn]})")
     return res
 
 
@@ -1378,6 +1645,7 @@ def main_path(torch, dev, prompt, target, draft):
     steps = round(dec_len / out["avg_accept_tokens"])
     for name in MAIN_KERNELS:
         check(counts[name] > 0, f"main path: kernel {name} was never launched")
+    check_tc_route(counts, "main path")
     per_step = {k: (counts[k] - prefill_counts[k]) / steps for k in counts}
     ar, gaps, _, _ = greedy_ar_decode(torch, target, prompt, dec_len)
     prefix = first_difference(toks, ar)
@@ -1432,12 +1700,15 @@ def profile_window(torch, tag, fn, count_steps):
     kernels = sum(1 for e in events if e.device_type == cuda)
     steps = count_steps(out)
     # the W4A16 family's kernels (w4a16_kernel and w4a16_sum_partials); the
-    # int8 W4 family's (w4a8_kernel, w4a8_sum_partials, quantize_rows)
+    # int8 W4 family's (w4a8_kernel, w4a8_sum_partials, quantize_rows); the
+    # attention kernels (flash_tc_kernel, flash_attend_kernel)
     w4a16 = sum(v for k, v in by_name.items() if "w4a16" in k)
     w4a8 = sum(v for k, v in by_name.items() if "w4a8" in k or "quantize_rows" in k)
+    attn = sum(v for k, v in by_name.items() if "flash_tc_kernel" in k
+               or "flash_attend_kernel" in k)
     res = dict(steps=steps, wall_ms=wall_ms, device_busy_ms=busy,
                device_busy_ms_per_step=busy / steps, w4a16_device_ms_per_step=w4a16 / steps,
-               w4a8_device_ms_per_step=w4a8 / steps,
+               w4a8_device_ms_per_step=w4a8 / steps, attention_device_ms_per_step=attn / steps,
                device_idle_share=1.0 - busy / wall_ms, host_ops_per_step=host_ops / steps,
                device_kernels_per_step=kernels / steps,
                top_kernels_ms={k[:90]: v for k, v in top})
@@ -1605,6 +1876,7 @@ def serve_phase(torch, dev, target, draft, tag, batch, tree, kv_dtype, n_request
     steps = eng.steps_dispatched - steps0
     for name in (attn_kernel, "w4a16_matmul", "w4a8f_matmul", "w4a8_quantize", "embed_gather"):
         check(counts[name] > 0, f"{tag} kernel {name} was never launched")
+    check_tc_route(counts, tag)
     for r, o in zip(reqs, outs):
         toks = o["generated_tokens"]
         check(r["max_new_tokens"] <= len(toks) <= r["max_new_tokens"] + 1,
@@ -2001,6 +2273,7 @@ def code_config_phase(torch, dev, ckpt, prompt, tag, target):
         ("w4a8_matmul", "w4a8_quantize") if w4a8 else ())
     for name in kernels:
         check(counts[name] > 0, f"{tag} kernel {name} was never launched")
+    check_tc_route(counts, tag)
     check(w4a8 or counts["w4a8_matmul"] == 0, f"{tag} a W4A16 target ran W4A8")
     per_step = {k: (counts[k] - prefill_counts[k]) / steps for k in counts}
     res = dict(tokens=len(toks), steps=steps, tok_per_s=1000.0 / out["time_per_output_token"],
@@ -2051,6 +2324,7 @@ def serve_config_phase(torch, dev, ckpt):
     for name in ("attend_flash_batched_int8", "w4a16_matmul", "w4a8f_matmul", "w4a8_quantize",
                  "embed_gather"):
         check(counts[name] > 0, f"[serve-config] kernel {name} was never launched")
+    check_tc_route(counts, "[serve-config]")
     steps = eng.steps_dispatched - steps0
     res = dict(batch=eng.batch_size, requests=len(reqs), new_tokens=SERVE_CONFIG_NEW_TOKENS,
                temperature=eng.temperature, init_s=init_s,
@@ -2124,6 +2398,7 @@ def pp_config_phase(torch, dev, ckpt, prompt):
     check(all(0 <= t < CFG_70B["vocab_size"] for t in toks), "[pp-config] token out of range")
     for name in ("embed_gather", "attend_flash", "w4a16_matmul", "w4a16_matmul_layered"):
         check(counts[name] > 0, f"[pp-config] kernel {name} was never launched")
+    check_tc_route(counts, "[pp-config]")
     per_step = {k: (counts[k] - prefill_counts[k]) / steps for k in counts}
     profiled = profile_window(
         torch, "[pp-profile]", lambda: eng.generate(input_ids=prompt, max_new_tokens=8),
@@ -2187,9 +2462,9 @@ CHECKPOINT_PHASES = ("checkpoint", "code-config", "code-config-w4a8", "serve-con
 PHASES = ("kernels", "multi-card", "lossless", "lossless-int8", "lossless-w4a8",
           "batched-lossless", "pp-lossless", "main", "serve", "serve-bf16",
           "serve-stochastic") + CHECKPOINT_PHASES
-# phases that run only when named in --phases: `w4a16` and `w4a8` are subsets
-# of `kernels`
-SUBSET_PHASES = ("w4a16", "w4a8")
+# phases that run only when named in --phases: `w4a16`, `w4a8` and
+# `attention` are subsets of `kernels`
+SUBSET_PHASES = ("w4a16", "w4a8", "attention")
 
 
 def run(torch, phases):
@@ -2225,6 +2500,7 @@ def run(torch, phases):
     report = phase("kernels", kernel_checks, torch, dev)
     phase("w4a16", w4a16_phase, torch, dev)
     phase("w4a8", w4a8_phase, torch, dev)
+    phase("attention", attention_phase, torch, dev)
     phase("multi-card", multi_card_phase, torch, dev)
     phase("lossless", lossless_check, torch, dev, prompt.tolist())
     phase("lossless-int8", lossless_check, torch, dev, prompt.tolist(), "int8")
@@ -2313,6 +2589,12 @@ def run(torch, phases):
     if results["pp-config"]["profile"]:
         summary["pp-config"]["device_idle_share"] = \
             results["pp-config"]["profile"]["device_idle_share"]
+    # device ms a step in each profile: the attention kernels, W4A16, the int8 W4 family
+    profiles = {"profile": main["profile"], "serve-profile": serve["profile"],
+                "pp-profile": results["pp-config"]["profile"]}
+    summary["device_ms_per_step"] = {
+        tag: {k: prof[f"{k}_device_ms_per_step"] for k in ("attention", "w4a16", "w4a8")}
+        for tag, prof in profiles.items() if prof}
     summary["seconds"] = time.time() - t_all
     log(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": kernels}), flush=True)

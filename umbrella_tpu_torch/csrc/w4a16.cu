@@ -83,10 +83,7 @@
 //   -lcuda), and passed as __grid_constant__ kernel parameters.
 // What bounds it now: scripts/w4a16_breakdown.py times the kernel without its
 // MMA, without its dequantization, and with neither; PERF.md has the numbers.
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -114,9 +111,6 @@ struct Params {
     int x_rows;  // rows of an x box: S rounded up to 8, at most NT
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 // a 16-bit shared-memory load (a generic load of a shared address takes the
 // slow path; the aligned dynamic-smem pointer no longer says it is shared)
 __device__ __forceinline__ uint32_t lds_u16(const void* p) {
@@ -129,69 +123,6 @@ __device__ __forceinline__ float lds_f32(uint32_t addr) {
     asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
     return v;
 }
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-                 "r"(bytes)
-                 : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// returns once the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    asm volatile(
-        "{\n"
-        ".reg .pred P1;\n"
-        "LAB_WAIT:\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-        "@P1 bra DONE;\n"
-        "bra LAB_WAIT;\n"
-        "DONE:\n"
-        "}\n" ::"r"(bar),
-        "r"(parity)
-        : "memory");
-}
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                       int c1) {
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-        : "memory");
-}
-__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                       int c1, int c2) {
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-        : "memory");
-}
-
-// wgmma descriptor of a K-major bf16 tile with 128-byte rows, 128-byte swizzle
-// (8-row atoms 1024 bytes apart)
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
-    return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-           ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps a register's value where it is until this point (the async wgmma
-// reads A fragments and writes accumulators behind the compiler's back)
-__device__ __forceinline__ void fence_reg(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
-__device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
 // the next dequantization's inputs: it cannot be hoisted above the last wait
 // (ptxas serializes wgmma where a fragment is written inside a pipeline stage)
 template <int J>
@@ -668,28 +599,6 @@ __global__ void w4a16_sum_partials(const float* __restrict__ partial, void* __re
         else
             reinterpret_cast<float*>(out)[i] = v;
     }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the CUDA driver that the runtime already loaded
-EncodeTiled encoder() {
-    static EncodeTiled fn = nullptr;
-    if (fn == nullptr) {
-        void* f = nullptr;
-        cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
-                                         &q);
-#else
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-        if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(f);
-    }
-    return fn;
 }
 
 // the layered mode's index and stack depth (nullptr, 1 in plain mode)

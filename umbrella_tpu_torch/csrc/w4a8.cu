@@ -83,10 +83,7 @@
 // What bounds it now: scripts/w4a8_breakdown.py times the kernel without its
 // MMA, without AWQ's fix-ups, and the TMA stream alone; PERF.md has the
 // numbers.
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 #include <type_traits>
 
@@ -134,9 +131,6 @@ struct Params {
         out_bf16;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 __device__ __forceinline__ uint32_t lds_u16(uint32_t addr) {
     uint16_t v;
     asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
@@ -152,61 +146,12 @@ __device__ __forceinline__ float lds_f32(uint32_t addr) {
     asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
     return v;
 }
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-                 "r"(bytes)
-                 : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// returns once the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    asm volatile(
-        "{\n"
-        ".reg .pred P1;\n"
-        "LAB_WAIT:\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-        "@P1 bra DONE;\n"
-        "bra LAB_WAIT;\n"
-        "DONE:\n"
-        "}\n" ::"r"(bar),
-        "r"(parity)
-        : "memory");
-}
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                       int c1) {
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-        : "memory");
-}
-
 // wgmma descriptor of a K-major 8-bit tile with 64-byte rows, 64-byte swizzle
 // (8-row atoms 512 bytes apart)
 __device__ __forceinline__ uint64_t desc_sw64(uint32_t saddr) {
     return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
            ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
 }
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps a register's value where it is until this point (the async wgmma
-// reads A fragments and writes accumulators behind the compiler's back)
-__device__ __forceinline__ void fence_reg(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
-__device__ __forceinline__ void fence_reg(int& r) { asm volatile("" : "+r"(r)::"memory"); }
 
 // d[64 x NT int32] (+)= A[64 x 32 s8, registers] * B[32 x NT s8, shared]; keep
 // = 0 overwrites d. d[4i + 2h + e] holds M row g + 8h, token 8i + 2c + e.
@@ -746,28 +691,6 @@ quantize_rows(const void* __restrict__ x, const float* __restrict__ a, int8_t* _
     }
     __syncthreads();
     for (int i = tid; i < G; i += 256) rowsum[(long long)row * G + i] = gsum[i];
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the CUDA driver that the runtime already loaded
-EncodeTiled encoder() {
-    static EncodeTiled fn = nullptr;
-    if (fn == nullptr) {
-        void* f = nullptr;
-        cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
-                                         &q);
-#else
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-        if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(f);
-    }
-    return fn;
 }
 
 // a 2-D tensor [rows, cols] (row stride cols) of bytes (64-byte swizzle),

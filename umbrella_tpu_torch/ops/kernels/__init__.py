@@ -2,7 +2,9 @@
 
 Every wrapper counts its own launches (`wrapper.launches`) so a run can show
 which kernels it went through; `w4a16_matmul` counts its layered mode apart
-(`layered_launches`, reported as "w4a16_matmul_layered"); the int8 W4 kernels'
+(`layered_launches`, reported as "w4a16_matmul_layered"); the attention
+wrappers count their scalar kernel's launches (fp32 q, head dim 32) apart too
+(`scalar_launches`, summed as "attend_flash_scalar"); the int8 W4 kernels'
 fused quantizer (`w4a8.quantize_rows`) counts as "w4a8_quantize", one launch
 beside each `w4a8f_matmul` and `w4a8_matmul` on the card.
 """
@@ -27,9 +29,14 @@ KERNELS = {
 }
 
 
+ATTENTION = ("attend_flash", "attend_flash_int8", "attend_flash_batched",
+             "attend_flash_batched_int8")
+
+
 def launch_counts() -> dict:
     counts = {name: fn.launches for name, fn in KERNELS.items()}
     counts["w4a16_matmul_layered"] = w4a16_matmul.layered_launches
+    counts["attend_flash_scalar"] = sum(KERNELS[n].scalar_launches for n in ATTENTION)
     return counts
 
 
@@ -37,3 +44,5 @@ def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     w4a16_matmul.layered_launches = 0
+    for n in ATTENTION:
+        KERNELS[n].scalar_launches = 0

@@ -1,8 +1,9 @@
 """Build the CUDA kernels under `csrc/` with nvcc and load them with ctypes.
 
 Each `csrc/<name>.cu` exposes a plain C interface and compiles on its own into
-`build/<name>-<hash>.so` at the repository root (the hash is of the source, so
-an edited kernel is rebuilt and a stale library is never loaded). All sources
+`build/<name>-<hash>.so` at the repository root (the hash is of the source and
+of the shared headers `csrc/*.cuh`, so an edited kernel is rebuilt and a stale
+library is never loaded). All sources
 are compiled together, one nvcc process each, the first time any kernel is
 needed; nothing is built when a module is imported.
 
@@ -26,7 +27,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__fil
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-I", CSRC_DIR]
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -46,10 +47,17 @@ def sources() -> list:
     return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
 
 
+def _headers() -> list:
+    return sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    """build/<name>-<hash>.so, the hash of the source and every shared header."""
+    digest = hashlib.sha1()
+    for f in [name + ".cu", *_headers()]:
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            digest.update(fh.read())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 
 def build_all(verbose: bool = False) -> dict:

@@ -10,8 +10,11 @@ each counting its own launches:
   attend_flash_batched_int8  `_flash_kernel_bq`  q [B, S, H, D], int8 KV
 
 `attend_flash` and `attend_flash_batched` take optional `k_scale`/`v_scale` and
-hand int8 caches to their int8 wrapper. CUDA tensors launch the kernel; CPU
-tensors take the plain version. The plain versions compute what the kernel
+hand int8 caches to their int8 wrapper. CUDA tensors launch a kernel, chosen
+by `_plan` from q's dtype and the head dim before the launch (never as a
+fallback): bf16 q at head dim 64, 128 or 256 takes the tensor-core kernel
+(TMA + wgmma), fp32 q and head dim 32 the scalar kernel; a failed launch
+raises. CPU tensors take the plain version. The plain versions compute what the kernel
 computes: slots at or past a slot's kv_limit and masked slots add nothing (a
 row with no live slot is 0), int8 scales act in score space, and P.V runs on
 probabilities rounded to q's dtype (times the v scale for int8 KV).
@@ -112,22 +115,61 @@ def attend_flash_batched_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: to
                              soft_cap, pick(k_scale), pick(v_scale))
 
 
-@functools.lru_cache(maxsize=None)
-def _fn():
-    fn = build.library("tree_attention").attend_flash
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+# The tensor-core kernel (bf16 q, head dim 64 / 128 / 256): 64 grouped query
+# rows a block, 64 kv slots a tile, a TMA ring of `stages` K/V tiles, two
+# consumer warpgroups at D <= 128 (the second takes the odd KV tiles; one
+# warpgroup at D = 256), one block a SM. The scalar kernel (fp32 q, or head
+# dim 32): 32 rows a block, 32 slots a block, no ring.
+TC_HEAD_DIMS = (64, 128, 256)
+_TC_ROWS, _TC_KV, _TC_MAX_STAGES = 64, 64, 4
+_SCALAR_ROWS, _SCALAR_KV = 32, 32
+_SMEM_MAX = 232448  # bytes of shared memory a block may use on an H100
+# ring stages by (head dim, int8 KV): the most that fit beside the rest
+_TC_STAGES = {(64, False): 4, (128, False): 4, (256, False): 2,
+              (64, True): 4, (128, True): 4, (256, True): 3}
 
 
-def _launch(what: str, q, k_cache, v_cache, mask, k_scale, v_scale, kv_limits, slots,
-            kv_limit: int, layer_idx: int, scale, soft_cap: float) -> torch.Tensor:
-    """Check the inputs and launch the kernel: q [B, S, H, D], caches
+def _tc_groups(D: int) -> int:
+    """Consumer warpgroups of a tensor-core block (csrc TcShape::kGroups)."""
+    return 2 if D <= 128 else 1
+
+
+def _tc_smem(D: int, int8: bool, stages: int, L: int) -> int:
+    """Shared memory of one tensor-core block (csrc TcSmem::bytes): alignment
+    slack, Q, the ring (K and V, and 8 KB of mask windows, 9 KB with the int8
+    scales), the widened int8 K and V of each consumer warpgroup, the
+    barriers, a live flag a KV tile."""
+    tile = _TC_KV * D * 2
+    stage = 2 * _TC_KV * D + 9216 if int8 else 2 * tile + 8192
+    return (1024 + _TC_ROWS * D * 2 + stages * stage + (2 * tile * _tc_groups(D) if int8 else 0)
+            + 16 * _TC_MAX_STAGES + -(-L // _TC_KV))
+
+
+def _plan(B: int, S: int, H: int, KVH: int, L: int, D: int, q_dtype, kv_int8: bool) -> dict:
+    """The launch plan: which kernel, its rows a block, kv slots a tile, ring
+    stages, consumer warpgroups and grid (kv heads, row tiles, B). Nothing
+    splits the KV range, and everything but the grid's row tiles and B comes
+    from D, the dtypes and L, never from S or B, so a row's summation order
+    is the same in every launch."""
+    groups = H // KVH
+    if q_dtype == torch.bfloat16 and D in TC_HEAD_DIMS:
+        stages = _TC_STAGES[(D, kv_int8)]
+        smem = _tc_smem(D, kv_int8, stages, L)
+        if smem > _SMEM_MAX:
+            raise ValueError(f"tree_attention: L={L} needs {smem} bytes of shared memory")
+        return dict(kernel="tc", rows=_TC_ROWS, kv_tile=_TC_KV, stages=stages,
+                    warpgroups=_tc_groups(D), grid=(KVH, -(-S * groups // _TC_ROWS), B),
+                    smem=smem)
+    return dict(kernel="scalar", rows=_SCALAR_ROWS, kv_tile=_SCALAR_KV, stages=1,
+                warpgroups=None, grid=(KVH, -(-S * groups // _SCALAR_ROWS), B), smem=None)
+
+
+def _check(what: str, q, k_cache, v_cache, mask, k_scale, v_scale, kv_limits, slots,
+           layer_idx: int) -> dict:
+    """Check the operands (on any device): q [B, S, H, D], caches
     [n, Bc, KVH, L, D], mask [B, S, L], scales [n, Bc, KVH, L]; or the
-    single-slot forms without B and Bc (B = Bc = 1, taken from the shapes, so
-    no view is made on the host). Returns out shaped like q."""
+    single-slot forms without B and Bc (B = Bc = 1). Returns the launch plan
+    with the shape; raises ValueError on what the kernels do not take."""
     single = q.dim() == 3
     B, S, H, D = (1, *q.shape) if single else q.shape
     if single:
@@ -150,9 +192,10 @@ def _launch(what: str, q, k_cache, v_cache, mask, k_scale, v_scale, kv_limits, s
     if not 0 <= layer_idx < n_layers:
         raise ValueError(f"{what}: layer_idx {layer_idx} out of range")
     tensors = [q, k_cache, v_cache, mask]
+    aligned = [q, k_cache, v_cache]
     if quant:
-        for s in (k_scale, v_scale):
-            if s is None or s.shape != k_cache.shape[:-1] or s.dtype != torch.float32:
+        for t in (k_scale, v_scale):
+            if t is None or t.shape != k_cache.shape[:-1] or t.dtype != torch.float32:
                 raise ValueError(f"{what}: scales must be fp32 {tuple(k_cache.shape[:-1])}")
         tensors += [k_scale, v_scale]
     for t in (kv_limits, slots):
@@ -163,17 +206,52 @@ def _launch(what: str, q, k_cache, v_cache, mask, k_scale, v_scale, kv_limits, s
     for t in tensors:
         if not t.is_contiguous() or t.device != q.device:
             raise ValueError(f"{what}: inputs must be contiguous on one device")
-    for t in (q, k_cache, v_cache):
+    plan = _plan(B, S, H, KVH, L, D, q.dtype, quant)
+    if plan["kernel"] == "tc" and quant:  # TMA reads the scales too
+        aligned += [k_scale, v_scale]
+    for t in aligned:
         if t.data_ptr() % 16:
-            raise ValueError(f"{what}: q and the caches must be 16-byte aligned")
+            raise ValueError(f"{what}: q, the caches and the scales must be 16-byte aligned")
+    return dict(plan, B=B, S=S, H=H, KVH=KVH, L=L, D=D, Bc=Bc, n_layers=n_layers)
+
+
+@functools.lru_cache(maxsize=None)
+def _fn(name: str):
+    fn = getattr(build.library("tree_attention"), name)
+    ints = 9 if name == "attend_flash" else 10  # attend_flash_tc also takes n_layers
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * ints
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(wrapper, q, k_cache, v_cache, mask, k_scale, v_scale, kv_limits, slots,
+            kv_limit: int, layer_idx: int, scale, soft_cap: float) -> torch.Tensor:
+    """Check the inputs and launch the plan's kernel; count the launch on
+    `wrapper` (and on its `scalar_launches` for the scalar kernel). Returns
+    out shaped like q."""
+    what = wrapper.__name__
+    pl = _check(what, q, k_cache, v_cache, mask, k_scale, v_scale, kv_limits, slots,
+                layer_idx)
+    quant = int(k_scale is not None)
     out = torch.empty_like(q)
+    ptrs = [build.ptr(t) for t in (q, k_cache, v_cache, k_scale, v_scale, mask, kv_limits,
+                                   slots, out)]
+    dims = [pl["B"], pl["S"], pl["H"], pl["KVH"], pl["L"], pl["D"], pl["Bc"]]
     with build.on_device(q) as st:
-        build.check(_fn()(build.ptr(q), build.ptr(k_cache), build.ptr(v_cache), build.ptr(k_scale),
-                          build.ptr(v_scale), build.ptr(mask), build.ptr(kv_limits),
-                          build.ptr(slots), build.ptr(out), B, S, H, KVH, L, D, Bc,
-                          int(layer_idx), int(kv_limit), float(scale), float(soft_cap),
-                          int(q.dtype == torch.bfloat16), int(quant), st),
-                    what)
+        if pl["kernel"] == "tc":
+            code = _fn("attend_flash_tc")(*ptrs, *dims, pl["n_layers"], int(layer_idx),
+                                          int(kv_limit), float(scale), float(soft_cap), quant,
+                                          pl["stages"], st)
+        else:
+            code = _fn("attend_flash")(*ptrs, *dims, int(layer_idx), int(kv_limit),
+                                       float(scale), float(soft_cap),
+                                       int(q.dtype == torch.bfloat16), quant, st)
+        build.check(code, what)
+    wrapper.launches += 1
+    if pl["kernel"] == "scalar":
+        wrapper.scalar_launches += 1
     return out
 
 
@@ -197,10 +275,8 @@ def attend_flash(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     if not q.is_cuda:
         return attend_flash_ref(q, k_cache[layer_idx], v_cache[layer_idx], mask, kv_limit,
                                 scale=scale, soft_cap=soft_cap)
-    out = _launch("attend_flash", q, k_cache, v_cache, mask, None, None, None, None,
-                  int(kv_limit), layer_idx, scale, soft_cap)
-    attend_flash.launches += 1
-    return out
+    return _launch(attend_flash, q, k_cache, v_cache, mask, None, None, None, None,
+                   int(kv_limit), layer_idx, scale, soft_cap)
 
 
 def attend_flash_int8(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -214,10 +290,8 @@ def attend_flash_int8(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
         return attend_flash_ref(q, k_cache[layer_idx], v_cache[layer_idx], mask, kv_limit,
                                 scale=scale, soft_cap=soft_cap, k_scale=k_scale[layer_idx],
                                 v_scale=v_scale[layer_idx])
-    out = _launch("attend_flash_int8", q, k_cache, v_cache, mask, k_scale, v_scale, None, None,
-                  int(kv_limit), layer_idx, scale, soft_cap)
-    attend_flash_int8.launches += 1
-    return out
+    return _launch(attend_flash_int8, q, k_cache, v_cache, mask, k_scale, v_scale, None, None,
+                   int(kv_limit), layer_idx, scale, soft_cap)
 
 
 def attend_flash_batched(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -238,10 +312,8 @@ def attend_flash_batched(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.
     if not q.is_cuda:
         return attend_flash_batched_ref(q, k_cache, v_cache, mask, kv_limits, layer_idx,
                                         slots=slots, scale=scale, soft_cap=soft_cap)
-    out = _launch("attend_flash_batched", q, k_cache, v_cache, mask, None, None, kv_limits,
-                  slots, 0, layer_idx, scale, soft_cap)
-    attend_flash_batched.launches += 1
-    return out
+    return _launch(attend_flash_batched, q, k_cache, v_cache, mask, None, None, kv_limits,
+                   slots, 0, layer_idx, scale, soft_cap)
 
 
 def attend_flash_batched_int8(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -256,13 +328,10 @@ def attend_flash_batched_int8(q: torch.Tensor, k_cache: torch.Tensor, v_cache: t
         return attend_flash_batched_ref(q, k_cache, v_cache, mask, kv_limits, layer_idx,
                                         slots=slots, scale=scale, soft_cap=soft_cap,
                                         k_scale=k_scale, v_scale=v_scale)
-    out = _launch("attend_flash_batched_int8", q, k_cache, v_cache, mask, k_scale, v_scale,
-                  kv_limits, slots, 0, layer_idx, scale, soft_cap)
-    attend_flash_batched_int8.launches += 1
-    return out
+    return _launch(attend_flash_batched_int8, q, k_cache, v_cache, mask, k_scale, v_scale,
+                   kv_limits, slots, 0, layer_idx, scale, soft_cap)
 
 
-attend_flash.launches = 0
-attend_flash_int8.launches = 0
-attend_flash_batched.launches = 0
-attend_flash_batched_int8.launches = 0
+for _w in (attend_flash, attend_flash_int8, attend_flash_batched, attend_flash_batched_int8):
+    _w.launches = 0  # every launch of the wrapper
+    _w.scalar_launches = 0  # ... of them, the scalar kernel's (fp32 q, or head dim 32)
