@@ -214,6 +214,24 @@ def bound(bytes_moved, ops, op_type):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def attention_bound(torch, mask, limits, nH, KVH, D, int8):
+    """bound() of masked attention: q [B, S, nH, D] read and out written in
+    bf16, each slot's K and V columns below its limit read once (int8 plus an
+    fp32 scale a column, or bf16) with their mask bytes; 4 * nH * D operations
+    for each live query-key pair (mask true, column below the limit), since a
+    causal or tree mask needs only those. mask [B, S, L] or [S, L]; limits
+    one int a slot."""
+    m = mask.reshape(-1, *mask.shape[-2:])
+    B, S, L = m.shape
+    below = torch.arange(L, device=m.device) < torch.as_tensor(
+        limits, device=m.device).reshape(B, 1, 1)
+    pairs = int((m & below).sum())
+    cols = float(sum(limits))
+    kv_b = 1 + 4 / D if int8 else 2  # bytes per cached value
+    return bound(2 * B * S * nH * D * 2 + 2 * cols * KVH * D * kv_b + S * cols,
+                 4 * nH * D * pairs, "bf16")
+
+
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
@@ -317,8 +335,7 @@ def attention_checks(torch, dev, gen, randn, err):
     def sdpa():
         return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=ms_, enable_gqa=True)
 
-    attn_bytes = 2 * S * nH * D * 2 + 2 * kv_limit * KVH * D * 2 + S * kv_limit
-    by, bb = bound(attn_bytes, 4 * S * nH * kv_limit * D, "bf16")
+    by, bb = attention_bound(torch, mask, [kv_limit], nH, KVH, D, False)
     report["attend_flash"] = dict(
         shape=f"q [{S},32,128] bf16 vs [4,8,2048,128] cache, tree mask, kv_limit={kv_limit}",
         tolerance="max abs err <= 2e-2 * max|plain| (bf16 output; p rounded at other points)",
@@ -984,13 +1001,8 @@ def attention_int8_and_batched_checks(torch, dev, gen, randn, err):
 
         return library_ms(torch, run)
 
-    def bound_of(B, S, limits, int8):
-        """q read + out written (bf16), the live K and V columns of each slot
-        (int8 plus an fp32 scale per column, or bf16) and their mask bytes."""
-        kv_b = 1 + 4 / D if int8 else 2  # bytes per cached value
-        live = float(sum(limits))
-        by = 2 * B * S * nH * D * 2 + 2 * live * KVH * D * kv_b + S * live
-        return bound(by, 4 * S * nH * live * D, "bf16")
+    def bound_of(mask, limits, int8):
+        return attention_bound(torch, mask, limits, nH, KVH, D, int8)
 
     # -- attend_flash_int8: single slot, q [127, 32, 128] at kv_limit 428 (row 1's shape)
     gm = growmap_from_spec(24, 6, acc=ACC_24x6)
@@ -1009,7 +1021,7 @@ def attention_int8_and_batched_checks(torch, dev, gen, randn, err):
             a_max, a_rel = max(a_max, e), max(a_rel, r)
     q = randn(S, nH, D)
     limit = nn + S
-    by, bb = bound_of(1, S, [limit], True)
+    by, bb = bound_of(mask, [limit], True)
     report["attend_flash_int8"] = dict(
         shape=f"q [{S},32,128] bf16 vs int8 [2,8,2048,128] cache + fp32 scales, tree mask, "
               f"kv_limit={limit}",
@@ -1058,14 +1070,14 @@ def attention_int8_and_batched_checks(torch, dev, gen, randn, err):
         lims = limits.tolist()
         live = max(lims)
         per_slot = lambda t: None if t is None else t[1]  # noqa: E731
-        by, bb = bound_of(B, T, lims, int8)
+        by, bb = bound_of(mask, lims, int8)
         dec = dict(
             ms=cuda_ms(torch, lambda: attend_flash_batched(q, kc, vc, mask, limits, 1, **scales)),
             plain_ms=cuda_ms(torch, lambda: attend_flash_batched_ref(q, kc, vc, mask, limits, 1,
                                                                      **scales)),
             library_ms=library(q, kc[1], vc[1], per_slot(ksc), per_slot(vsc), mask, live),
             bound_ms=by, bound_by=bb)
-        pby, pbb = bound_of(1, slot_S, [slot_S], int8)
+        pby, pbb = bound_of(pm, [slot_S], int8)
         pick = (lambda t: None if t is None else t[1, 5:6])  # noqa: E731
         pre = dict(
             ms=cuda_ms(torch, lambda: attend_flash_batched(qp, kc, vc, pm, lim1, 1, slots=slot,
@@ -1121,8 +1133,7 @@ def attention_70b_verify(torch, dev, randn, err):
         e_max, e_rel = max(e_max, e), max(e_rel, e / m)
     qs = q.transpose(0, 1)[None]
     ks, vs, ms_ = kc[1:2, :, :limit], vc[1:2, :, :limit], mask[None, None, :, :limit]
-    by, bb = bound(2 * S * nH * D * 2 + 2 * limit * KVH * D * 2 + S * limit,
-                   4 * S * nH * limit * D, "bf16")
+    by, bb = attention_bound(torch, mask, [limit], nH, KVH, D, False)
     res = dict(
         shape=f"q [{S},{nH},{D}] bf16 vs [2,{KVH},{L},{D}] cache (groups {nH // KVH}), tree "
               f"mask, kv_limit={limit}",
@@ -1152,7 +1163,8 @@ def attention_tc_checks(torch, dev, gen, randn, err):
       and so does a mask that starts 1 byte past a 16-byte boundary;
     - soft cap 30.0 at the verify shape (scores reach +-40), and a cache of
       odd length L = 301, within tolerance;
-    - empty rows: rows with no live slot, and kv_limit 0, give exactly 0."""
+    - empty rows: rows with no live slot, and kv_limit 0, give exactly 0;
+    - head dims 64 and 256 (attention_head_dim_checks)."""
     from umbrella_tpu_torch.models.kv_cache import _quantize_block
     from umbrella_tpu_torch.ops.kernels import tree_attention as ta
     from umbrella_tpu_torch.ops.masks import causal_mask_rows, tree_mask_rows, \
@@ -1162,9 +1174,10 @@ def attention_tc_checks(torch, dev, gen, randn, err):
     nH, KVH, D, L = 32, 8, 128, MAX_LEN
     held = {}
 
-    def caches(shape):
-        """bf16 K and V at `shape` + (D,), and their int8 forms with fp32 scales."""
-        k, v = randn(*shape, D), randn(*shape, D)
+    def caches(shape, head_dim=D):
+        """bf16 K and V at `shape` + (head_dim,), and their int8 forms with fp32
+        scales."""
+        k, v = randn(*shape, head_dim), randn(*shape, head_dim)
         (kq, ks), (vq, vs) = _quantize_block(k), _quantize_block(v)
         return {"bf16": (k, v, {}), "int8": (kq, vq, dict(k_scale=ks, v_scale=vs))}
 
@@ -1308,7 +1321,74 @@ def attention_tc_checks(torch, dev, gen, randn, err):
                        f"each slot alone through slots, bitwise; prefill rows of S=1, 24, 127 "
                        f"equal S={S_big}'s through slots; limit isolation bit for bit; "
                        f"kv_limit 0 slots exactly 0")
+    held["head_dims"] = attention_head_dim_checks(torch, dev, gen, randn, err, ta, caches, close)
     log(f"[kernels] attention tensor-core checks held: {json.dumps(held)}")
+    return held
+
+
+def attention_head_dim_checks(torch, dev, gen, randn, err, ta, caches, close):
+    """The tensor-core kernel's other head dims, bf16 and int8 KV: D = 64 at
+    Llama-3.2-1B's 32/8 heads and D = 256 at Gemma-2-9B's 16/8 (one consumer
+    warpgroup, no combine, its own ring depth). Each takes the tensor-core
+    kernel; single slot at the verify shape (with and without soft cap 30)
+    and a 512-row band mask within tolerance of the plain version, rows of
+    S = 1, 24, 127 equal to S = 512's bitwise; batched B = 8 decode within
+    tolerance, and slots 0 and 7 alone equal to the launch's rows bitwise.
+    `caches(shape, D)` and `close` are attention_tc_checks'."""
+    from umbrella_tpu_torch.ops.masks import causal_mask_rows, tree_mask_rows, \
+        tree_mask_rows_batched
+    from umbrella_tpu_torch.sequoia import growmap_from_spec
+
+    KVH, L, nn, S_big = 8, MAX_LEN, 301, 512
+    limit = nn + S_big
+    band = causal_mask_rows(nn, S_big, L, device=dev)
+    band[0::2, 128:] = False
+    gm = growmap_from_spec(24, 6, acc=ACC_24x6)
+    tree = tree_mask_rows(nn, torch.as_tensor(gm.bitmap, device=dev), L)
+    T = gm.size
+    B, g = 8, growmap_from_spec(3, 4)
+    limits = torch.randint(135, 301, (B,), generator=gen, device=dev, dtype=torch.int32)
+    bmask = tree_mask_rows_batched(limits - g.size, torch.as_tensor(g.bitmap, device=dev), L)
+    held = {}
+    for D, nH in ((64, 32), (256, 16)):
+        q = randn(S_big, nH, D)
+        qv = randn(T, nH, D, scale=8.0)  # scores reach +-40: the cap bites
+        qb = randn(B, g.size, nH, D)
+        for kind, (k, v, sc) in caches((2, KVH, L), D).items():
+            ref_sc = {n: t[1] for n, t in sc.items()}
+            s0 = ta.attend_flash.scalar_launches + ta.attend_flash_int8.scalar_launches
+            whole = ta.attend_flash(q, k, v, band, limit, 1, **sc)
+            check(ta.attend_flash.scalar_launches + ta.attend_flash_int8.scalar_launches == s0,
+                  f"D={D} {kind}: bf16 q took the scalar kernel")
+            close(f"D={D} band mask {kind}", whole,
+                  ta.attend_flash_ref(q, k[1], v[1], band, limit, **ref_sc))
+            for S in (1, 24, 127):
+                got = ta.attend_flash(q[:S].contiguous(), k, v, band[:S].contiguous(), limit, 1,
+                                      **sc)
+                check(torch.equal(got, whole[:S]), f"D={D} {kind}: rows of S={S} differ from "
+                      f"S={S_big}'s (max {err(got, whole[:S])[0]})")
+            for cap in (0.0, 30.0):
+                close(f"D={D} verify {kind} soft cap {cap}",
+                      ta.attend_flash(qv, k, v, tree, nn + T, 1, soft_cap=cap, **sc),
+                      ta.attend_flash_ref(qv, k[1], v[1], tree, nn + T, soft_cap=cap, **ref_sc))
+            del k, v, sc
+            kb, vb, scb = caches((2, B, KVH, L), D)[kind]
+            full = ta.attend_flash_batched(qb, kb, vb, bmask, limits, 1, **scb)
+            close(f"D={D} batched {kind}", full,
+                  ta.attend_flash_batched_ref(qb, kb, vb, bmask, limits, 1, **scb))
+            for b in (0, B - 1):
+                one = torch.full((1,), b, dtype=torch.int32, device=dev)
+                got = ta.attend_flash_batched(qb[b:b + 1].contiguous(), kb, vb,
+                                              bmask[b:b + 1].contiguous(),
+                                              limits[b:b + 1].contiguous(), 1, slots=one, **scb)
+                check(torch.equal(got, full[b:b + 1]), f"D={D} batched {kind}: slot {b} alone "
+                      f"differs from the B={B} launch")
+            del kb, vb, scb
+            torch.cuda.empty_cache()
+        held[f"D={D}"] = (f"{nH}/{KVH} heads, bf16 and int8 KV: tensor-core kernel; band mask "
+                          f"S={S_big} and verify (soft cap 0 and 30) within tolerance, rows of "
+                          f"S=1, 24, 127 equal S={S_big}'s bitwise; B={B} decode within "
+                          f"tolerance, slots 0 and {B - 1} alone equal the launch's rows bitwise")
     return held
 
 

@@ -36,6 +36,8 @@ import os
 import subprocess
 import sys
 
+from breakdown_build import build_variants
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SOFTMAX = "        // the online softmax;"
@@ -78,27 +80,6 @@ def patched(src, name):
     return src
 
 
-def build_variants(build):
-    with open(os.path.join(build.CSRC_DIR, "tree_attention.cu")) as f:
-        src = f.read()
-    out_dir = os.path.join(build.BUILD_DIR, "breakdown")
-    os.makedirs(out_dir, exist_ok=True)
-    procs, libs = {}, {}
-    for name in VARIANTS:
-        cu = os.path.join(out_dir, f"tree_attention_{name}.cu")
-        with open(cu, "w") as f:
-            f.write(patched(src, name))
-        libs[name] = os.path.join(out_dir, f"tree_attention_{name}.so")
-        procs[name] = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", libs[name], cu],
-                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True)
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"variant {name} failed to build:\n{log}")
-    return libs
-
-
 def use(ta, torch, lib, scalar):
     """Route bf16 q through `lib`'s tensor-core entry point, or (scalar) through
     the scalar kernel's."""
@@ -113,12 +94,10 @@ def use(ta, torch, lib, scalar):
 
     ta._plan = plan
     if lib is not None:
-        fn = ctypes.CDLL(lib).attend_flash_tc
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
-                       + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
         real_fn = use.real_fn
+        fn = ctypes.CDLL(lib).attend_flash_tc
+        fn.argtypes = real_fn("attend_flash_tc").argtypes
+        fn.restype = ctypes.c_int
         ta._fn = lambda name: fn if name == "attend_flash_tc" else real_fn(name)
 
 
@@ -141,11 +120,8 @@ def cases(torch, dev, chip_smoke):
         return lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k, v,
                                                       attn_mask=mask[:, None], enable_gqa=True)
 
-    def bound(B, S, H, limits, int8):
-        kv_b = 1 + 4 / 128 if int8 else 2
-        live = float(sum(limits))
-        return chip_smoke.bound(2 * B * S * H * 128 * 2 + 2 * live * 8 * 128 * kv_b + S * live,
-                                4 * S * H * live * 128, "bf16")[0]
+    def bound(mask, H, limits, int8):
+        return chip_smoke.attention_bound(torch, mask, limits, H, 8, 128, int8)[0]
 
     gm = growmap_from_spec(24, 6, acc=chip_smoke.ACC_24x6)
     out = {}
@@ -157,7 +133,7 @@ def cases(torch, dev, chip_smoke):
         out[tag] = (lambda q=q, k=k, v=v, m=mask, L=L: ta.attend_flash(q, k, v, m, 428, 1),
                     lambda q=q, k=k, v=v, m=mask: ta.attend_flash_ref(q, k[1], v[1], m, 428),
                     sdpa(q[None], k[1:2, :, :428], v[1:2, :, :428], mask[None, :, :428]),
-                    bound(1, 127, H, [428], False))
+                    bound(mask, H, [428], False))
         if H == 32:
             (kq, ks), (vq, vs) = _quantize_block(k), _quantize_block(v)
             out["row 2 int8 verify"] = (
@@ -165,7 +141,7 @@ def cases(torch, dev, chip_smoke):
                     ta.attend_flash(q, kq, vq, m, 428, 1, k_scale=ks, v_scale=vs),
                 lambda q=q, m=mask, kq=kq, vq=vq, ks=ks, vs=vs:
                     ta.attend_flash_ref(q, kq[1], vq[1], m, 428, k_scale=ks[1], v_scale=vs[1]),
-                None, bound(1, 127, 32, [428], True))
+                None, bound(mask, 32, [428], True))
     for B, tree, int8 in ((8, (3, 4), False), (32, (2, 3), True)):
         g = growmap_from_spec(*tree)
         k, v = randn(2, B, 8, 2048, 128), randn(2, B, 8, 2048, 128)
@@ -188,14 +164,14 @@ def cases(torch, dev, chip_smoke):
             lambda q=q, k=k, v=v, m=mask, li=limits, sc=sc:
                 ta.attend_flash_batched_ref(q, k, v, m, li, 1, **sc),
             None if int8 else sdpa(q, k[1, :, :, :300], v[1, :, :, :300], mask[:, :, :300]),
-            bound(B, g.size, 32, limits.tolist(), int8))
+            bound(mask, 32, limits.tolist(), int8))
         out[f"{row} prefill q [1,512]"] = (
             lambda qp=qp, k=k, v=v, sc=sc, pm=pm, lim1=lim1, slot=slot:
                 ta.attend_flash_batched(qp, k, v, pm, lim1, 1, slots=slot, **sc),
             lambda qp=qp, k=k, v=v, sc=sc, pm=pm, lim1=lim1, slot=slot:
                 ta.attend_flash_batched_ref(qp, k, v, pm, lim1, 1, slots=slot, **sc),
             None if int8 else sdpa(qp, k[1, 5:6, :, :512], v[1, 5:6, :, :512], pm[:, :, :512]),
-            bound(1, 512, 32, [512], int8))
+            bound(pm, 32, [512], int8))
     return out
 
 
@@ -243,7 +219,8 @@ def main():
     from umbrella_tpu_torch.ops.kernels import build
     from umbrella_tpu_torch.ops.kernels import tree_attention as ta
 
-    libs = build_variants(build)
+    libs = build_variants(build, "tree_attention.cu",
+                          {name: (lambda src, n=name: patched(src, n)) for name in VARIANTS})
     build.build_all()
     use.real_plan, use.real_fn = ta._plan, ta._fn
     dev = torch.device("cuda:0")

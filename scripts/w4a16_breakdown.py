@@ -28,6 +28,8 @@ import os
 import subprocess
 import sys
 
+from breakdown_build import build_variants, patch
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = [(8192, 57344, 127), (8192, 57344, 24), (4096, 28672, 127)]
 
@@ -51,32 +53,6 @@ VARIANTS = {"kernel": [], "fp32-form": [("        packed = p.s_bf16 != 0;\n",
 ROUNDS = ["kernel", "fp32-form", "no-mma", "no-dequant", "stream", "fp32-form", "kernel"]
 
 
-def build_variants(build):
-    with open(os.path.join(build.CSRC_DIR, "w4a16.cu")) as f:
-        src = f.read()
-    out_dir = os.path.join(build.BUILD_DIR, "breakdown")
-    os.makedirs(out_dir, exist_ok=True)
-    procs, libs = {}, {}
-    for name, patches in VARIANTS.items():
-        text = src
-        for old, new in patches:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: the source no longer has {old!r}")
-            text = text.replace(old, new)
-        cu = os.path.join(out_dir, f"w4a16_{name}.cu")
-        with open(cu, "w") as f:
-            f.write(text)
-        libs[name] = os.path.join(out_dir, f"w4a16_{name}.so")
-        procs[name] = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", libs[name], cu],
-                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True)
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"variant {name} failed to build:\n{log}")
-    return libs
-
-
 def main():
     import torch
 
@@ -89,7 +65,9 @@ def main():
     from umbrella_tpu_torch.ops.kernels import w4a16 as W
     from umbrella_tpu_torch.quantization.awq import quantize_pack_device
 
-    libs = build_variants(build)
+    libs = build_variants(build, "w4a16.cu", {
+        name: (lambda src, n=name, p=patches: patch(src, n, p))
+        for name, patches in VARIANTS.items()})
     build.build_all()
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(0)

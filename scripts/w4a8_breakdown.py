@@ -31,6 +31,8 @@ import os
 import subprocess
 import sys
 
+from breakdown_build import build_variants, patch
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _INT4F_MMA = ("                wgmma_s8<NT>(acc, f[0], d_lo + 2 * j, 1);\n"
@@ -61,32 +63,6 @@ CASES = [("int4f lm_head", 4096, 128256, 24, None), ("int4f lm_head", 4096, 1282
          ("awq gate_up g128", 4096, 28672, 127, 128)]
 
 
-def build_variants(build):
-    with open(os.path.join(build.CSRC_DIR, "w4a8.cu")) as f:
-        src = f.read()
-    out_dir = os.path.join(build.BUILD_DIR, "breakdown")
-    os.makedirs(out_dir, exist_ok=True)
-    procs, libs = {}, {}
-    for name, patches in VARIANTS.items():
-        text = src
-        for old, new in patches:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: the source no longer has {old!r}")
-            text = text.replace(old, new)
-        cu = os.path.join(out_dir, f"w4a8_{name}.cu")
-        with open(cu, "w") as f:
-            f.write(text)
-        libs[name] = os.path.join(out_dir, f"w4a8_{name}.so")
-        procs[name] = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", libs[name], cu],
-                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True)
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"variant {name} failed to build:\n{log}")
-    return libs
-
-
 def main():
     import torch
 
@@ -101,7 +77,9 @@ def main():
     from umbrella_tpu_torch.quantization.awq import quantize_pack_device
     from umbrella_tpu_torch.quantization.int4f import quantize_int4f
 
-    libs = build_variants(build)
+    libs = build_variants(build, "w4a8.cu", {
+        name: (lambda src, n=name, p=patches: patch(src, n, p))
+        for name, patches in VARIANTS.items()})
     build.build_all()
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(0)

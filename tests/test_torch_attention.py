@@ -180,8 +180,9 @@ def fake_launch(monkeypatch):
                                            (torch.bfloat16, 32, "attend_flash")])
 def test_launch_routes_by_dtype_and_head_dim(fake_launch, dtype, D, entry):
     """bf16 q at head dim 64-256 calls the tensor-core entry point with the
-    plan's stages and the stack depth; fp32 q and head dim 32 call the scalar
-    one. Each launch counts once on its wrapper, and a scalar launch also on
+    stack depth and the plan's stages, row tiles, warpgroups and shared
+    memory (which the kernel checks against its own); fp32 q and head dim 32
+    call the scalar one. Each launch counts once on its wrapper, and a scalar launch also on
     `scalar_launches` (`launch_counts()["attend_flash_scalar"]`)."""
     q = torch.zeros((24, 32, D), dtype=dtype)
     kc = torch.zeros((3, 8, 256, D), dtype=dtype)
@@ -193,9 +194,11 @@ def test_launch_routes_by_dtype_and_head_dim(fake_launch, dtype, D, entry):
     counts = kernels.launch_counts()
     assert counts["attend_flash"] == 1
     assert counts["attend_flash_scalar"] == (entry == "attend_flash")
-    if entry == "attend_flash_tc":  # ..., Bc, n_layers, layer, kv_limit, scale, cap, int8, stages
+    if entry == "attend_flash_tc":
+        # ..., Bc, n_layers, layer, kv_limit, scale, cap, int8, then the plan, stream
         assert args[15:18] == (1, 3, 2) and args[18] == 124
-        assert args[-2] == ta._plan(1, 24, 32, 8, 256, D, dtype, False)["stages"]
+        p = ta._plan(1, 24, 32, 8, 256, D, dtype, False)
+        assert args[-5:-1] == (p["stages"], p["grid"][1], p["warpgroups"], p["smem"])
 
 
 def test_launch_counts_reset_the_scalar_count():

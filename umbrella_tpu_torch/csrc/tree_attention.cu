@@ -25,10 +25,11 @@
 // flash_tc_kernel: bf16 q, head dim 64, 128 or 256, bf16 or int8 KV (every
 // timed path). Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): at a decode
 // shape the bytes (B = 32 slots x 7 tree rows, int8 KV, kv_limit 135-300: ~19
-// MB, 0.006 ms); at a verify or prefill shape, bytes or operations (4 S H
-// kv_limit D: q [127, 32, 128] at kv_limit 428 is 0.89 GFLOP, 0.0009 ms of
-// tensor cores beside 0.0012 ms of bytes; a [512]-token causal prefill 4.3
-// GFLOP over every slot, 0.0043 ms). The kernel it replaces ran both
+// MB, 0.006 ms); at a verify or prefill shape the bytes too, since only live
+// (mask-true, below kv_limit) pairs need their 4 H D operations: q [127, 32,
+// 128] at kv_limit 428 is 0.64 GFLOP live, 0.0006 ms of tensor cores, beside
+// 0.0012 ms of bytes; a [512]-token causal prefill 2.15 GFLOP live, 0.0022
+// ms, beside 10.75 MB, 0.0032 ms. The kernel it replaces ran both
 // products as scalar fp32 FMAs. What bounds this one is latency, not the
 // tensor cores or the softmax: a block's start (the Q tile and the live
 // flags, one round trip to device memory), its KV tiles one after another,
@@ -868,12 +869,22 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constant_
     }
 }
 
+// The caller's launch plan (tree_attention._plan) must agree with the
+// kernel: its row tiles, consumer warpgroups and shared memory are checked
+// against the kernel's own before anything is encoded.
+struct TcPlan {
+    int stages, row_tiles, warpgroups, smem;
+};
+
 template <int D, bool Q8>
-int launch_tc(const Args& a, int n_layers, int stages, cudaStream_t st) {
+int launch_tc(const Args& a, int n_layers, const TcPlan& plan, cudaStream_t st) {
     using M = TcSmem<D, Q8>;
+    const int stages = plan.stages;
     const int smem = M::bytes(stages, a.L);
+    const int row_tiles = (a.S * (a.H / a.KVH) + kTcRows - 1) / kTcRows;
     if (stages < 1 || stages > kTcMaxStages || smem > kSmemMax ||
-        stages * M::kStage < M::kCombine)
+        stages * M::kStage < M::kCombine || plan.smem != smem || plan.row_tiles != row_tiles ||
+        plan.warpgroups != TcShape<D>::kGroups)
         return (int)cudaErrorInvalidValue;
     EncodeTiled encode = encoder();
     if (encode == nullptr) return (int)cudaErrorNotSupported;
@@ -950,18 +961,18 @@ int launch_tc(const Args& a, int n_layers, int stages, cudaStream_t st) {
     p.mask_off = mask_off;
     p.scale = a.scale;
     p.soft_cap = a.soft_cap;
-    dim3 grid(a.KVH, (a.S * p.groups + kTcRows - 1) / kTcRows, a.B);
+    dim3 grid(a.KVH, row_tiles, a.B);
     flash_tc_kernel<D, Q8><<<grid, TcShape<D>::kThreads, smem, st>>>(tm_k, tm_v, tm_ks, tm_vs,
                                                                       tm_m, p);
     return (int)cudaGetLastError();
 }
 
 template <bool Q8>
-int dispatch_tc(const Args& a, int n_layers, int stages, cudaStream_t st) {
+int dispatch_tc(const Args& a, int n_layers, const TcPlan& plan, cudaStream_t st) {
     switch (a.D) {
-        case 64: return launch_tc<64, Q8>(a, n_layers, stages, st);
-        case 128: return launch_tc<128, Q8>(a, n_layers, stages, st);
-        case 256: return launch_tc<256, Q8>(a, n_layers, stages, st);
+        case 64: return launch_tc<64, Q8>(a, n_layers, plan, st);
+        case 128: return launch_tc<128, Q8>(a, n_layers, plan, st);
+        case 256: return launch_tc<256, Q8>(a, n_layers, plan, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -991,19 +1002,23 @@ extern "C" int attend_flash(const void* q, const void* k, const void* v, const v
 // [n_layers, Bc, KVH, L, D] bf16, or int8 with fp32 k_scale/v_scale
 // [n_layers, Bc, KVH, L] when kv_int8; mask [B, S, L] bool bytes; kv_limits
 // and slots as attend_flash; `stages` K/V tiles in the TMA ring (1-4, and
-// the block's shared memory within the card's). q, k, v and the scales
-// contiguous and 16-byte aligned.
+// the block's shared memory within the card's); `row_tiles` (the grid's
+// second axis), `warpgroups` (consumer warpgroups a block) and `smem`
+// (dynamic shared memory bytes) as the plan has them, refused unless they are
+// the kernel's. q, k, v and the scales contiguous and 16-byte aligned.
 extern "C" int attend_flash_tc(const void* q, const void* k, const void* v, const void* k_scale,
                                const void* v_scale, const void* mask, const void* kv_limits,
                                const void* slots, void* out, int B, int S, int H, int KVH, int L,
                                int D, int Bc, int n_layers, int layer, int kv_limit, float scale,
-                               float soft_cap, int kv_int8, int stages, void* stream) {
+                               float soft_cap, int kv_int8, int stages, int row_tiles,
+                               int warpgroups, int smem, void* stream) {
     if (B <= 0 || S <= 0) return 0;
     if (KVH <= 0 || H % KVH != 0 || L <= 0 || layer < 0 || layer >= n_layers)
         return (int)cudaErrorInvalidValue;
     const Args a{q, k, v, k_scale, v_scale, mask, kv_limits, slots, out, B, S, H, KVH, L, D,
                  Bc, layer, kv_limit, scale, soft_cap};
     cudaStream_t st = (cudaStream_t)stream;
-    return kv_int8 ? dispatch_tc<true>(a, n_layers, stages, st)
-                   : dispatch_tc<false>(a, n_layers, stages, st);
+    const TcPlan plan{stages, row_tiles, warpgroups, smem};
+    return kv_int8 ? dispatch_tc<true>(a, n_layers, plan, st)
+                   : dispatch_tc<false>(a, n_layers, plan, st);
 }

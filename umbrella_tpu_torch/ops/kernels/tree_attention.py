@@ -147,10 +147,12 @@ def _tc_smem(D: int, int8: bool, stages: int, L: int) -> int:
 
 def _plan(B: int, S: int, H: int, KVH: int, L: int, D: int, q_dtype, kv_int8: bool) -> dict:
     """The launch plan: which kernel, its rows a block, kv slots a tile, ring
-    stages, consumer warpgroups and grid (kv heads, row tiles, B). Nothing
-    splits the KV range, and everything but the grid's row tiles and B comes
-    from D, the dtypes and L, never from S or B, so a row's summation order
-    is the same in every launch."""
+    stages, consumer warpgroups, grid (kv heads, row tiles, B) and shared
+    memory. Nothing splits the KV range, and everything but the grid's row
+    tiles and B comes from D, the dtypes and L, never from S or B, so a row's
+    summation order is the same in every launch. The tensor-core kernel is
+    launched with the plan's stages, row tiles, warpgroups and shared memory
+    and refuses them unless they are its own."""
     groups = H // KVH
     if q_dtype == torch.bfloat16 and D in TC_HEAD_DIMS:
         stages = _TC_STAGES[(D, kv_int8)]
@@ -218,10 +220,13 @@ def _check(what: str, q, k_cache, v_cache, mask, k_scale, v_scale, kv_limits, sl
 @functools.lru_cache(maxsize=None)
 def _fn(name: str):
     fn = getattr(build.library("tree_attention"), name)
-    ints = 9 if name == "attend_flash" else 10  # attend_flash_tc also takes n_layers
+    # attend_flash: ..., kv_limit, scale, soft_cap, q_bf16, kv_int8, stream;
+    # attend_flash_tc: ..., n_layers, layer, kv_limit, scale, soft_cap, kv_int8,
+    # then the plan (stages, row tiles, warpgroups, smem), stream
+    ints, plan = (9, 0) if name == "attend_flash" else (10, 3)
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * ints
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int]
+                   + [ctypes.c_int] * plan + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -243,7 +248,8 @@ def _launch(wrapper, q, k_cache, v_cache, mask, k_scale, v_scale, kv_limits, slo
         if pl["kernel"] == "tc":
             code = _fn("attend_flash_tc")(*ptrs, *dims, pl["n_layers"], int(layer_idx),
                                           int(kv_limit), float(scale), float(soft_cap), quant,
-                                          pl["stages"], st)
+                                          pl["stages"], pl["grid"][1], pl["warpgroups"],
+                                          pl["smem"], st)
         else:
             code = _fn("attend_flash")(*ptrs, *dims, int(layer_idx), int(kv_limit),
                                        float(scale), float(soft_cap),
