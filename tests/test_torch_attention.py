@@ -187,16 +187,18 @@ def test_launch_routes_by_dtype_and_head_dim(fake_launch, dtype, D, entry):
     q = torch.zeros((24, 32, D), dtype=dtype)
     kc = torch.zeros((3, 8, 256, D), dtype=dtype)
     mask = causal_mask_rows(100, 24, 256)
-    ta._launch(ta.attend_flash, q, kc, kc.clone(), mask, None, None, None, None, 124, 2,
-               0.1, 0.0)
+    limit = ta.limit_tensor(124, q.device)
+    ta._launch(ta.attend_flash, q, kc, kc.clone(), mask, None, None, limit, None, 2, 0.1, 0.0)
     ((name, args),) = fake_launch
+    # the kernel reads the limit from the device (kv_limits), never a host int
+    assert args[6].value == limit.data_ptr() and limit.tolist() == [124]
     assert name == entry
     counts = kernels.launch_counts()
     assert counts["attend_flash"] == 1
     assert counts["attend_flash_scalar"] == (entry == "attend_flash")
     if entry == "attend_flash_tc":
         # ..., Bc, n_layers, layer, kv_limit, scale, cap, int8, then the plan, stream
-        assert args[15:18] == (1, 3, 2) and args[18] == 124
+        assert args[15:18] == (1, 3, 2) and args[18] == 0
         p = ta._plan(1, 24, 32, 8, 256, D, dtype, False)
         assert args[-5:-1] == (p["stages"], p["grid"][1], p["warpgroups"], p["smem"])
 

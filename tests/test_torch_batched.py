@@ -707,15 +707,15 @@ def test_batched_static_allowlist_and_refusals(port_models):
         auto_engine.AutoEngine.from_config(**base, stop_distance=8)
     with pytest.raises(ValueError, match="not consumed"):
         auto_engine.AutoEngine.from_config(**base, batch_sise=2)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="tensor and expert parallelism"):
         auto_engine.AutoEngine.from_config(**base, tensor_parallel=2)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="tensor and expert parallelism"):
         auto_engine.AutoEngine.from_config(**base, expert_parallel=2)
     with pytest.raises(ValueError, match="pipeline_parallel"):
         auto_engine.AutoEngine.from_config(**base, pipeline_parallel=2)
     with pytest.raises(ValueError, match="resident"):
         auto_engine.AutoEngine.from_config(**base, offload=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="the offload tier"):
         auto_engine.AutoEngine.from_config(**base, num_cache_layers=2)
     # quantize_draft is ported: initialize() W4-quantizes the fp draft and its head
     eng = auto_engine.AutoEngine.from_config(**base, batch_size=2, quantize_draft=True)

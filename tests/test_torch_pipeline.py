@@ -352,7 +352,7 @@ def test_parallel_and_offload_exclusivity():
         AutoEngine.from_config(pipeline_parallel=2, tensor_parallel=2, **base)
     with pytest.raises(ValueError, match="offload"):
         AutoEngine.from_config(pipeline_parallel=2, offload=True, **base)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="tensor and expert parallelism"):
         AutoEngine.from_config(tensor_parallel=2, **base)
     jrt = _jax_runtime("dense", 2)
     for kw in (dict(pipeline_parallel=2, tensor_parallel=2),

@@ -4,8 +4,8 @@ Counterpart of `umbrella_tpu/models/auto_model.py`: ModelRuntime, loading a
 checkpoint directory (`AutoModelLM.from_pretrained`: HF fp or AutoAWQ
 safetensors / .bin), early-exit drafts and random runtimes. The family is
 resolved from the checkpoint's `model_type` as in the JAX package; Gemma2 and
-MoE resolve but are not ported (ROADMAP queue A, item 11), nor is offload
-(item 12).
+MoE resolve but are not ported (ROADMAP queue A, "Gemma2 and MoE"), nor is
+offload (ROADMAP queue A, "the offload tier").
 """
 from __future__ import annotations
 
@@ -76,7 +76,7 @@ def resolve_family(model_name: str, cfg: Optional[ModelConfig] = None) -> str:
 def _check_family(family: str) -> None:
     if family not in LLAMA_FAMILIES:
         raise NotImplementedError(
-            f"model family '{family}' is not ported yet (ROADMAP queue A, item 11)")
+            f"model family '{family}' is not ported yet (ROADMAP queue A, Gemma2 and MoE)")
 
 
 class ModelRuntime:
@@ -107,6 +107,14 @@ class ModelRuntime:
         """The device of each pipeline stage, or None for an unstaged runtime."""
         stages = self.params.get("stages")
         return None if stages is None else tuple(s.device for s in stages)
+
+    @property
+    def supports_fused_phases(self) -> bool:
+        """Whether the engines may run this model inside the device-resident
+        decode loop (a captured CUDA graph on the card): true for a resident
+        runtime, false for a staged one, whose forward hops between stage
+        devices and keeps the stepwise loop."""
+        return self.stage_devices is None
 
     @property
     def forward(self) -> Callable:
@@ -154,7 +162,7 @@ class AutoModelLM:
         family = resolve_family(model_name, cfg)
         _check_family(family)
         if offload:
-            raise NotImplementedError("offload is not ported yet (ROADMAP queue A, item 12)")
+            raise NotImplementedError("offload is not ported yet (ROADMAP queue A, the offload tier)")
         if family == "qwen2":
             # Qwen2.5 checkpoints pad the embedding; serve the real vocab so
             # draft and target token ids align

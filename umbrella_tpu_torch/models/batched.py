@@ -1,8 +1,8 @@
 """Batched (multi-slot) Llama forward and KV cache for continuous batching.
 
 Counterpart of `umbrella_tpu/models/batched.py`, Llama family only (the Gemma2
-and MoE batched forms are ROADMAP queue A, item 11). B request slots decode in
-one forward, each with its own committed length and KV window.
+and MoE batched forms are in ROADMAP queue A, "Gemma2 and MoE"). B request
+slots decode in one forward, each with its own committed length and KV window.
 
 KV layout [n_layers, B, kv_heads, L, head_dim] (int8 values with fp32 scales
 [n_layers, B, kv_heads, L] when quantized), as in the JAX package. The JAX

@@ -11,6 +11,11 @@ slot), `[num_layers, kv_heads, max_length]` with no trailing 1; each written row
 is quantized on its own, so a row's bytes do not depend on what else was
 written with it.
 
+Offsets are host ints or 0-d device tensors (the device-resident decode
+loop's): every write and gather goes through `index_copy_` / `index_select`
+over the clamped window's positions (`ops.masks.window_index`), so neither
+form reads anything back to the host.
+
 A staged (pipeline-parallel) model keeps one KVCache per stage, over that
 stage's layers and on its device (`StagedKVCache`); the stage's layers call
 `update_layer` on their own cache with their local layer index, and
@@ -23,6 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..config import ModelConfig
+from ..ops.masks import window_index
 
 
 class KVCache(NamedTuple):
@@ -71,52 +77,48 @@ def _quantize_block(x: torch.Tensor):
     return q, scale[..., 0]
 
 
-def _window_start(offset: int, width: int, length: int) -> int:
-    return min(max(int(offset), 0), length - width)
-
-
 def update_layer(kv: KVCache, layer_idx: int, k_new: torch.Tensor, v_new: torch.Tensor,
-                 offset: int) -> KVCache:
+                 offset) -> KVCache:
     """Write k/v [S, kv_heads, head_dim] at slots [offset, offset + S) of one layer
-    (quantized with their scales in int8 mode)."""
-    S = k_new.shape[0]
-    start = _window_start(offset, S, kv.k.shape[2])
-    win = slice(start, start + S)
+    (quantized with their scales in int8 mode); `offset` is a host int or a
+    0-d device tensor."""
+    idx = window_index(offset, k_new.shape[0], kv.k.shape[2], kv.k.device)
     if kv.quantized:
         for buf, sbuf, new in ((kv.k, kv.k_scale, k_new), (kv.v, kv.v_scale, v_new)):
             q, s = _quantize_block(new)
-            buf[layer_idx, :, win] = q.transpose(0, 1)
-            sbuf[layer_idx, :, win] = s.transpose(0, 1)
+            buf[layer_idx].index_copy_(1, idx, q.transpose(0, 1))
+            sbuf[layer_idx].index_copy_(1, idx, s.transpose(0, 1))
         return kv
-    kv.k[layer_idx, :, win] = k_new.transpose(0, 1).to(kv.k.dtype)
-    kv.v[layer_idx, :, win] = v_new.transpose(0, 1).to(kv.v.dtype)
+    kv.k[layer_idx].index_copy_(1, idx, k_new.transpose(0, 1).to(kv.k.dtype))
+    kv.v[layer_idx].index_copy_(1, idx, v_new.transpose(0, 1).to(kv.v.dtype))
     return kv
 
 
-def gather_compact(kv, local_indices: torch.Tensor, offset: int, accept_len):
+def gather_compact(kv, local_indices: torch.Tensor, offset, accept_len):
     """Copy accepted tree slots down to the linear prefix; zero the rest of the window.
 
     `local_indices` [tree_size] are tree-local slot ids; entries at or past
     `accept_len` (an int or a 0-d tensor) are ignored and their destination
-    slots are zeroed, as in the JAX package. int8 scales move with their rows.
-    A StagedKVCache is compacted stage by stage, the indices and accept length
-    copied to each stage's device (no host read)."""
+    slots are zeroed, as in the JAX package. `offset` is a host int or a 0-d
+    device tensor. int8 scales move with their rows. A StagedKVCache is
+    compacted stage by stage, the indices, offset and accept length copied to
+    each stage's device (no host read)."""
     if isinstance(kv, StagedKVCache):
+        def on(x, dev):
+            return x.to(dev, non_blocking=True) if isinstance(x, torch.Tensor) else x
+
         for stage in kv.stages:
             dev = stage.k.device
-            alen = accept_len.to(dev, non_blocking=True) \
-                if isinstance(accept_len, torch.Tensor) else accept_len
-            gather_compact(stage, local_indices.to(dev, non_blocking=True), offset, alen)
+            gather_compact(stage, on(local_indices, dev), on(offset, dev), on(accept_len, dev))
         return kv
     T = local_indices.shape[0]
-    pos = torch.arange(T, device=local_indices.device)
-    idx = local_indices.long()
+    dst = window_index(offset, T, kv.k.shape[2], local_indices.device)
+    src = dst[0] + local_indices.long()
+    valid = torch.arange(T, device=local_indices.device) < accept_len
     for buf in kv:
         if buf is None:
             continue
-        valid = (pos < accept_len).reshape(T, *[1] * (buf.dim() - 3))
-        start = _window_start(offset, T, buf.shape[2])
-        window = buf[:, :, start:start + T]
-        picked = window.index_select(2, idx)
-        buf[:, :, start:start + T] = torch.where(valid, picked, torch.zeros_like(picked))
+        picked = buf.index_select(2, src)
+        keep = valid.reshape(T, *[1] * (buf.dim() - 3))
+        buf.index_copy_(2, dst, torch.where(keep, picked, torch.zeros_like(picked)))
     return kv

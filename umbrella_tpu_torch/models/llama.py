@@ -25,6 +25,8 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..ops.attention import attend
+from ..ops.kernels.tree_attention import limit_tensor
+from ..ops.masks import window_start
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_params
 from ..ops.select import embed_lookup
@@ -119,10 +121,23 @@ def _mlp_act(lw: dict, hidden, act_int8: bool = False):
     return F.silu(gate) * up
 
 
+def kv_limit_of(write_offset, S: int, kv: KVCache) -> torch.Tensor:
+    """int32 [1] on the cache's device: the slots a forward of S rows written
+    at `write_offset` (a host int or a 0-d device tensor) may read, the
+    clamped window's end. A device offset stays on the device."""
+    start = window_start(write_offset, S, kv.k.shape[2])
+    if isinstance(start, torch.Tensor):
+        return (start + S).to(torch.int32).reshape(1)
+    return limit_tensor(start + S, kv.k.device)
+
+
 def llama_attention(args: StaticModelArgs, lw: dict, hidden: torch.Tensor, kv: KVCache,
                     layer_idx: int, position_ids: torch.Tensor, attn_mask: torch.Tensor,
-                    write_offset: int, inv_freq: torch.Tensor,
-                    rope_scale) -> Tuple[torch.Tensor, KVCache]:
+                    write_offset, inv_freq: torch.Tensor, rope_scale,
+                    kv_limit: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, KVCache]:
+    """`write_offset` is a host int or a 0-d device tensor; `kv_limit`
+    (kv_limit_of, computed here unless the forward passes its own) bounds the
+    slots the flash kernel reads."""
     S = hidden.shape[0]
     D = args.head_dim
     q, k, v = _attn_projections(args, lw, hidden)
@@ -131,18 +146,21 @@ def llama_attention(args: StaticModelArgs, lw: dict, hidden: torch.Tensor, kv: K
     v = v.reshape(S, args.num_kv_heads, D)
     q, k = apply_rope(q, k, inv_freq, rope_scale, position_ids)
     kv = update_layer(kv, layer_idx, k, v, write_offset)
-    out = attend(q.contiguous(), kv.k, kv.v, attn_mask, kv_limit=write_offset + S,
+    if kv_limit is None:
+        kv_limit = kv_limit_of(write_offset, S, kv)
+    out = attend(q.contiguous(), kv.k, kv.v, attn_mask, kv_limit=kv_limit,
                  layer_idx=layer_idx, k_scale=kv.k_scale, v_scale=kv.v_scale)
     return _linear(out.reshape(S, args.num_heads * D), lw["wo"], act_int8=args.awq_act_int8), kv
 
 
 def llama_layer(args: StaticModelArgs, lw: dict, hidden: torch.Tensor, kv: KVCache,
                 layer_idx: int, position_ids, attn_mask, write_offset, inv_freq,
-                rope_scale) -> Tuple[torch.Tensor, KVCache]:
+                rope_scale, kv_limit: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, KVCache]:
     residual = hidden
     hidden = rms_norm(hidden, lw["input_norm"], args.rms_eps)
     attn_out, kv = llama_attention(args, lw, hidden, kv, layer_idx, position_ids, attn_mask,
-                                   write_offset, inv_freq, rope_scale)
+                                   write_offset, inv_freq, rope_scale, kv_limit)
     hidden = residual + attn_out
     residual = hidden
     hidden = rms_norm(hidden, lw["post_norm"], args.rms_eps)
@@ -155,15 +173,17 @@ def llama_forward(params: dict, args: StaticModelArgs, kv: KVCache,
                   input_ids: torch.Tensor,  # [S]
                   position_ids: torch.Tensor,  # [S]
                   attn_mask: torch.Tensor,  # [S, L] bool
-                  write_offset: int) -> Tuple[torch.Tensor, KVCache]:
-    """Full forward; returns (fp32 logits [S, V], kv updated in place)."""
+                  write_offset) -> Tuple[torch.Tensor, KVCache]:
+    """Full forward; returns (fp32 logits [S, V], kv updated in place).
+    `write_offset` is a host int or a 0-d device tensor (no host read)."""
     layers = params["layers"]
     inv_freq, rope_scale = params["rope_inv_freq"], params["rope_scale"]
+    kv_limit = kv_limit_of(write_offset, input_ids.shape[0], kv)
     hidden = embed_lookup(params["embed"], input_ids, params["final_norm"].dtype)
     for i in range(args.n_layers):
         lw = {k: v[i] for k, v in layers.items()}
         hidden, kv = llama_layer(args, lw, hidden, kv, i, position_ids, attn_mask,
-                                 write_offset, inv_freq, rope_scale)
+                                 write_offset, inv_freq, rope_scale, kv_limit)
     hidden = rms_norm(hidden, params["final_norm"], args.rms_eps)
     return lm_head_logits(params, hidden), kv
 

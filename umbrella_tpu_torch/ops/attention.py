@@ -30,10 +30,13 @@ def _dequantize(cache: torch.Tensor, cache_scale: torch.Tensor, dtype) -> torch.
 
 
 def attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-           mask: torch.Tensor, kv_limit: Optional[int] = None,
+           mask: torch.Tensor, kv_limit=None,
            scale: Optional[float] = None, logits_soft_cap: float = 0.0,
            layer_idx: Optional[int] = None, k_scale: Optional[torch.Tensor] = None,
            v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Single-slot attention; `kv_limit` (an int32 [1] device tensor or a host
+    int) bounds the slots the flash kernel reads, and the mask alone bounds
+    the dense path."""
     layered = k_cache.dim() == 4
     if q.is_cuda and kv_limit is not None:
         if not layered:

@@ -7,6 +7,11 @@ wrappers count their scalar kernel's launches (fp32 q, head dim 32) apart too
 (`scalar_launches`, summed as "attend_flash_scalar"); the int8 W4 kernels'
 fused quantizer (`w4a8.quantize_rows`) counts as "w4a8_quantize", one launch
 beside each `w4a8f_matmul` and `w4a8_matmul` on the card.
+
+A CUDA graph replays its kernels without running the wrappers, so a captured
+step's launches are moved off the counters when it is captured (a capture
+runs nothing) and added back once for every replay (`counter_values`,
+`add_launches`; `cuda_graphs.StepGraph`).
 """
 from .embed_gather import embed_gather
 from .tree_attention import (attend_flash, attend_flash_batched, attend_flash_batched_int8,
@@ -46,3 +51,23 @@ def reset_launch_counts() -> None:
     w4a16_matmul.layered_launches = 0
     for n in ATTENTION:
         KERNELS[n].scalar_launches = 0
+
+
+# every counter a launch may add to: each wrapper's own, the layered mode's
+# and the attention wrappers' scalar kernel's
+_COUNTERS = ([(fn, "launches") for fn in KERNELS.values()]
+             + [(w4a16_matmul, "layered_launches")]
+             + [(KERNELS[n], "scalar_launches") for n in ATTENTION])
+
+
+def counter_values() -> list:
+    """The current value of every launch counter (for `add_launches`)."""
+    return [getattr(fn, attr) for fn, attr in _COUNTERS]
+
+
+def add_launches(deltas: list, times: int = 1) -> None:
+    """Add `times` x deltas (a difference of two `counter_values()`: the
+    launches one captured step makes) to the counters; a negative `times`
+    takes them off."""
+    for (fn, attr), d in zip(_COUNTERS, deltas):
+        setattr(fn, attr, getattr(fn, attr) + times * d)

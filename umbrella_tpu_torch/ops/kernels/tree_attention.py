@@ -85,10 +85,11 @@ def attend_flash_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
                      soft_cap: float = 0.0, k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of the single-slot kernels: q [S, H, D] against one layer's
-    [KVH, L, D] cache (int8 with [KVH, L] scales, or q's dtype) under [S, L]."""
+    [KVH, L, D] cache (int8 with [KVH, L] scales, or q's dtype) under [S, L];
+    kv_limit is an int32 [1] tensor (or a host int)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    live = _live(mask, torch.as_tensor(kv_limit))
+    live = _live(mask, torch.as_tensor(kv_limit).reshape(()))
     if k_scale is None:
         out = attend_dense(q, k_cache, v_cache, live, scale=scale, logits_soft_cap=soft_cap)
         return torch.where(live.any(-1)[:, None, None], out, torch.zeros_like(out))
@@ -231,11 +232,21 @@ def _fn(name: str):
     return fn
 
 
+def limit_tensor(kv_limit, device) -> torch.Tensor:
+    """A single-slot kv_limit as the int32 [1] tensor the kernels read: a
+    tensor is taken as it is, a host int is filled in on the device (a fill
+    kernel, no host-to-device copy)."""
+    if isinstance(kv_limit, torch.Tensor):
+        return kv_limit
+    return torch.full((1,), int(kv_limit), dtype=torch.int32, device=device)
+
+
 def _launch(wrapper, q, k_cache, v_cache, mask, k_scale, v_scale, kv_limits, slots,
-            kv_limit: int, layer_idx: int, scale, soft_cap: float) -> torch.Tensor:
-    """Check the inputs and launch the plan's kernel; count the launch on
-    `wrapper` (and on its `scalar_launches` for the scalar kernel). Returns
-    out shaped like q."""
+            layer_idx: int, scale, soft_cap: float) -> torch.Tensor:
+    """Check the inputs and launch the plan's kernel, which reads each grid
+    row's limit from `kv_limits` (int32 [B] on the device; [1] for the
+    single-slot wrappers); count the launch on `wrapper` (and on its
+    `scalar_launches` for the scalar kernel). Returns out shaped like q."""
     what = wrapper.__name__
     pl = _check(what, q, k_cache, v_cache, mask, k_scale, v_scale, kv_limits, slots,
                 layer_idx)
@@ -246,12 +257,12 @@ def _launch(wrapper, q, k_cache, v_cache, mask, k_scale, v_scale, kv_limits, slo
     dims = [pl["B"], pl["S"], pl["H"], pl["KVH"], pl["L"], pl["D"], pl["Bc"]]
     with build.on_device(q) as st:
         if pl["kernel"] == "tc":
-            code = _fn("attend_flash_tc")(*ptrs, *dims, pl["n_layers"], int(layer_idx),
-                                          int(kv_limit), float(scale), float(soft_cap), quant,
+            code = _fn("attend_flash_tc")(*ptrs, *dims, pl["n_layers"], int(layer_idx), 0,
+                                          float(scale), float(soft_cap), quant,
                                           pl["stages"], pl["grid"][1], pl["warpgroups"],
                                           pl["smem"], st)
         else:
-            code = _fn("attend_flash")(*ptrs, *dims, int(layer_idx), int(kv_limit),
+            code = _fn("attend_flash")(*ptrs, *dims, int(layer_idx), 0,
                                        float(scale), float(soft_cap),
                                        int(q.dtype == torch.bfloat16), quant, st)
         build.check(code, what)
@@ -266,14 +277,17 @@ def _scale(q, scale):
 
 
 def attend_flash(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 mask: torch.Tensor, kv_limit: int, layer_idx: int,
+                 mask: torch.Tensor, kv_limit, layer_idx: int,
                  scale: Optional[float] = None, soft_cap: float = 0.0,
                  k_scale: Optional[torch.Tensor] = None,
                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q [S, H, D] against layer `layer_idx` of [n_layers, KVH, L, D] caches under a
-    bool [S, L] mask, reading only slots below the host int `kv_limit` ->
-    [S, H, D] in q.dtype. With `k_scale`/`v_scale` ([n_layers, KVH, L] fp32) the
-    caches are int8 and `attend_flash_int8` runs."""
+    bool [S, L] mask, reading only slots below `kv_limit` -> [S, H, D] in
+    q.dtype. kv_limit is an int32 [1] tensor on q's device, which the kernel
+    reads itself (no host read, so a CUDA graph can replay the launch with a
+    new limit), or a host int (`limit_tensor`). With `k_scale`/`v_scale`
+    ([n_layers, KVH, L] fp32) the caches are int8 and `attend_flash_int8`
+    runs."""
     if k_scale is not None:
         return attend_flash_int8(q, k_cache, v_cache, k_scale, v_scale, mask, kv_limit,
                                  layer_idx, scale=scale, soft_cap=soft_cap)
@@ -281,13 +295,13 @@ def attend_flash(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     if not q.is_cuda:
         return attend_flash_ref(q, k_cache[layer_idx], v_cache[layer_idx], mask, kv_limit,
                                 scale=scale, soft_cap=soft_cap)
-    return _launch(attend_flash, q, k_cache, v_cache, mask, None, None, None, None,
-                   int(kv_limit), layer_idx, scale, soft_cap)
+    return _launch(attend_flash, q, k_cache, v_cache, mask, None, None,
+                   limit_tensor(kv_limit, q.device), None, layer_idx, scale, soft_cap)
 
 
 def attend_flash_int8(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                       k_scale: torch.Tensor, v_scale: torch.Tensor, mask: torch.Tensor,
-                      kv_limit: int, layer_idx: int, scale: Optional[float] = None,
+                      kv_limit, layer_idx: int, scale: Optional[float] = None,
                       soft_cap: float = 0.0) -> torch.Tensor:
     """attend_flash over int8 [n_layers, KVH, L, D] caches with fp32 per-slot
     scales [n_layers, KVH, L], applied in score space."""
@@ -296,8 +310,8 @@ def attend_flash_int8(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
         return attend_flash_ref(q, k_cache[layer_idx], v_cache[layer_idx], mask, kv_limit,
                                 scale=scale, soft_cap=soft_cap, k_scale=k_scale[layer_idx],
                                 v_scale=v_scale[layer_idx])
-    return _launch(attend_flash_int8, q, k_cache, v_cache, mask, k_scale, v_scale, None, None,
-                   int(kv_limit), layer_idx, scale, soft_cap)
+    return _launch(attend_flash_int8, q, k_cache, v_cache, mask, k_scale, v_scale,
+                   limit_tensor(kv_limit, q.device), None, layer_idx, scale, soft_cap)
 
 
 def attend_flash_batched(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -319,7 +333,7 @@ def attend_flash_batched(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.
         return attend_flash_batched_ref(q, k_cache, v_cache, mask, kv_limits, layer_idx,
                                         slots=slots, scale=scale, soft_cap=soft_cap)
     return _launch(attend_flash_batched, q, k_cache, v_cache, mask, None, None, kv_limits,
-                   slots, 0, layer_idx, scale, soft_cap)
+                   slots, layer_idx, scale, soft_cap)
 
 
 def attend_flash_batched_int8(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -335,7 +349,7 @@ def attend_flash_batched_int8(q: torch.Tensor, k_cache: torch.Tensor, v_cache: t
                                         slots=slots, scale=scale, soft_cap=soft_cap,
                                         k_scale=k_scale, v_scale=v_scale)
     return _launch(attend_flash_batched_int8, q, k_cache, v_cache, mask, k_scale, v_scale,
-                   kv_limits, slots, 0, layer_idx, scale, soft_cap)
+                   kv_limits, slots, layer_idx, scale, soft_cap)
 
 
 for _w in (attend_flash, attend_flash_int8, attend_flash_batched, attend_flash_batched_int8):

@@ -1,38 +1,73 @@
-"""Attention mask rows, built per call from scalars and the tree bitmap.
+"""Attention mask rows, built per call from scalars and the tree bitmap, and
+the windows of a linear token row or KV cache that a step reads and writes.
 
 KV slot layout (one linear cache per model):
   slots [0, num_nodes)                    committed prefix (always visible)
   slots [num_nodes, num_nodes+tree_size)  current speculation tree (ancestor-visible)
 
-The tree window is placed at column `num_nodes` with the start clamped so the
-window fits the row, as `lax.dynamic_update_slice` does in the JAX package.
+`num_nodes` and every window offset is a host int or a 0-d device tensor (the
+device-resident decode loop's; nothing here reads it back to the host). A
+window's start is clamped so the window fits its row, as
+`lax.dynamic_slice` / `lax.dynamic_update_slice` clamp in the JAX package.
 """
 import torch
 
 
-def causal_mask_rows(q_start: int, q_len: int, kv_len: int, device="cpu") -> torch.Tensor:
+def window_start(offset, width: int, length: int):
+    """Start of a `width`-wide window at `offset` in a row of `length`, clamped
+    into [0, length - width]: a host int for a host int, a device tensor for a
+    device tensor."""
+    if isinstance(offset, torch.Tensor):
+        return offset.clamp(0, length - width)
+    return min(max(int(offset), 0), length - width)
+
+
+def window_index(offset, width: int, length: int, device) -> torch.Tensor:
+    """int64 [width]: the positions of the clamped window at `offset`."""
+    return window_start(offset, width, length) + torch.arange(width, device=device)
+
+
+def read_window(row: torch.Tensor, offset, width: int) -> torch.Tensor:
+    """row[start : start + width] of a 1-D row, the start clamped."""
+    return row.index_select(0, window_index(offset, width, row.shape[0], row.device))
+
+
+def write_window(row: torch.Tensor, offset, values: torch.Tensor, gate=None) -> None:
+    """row[start : start + len(values)] = values in place, the start clamped;
+    with a bool `gate` (0-d device tensor) the window keeps its values where
+    the gate is false."""
+    idx = window_index(offset, values.shape[0], row.shape[0], row.device)
+    values = values.to(row.dtype)
+    if gate is not None:
+        values = torch.where(gate, values, row.index_select(0, idx))
+    row.index_copy_(0, idx, values)
+
+
+def causal_mask_rows(q_start, q_len: int, kv_len: int, device="cpu") -> torch.Tensor:
     """Bool [q_len, kv_len]: row i may attend slot j iff j <= q_start + i."""
     rows = torch.arange(q_len, device=device)[:, None]
     cols = torch.arange(kv_len, device=device)[None, :]
     return cols <= (rows + q_start)
 
 
-def _place_tree_rows(num_nodes: int, rows: torch.Tensor, kv_len: int) -> torch.Tensor:
-    n_rows, width = rows.shape
-    out = torch.arange(kv_len, device=rows.device)[None, :].expand(n_rows, kv_len) < num_nodes
-    out = out.clone()
-    start = min(max(int(num_nodes), 0), kv_len - width)
-    out[:, start:start + width] |= rows
-    return out
+def _place_tree_rows(num_nodes, rows: torch.Tensor, kv_len: int) -> torch.Tensor:
+    """[n_rows, kv_len]: the committed slots (< num_nodes), or'd with `rows`
+    placed at the clamped window start."""
+    width = rows.shape[1]
+    cols = torch.arange(kv_len, device=rows.device)
+    rel = cols - window_start(num_nodes, width, kv_len)
+    in_window = (rel >= 0) & (rel < width)
+    placed = rows[:, rel.clamp(0, width - 1)] & in_window[None, :]
+    return (cols < num_nodes)[None, :] | placed
 
 
-def tree_mask_rows(num_nodes: int, tree_bitmap: torch.Tensor, kv_len: int) -> torch.Tensor:
+def tree_mask_rows(num_nodes, tree_bitmap: torch.Tensor, kv_len: int) -> torch.Tensor:
     """Bool [tree_size, kv_len] for a full-tree (verify) pass: node i sees every
     committed slot (< num_nodes) and the tree slots of its ancestors and itself."""
     return _place_tree_rows(num_nodes, tree_bitmap, kv_len)
 
 
-def tree_level_mask_rows(num_nodes: int, tree_bitmap: torch.Tensor, row_start: int,
+def tree_level_mask_rows(num_nodes, tree_bitmap: torch.Tensor, row_start: int,
                          n_rows: int, kv_len: int) -> torch.Tensor:
     """Bool [n_rows, kv_len] for one draft tree level (nodes row_start..row_start+n)."""
     return _place_tree_rows(num_nodes, tree_bitmap[row_start:row_start + n_rows], kv_len)

@@ -35,7 +35,8 @@ from typing import List, NamedTuple, Sequence, Tuple
 import torch
 
 from ..models.kv_cache import StagedKVCache, init_kv_cache
-from ..models.llama import llama_layer, lm_head_logits, split_scan_layers, view_scan_layer
+from ..models.llama import (kv_limit_of, llama_layer, lm_head_logits, split_scan_layers,
+                            view_scan_layer)
 from ..ops.norms import rms_norm
 from ..ops.select import embed_lookup
 from ..quantization.awq import AwqTensor
@@ -156,11 +157,13 @@ def pp_forward(runtime):
             mask = attn_mask.to(dev, non_blocking=True)
             awq, dense = split_scan_layers(stage.layers)
             with _current_device(dev):
+                kv_limit = kv_limit_of(write_offset, input_ids.shape[0], stage_kv)
                 for i in range(stage.layer_ids.shape[0]):
                     lw = view_scan_layer(awq, {k: v[i] for k, v in dense.items()},
                                          stage.layer_ids[i])
                     hidden, stage_kv = llama_layer(args, lw, hidden, stage_kv, i, pos, mask,
-                                                   write_offset, stage.inv_freq, rope_scale)
+                                                   write_offset, stage.inv_freq, rope_scale,
+                                                   kv_limit)
         hidden = hidden.to(params["embed"].device, non_blocking=True)
         hidden = rms_norm(hidden, params["final_norm"], args.rms_eps)
         return lm_head_logits(params, hidden), kv

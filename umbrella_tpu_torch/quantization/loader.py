@@ -85,7 +85,7 @@ def load_awq_runtime(path: str, cfg: ModelConfig, max_length: int, dtype=torch.b
     from ..utils import resolve_device
 
     if offload:
-        raise NotImplementedError("offload is not ported yet (ROADMAP queue A, item 12)")
+        raise NotImplementedError("offload is not ported yet (ROADMAP queue A, the offload tier)")
     device = resolve_device(device)
     sd = _load_state_dict(path)
     try:

@@ -11,22 +11,28 @@ Slot lifecycle: admit (chunked prefill into a free slot) -> batched decode steps
 its writes land at or past its num_nodes) -> finish (EOS, budget or context
 cap) -> slot released, the next queued request admitted.
 
-PyTorch runs eagerly, so where the JAX package jits a `lax.while_loop` segment,
-`step_many_async` is a Python loop over `n_steps` whose body reads nothing back
-to the host: per-slot stopping (EOS, budget, context cap) stays on the device,
-and CUDA launches are asynchronous, so a dispatched segment runs while the host
-goes on. Host-to-device inputs go through pinned memory with non-blocking
-copies, and each segment's results are copied back the same way behind a CUDA
-event; `sync_segment` waits on that event only, so it does not wait for a
-segment dispatched after it. The JAX loop also exits early once every slot is
-done; that needs a host read per step, so it is dropped here: a segment always
-runs its n_steps, and steps after every slot is done change no committed token
-or KV row. The serial `step_many` clips n_steps to the largest remaining token
-budget of its active slots, which bounds those idle steps.
+Where the JAX package jits a `lax.while_loop` segment, `step_many_async`
+replays one captured step n_steps times: `_segment_step` (`_step_body` plus
+the active/steps update) is captured as a CUDA graph per (use_pen,
+all_greedy) on the card, and runs eagerly on the CPU (the plain version,
+`_segment_eager`, which the card's checks also compare against). The step
+reads nothing back to the host: per-slot stopping (EOS, budget, context cap)
+stays on the device, in persistent buffers (nn, active, stop_at, the step
+counts and the per-slot temperature / top-p / penalty vectors) that every
+segment refills in place through pinned memory and non-blocking copies, so a
+dispatched segment runs while the host goes on. Each segment's results are
+copied back the same way behind a CUDA event; `sync_segment` waits on that
+event only, so it does not wait for a segment dispatched after it. The JAX
+loop also exits early once every slot is done; that needs a host read per
+step, so it is dropped here: a segment always runs its n_steps, and steps
+after every slot is done change no committed token or KV row. The serial
+`step_many` clips n_steps to the largest remaining token budget of its
+active slots, which bounds those idle steps. `step()` reads back every step
+by contract and stays eager.
 
 Tensor and expert parallelism and the Gemma2/MoE batched forwards are not
-ported (ROADMAP queue A, items 13 and 11); nor is the request scheduler
-(item 9).
+ported (ROADMAP queue A, "tensor and expert parallelism" and "Gemma2 and
+MoE"); nor is the request scheduler (ROADMAP queue A, "API, scheduler").
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
+from ..cuda_graphs import StepGraph
 from ..models.auto_model import ModelRuntime
 from ..models.batched import (batched_llama_forward, gather_compact_batched, init_batched_kv,
                               slot_llama_forward)
@@ -57,9 +64,9 @@ logger = setup_logger()
 PREFILL_BUCKETS = (32, 64, 128, 256, 512)
 
 _NOT_PORTED = {
-    "tensor_parallel": "ROADMAP queue A, item 13",
-    "expert_parallel": "ROADMAP queue A, item 13",
-    "num_cache_layers": "ROADMAP queue A, item 12",
+    "tensor_parallel": "ROADMAP queue A, tensor and expert parallelism",
+    "expert_parallel": "ROADMAP queue A, tensor and expert parallelism",
+    "num_cache_layers": "ROADMAP queue A, the offload tier",
 }
 
 
@@ -71,6 +78,16 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type != "cuda":
         return t.clone()
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def _fill(buf: torch.Tensor, a: np.ndarray) -> None:
+    """Copy numpy `a` into the device buffer `buf` in place (through pinned
+    memory, not blocking, on CUDA; see _to_device)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if buf.device.type == "cuda":
+        buf.copy_(t.pin_memory(), non_blocking=True)
+    else:
+        buf.copy_(t)
 
 
 def _to_host_async(t: torch.Tensor) -> torch.Tensor:
@@ -192,9 +209,20 @@ class BatchedStaticEngine:
         self._parents = torch.as_tensor(gm.parents, device=dev).long()
         self._node_in_path = torch.as_tensor(gm.node_in_path, device=dev).long()
         self._eos = torch.as_tensor(np.asarray(self.eos_token_ids, np.int32), device=dev)
-        self._dev_nn = None  # device-carried decode state (async segments)
+        # the segment's persistent inputs and state (a captured graph holds
+        # their addresses): refilled in place before each segment
+        self._seg = dict(nn=torch.zeros(B, dtype=torch.int32, device=dev),
+                         active=torch.zeros(B, dtype=torch.bool, device=dev),
+                         stop=torch.zeros(B, dtype=torch.int32, device=dev),
+                         steps=torch.zeros(B, dtype=torch.int32, device=dev),
+                         **{k: torch.zeros(B, dtype=torch.float32, device=dev)
+                            for k in ("tv", "pv", "rv")})
+        self._dev_nn = None  # the device-carried nn/active (async segments), when valid
         self._dev_active = None
         self.steps_dispatched = 0  # decode steps queued so far (all slots at once)
+        self._graph_pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+        self._segment_graphs = {}  # (use_pen, all_greedy) -> StepGraph
+        self._run_segment = self._segment_graphed if dev.type == "cuda" else self._segment_eager
 
     # ------------------------------------------------------------------ token rows
 
@@ -267,8 +295,8 @@ class BatchedStaticEngine:
             # one [B*T, V] top-k, then a k-wide softmax / nucleus / Gumbel draw
             stoch = S.sample_top_k_top_p_rows(
                 self._gen, logits.reshape(B * T, -1),
-                torch.repeat_interleave(tv.clamp(min=1e-3), T), self.topk,
-                torch.repeat_interleave(pv, T)).reshape(B, T)
+                tv.clamp(min=1e-3)[:, None].expand(B, T).reshape(-1), self.topk,
+                pv[:, None].expand(B, T).reshape(-1)).reshape(B, T)
             sampled = torch.where((tv < 0.05)[:, None], sampled, stoch)
         old_block = self._slice_rows(nn, T + 1)
         block, path, alen, eos = accept_and_commit(ids, sampled, old_block, self._bitmap,
@@ -282,6 +310,7 @@ class BatchedStaticEngine:
         return nn + alen, alen, block, eos
 
     def _sampling_inputs(self, temperature, topp, penalty):
+        """Per-slot (tv, pv, rv) float32 [B] vectors on the host, use_pen, all_greedy."""
         B = self.batch_size
         tv = _vec(temperature, self.temperature, B)
         pv = _vec(topp, self.topp, B)
@@ -289,9 +318,46 @@ class BatchedStaticEngine:
         # |p - 1|: penalties below 1 (encourage repetition) are valid too
         use_pen = bool(np.any(np.abs(rv - 1.0) > 0.01))
         all_greedy = bool(np.all(tv < 0.05))
-        dev = self.device
-        return (_to_device(tv, dev), _to_device(pv, dev), _to_device(rv, dev), use_pen,
-                all_greedy)
+        return tv, pv, rv, use_pen, all_greedy
+
+    def _segment_step(self, use_pen: bool, all_greedy: bool) -> None:
+        """One step of a segment on the persistent buffers, updated in place:
+        _step_body, then the step counts and the active flags (a slot stops
+        on EOS, at its stop_at, and within one tree of the context cap: past
+        it the step gates the accept length to 0 and the slot would idle
+        forever). No host read."""
+        sg, T = self._seg, self.tree_size
+        cap = self.max_length - self.safe_buffer
+        nn, active = sg["nn"], sg["active"]
+        nn_new, _, _, eos = self._step_body(nn, active, sg["tv"], sg["pv"], sg["rv"], use_pen,
+                                            all_greedy)
+        sg["steps"].add_(active.to(torch.int32))
+        active.copy_(active & ~eos & (nn_new < sg["stop"]) & (nn_new + T + 1 <= cap))
+        nn.copy_(nn_new)
+
+    def _segment_eager(self, n_steps: int, use_pen: bool, all_greedy: bool) -> None:
+        for _ in range(n_steps):
+            self._segment_step(use_pen, all_greedy)
+
+    def _segment_graphed(self, n_steps: int, use_pen: bool, all_greedy: bool) -> None:
+        """n_steps replays of the captured segment step (captured at its
+        mode's first use, warmed up with every slot inactive, which writes
+        only scratch rows, and the generator's state restored)."""
+        key = (use_pen, all_greedy)
+        if key not in self._segment_graphs:
+            sg = self._seg
+
+            def warm():
+                active, gen_state = sg["active"].clone(), self._gen.get_state()
+                sg["active"].zero_()
+                self._segment_step(use_pen, all_greedy)
+                sg["active"].copy_(active)
+                self._gen.set_state(gen_state)
+
+            self._segment_graphs[key] = StepGraph.capture(
+                lambda: self._segment_step(use_pen, all_greedy), self.device, self._graph_pool,
+                generators=(self._gen,), warm=warm)
+        self._segment_graphs[key].replay(n_steps)
 
     # ------------------------------------------------------------------ slots
 
@@ -385,11 +451,12 @@ class BatchedStaticEngine:
     def step(self, temperature=None, topp=None, penalty=None) -> dict:
         """One batched build + verify step over all slots, synced. Returns
         {slot: (accept_len, eos_found)} for the active slots."""
-        B, T = self.batch_size, self.tree_size
+        B, T, dev = self.batch_size, self.tree_size, self.device
         tv, pv, rv, use_pen, all_greedy = self._sampling_inputs(temperature, topp, penalty)
-        nn = _to_device(self.num_nodes.astype(np.int32), self.device)
-        active = _to_device(self.active, self.device)
-        _, alen, block, eos = self._step_body(nn, active, tv, pv, rv, use_pen, all_greedy)
+        nn = _to_device(self.num_nodes.astype(np.int32), dev)
+        active = _to_device(self.active, dev)
+        _, alen, block, eos = self._step_body(nn, active, _to_device(tv, dev), _to_device(pv, dev),
+                                              _to_device(rv, dev), use_pen, all_greedy)
         out = torch.cat([alen[:, None], eos[:, None].to(torch.int32), block], dim=1).cpu().numpy()
         results = {}
         for b in range(B):
@@ -414,34 +481,28 @@ class BatchedStaticEngine:
         staged admission's prompt length; activate: slots whose chunked prefill
         completed, which join decoding in this segment. Returns a handle for
         `sync_segment`."""
-        B, T = self.batch_size, self.tree_size
-        cap = self.max_length - self.safe_buffer
-        dev = self.device
+        B, dev, sg = self.batch_size, self.device, self._seg
         tv, pv, rv, use_pen, all_greedy = self._sampling_inputs(temperature, topp, penalty)
-        mask = np.zeros(B, bool)
-        val = np.zeros(B, np.int32)
-        act = np.zeros(B, bool)
-        for s, n in (set_nn or {}).items():
-            mask[s], val[s] = True, n
-        for s in (activate or ()):
-            act[s] = True
         if self._dev_nn is None:
-            self._dev_nn = _to_device(self.num_nodes.astype(np.int32), dev)
-            self._dev_active = _to_device(self.active, dev)
-        nn = torch.where(_to_device(mask, dev), _to_device(val, dev), self._dev_nn)
-        active = self._dev_active | _to_device(act, dev)
-        stop = _to_device(np.asarray(stop_at, np.int32), dev)
-        steps = torch.zeros(B, dtype=torch.int32, device=dev)
+            _fill(sg["nn"], self.num_nodes.astype(np.int32))
+            _fill(sg["active"], self.active)
+            self._dev_nn, self._dev_active = sg["nn"], sg["active"]
+        if set_nn or activate:
+            mask = np.zeros(B, bool)
+            val = np.zeros(B, np.int32)
+            act = np.zeros(B, bool)
+            for s, n in (set_nn or {}).items():
+                mask[s], val[s] = True, n
+            for s in (activate or ()):
+                act[s] = True
+            sg["nn"].copy_(torch.where(_to_device(mask, dev), _to_device(val, dev), sg["nn"]))
+            sg["active"].logical_or_(_to_device(act, dev))
+        for k, v in (("stop", np.asarray(stop_at, np.int32)), ("tv", tv), ("pv", pv), ("rv", rv)):
+            _fill(sg[k], v)
+        sg["steps"].zero_()
         self.steps_dispatched += int(n_steps)
-        for _ in range(int(n_steps)):
-            nn_new, _, _, eos = self._step_body(nn, active, tv, pv, rv, use_pen, all_greedy)
-            steps += active.to(torch.int32)
-            # deactivate within one tree of the cap: past it the step gates the
-            # accept length to 0 and the slot would idle forever
-            active = active & ~eos & (nn_new < stop) & (nn_new + T + 1 <= cap)
-            nn = nn_new
-        self._dev_nn, self._dev_active = nn, active
-        meta = _to_host_async(torch.stack([nn, active.to(torch.int32), steps]))
+        self._run_segment(int(n_steps), use_pen, all_greedy)
+        meta = _to_host_async(torch.stack([sg["nn"], sg["active"].to(torch.int32), sg["steps"]]))
         tokens = _to_host_async(self.tokens[:, :self.max_length])
         event = None
         if dev.type == "cuda":

@@ -33,7 +33,7 @@ _ENGINE_CONFIG_KEYS = {
 }
 
 _NOT_PORTED = {
-    "dynamic": "ROADMAP queue A, item 8",
+    "dynamic": "ROADMAP queue A, the dynamic engine",
 }
 
 

@@ -1,10 +1,24 @@
-"""Shared engine machinery: prefill/append chunking, the decode loop, request API.
+"""Shared engine machinery: prefill/append chunking, the decode loops, request API.
 
-Counterpart of `umbrella_tpu/speculation/engine_common.py`. PyTorch runs
-eagerly, so the decode loop is plain Python: `build_tree(); verify()` per step,
-with one device-to-host read per step (accept length, EOS flag and the committed
-block). A CUDA-graph version of the JAX package's one-dispatch decode loop is
-later work (ROADMAP queue A).
+Counterpart of `umbrella_tpu/speculation/engine_common.py`. Two decode loops:
+
+- The device-resident loop (`_decode_fused`; `generate` and, in segments of
+  `stream_segment` tokens, `speculative_decoding`), the counterpart of the
+  JAX package's one-dispatch `decode_loop_fn`. num_nodes, the continue flag,
+  the step count and the stop rule (EOS, token budget, context cap) live on
+  the device; a step is a gated build + verify + commit that is a no-op once
+  the request has stopped. On the card the step is captured once per
+  sampling mode as a CUDA graph and replayed in blocks of
+  ceil(room / max_step_advance) replays, room being what is left of the
+  budget or of the context, so that only EOS can turn a replay into a no-op;
+  the host reads (nn, cont, steps) once a block and the token row once at
+  the end. On the CPU the same step runs eagerly (the plain version).
+- The stepwise loop (`build_tree(); verify()`, one host read a step), which
+  a pipeline-staged target takes (its runtime does not support fused
+  phases) and which the card's checks compare the graphs against.
+
+Buffers the graphs read stay where they are: prefill, append and reset
+write `tokens` and both KV caches in place.
 
 Below temperature 0.05 the verify is greedy; above it, it samples top-k/top-p
 from a torch.Generator seeded with `seed` on the engine's device (the JAX
@@ -38,10 +52,10 @@ PREFILL_BUCKETS = (32, 64, 128, 256, 512)
 PREFILL_CHUNK = 512
 
 _NOT_PORTED = {
-    "offload": "ROADMAP queue A, item 12",
-    "tensor_parallel": "ROADMAP queue A, item 13",
-    "expert_parallel": "ROADMAP queue A, item 13",
-    "num_cache_layers": "ROADMAP queue A, item 12",
+    "offload": "ROADMAP queue A, the offload tier",
+    "tensor_parallel": "ROADMAP queue A, tensor and expert parallelism",
+    "expert_parallel": "ROADMAP queue A, tensor and expert parallelism",
+    "num_cache_layers": "ROADMAP queue A, the offload tier",
 }
 
 
@@ -177,13 +191,29 @@ class SpecEngineBase(BaseEngine):
             self.tokenizer = load_tokenizer(self.target_model_name)
         if self.eos_token_ids is None:
             self.eos_token_ids = self.target_model.eos_ids or [-1]
-        self._eos_arr = torch.tensor(self.eos_token_ids, dtype=torch.int32, device=self.device)
+        dev = self.device
+        self._eos_arr = torch.tensor(self.eos_token_ids, dtype=torch.int32, device=dev)
         self.tokens_host = np.zeros(self.max_length, np.int32)
-        self.tokens = torch.zeros(self.max_length, dtype=torch.int32, device=self.device)
+        # tokens, both caches and the loop state below are allocated once and
+        # written in place from here on: a captured CUDA graph holds their addresses
+        self.tokens = torch.zeros(self.max_length, dtype=torch.int32, device=dev)
         self.kv_draft = self.draft_model.init_kv(kv_dtype=self.kv_dtype)
         self.kv_target = self.target_model.init_kv(kv_dtype=self.kv_dtype)
         self.num_nodes = 0
-        self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        self._gen = torch.Generator(device=dev).manual_seed(self.seed)
+        i32 = dict(dtype=torch.int32, device=dev)
+        self._loop = dict(nn=torch.zeros((), **i32), cont=torch.zeros((), dtype=torch.bool,
+                                                                      device=dev),
+                          start=torch.zeros((), **i32), max_new=torch.zeros((), **i32),
+                          steps=torch.zeros((), **i32),
+                          eos=torch.zeros((), dtype=torch.bool, device=dev))
+        self._sampling = {k: torch.zeros((), dtype=torch.float32, device=dev)
+                          for k in ("temperature", "topp", "penalty")}
+        self._graph_pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+        # device-resident loop counters: replays (steps run, live or not),
+        # no-op replays (after a stop inside a block) and host reads
+        self.decode_stats = dict(replays=0, noop_replays=0, blocks=0)
+        self._last_eos_stop = False
 
     # ------------------------------------------------------------ prefill
 
@@ -235,7 +265,7 @@ class SpecEngineBase(BaseEngine):
         if prefix_len >= self.max_length - 2 * self.safe_buffer:
             return False
         self.tokens_host[:prefix_len] = input_ids
-        self.tokens = torch.from_numpy(self.tokens_host.copy()).to(self.device)
+        self.tokens.copy_(torch.from_numpy(self.tokens_host))
         next_tok = self._run_prefix(0, prefix_len)
         self.num_nodes = prefix_len
         self.tokens_host[prefix_len] = int(next_tok)
@@ -249,7 +279,7 @@ class SpecEngineBase(BaseEngine):
         start = self.num_nodes
         # tokens[start] already holds last iteration's trailing token
         self.tokens_host[start + 1:start + 1 + append_len] = input_ids
-        self.tokens = torch.from_numpy(self.tokens_host.copy()).to(self.device)
+        self.tokens.copy_(torch.from_numpy(self.tokens_host))
         n_valid = append_len + 1
         next_tok = self._run_prefix(start, n_valid)
         self.num_nodes = start + n_valid
@@ -297,45 +327,120 @@ class SpecEngineBase(BaseEngine):
         self.topk = generation_args.pop("topk", self.topk)
 
     def reset(self):
+        """Back to an empty context, every buffer zeroed in place."""
         self.num_nodes = 0
         self.tokens_host[:] = 0
-        self.tokens = torch.zeros(self.max_length, dtype=torch.int32, device=self.device)
-        self.kv_draft = self.draft_model.init_kv(kv_dtype=self.kv_dtype)
-        self.kv_target = self.target_model.init_kv(kv_dtype=self.kv_dtype)
+        self.tokens.zero_()
+        for kv in (self.kv_draft, self.kv_target):
+            for cache in getattr(kv, "stages", (kv,)):
+                for buf in cache:
+                    if buf is not None:
+                        buf.zero_()
 
     # ------------------------------------------------------------ decode loops
 
-    def speculative_decoding(self, max_new_tokens: int = 128):
-        """Streaming decode: prints words as they commit; returns
-        (dec_len, elapsed seconds, large-model steps)."""
-        max_new_tokens = max(max_new_tokens, self.stop_distance)
+    # streamed decode advances in device-resident segments of this many tokens
+    # (one host read a block of replays, as the JAX package's segments)
+    stream_segment = 32
+
+    def _sampling_mode(self):
+        """(greedy, use_pen) for the current generation args; fills the
+        persistent device scalars that a step reads them from."""
+        for k, v in (("temperature", max(self.temperature, 1e-3)), ("topp", self.topp),
+                     ("penalty", self.repetition_penalty)):
+            self._sampling[k].fill_(float(v))
+        return self.temperature < 0.05, abs(self.repetition_penalty - 1.0) > 0.01
+
+    def _can_decode_fused(self) -> bool:
+        return (getattr(self, "_run_decode_steps", None) is not None
+                and self.target_model.supports_fused_phases
+                and self.draft_model.supports_fused_phases)
+
+    def _decode_fused(self, max_new_tokens: int) -> int:
+        """The device-resident decode loop from num_nodes on, for up to
+        `max_new_tokens` tokens (the counterpart of the JAX package's
+        `_decode_fused`). Replays the step in blocks and reads (nn, cont,
+        steps, eos) back after each; syncs the host token row once at the end.
+        Returns max(steps, 1); sets self._last_eos_stop."""
+        greedy, use_pen = self._sampling_mode()
+        st, start = self._loop, self.num_nodes
+        cap = self.max_length - self.safe_buffer
+        cont = max_new_tokens > 0 and start <= cap  # the while_loop's first test
+        for k, v in (("nn", start), ("start", start), ("max_new", max_new_tokens), ("steps", 0),
+                     ("cont", cont), ("eos", False)):
+            st[k].fill_(v)
+        nn, steps, eos = start, 0, False
+        while cont:
+            room = min(start + max_new_tokens - nn, cap + 1 - nn)
+            n = -(-room // self.max_step_advance)
+            self._run_decode_steps(n, greedy, use_pen)
+            before = steps
+            nn, cont, steps, eos = (int(x) for x in torch.stack(
+                [st["nn"], st["cont"].int(), st["steps"], st["eos"].int()]).cpu())
+            self.decode_stats["replays"] += n
+            self.decode_stats["noop_replays"] += n - (steps - before)
+            self.decode_stats["blocks"] += 1
+        self.tokens_host[:] = self.tokens.cpu().numpy()
+        self.num_nodes = nn
+        self._last_eos_stop = bool(eos)
+        return max(steps, 1)
+
+    def _decode_stepwise(self, max_new_tokens: int) -> int:
+        """The stepwise loop: build_tree(); verify() with a host read each step."""
+        steps, decode, start = 0, True, self.num_nodes
+        while decode and (self.num_nodes - start) < max_new_tokens and self.validate_status():
+            self.build_tree()
+            decode = self.verify()
+            steps += 1
+        return steps
+
+    def _decode_segments(self, max_new_tokens: int, on_progress):
+        """Shared streaming loop. Calls on_progress(generated_ids, elapsed,
+        steps) after every commit (every segment on the device-resident
+        loop); returns (dec_len, elapsed, steps)."""
         _sync(self.device)
         t1 = time.time()
         steps = 0
         decode = True
         start = self.num_nodes
         generated_ids = []
-        pos = 0
-        words = [""]
+        fused = self._can_decode_fused()
         while decode and self.validate_status():
             begin = self.num_nodes
-            self.build_tree()
-            decode = self.verify()
-            steps += 1
+            if fused:
+                seg = min(self.stream_segment, max(max_new_tokens - (self.num_nodes - start), 1))
+                steps += self._decode_fused(seg)
+                decode = not self._last_eos_stop
+            else:
+                self.build_tree()
+                decode = self.verify()
+                steps += 1
             generated_ids.extend(self.tokens_host[begin:self.num_nodes].tolist())
-            words = self._decode_words(generated_ids)
-            now = len(words) - 1
-            if now > pos:
-                print(" ".join(words[pos:now]), end=" ", flush=True)
-                pos = now
-            if (is_sentence_complete_regex(words[-1])
+            last_words = on_progress(generated_ids, time.time() - t1, steps)
+            if (is_sentence_complete_regex(last_words)
                     and (self.num_nodes - start >= max_new_tokens - self.stop_distance)) \
                     or (self.num_nodes - start >= max_new_tokens):
                 decode = False
         _sync(self.device)
-        elapsed = time.time() - t1
-        print(" ".join(words[pos:]), flush=True)
-        dec_len = self.num_nodes - start + 1
+        return self.num_nodes - start + 1, time.time() - t1, steps
+
+    def speculative_decoding(self, max_new_tokens: int = 128):
+        """Streaming decode: prints words as they commit; returns
+        (dec_len, elapsed seconds, large-model steps)."""
+        max_new_tokens = max(max_new_tokens, self.stop_distance)
+        state = {"pos": 0, "words": [""]}
+
+        def on_progress(generated_ids, elapsed, steps):
+            words = self._decode_words(generated_ids)
+            state["words"] = words
+            now = len(words) - 1
+            if now > state["pos"]:
+                print(" ".join(words[state["pos"]:now]), end=" ", flush=True)
+                state["pos"] = now
+            return words[-1]
+
+        dec_len, elapsed, steps = self._decode_segments(max_new_tokens, on_progress)
+        print(" ".join(state["words"][state["pos"]:]), flush=True)
         logger.info(TextColors.colorize(
             "Avg Accept Tokens {:.2f} | TPOT {:.2f} ms ".format(
                 dec_len / max(steps, 1), 1000 * elapsed / dec_len), "magenta"))
@@ -374,13 +479,11 @@ class SpecEngineBase(BaseEngine):
         max_new_tokens = api_args.get("max_new_tokens", 128)
         _sync(self.device)
         t1 = time.time()
-        steps = 0
-        decode = True
         start = self.num_nodes
-        while decode and (self.num_nodes - start) < max_new_tokens and self.validate_status():
-            self.build_tree()
-            decode = self.verify()
-            steps += 1
+        if self._can_decode_fused():
+            steps = self._decode_fused(max_new_tokens)
+        else:
+            steps = self._decode_stepwise(max_new_tokens)
         _sync(self.device)
         t2 = time.time()
 

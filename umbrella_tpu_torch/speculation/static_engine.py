@@ -1,9 +1,13 @@
 """Static-tree speculation engine (Sequoia growmap trees).
 
-Counterpart of `umbrella_tpu/speculation/static_engine.py`, run eagerly: one
-`build_tree()` (the draft's level forwards and top-k expansion) and one
-`verify()` (the target's forward over the whole tree, the accept rule, and the
-compaction of both KV caches) per step.
+Counterpart of `umbrella_tpu/speculation/static_engine.py`. A step is the
+draft's level forwards and top-k expansion (`_build`), the target's forward
+over the whole tree, the accept rule and the compaction of both KV caches
+(`_verify`), at a committed length `nn` that is a host int (the stepwise
+loop: `build_tree()`; `verify()`, one host read a step) or a 0-d device
+tensor (the device-resident loop: `_decode_step`, the counterpart of
+`decode_loop_fn`'s body with `gated_tail_fn`'s gated commit, replayed as a
+CUDA graph on the card; see engine_common._decode_fused).
 
 Deferred-leaf build (as in the JAX package): the last level's forward would only
 write draft KV for leaves of which at most one is ever read, on the next step.
@@ -15,12 +19,14 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.masks import causal_mask_rows, tree_level_mask_rows, tree_mask_rows
+from ..cuda_graphs import StepGraph
+from ..ops.masks import (causal_mask_rows, read_window, tree_level_mask_rows, tree_mask_rows,
+                         write_window)
 from ..ops.sampling import draft_topk
 from ..utils import TextColors, setup_logger
 from .engine_common import SpecEngineBase
 from .tree import GrowMap
-from .verify import verify_tail
+from .verify import gated_verify_tail, verify_tail
 
 logger = setup_logger()
 
@@ -71,48 +77,111 @@ class StaticEngine(SpecEngineBase):
         self._parents = torch.as_tensor(gm.parents, device=dev).long()
         self._node_in_path = torch.as_tensor(gm.node_in_path, device=dev).long()
         self._defer_leaf = gm.num_levels >= 2
+        # the most one step commits: accept_and_commit accepts a root-to-node
+        # path (node_in_path = depth + 1 nodes), so at most the tree's level count
+        self.max_step_advance = int(gm.node_in_path.max())
+        self._decode_graphs = {}  # (greedy, topk, use_pen) -> StepGraph, as _decode_loop_cache
 
     # -------------------------------------------------------------- decode phases
 
-    def build_tree(self):
-        """Draft forwards level by level; writes each level's children into tokens."""
-        nn, L = self.num_nodes, self.max_length
+    def _build(self, nn, cont=None):
+        """Draft forwards level by level at committed length `nn` (a host int or
+        a 0-d device tensor); writes each level's children into tokens (kept
+        where the 0-d bool `cont` is false)."""
+        L = self.max_length
         d_fwd, pd = self.draft_model.forward, self.draft_model.params
         n_levels = len(self._levels)
         for lvl, lv in enumerate(self._levels):
             if self._defer_leaf and lvl == n_levels - 1:
                 continue  # leaf KV deferred to the next step's level 0
             if self._defer_leaf and lvl == 0:
-                ids = self.tokens[nn - 1:nn + 1]
-                pos = torch.arange(nn - 1, nn + 1, device=self.device)
+                ids = read_window(self.tokens, nn - 1, 2)
+                pos = (nn - 1) + torch.arange(2, device=self.device)
                 mask = causal_mask_rows(nn - 1, 2, L, device=self.device)
-                logits, self.kv_draft = d_fwd(pd, self.kv_draft, ids, pos, mask, nn - 1)
+                logits, _ = d_fwd(pd, self.kv_draft, ids, pos, mask, nn - 1)
                 logits = logits[1:2]  # expansion samples from the root row
             else:
-                ids = self.tokens[nn + lv["start"]:nn + lv["start"] + lv["n"]]
+                ids = read_window(self.tokens, nn + lv["start"], lv["n"])
                 pos = nn + lv["depth"]
                 mask = tree_level_mask_rows(nn, self._bitmap, lv["start"], lv["n"], L)
-                logits, self.kv_draft = d_fwd(pd, self.kv_draft, ids, pos, mask,
-                                              nn + lv["start"])
+                logits, _ = d_fwd(pd, self.kv_draft, ids, pos, mask, nn + lv["start"])
             if lv["topk"] > 0:
                 cand = draft_topk(logits, lv["topk"], self.draft_topk_recall)[1].reshape(-1)
-                new_tokens = cand[lv["gather"]].to(torch.int32)
-                dst = nn + lv["start"] + lv["n"]
-                self.tokens[dst:dst + new_tokens.shape[0]] = new_tokens
+                write_window(self.tokens, nn + lv["start"] + lv["n"], cand[lv["gather"]], cont)
 
-    def verify(self) -> bool:
-        """Target forward over the tree, sampling (greedy below temperature 0.05),
-        accept rule, commit; returns the continue flag."""
-        nn, T = self.num_nodes, self.tree_size
-        ids = self.tokens[nn:nn + T]
+    def _target_logits(self, nn):
+        ids = read_window(self.tokens, nn, self.tree_size)
         pos = nn + self._depth
         mask = tree_mask_rows(nn, self._bitmap, self.max_length)
-        logits, self.kv_target = self.target_model.forward(
-            self.target_model.params, self.kv_target, ids, pos, mask, nn)
+        logits, _ = self.target_model.forward(self.target_model.params, self.kv_target, ids,
+                                              pos, mask, nn)
+        return logits
+
+    def _tail_kw(self, greedy: bool, use_pen: bool) -> dict:
+        s = self._sampling
+        return dict(tree_size=self.tree_size, greedy=greedy, use_pen=use_pen,
+                    generator=self._gen, temperature=s["temperature"], topp=s["topp"],
+                    penalty=s["penalty"], topk=self.topk)
+
+    def build_tree(self):
+        """The stepwise loop's draft phase at the host num_nodes."""
+        self._build(self.num_nodes)
+
+    def verify(self) -> bool:
+        """The stepwise loop's verify phase: target forward over the tree,
+        sampling (greedy below temperature 0.05), accept rule, commit, and the
+        step's one host read; returns the continue flag."""
+        nn = self.num_nodes
+        greedy, use_pen = self._sampling_mode()
         accept_len, eos_found, block = verify_tail(
-            logits, self.kv_target, self.kv_draft, self.tokens, nn, self._bitmap,
-            self._parents, self._node_in_path, self._eos_arr, tree_size=T,
-            greedy=self.temperature < 0.05, use_pen=abs(self.repetition_penalty - 1.0) > 0.01,
-            generator=self._gen, temperature=self.temperature, topp=self.topp,
-            penalty=self.repetition_penalty, topk=self.topk)
+            self._target_logits(nn), self.kv_target, self.kv_draft, self.tokens, nn,
+            self._bitmap, self._parents, self._node_in_path, self._eos_arr,
+            **self._tail_kw(greedy, use_pen))
         return self._commit_verify_result(accept_len, eos_found, block)
+
+    def _decode_step(self, greedy: bool, use_pen: bool):
+        """One step of the device-resident loop on the engine's persistent
+        state (`_loop`: nn, cont, start, max_new, steps, eos; 0-d device
+        tensors), updated in place: build, verify and the gated commit
+        (a no-op where cont is false). No host read."""
+        st = self._loop
+        nn, cont = st["nn"], st["cont"]
+        self._build(nn, cont)
+        nn_out, cont_out, _, eos, _ = gated_verify_tail(
+            self._target_logits(nn), self.kv_target, self.kv_draft, self.tokens, nn, cont,
+            st["start"], st["max_new"], self.max_length - self.safe_buffer, self._bitmap,
+            self._parents, self._node_in_path, self._eos_arr, **self._tail_kw(greedy, use_pen))
+        st["steps"].add_(cont.to(torch.int32))
+        st["eos"].copy_(torch.where(cont, eos, st["eos"]))
+        st["nn"].copy_(nn_out)
+        st["cont"].copy_(cont_out)
+
+    def _decode_graph(self, greedy: bool, topk: int, use_pen: bool) -> StepGraph:
+        """The captured `_decode_step` for one sampling mode, cached as the JAX
+        package's `_decode_loop_cache` is. Warmed up with cont false (a no-op
+        step) and the generator's state restored, so the capture leaves the
+        engine's state and random stream as they were."""
+        key = (greedy, topk, use_pen)
+        if key not in self._decode_graphs:
+            st = self._loop
+
+            def warm():
+                cont, gen_state = st["cont"].clone(), self._gen.get_state()
+                st["cont"].fill_(False)
+                self._decode_step(greedy, use_pen)
+                st["cont"].copy_(cont)
+                self._gen.set_state(gen_state)
+
+            self._decode_graphs[key] = StepGraph.capture(
+                lambda: self._decode_step(greedy, use_pen), self.device, self._graph_pool,
+                generators=(self._gen,), warm=warm)
+        return self._decode_graphs[key]
+
+    def _run_decode_steps(self, n: int, greedy: bool, use_pen: bool) -> None:
+        """n steps of the device-resident loop: graph replays on the card, the
+        same step run eagerly on the CPU (the plain version)."""
+        if self.device.type == "cuda":
+            self._decode_graph(greedy, self.topk, use_pen).replay(n)
+        else:
+            for _ in range(n):
+                self._decode_step(greedy, use_pen)
