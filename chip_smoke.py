@@ -70,11 +70,26 @@ lines tagged with its name:
   main             the 8B AWQ target (32 layers, damped tail, Int4F shared
                    prefix of 3 layers + lm_head) with its early-exit draft, a
                    Sequoia 24x6 tree, through AutoEngine.from_config ->
-                   initialize -> generate().
+                   initialize -> generate(): graphed (the device-resident
+                   decode loop, its step replayed as a CUDA graph) and
+                   stepwise (build_tree(); verify(), one host read a step)
+                   side by side, each with tok/s, step ms, TTFT and a
+                   profile (idle share, host ops a step, replays, no-op
+                   replays, capture ms, graph pool GB); equal tokens.
+  graph            graphed against stepwise tokens: the static engine on the
+                   fp32 lossless model, on the bf16 8B main path (greedy, and
+                   stochastic from one seed) and the batched engine at B=32
+                   with int8 KV; every replay under
+                   torch.cuda.set_sync_debug_mode("error"); a graph captured
+                   and replayed in each graphed run; a registered generator
+                   draws anew at each replay; a step that reads the host must
+                   fail its capture (no stepwise fallback).
   serve            the same models behind engine="batched_static": B=32, int8
                    KV, 2x3 tree, 64 requests through run() and then through the
                    pipelined ContinuousBatcher; tok/s, accept, step ms, TTFT,
-                   TPOT, peak memory, launches per step, device idle share.
+                   TPOT, peak memory, launches per step, device idle share;
+                   then run() and the profiled segment again with the steps
+                   dispatched eagerly (stepwise), the same tokens.
   serve-bf16       B=8, bf16 KV, 3x4 tree, 16 requests through run().
   serve-stochastic B=32 int8 KV at temperature 0.6, top-p 0.9.
   checkpoint       write synthetic checkpoints under build/ (deleted at the
@@ -101,8 +116,11 @@ lines tagged with its name:
                    a profiled 8-token request ([pp-profile]).
   report           one JSON line of kernels, the card's name and power limit,
                    and the final {"ok": true, ...} line.
-Every kernel must have launched in the phase that its `launches` is read
-from; in [main], [serve], [serve-bf16], [code-config], [serve-config] and
+The static and batched engines decode through CUDA graphs in every phase
+but [pp-lossless]'s and [pp-config]'s staged targets, which keep the
+stepwise loop (each phase checks which); a replay adds the captured step's
+launches to the kernels' counts. Every kernel must have launched in the
+phase that its `launches` is read from; in [main], [serve], [serve-bf16], [code-config], [serve-config] and
 [pp-config] (bf16) every attention launch must be the tensor-core kernel's,
 in [lossless], [lossless-int8] and [lossless-w4a8] (fp32) the scalar
 kernel's. `--phases a,b` runs a subset (no report).
@@ -246,6 +264,47 @@ def check_tc_route(counts, tag):
           f"kernel (bf16 q must take the tensor-core kernel)")
 
 
+def graph_stats(eng):
+    """An engine's CUDA graphs of its decode step: how many were captured,
+    their replays, capture ms and memory pool GB (and, for the static
+    engine, the no-op replays and the blocks of replays, each one host read)."""
+    graphs = list(getattr(eng, "_decode_graphs", getattr(eng, "_segment_graphs", {})).values())
+    res = dict(graphs=len(graphs), replays=sum(g.replays for g in graphs),
+               capture_ms=sum(g.capture_ms for g in graphs),
+               pool_gb=sum(g.pool_bytes for g in graphs) / 2**30)
+    if hasattr(eng, "decode_stats"):
+        res.update(noop_replays=eng.decode_stats["noop_replays"],
+                   blocks=eng.decode_stats["blocks"])
+    return res
+
+
+def check_graphed(eng, tag):
+    """The engine decoded through captured CUDA graphs (a stepwise run fails)."""
+    st = graph_stats(eng)
+    check(st["graphs"] > 0 and st["replays"] > 0,
+          f"{tag}: no CUDA graph was captured and replayed (the decode ran stepwise): {st}")
+    return st
+
+
+def stepwise(eng):
+    """Make a static engine take its stepwise loop (build_tree(); verify(), one
+    host read a step) and a batched engine its eager segments, for a
+    comparison with the graphs; `graphed(eng)` undoes it."""
+    if hasattr(eng, "_decode_graphs"):
+        eng._can_decode_fused = lambda: False
+    else:
+        eng._run_segment = eng._segment_eager
+    return eng
+
+
+def graphed(eng):
+    if hasattr(eng, "_decode_graphs"):
+        del eng._can_decode_fused
+    else:
+        eng._run_segment = eng._segment_graphed
+    return eng
+
+
 # ---------------------------------------------------------------- phase 2
 
 
@@ -274,7 +333,7 @@ def kernel_checks(torch, dev):
         ms=cuda_ms(torch, lambda: embed_gather(embed, ids)),
         plain_ms=cuda_ms(torch, lambda: embed_gather_ref(embed, ids)),
         library_ms=cuda_ms(torch, lambda: F.embedding(ids, embed)),
-        bound_ms=by, bound_by="bytes")
+        bound_ms=by, bound_by="bytes", launch_floor_ms=launch_floor_ms(torch, dev, 127))
     log(f"[kernels] embed_gather {report['embed_gather']}")
     del embed
 
@@ -283,6 +342,26 @@ def kernel_checks(torch, dev):
     report.update(w4a8_checks(torch, dev, gen, randn, err))
     report.update(w4a16_checks(torch, dev, gen, randn, err))
     return report
+
+
+def launch_floor_ms(torch, dev, S):
+    """cuda_ms of a kernel that does nothing (csrc/embed_gather.cu
+    `empty_launch`: S blocks of 256 threads, embed_gather's launch at S
+    rows), timed as every kernel is: the floor of one launch."""
+    import ctypes
+
+    from umbrella_tpu_torch.ops.kernels import build
+
+    fn = build.library("embed_gather").empty_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    anchor = torch.zeros(1, device=dev)
+
+    def launch():
+        with build.on_device(anchor) as st:
+            build.check(fn(S, st), "empty_launch")
+
+    return cuda_ms(torch, launch)
 
 
 def attention_phase(torch, dev):
@@ -1481,6 +1560,7 @@ def lossless_check(torch, dev, prompt, kv_dtype=None, awq_act="bf16"):
     reset_launch_counts()
     out = eng.generate(input_ids=prompt, max_new_tokens=LOSSLESS_NEW_TOKENS)
     counts = launch_counts()
+    graphs = check_graphed(eng, tag)
     toks = out["generated_tokens"]
     ar, gaps, _, _ = greedy_ar_decode(torch, target, prompt, len(toks), kv_dtype=kv_dtype)
     same = first_difference(toks, ar)
@@ -1488,7 +1568,8 @@ def lossless_check(torch, dev, prompt, kv_dtype=None, awq_act="bf16"):
     res = dict(tokens=len(toks), identical_prefix=same, avg_accept_tokens=out["avg_accept_tokens"],
                min_ar_gap=min(gaps),
                gap_at_first_difference=gaps[same] if same < len(toks) else None,
-               launches=counts, launches_per_step={k: n / steps for k, n in counts.items()})
+               launches=counts, launches_per_step={k: n / steps for k, n in counts.items()},
+               graphs=graphs)
     log(f"{tag} {json.dumps(res)}")
     check(len(toks) >= LOSSLESS_NEW_TOKENS, f"{tag} too few tokens")
     check(same >= LOSSLESS_NEW_TOKENS,
@@ -1528,13 +1609,18 @@ NEAR_TIE = 2 ** -10
 
 
 def keep_target_kv(eng):
-    """A dict that holds the engine's target KV cache as each generate() leaves
-    it: generate() ends with reset(), which makes a new cache and so leaves
-    the kept one as it was."""
+    """A dict that holds a copy of the engine's target KV cache as each
+    generate() leaves it (generate() ends with reset(), which zeroes the
+    cache in place)."""
     kept, reset = {}, eng.reset
 
+    def copy(kv):
+        if hasattr(kv, "stages"):
+            return type(kv)(tuple(copy(s) for s in kv.stages))
+        return type(kv)(*(None if t is None else t.clone() for t in kv))
+
     def keep_then_reset():
-        kept["kv"] = eng.kv_target
+        kept["kv"] = copy(eng.kv_target)
         reset()
 
     eng.reset = keep_then_reset
@@ -1633,6 +1719,8 @@ def pp_lossless_check(torch, dev, prompt):
         reset_launch_counts()
         out = eng.generate(input_ids=prompt, max_new_tokens=LOSSLESS_NEW_TOKENS)
         counts = launch_counts()
+        check(not eng._can_decode_fused() and graph_stats(eng)["replays"] == 0,
+              "[pp-lossless]: a staged target must keep the stepwise loop")
         del eng
         toks = out["generated_tokens"]
         unstaged = make_engine(torch, dev, target, draft, dtype, kv_dtype=kv_dtype).generate(
@@ -1702,46 +1790,193 @@ def build_70b(torch, dev, devices, max_length):
 
 
 def main_path(torch, dev, prompt, target, draft):
+    """The 8B static main path through generate(): graphed (the device-resident
+    loop, its step replayed as a CUDA graph) and stepwise (build_tree();
+    verify(), one host read a step) side by side on one engine: tok/s, step
+    ms and TTFT each, a profiled 64-token request each, the same tokens. The
+    kernels' launches are read from the graphed run; launches a step are the
+    captured step's own."""
     from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
     eng = make_engine(torch, dev, target, draft, torch.bfloat16)
-    eng.generate(input_ids=prompt, max_new_tokens=16)  # warm-up
-
-    reset_launch_counts()
-    torch.cuda.synchronize()
-    t1 = time.time()
-    assert eng._prefill(prompt)
-    torch.cuda.synchronize()
-    ttft_ms = 1000 * (time.time() - t1)
-    prefill_counts = launch_counts()
-    eng.reset()
-
-    reset_launch_counts()
-    out = eng.generate(input_ids=prompt, max_new_tokens=MAIN_NEW_TOKENS)
-    counts = launch_counts()
-    toks = out["generated_tokens"]
-    dec_len = len(toks)
-    tpot = out["time_per_output_token"]
-    steps = round(dec_len / out["avg_accept_tokens"])
+    eng.generate(input_ids=prompt, max_new_tokens=16)  # warm-up: captures the greedy step
+    graph = eng._decode_graphs[(True, eng.topk, False)]
+    res = {}
+    for mode in ("graphed", "stepwise"):
+        (graphed if mode == "graphed" else stepwise)(eng)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.time()
+        assert eng._prefill(prompt)
+        torch.cuda.synchronize()
+        ttft_ms = 1000 * (time.time() - t1)
+        prefill_counts = launch_counts()
+        eng.reset()
+        reset_launch_counts()
+        before = graph_stats(eng)
+        out = eng.generate(input_ids=prompt, max_new_tokens=MAIN_NEW_TOKENS)
+        counts = launch_counts()
+        after = graph_stats(eng)
+        toks = out["generated_tokens"]
+        steps = round(len(toks) / out["avg_accept_tokens"])
+        r = dict(tokens=len(toks), steps=steps, tok_per_s=1000.0 / out["time_per_output_token"],
+                 decode_step_ms=out["time_per_output_token"] * len(toks) / steps,
+                 avg_accept_tokens=out["avg_accept_tokens"], ttft_ms_prefill128=ttft_ms,
+                 replays=after["replays"] - before["replays"],
+                 noop_replays=after["noop_replays"] - before["noop_replays"],
+                 host_reads=after["blocks"] - before["blocks"] + 1 if mode == "graphed"
+                 else steps, launches=counts,
+                 prefill_launches=prefill_counts,
+                 launches_per_step=(graph.launches if mode == "graphed" else
+                                    {k: (counts[k] - prefill_counts[k]) / steps for k in counts}))
+        before = graph_stats(eng)
+        r["profile"] = profile_window(
+            torch, f"[profile] {mode}", lambda: eng.generate(input_ids=prompt, max_new_tokens=64),
+            lambda out: max(1, round(len(out["generated_tokens"]) / out["avg_accept_tokens"])))
+        after = graph_stats(eng)
+        if r["profile"] is not None:
+            r["profile"].update(replays=after["replays"] - before["replays"],
+                                noop_replays=after["noop_replays"] - before["noop_replays"],
+                                capture_ms=graph.capture_ms, graph_pool_gb=after["pool_gb"])
+        res[mode] = r
+        res.setdefault("tokens", toks)
+    graphed(eng)
+    g, sw = res["graphed"], res["stepwise"]
+    check(g["replays"] >= g["steps"] > 0 and sw["replays"] == 0,
+          f"main path: graphed {g['replays']} replays, stepwise {sw['replays']}")
+    check(all(g["launches"][k] == g["prefill_launches"][k] + g["replays"] * graph.launches[k]
+              for k in g["launches"]),
+          "main path: the launches are not the prefill's plus each replay's")
+    check(sw["tokens"] == g["tokens"], "main path: stepwise and graphed decodes differ")
+    toks = res.pop("tokens")
     for name in MAIN_KERNELS:
-        check(counts[name] > 0, f"main path: kernel {name} was never launched")
-    check_tc_route(counts, "main path")
-    per_step = {k: (counts[k] - prefill_counts[k]) / steps for k in counts}
-    ar, gaps, _, _ = greedy_ar_decode(torch, target, prompt, dec_len)
+        check(g["launches"][name] > 0, f"main path: kernel {name} was never launched")
+    check_tc_route(g["launches"], "main path")
+    ar, gaps, _, _ = greedy_ar_decode(torch, target, prompt, len(toks))
     prefix = first_difference(toks, ar)
-    profiled = profile_window(
-        torch, "[profile]", lambda: eng.generate(input_ids=prompt, max_new_tokens=64),
-        lambda out: max(1, round(len(out["generated_tokens"]) / out["avg_accept_tokens"])))
-    res = dict(tokens=dec_len, steps=steps, tok_per_s=1000.0 / tpot,
-               decode_step_ms=tpot * dec_len / steps, avg_accept_tokens=out["avg_accept_tokens"],
-               ttft_ms_prefill128=ttft_ms, launches=counts, launches_per_step=per_step,
-               spec_vs_ar_common_prefix=prefix,
-               ar_gap_at_first_difference=gaps[prefix] if prefix < dec_len else None,
-               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30, profile=profiled)
+    res.update(g)  # the graphed run is the main path's result
+    res.update(spec_vs_ar_common_prefix=prefix,
+               ar_gap_at_first_difference=gaps[prefix] if prefix < len(toks) else None,
+               graph=graph_stats(eng), peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
     log(f"[main] {json.dumps(res)}")
     check(all(0 <= t < CFG_8B["vocab_size"] for t in toks), "main path: token out of range")
     del eng
     return res
+
+
+GRAPH_NEW_TOKENS = 64
+
+
+def graph_phase(torch, dev, prompt, target, draft):
+    """The decode loops as CUDA graphs against their stepwise forms, on one
+    engine each: the static engine on the fp32 lossless model (4 layers) and
+    on the bf16 8B main path (generate(), GRAPH_NEW_TOKENS tokens), the
+    batched engine at B=32 with int8 KV (32 requests through run()); the
+    tokens must be equal. Each graphed run must have captured and replayed a
+    graph (a silent stepwise run fails), with every replay under
+    torch.cuda.set_sync_debug_mode("error"); two replays of a stochastic
+    step draw different numbers, and the stochastic static decode equals the
+    stepwise one for one seed; a step that reads the host during its capture
+    must raise, not fall back to stepwise."""
+    modes = []
+    real_replay = torch.cuda.CUDAGraph.replay
+
+    def replay(graph):  # record the sync debug mode every replay runs under
+        modes.append(torch.cuda.get_sync_debug_mode())
+        return real_replay(graph)
+
+    res = {}
+    small, small_draft = build_target(torch, dev, n_layers=4, exit_layer=2, dtype=torch.float32)
+    torch.cuda.CUDAGraph.replay = replay
+    try:
+        res["generator"] = replays_draw_anew(torch, dev)
+        for name, (t, d, dtype, sampling) in {
+                "static-fp32": (small, small_draft, torch.float32, {}),
+                "static-bf16-8b": (target, draft, torch.bfloat16, {}),
+                "static-bf16-8b-stochastic": (target, draft, torch.bfloat16,
+                                              dict(temperature=0.6, topp=0.9))}.items():
+            outs = []
+            for mode in ("graphed", "stepwise"):
+                eng = make_engine(torch, dev, t, d, dtype, seed=11)
+                if mode == "stepwise":
+                    stepwise(eng)
+                outs.append(eng.generate(input_ids=prompt, max_new_tokens=GRAPH_NEW_TOKENS,
+                                         **sampling)["generated_tokens"])
+                if mode == "graphed":
+                    stats = check_graphed(eng, f"[graph] {name}")
+                del eng
+            res[name] = dict(tokens=len(outs[0]), equal=outs[0] == outs[1], graphs=stats)
+            check(outs[0] == outs[1], f"[graph] {name}: graphed {outs[0]} vs stepwise {outs[1]}")
+        reqs = random_requests(13, 32, 32)
+        outs = []
+        for mode in ("graphed", "stepwise"):
+            eng = batched_engine(torch, dev, target, draft, 32, (2, 3), "int8", torch.bfloat16)
+            if mode == "stepwise":
+                stepwise(eng)
+            outs.append([o["generated_tokens"] for o in eng.run(reqs)])
+            if mode == "graphed":
+                res["batched-int8-b32"] = dict(graphs=check_graphed(eng, "[graph] batched"))
+            del eng
+        same = sum(a == b for a, b in zip(*outs))
+        res["batched-int8-b32"].update(requests=len(reqs), equal=same)
+        check(same == len(reqs), f"[graph] batched: {same} of {len(reqs)} requests equal")
+    finally:
+        torch.cuda.CUDAGraph.replay = real_replay
+    res["replay_sync_debug_modes"] = sorted(set(modes))
+    check(modes and set(modes) == {2}, f"[graph] replays ran under sync debug modes {set(modes)}")
+    check(res["generator"]["differ"] and res["generator"]["equal_to_eager"],
+          f"[graph] replays of a registered generator's draw: {res['generator']}")
+    # a host read inside the step fails the capture; nothing runs stepwise instead
+    eng = make_engine(torch, dev, small, small_draft, torch.float32)
+    build = eng._build
+
+    def build_with_a_host_read(nn, cont=None):
+        nn.item()
+        return build(nn, cont)
+
+    eng._build = build_with_a_host_read
+    try:
+        eng.generate(input_ids=prompt, max_new_tokens=8)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e).splitlines()[0][:200]
+    res["capture_failure"] = raised
+    check(raised is not None and graph_stats(eng)["replays"] == 0,
+          "[graph] a step that reads the host was captured or ran stepwise")
+    log(f"[graph] {json.dumps(res)}")
+    return res
+
+
+def replays_draw_anew(torch, dev):
+    """A step that draws from a torch.Generator, captured as the engines
+    capture theirs (the generator registered, warmed up with its state
+    restored): two replays draw different numbers, and the same numbers as
+    two eager calls from the same state."""
+    from umbrella_tpu_torch.cuda_graphs import StepGraph
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = torch.zeros(8, device=dev)
+
+    def step():
+        out.copy_(torch.rand(8, generator=gen, device=dev))
+
+    def warm():
+        state = gen.get_state()
+        step()
+        gen.set_state(state)
+
+    state, eager, got = gen.get_state(), [], []
+    for _ in range(2):
+        step()
+        eager.append(out.clone())
+    gen.set_state(state)
+    graph = StepGraph.capture(step, dev, torch.cuda.graph_pool_handle(), generators=(gen,),
+                              warm=warm)
+    for _ in range(2):
+        graph.replay(1)
+        got.append(out.clone())
+    return dict(differ=not torch.equal(got[0], got[1]),
+                equal_to_eager=all(torch.equal(a, b) for a, b in zip(got, eager)))
 
 
 def profile_window(torch, tag, fn, count_steps):
@@ -1833,6 +2068,7 @@ def batched_lossless_check(torch, dev):
     reset_launch_counts()
     outs = eng.run(reqs)
     counts = launch_counts()
+    graphs = check_graphed(eng, "[batched-lossless]")
     del eng
     single = make_engine(torch, dev, target, draft, torch.float32, tree=tree)
     same, vs_ar, gaps, parted = [], [], [], []
@@ -1849,7 +2085,8 @@ def batched_lossless_check(torch, dev):
     res = dict(requests=len(reqs), slots=4, prompt_lens=[len(r["input_ids"]) for r in reqs],
                identical_prefix=same, batched_and_single_vs_ar=vs_ar,
                ar_gaps_where_they_part=gaps,
-               avg_accept_tokens=[o["avg_accept_tokens"] for o in outs], launches=counts)
+               avg_accept_tokens=[o["avg_accept_tokens"] for o in outs], launches=counts,
+               graphs=graphs)
     log(f"[batched-lossless] {json.dumps(res)}")
     check(min(same) >= BATCHED_LOSSLESS_TOKENS,
           f"[batched-lossless] batched and single-slot tokens differ: {same} {parted}")
@@ -1904,7 +2141,7 @@ def multi_card_phase(torch, dev):
     return res
 
 
-def decode_segment(torch, eng, reqs):
+def decode_segment(torch, eng, reqs, tag="[serve-profile]"):
     """Admit B requests, then time one synced segment of SEGMENT_STEPS steps
     at full occupancy (ms per step, kernel launches per step); profile a
     second one."""
@@ -1921,7 +2158,7 @@ def decode_segment(torch, eng, reqs):
     ms = 1000 * (time.time() - t0) / SEGMENT_STEPS
     per_step = {k: n / SEGMENT_STEPS for k, n in launch_counts().items()}
     check(int(steps.min()) == SEGMENT_STEPS, "decode segment ran short")
-    prof = profile_window(torch, "[serve-profile]", lambda: eng.step_many(SEGMENT_STEPS, stop),
+    prof = profile_window(torch, tag, lambda: eng.step_many(SEGMENT_STEPS, stop),
                           lambda _: SEGMENT_STEPS)
     eng.active[:] = False
     return ms, per_step, prof
@@ -1934,10 +2171,13 @@ def pct(xs, q):
 
 
 def serve_phase(torch, dev, target, draft, tag, batch, tree, kv_dtype, n_requests,
-                attn_kernel, pipelined=True):
+                attn_kernel, pipelined=True, stepwise_too=False):
     """bench.py's serving rows: a warm-up run() of B requests, then n_requests
     through run(), then (optionally) all of them submitted at once to the
-    pipelined ContinuousBatcher; then one profiled decode segment."""
+    pipelined ContinuousBatcher; then one profiled decode segment; all with
+    the segment step replayed as a CUDA graph. stepwise_too: run() and the
+    profiled segment again with the steps dispatched eagerly, side by side
+    (the same tokens)."""
     from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from umbrella_tpu_torch.serving.batched_engine import ContinuousBatcher
 
@@ -1989,7 +2229,24 @@ def serve_phase(torch, dev, target, draft, tag, batch, tree, kv_dtype, n_request
             tpot_ms_p50=pct([p["time_per_output_token"] for p in pouts], 50))
     step_ms, per_step, prof = decode_segment(torch, eng, reqs[:batch])
     res.update(decode_step_ms=step_ms, launches_per_step=per_step, profile=prof,
-               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+               graphs=check_graphed(eng, tag))
+    if stepwise_too:  # the same requests with every segment step dispatched eagerly
+        stepwise(eng)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        souts = eng.run(reqs)
+        torch.cuda.synchronize()
+        swall = time.time() - t0
+        sstep_ms, _, sprof = decode_segment(torch, eng, reqs[:batch],
+                                            tag=f"{tag[:-1]}-profile stepwise]")
+        graphed(eng)
+        same = sum(a["generated_tokens"] == b["generated_tokens"] for a, b in zip(souts, outs))
+        res["stepwise"] = dict(run_tok_per_s=sum(len(o["generated_tokens"]) for o in souts) / swall,
+                               run_s=swall, equal_to_graphed=same, decode_step_ms=sstep_ms,
+                               profile=sprof)
+        check(same == len(outs), f"{tag} stepwise and graphed segments gave other tokens "
+              f"({same} of {len(outs)} requests equal)")
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
     log(f"{tag} {json.dumps(res)}")
     del eng
     torch.cuda.empty_cache()
@@ -2012,7 +2269,8 @@ def stochastic_phase(torch, dev, target, draft):
               "[serve-stochastic] token out of range")
     res = dict(requests=len(reqs), temperature=0.6, topp=0.9,
                tok_per_s=sum(len(o["generated_tokens"]) for o in outs) / wall,
-               avg_accept_tokens=sum(o["avg_accept_tokens"] for o in outs) / len(outs))
+               avg_accept_tokens=sum(o["avg_accept_tokens"] for o in outs) / len(outs),
+               graphs=check_graphed(eng, "[serve-stochastic]"))
     log(f"[serve-stochastic] {json.dumps(res)}")
     del eng
     torch.cuda.empty_cache()
@@ -2355,11 +2613,12 @@ def code_config_phase(torch, dev, ckpt, prompt, tag, target):
         check(counts[name] > 0, f"{tag} kernel {name} was never launched")
     check_tc_route(counts, tag)
     check(w4a8 or counts["w4a8_matmul"] == 0, f"{tag} a W4A16 target ran W4A8")
-    per_step = {k: (counts[k] - prefill_counts[k]) / steps for k in counts}
+    graphs = check_graphed(eng, tag)
+    (graph,) = eng._decode_graphs.values()
     res = dict(tokens=len(toks), steps=steps, tok_per_s=1000.0 / out["time_per_output_token"],
                decode_step_ms=out["time_per_output_token"] * len(toks) / steps,
                avg_accept_tokens=out["avg_accept_tokens"], ttft_ms_prefill128=ttft_ms,
-               init_s=init_s, launches=counts, launches_per_step=per_step,
+               init_s=init_s, launches=counts, launches_per_step=graph.launches, graphs=graphs,
                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
     log(f"{tag} {json.dumps(res)}")
     del eng
@@ -2405,6 +2664,7 @@ def serve_config_phase(torch, dev, ckpt):
                  "embed_gather"):
         check(counts[name] > 0, f"[serve-config] kernel {name} was never launched")
     check_tc_route(counts, "[serve-config]")
+    graphs = check_graphed(eng, "[serve-config]")
     steps = eng.steps_dispatched - steps0
     res = dict(batch=eng.batch_size, requests=len(reqs), new_tokens=SERVE_CONFIG_NEW_TOKENS,
                temperature=eng.temperature, init_s=init_s,
@@ -2413,7 +2673,7 @@ def serve_config_phase(torch, dev, ckpt):
                avg_accept_tokens=sum(o["avg_accept_tokens"] for o in outs) / len(outs),
                ttft_ms_p50=pct([o["ttft_ms"] for o in outs], 50), launches=counts,
                launches_per_step={k: n / max(steps, 1) for k, n in counts.items()},
-               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+               graphs=graphs, peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
     log(f"[serve-config] {json.dumps(res)}")
     del eng
     torch.cuda.empty_cache()
@@ -2478,6 +2738,8 @@ def pp_config_phase(torch, dev, ckpt, prompt):
     check(all(0 <= t < CFG_70B["vocab_size"] for t in toks), "[pp-config] token out of range")
     for name in ("embed_gather", "attend_flash", "w4a16_matmul", "w4a16_matmul_layered"):
         check(counts[name] > 0, f"[pp-config] kernel {name} was never launched")
+    check(not eng._can_decode_fused() and graph_stats(eng)["replays"] == 0,
+          "[pp-config] a staged target must keep the stepwise loop")
     check_tc_route(counts, "[pp-config]")
     per_step = {k: (counts[k] - prefill_counts[k]) / steps for k in counts}
     profiled = profile_window(
@@ -2540,7 +2802,7 @@ LAUNCHES_FROM = {"attend_flash_int8": "lossless-int8", "attend_flash_batched": "
 CHECKPOINT_PHASES = ("checkpoint", "code-config", "code-config-w4a8", "serve-config",
                      "pp-config")
 PHASES = ("kernels", "multi-card", "lossless", "lossless-int8", "lossless-w4a8",
-          "batched-lossless", "pp-lossless", "main", "serve", "serve-bf16",
+          "batched-lossless", "pp-lossless", "main", "graph", "serve", "serve-bf16",
           "serve-stochastic") + CHECKPOINT_PHASES
 # phases that run only when named in --phases: `w4a16`, `w4a8` and
 # `attention` are subsets of `kernels`
@@ -2588,14 +2850,15 @@ def run(torch, phases):
     phase("batched-lossless", batched_lossless_check, torch, dev)
     phase("pp-lossless", pp_lossless_check, torch, dev, prompt.tolist())
 
-    if {"main", "serve", "serve-bf16", "serve-stochastic"} & set(phases):
+    if {"main", "graph", "serve", "serve-bf16", "serve-stochastic"} & set(phases):
         t0 = time.time()
         target, draft = build_target(torch, dev, n_layers=32, exit_layer=3, dtype=torch.bfloat16)
         torch.cuda.synchronize()
         log(f"[setup] 8B target and draft built in {time.time() - t0:.1f} s")
         phase("main", main_path, torch, dev, prompt.tolist(), target, draft)
+        phase("graph", graph_phase, torch, dev, prompt.tolist(), target, draft)
         phase("serve", serve_phase, torch, dev, target, draft, "[serve]", 32, (2, 3), "int8",
-              64, "attend_flash_batched_int8")
+              64, "attend_flash_batched_int8", True, True)
         phase("serve-bf16", serve_phase, torch, dev, target, draft, "[serve-bf16]", 8, (3, 4),
               None, 16, "attend_flash_batched", False)
         phase("serve-stochastic", stochastic_phase, torch, dev, target, draft)
@@ -2634,7 +2897,7 @@ def run(torch, phases):
             tolerance=r["tolerance"], shape=r["shape"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             timed_by=TIMED_BY,
-            **{k: r[k] for k in ("plain_timed_by", "events_ms") if k in r},
+            **{k: r[k] for k in ("plain_timed_by", "events_ms", "launch_floor_ms") if k in r},
             launches_per_step=path["launches_per_step"][name],
             launches_from=("kernels: awq_gate_up_silu(fused=True), which no shipped config "
                            "reaches" if src == "kernels" else src)))
@@ -2648,6 +2911,26 @@ def run(torch, phases):
         "ttft_ms_p50", "ttft_ms_p95", "tpot_ms_p50", "peak_mem_gb")}
     summary["serve-bf16"] = {k: results["serve-bf16"][k] for k in (
         "run_tok_per_s", "avg_accept_tokens", "decode_step_ms")}
+
+    def idle(prof):
+        return prof and {k: prof[k] for k in ("device_idle_share", "host_ops_per_step",
+                                              "device_busy_ms_per_step")}
+
+    # graphed (the decode loop's step replayed as a CUDA graph) beside stepwise
+    summary["graphed_vs_stepwise"] = {
+        "main": {mode: dict({k: main[mode][k] for k in (
+            "tok_per_s", "decode_step_ms", "ttft_ms_prefill128", "replays", "noop_replays",
+            "host_reads")}, profile=main[mode]["profile"] and dict(
+                idle(main[mode]["profile"]), **{k: main[mode]["profile"].get(k) for k in (
+                    "replays", "noop_replays", "capture_ms", "graph_pool_gb")}))
+            for mode in ("graphed", "stepwise")},
+        "serve": {"graphed": dict(run_tok_per_s=serve["run_tok_per_s"],
+                                  decode_step_ms=serve["decode_step_ms"],
+                                  profile=idle(serve["profile"]), graphs=serve["graphs"]),
+                  "stepwise": dict({k: serve["stepwise"][k] for k in (
+                      "run_tok_per_s", "decode_step_ms", "equal_to_graphed")},
+                      profile=idle(serve["stepwise"]["profile"]))},
+        "graph": {k: v for k, v in results["graph"].items()}}
     summary["lossless"] = results["lossless"]["identical_prefix"]
     summary["lossless-int8"] = results["lossless-int8"]["identical_prefix"]
     summary["batched-lossless"] = results["batched-lossless"]["identical_prefix"]
