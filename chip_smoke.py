@@ -299,7 +299,7 @@ def stepwise(eng):
 
 def graphed(eng):
     if hasattr(eng, "_decode_graphs"):
-        del eng._can_decode_fused
+        eng.__dict__.pop("_can_decode_fused", None)
     else:
         eng._run_segment = eng._segment_graphed
     return eng

@@ -223,7 +223,9 @@ def _fn(name: str):
     fn = getattr(build.library("tree_attention"), name)
     # attend_flash: ..., kv_limit, scale, soft_cap, q_bf16, kv_int8, stream;
     # attend_flash_tc: ..., n_layers, layer, kv_limit, scale, soft_cap, kv_int8,
-    # then the plan (stages, row tiles, warpgroups, smem), stream
+    # then the plan (stages, row tiles, warpgroups, smem), stream. The scalar
+    # kv_limit is read only without the kv_limits pointer, which _launch
+    # always passes, so it is 0.
     ints, plan = (9, 0) if name == "attend_flash" else (10, 3)
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * ints
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int]

@@ -4,7 +4,11 @@ verify-time samplers.
 Counterparts of `umbrella_tpu/ops/sampling.py`. Where the JAX package threads a
 `jax.random` key, these take an explicit `torch.Generator` on the logits'
 device; the two give different random numbers for one seed, so stochastic
-results are compared as distributions, not token by token.
+results are compared as distributions, not token by token. Temperature, top-p,
+the penalty and the valid length may be Python numbers or device tensors; the
+engines' steps pass their persistent device scalars (`torch.as_tensor` of a
+tensor on its own device is the tensor itself, so a step copies nothing from
+the host and a CUDA graph replays it with new values).
 """
 from __future__ import annotations
 

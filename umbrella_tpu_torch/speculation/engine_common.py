@@ -201,17 +201,15 @@ class SpecEngineBase(BaseEngine):
         self.kv_target = self.target_model.init_kv(kv_dtype=self.kv_dtype)
         self.num_nodes = 0
         self._gen = torch.Generator(device=dev).manual_seed(self.seed)
-        i32 = dict(dtype=torch.int32, device=dev)
-        self._loop = dict(nn=torch.zeros((), **i32), cont=torch.zeros((), dtype=torch.bool,
-                                                                      device=dev),
-                          start=torch.zeros((), **i32), max_new=torch.zeros((), **i32),
-                          steps=torch.zeros((), **i32),
-                          eos=torch.zeros((), dtype=torch.bool, device=dev))
+        # the device-resident loop's state (0-d; cont and eos bool, the rest int32)
+        self._loop = {k: torch.zeros((), dtype=torch.bool if k in ("cont", "eos") else torch.int32,
+                                     device=dev)
+                      for k in ("nn", "cont", "start", "max_new", "steps", "eos")}
         self._sampling = {k: torch.zeros((), dtype=torch.float32, device=dev)
                           for k in ("temperature", "topp", "penalty")}
         self._graph_pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
         # device-resident loop counters: replays (steps run, live or not),
-        # no-op replays (after a stop inside a block) and host reads
+        # no-op replays (run after a stop inside a block) and blocks (one host read each)
         self.decode_stats = dict(replays=0, noop_replays=0, blocks=0)
         self._last_eos_stop = False
 
