@@ -132,6 +132,7 @@ H100 80GB HBM3 at 700 W with the tensor-core attention kernel), the
 kernels' build (20-30 s) included; `--phases w4a16` about a minute,
 `--phases w4a8` about 45 s, `--phases attention` about a minute.
 """
+import gc
 import json
 import os
 import subprocess
@@ -298,10 +299,8 @@ def stepwise(eng):
 
 
 def graphed(eng):
-    if hasattr(eng, "_decode_graphs"):
-        eng.__dict__.pop("_can_decode_fused", None)
-    else:
-        eng._run_segment = eng._segment_graphed
+    eng.__dict__.pop("_can_decode_fused" if hasattr(eng, "_decode_graphs") else "_run_segment",
+                     None)
     return eng
 
 
@@ -2835,6 +2834,7 @@ def run(torch, phases):
         t0 = time.time()
         results[name] = fn(*args)
         log(f"[{name}] done in {time.time() - t0:.1f} s")
+        gc.collect()  # engines the phase dropped, with their graphs' memory pools
         torch.cuda.empty_cache()
         return results[name]
 

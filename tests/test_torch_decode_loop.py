@@ -14,6 +14,7 @@ and a slot admitted between them give JAX's tokens. Tokens are compared
 exactly.
 """
 import contextlib
+import weakref
 
 import jax.numpy as jnp
 import numpy as np
@@ -404,3 +405,19 @@ def test_stochastic_segments_match_the_stepwise_step_loop(port_models):
                 eng.step(temperature=tv, topp=pv)
         out.append([eng.tokens_host[b, :int(eng.num_nodes[b]) + 1].tolist() for b in range(3)])
     assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("engine", ["static", "batched_static"])
+def test_a_dropped_engine_is_freed_at_once(port_models, engine):
+    """No reference cycle keeps an engine (its caches and, on the card, its
+    graphs' memory pool) alive after its last reference goes: a serving
+    process that replaces an engine gets the device memory back without a
+    garbage collection."""
+    eng = _port_engine(port_models) if engine == "static" else _batched(port_models)
+    if engine == "static":
+        eng.generate(input_ids=PROMPT, max_new_tokens=8)
+    else:
+        eng.run([dict(input_ids=PROMPT, max_new_tokens=8)])
+    ref = weakref.ref(eng)
+    del eng
+    assert ref() is None

@@ -222,7 +222,6 @@ class BatchedStaticEngine:
         self.steps_dispatched = 0  # decode steps queued so far (all slots at once)
         self._graph_pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
         self._segment_graphs = {}  # (use_pen, all_greedy) -> StepGraph
-        self._run_segment = self._segment_graphed if dev.type == "cuda" else self._segment_eager
 
     # ------------------------------------------------------------------ token rows
 
@@ -334,6 +333,11 @@ class BatchedStaticEngine:
         sg["steps"].add_(active.to(torch.int32))
         active.copy_(active & ~eos & (nn_new < sg["stop"]) & (nn_new + T + 1 <= cap))
         nn.copy_(nn_new)
+
+    def _run_segment(self, n_steps: int, use_pen: bool, all_greedy: bool) -> None:
+        """n_steps segment steps: graph replays on the card, eager on the CPU."""
+        run = self._segment_graphed if self.device.type == "cuda" else self._segment_eager
+        run(n_steps, use_pen, all_greedy)
 
     def _segment_eager(self, n_steps: int, use_pen: bool, all_greedy: bool) -> None:
         for _ in range(n_steps):
