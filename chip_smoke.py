@@ -1500,8 +1500,8 @@ def make_engine(torch, dev, target, draft, dtype, kv_dtype=None, tree=None, **kw
     gm = growmap_from_spec(24, 6, acc=ACC_24x6) if tree is None else growmap_from_spec(*tree)
     eng = AutoEngine.from_config(
         device=dev, engine="static", model=target, draft_model=draft, growmap=gm,
-        max_length=MAX_LEN, temperature=0.0, eos_token_ids=[-100], dtype=dtype,
-        kv_dtype=kv_dtype, **kw)
+        max_length=MAX_LEN, temperature=0.0, eos_token_ids=kw.pop("eos_token_ids", [-100]),
+        dtype=dtype, kv_dtype=kv_dtype, **kw)
     eng.initialize()
     return eng
 
@@ -1557,18 +1557,22 @@ def lossless_check(torch, dev, prompt, kv_dtype=None, awq_act="bf16"):
                                  awq_act=awq_act)
     eng = make_engine(torch, dev, target, draft, torch.float32, kv_dtype=kv_dtype)
     reset_launch_counts()
-    out = eng.generate(input_ids=prompt, max_new_tokens=LOSSLESS_NEW_TOKENS)
+    trace, out = profile_window(  # the kernels' launches traced and held against the counts
+        torch, f"{tag[:-1]}-trace]",
+        lambda: eng.generate(input_ids=prompt, max_new_tokens=LOSSLESS_NEW_TOKENS),
+        request_steps)
     counts = launch_counts()
+    check(trace is not None, f"{tag} the kernels' launches were not traced")
     graphs = check_graphed(eng, tag)
     toks = out["generated_tokens"]
     ar, gaps, _, _ = greedy_ar_decode(torch, target, prompt, len(toks), kv_dtype=kv_dtype)
     same = first_difference(toks, ar)
-    steps = max(1, round(len(toks) / out["avg_accept_tokens"]))
+    steps = request_steps(out)
     res = dict(tokens=len(toks), identical_prefix=same, avg_accept_tokens=out["avg_accept_tokens"],
                min_ar_gap=min(gaps),
                gap_at_first_difference=gaps[same] if same < len(toks) else None,
                launches=counts, launches_per_step={k: n / steps for k, n in counts.items()},
-               graphs=graphs)
+               launches_traced=trace["launches_traced"], graphs=graphs)
     log(f"{tag} {json.dumps(res)}")
     check(len(toks) >= LOSSLESS_NEW_TOKENS, f"{tag} too few tokens")
     check(same >= LOSSLESS_NEW_TOKENS,
@@ -1793,8 +1797,11 @@ def main_path(torch, dev, prompt, target, draft):
     loop, its step replayed as a CUDA graph) and stepwise (build_tree();
     verify(), one host read a step) side by side on one engine: tok/s, step
     ms and TTFT each, a profiled 64-token request each, the same tokens. The
-    kernels' launches are read from the graphed run; launches a step are the
-    captured step's own."""
+    kernels' launches are read from the graphed run; in each profiled request
+    the kernels the profiler traced must be the wrappers' counts, and the
+    graphed request's launches a step, as traced ((traced - prefill) /
+    replays), must equal the stepwise loop's as counted and the captured
+    step's."""
     from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
     eng = make_engine(torch, dev, target, draft, torch.bfloat16)
@@ -1826,26 +1833,32 @@ def main_path(torch, dev, prompt, target, draft):
                  host_reads=after["blocks"] - before["blocks"] + 1 if mode == "graphed"
                  else steps, launches=counts,
                  prefill_launches=prefill_counts,
-                 launches_per_step=(graph.launches if mode == "graphed" else
-                                    {k: (counts[k] - prefill_counts[k]) / steps for k in counts}))
+                 launches_per_step={k: (counts[k] - prefill_counts[k]) / steps for k in counts})
         before = graph_stats(eng)
-        r["profile"] = profile_window(
+        r["profile"], _ = profile_window(
             torch, f"[profile] {mode}", lambda: eng.generate(input_ids=prompt, max_new_tokens=64),
-            lambda out: max(1, round(len(out["generated_tokens"]) / out["avg_accept_tokens"])))
+            request_steps)
         after = graph_stats(eng)
-        if r["profile"] is not None:
-            r["profile"].update(replays=after["replays"] - before["replays"],
-                                noop_replays=after["noop_replays"] - before["noop_replays"],
-                                capture_ms=graph.capture_ms, graph_pool_gb=after["pool_gb"])
+        check(r["profile"] is not None, f"[profile] {mode}: the kernels' launches were not "
+              "traced (the profiler saw no device time)")
+        r["profile"].update(replays=after["replays"] - before["replays"],
+                            noop_replays=after["noop_replays"] - before["noop_replays"],
+                            capture_ms=graph.capture_ms, graph_pool_gb=after["pool_gb"])
         res[mode] = r
         res.setdefault("tokens", toks)
     graphed(eng)
     g, sw = res["graphed"], res["stepwise"]
     check(g["replays"] >= g["steps"] > 0 and sw["replays"] == 0,
           f"main path: graphed {g['replays']} replays, stepwise {sw['replays']}")
-    check(all(g["launches"][k] == g["prefill_launches"][k] + g["replays"] * graph.launches[k]
-              for k in g["launches"]),
-          "main path: the launches are not the prefill's plus each replay's")
+    traced, replays = g["profile"]["launches_traced"], g["profile"]["replays"]
+    check(replays > 0, "[profile] graphed: no replay")
+    g["launches_traced"] = {k: traced[k] for k in MAIN_KERNELS}
+    g["launches_per_step"] = {k: (traced[k] - g["prefill_launches"][k]) / replays
+                              for k in MAIN_KERNELS}
+    check(all(g["launches_per_step"][k] == sw["launches_per_step"][k] == graph.launches[k]
+              for k in MAIN_KERNELS),
+          f"main path: launches a step traced in the graphed request {g['launches_per_step']}, "
+          f"counted in the stepwise one {sw['launches_per_step']}, captured {graph.launches}")
     check(sw["tokens"] == g["tokens"], "main path: stepwise and graphed decodes differ")
     toks = res.pop("tokens")
     for name in MAIN_KERNELS:
@@ -1871,12 +1884,14 @@ def graph_phase(torch, dev, prompt, target, draft):
     engine each: the static engine on the fp32 lossless model (4 layers) and
     on the bf16 8B main path (generate(), GRAPH_NEW_TOKENS tokens), the
     batched engine at B=32 with int8 KV (32 requests through run()); the
-    tokens must be equal. Each graphed run must have captured and replayed a
+    tokens must be equal, also in a request that follows one stopped by an
+    EOS inside a block. Each graphed run must have captured and replayed a
     graph (a silent stepwise run fails), with every replay under
     torch.cuda.set_sync_debug_mode("error"); two replays of a stochastic
-    step draw different numbers, and the stochastic static decode equals the
-    stepwise one for one seed; a step that reads the host during its capture
-    must raise, not fall back to stepwise."""
+    step draw different numbers (the second one's again after a rewind),
+    and the stochastic static decode equals the stepwise one for one seed; a
+    step that reads the host during its capture must raise, not fall back to
+    stepwise."""
     modes = []
     real_replay = torch.cuda.CUDAGraph.replay
 
@@ -1906,6 +1921,7 @@ def graph_phase(torch, dev, prompt, target, draft):
                 del eng
             res[name] = dict(tokens=len(outs[0]), equal=outs[0] == outs[1], graphs=stats)
             check(outs[0] == outs[1], f"[graph] {name}: graphed {outs[0]} vs stepwise {outs[1]}")
+        res["eos-inside-a-block"] = eos_inside_a_block(torch, dev, prompt, small, small_draft)
         reqs = random_requests(13, 32, 32)
         outs = []
         for mode in ("graphed", "stepwise"):
@@ -1923,7 +1939,8 @@ def graph_phase(torch, dev, prompt, target, draft):
         torch.cuda.CUDAGraph.replay = real_replay
     res["replay_sync_debug_modes"] = sorted(set(modes))
     check(modes and set(modes) == {2}, f"[graph] replays ran under sync debug modes {set(modes)}")
-    check(res["generator"]["differ"] and res["generator"]["equal_to_eager"],
+    check(res["generator"]["differ"] and res["generator"]["equal_to_eager"]
+          and res["generator"]["rewound"],
           f"[graph] replays of a registered generator's draw: {res['generator']}")
     # a host read inside the step fails the capture; nothing runs stepwise instead
     eng = make_engine(torch, dev, small, small_draft, torch.float32)
@@ -1946,11 +1963,45 @@ def graph_phase(torch, dev, prompt, target, draft):
     return res
 
 
+def eos_inside_a_block(torch, dev, prompt, target, draft):
+    """Two requests on one engine, the first stopped by an EOS token a few
+    steps into a block of replays, so that the block ends in no-op replays
+    (they write no committed KV, and their random draws are taken back):
+    graphed equal to stepwise in both requests, greedy and stochastic (one
+    seed)."""
+    res = {}
+    for name, sampling in (("greedy", {}), ("stochastic", dict(temperature=0.6, topp=0.9))):
+        free = make_engine(torch, dev, target, draft, torch.float32, seed=11).generate(
+            input_ids=prompt, max_new_tokens=GRAPH_NEW_TOKENS, **sampling)["generated_tokens"]
+        # the latest token new at its index in the first half of the decode
+        eos = free[max(i for i in range(1, len(free) // 2 + 1) if free[i] not in free[:i])]
+        outs = []
+        for mode in ("graphed", "stepwise"):
+            eng = make_engine(torch, dev, target, draft, torch.float32, seed=11,
+                              eos_token_ids=[eos])
+            if mode == "stepwise":
+                stepwise(eng)
+            outs.append([eng.generate(input_ids=prompt, max_new_tokens=GRAPH_NEW_TOKENS,
+                                      **sampling)["generated_tokens"] for _ in range(2)])
+            if mode == "graphed":
+                noop = eng.decode_stats["noop_replays"]
+            del eng
+        check(outs[0][0][-1] == eos and noop > 0,
+              f"[graph] eos-inside-a-block {name}: the first request did not stop at the EOS "
+              f"inside a block ({len(outs[0][0])} tokens, {noop} no-op replays)")
+        check(outs[0] == outs[1], f"[graph] eos-inside-a-block {name}: graphed {outs[0]} vs "
+              f"stepwise {outs[1]}")
+        res[name] = dict(eos_at=len(outs[0][0]) - 1, noop_replays=noop,
+                         tokens=[len(o) for o in outs[0]], equal=True)
+    return res
+
+
 def replays_draw_anew(torch, dev):
     """A step that draws from a torch.Generator, captured as the engines
-    capture theirs (the generator registered, warmed up with its state
-    restored): two replays draw different numbers, and the same numbers as
-    two eager calls from the same state."""
+    capture theirs (the generator registered, its state restored after the
+    warm-up): two replays draw different numbers, the same numbers as two
+    eager calls from the same state, and a replay after rewind(1) draws the
+    second replay's numbers again."""
     from umbrella_tpu_torch.cuda_graphs import StepGraph
 
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1959,43 +2010,83 @@ def replays_draw_anew(torch, dev):
     def step():
         out.copy_(torch.rand(8, generator=gen, device=dev))
 
-    def warm():
-        state = gen.get_state()
-        step()
-        gen.set_state(state)
-
     state, eager, got = gen.get_state(), [], []
     for _ in range(2):
         step()
         eager.append(out.clone())
     gen.set_state(state)
-    graph = StepGraph.capture(step, dev, torch.cuda.graph_pool_handle(), generators=(gen,),
-                              warm=warm)
+    graph = StepGraph.capture(step, dev, torch.cuda.graph_pool_handle(), generators=(gen,))
     for _ in range(2):
         graph.replay(1)
         got.append(out.clone())
+    graph.rewind(1)
+    graph.replay(1)
     return dict(differ=not torch.equal(got[0], got[1]),
-                equal_to_eager=all(torch.equal(a, b) for a, b in zip(got, eager)))
+                equal_to_eager=all(torch.equal(a, b) for a, b in zip(got, eager)),
+                rewound=torch.equal(out, got[1]))
+
+
+def request_steps(out):
+    """The target steps of a generate() result."""
+    return max(1, round(len(out["generated_tokens"]) / out["avg_accept_tokens"]))
+
+
+# the port's __global__ kernels as the profiler names them, each with the
+# counters of every wrapper that launches it: a counted launch is one launch
+# of that kernel (split-K sums and the empty kernel are not counted)
+TRACED_KERNELS = (
+    (("gather_rows",), ("embed_gather",)),
+    (("flash_tc_kernel", "flash_attend_kernel"),
+     ("attend_flash", "attend_flash_int8", "attend_flash_batched", "attend_flash_batched_int8")),
+    (("flash_attend_kernel",), ("attend_flash_scalar",)),
+    (("w4a16_kernel",), ("w4a16_matmul", "w4a16_matmul_layered", "w4a16_gate_up_silu")),
+    (("w4a8_kernel",), ("w4a8f_matmul", "w4a8_matmul")),
+    (("quantize_rows",), ("w4a8_quantize",)),
+)
+
+
+def traced_launches(tag, kernel_counts, counted):
+    """Hold the launches of each kernel in the trace (kernel_counts: the
+    profiler's kernel names and counts) against the wrappers' counts over the
+    same window; return each wrapper's launches as traced, where it was the
+    only wrapper of its kernel that the window ran."""
+    traced = {}
+    for patterns, names in TRACED_KERNELS:
+        n = sum(c for k, c in kernel_counts.items() if any(p in k for p in patterns))
+        want = sum(counted[name] for name in names)
+        check(n == want, f"{tag}: the profiler traced {n} launches of {patterns[0]}, the "
+              f"wrappers counted {want} ({ {k: counted[k] for k in names} })")
+        for name in names:
+            if counted[name] == want:
+                traced[name] = n
+    return traced
 
 
 def profile_window(torch, tag, fn, count_steps):
     """fn() once under torch.profiler: device time by kernel name (summed over
     launches), device busy and wall time, host ops and kernels per step
-    (count_steps(fn's result) steps). Returns None where the profiler saw no
-    device time."""
+    (count_steps(fn's result) steps), and each wrapper's launches as the
+    profiler traced them (`launches_traced`; inside CUDA graph replays too),
+    which must equal the wrappers' counts over the window. Returns (the
+    profile, or None where the profiler saw no device time; fn's result)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from umbrella_tpu_torch.ops.kernels import launch_counts
+
     torch.cuda.synchronize()
+    before = launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         out = fn()
         torch.cuda.synchronize()
         wall_ms = 1000 * (time.time() - t0)
-    by_name = {}
+    counted = {k: v - before[k] for k, v in launch_counts().items()}
+    by_name, kernel_counts = {}, {}
     for e in prof.key_averages():
         # kernels only: CPU ops repeat the device time of the kernels they launch
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
+        kernel_counts[e.key] = kernel_counts.get(e.key, 0) + e.count
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
@@ -2003,7 +2094,8 @@ def profile_window(torch, tag, fn, count_steps):
             by_name[e.key] = by_name.get(e.key, 0.0) + us / 1000.0
     if not by_name:
         log(f"{tag} the profiler recorded no device time: not measured")
-        return None
+        return None, out
+    launches = traced_launches(tag, kernel_counts, counted)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     events = prof.events()
@@ -2024,10 +2116,10 @@ def profile_window(torch, tag, fn, count_steps):
                device_busy_ms_per_step=busy / steps, w4a16_device_ms_per_step=w4a16 / steps,
                w4a8_device_ms_per_step=w4a8 / steps, attention_device_ms_per_step=attn / steps,
                device_idle_share=1.0 - busy / wall_ms, host_ops_per_step=host_ops / steps,
-               device_kernels_per_step=kernels / steps,
+               device_kernels_per_step=kernels / steps, launches_traced=launches,
                top_kernels_ms={k[:90]: v for k, v in top})
     log(f"{tag} {json.dumps(res)}")
-    return res
+    return res, out
 
 
 # ---------------------------------------------------------------- phases 5-9: serving
@@ -2140,7 +2232,7 @@ def multi_card_phase(torch, dev):
     return res
 
 
-def decode_segment(torch, eng, reqs, tag="[serve-profile]"):
+def decode_segment(torch, eng, reqs, tag):
     """Admit B requests, then time one synced segment of SEGMENT_STEPS steps
     at full occupancy (ms per step, kernel launches per step); profile a
     second one."""
@@ -2157,8 +2249,8 @@ def decode_segment(torch, eng, reqs, tag="[serve-profile]"):
     ms = 1000 * (time.time() - t0) / SEGMENT_STEPS
     per_step = {k: n / SEGMENT_STEPS for k, n in launch_counts().items()}
     check(int(steps.min()) == SEGMENT_STEPS, "decode segment ran short")
-    prof = profile_window(torch, tag, lambda: eng.step_many(SEGMENT_STEPS, stop),
-                          lambda _: SEGMENT_STEPS)
+    prof, _ = profile_window(torch, tag, lambda: eng.step_many(SEGMENT_STEPS, stop),
+                             lambda _: SEGMENT_STEPS)
     eng.active[:] = False
     return ms, per_step, prof
 
@@ -2226,9 +2318,10 @@ def serve_phase(torch, dev, target, draft, tag, batch, tree, kv_dtype, n_request
             ttft_ms_p50=pct([p["ttft_ms"] for p in pouts], 50),
             ttft_ms_p95=pct([p["ttft_ms"] for p in pouts], 95),
             tpot_ms_p50=pct([p["time_per_output_token"] for p in pouts], 50))
-    step_ms, per_step, prof = decode_segment(torch, eng, reqs[:batch])
+    step_ms, per_step, prof = decode_segment(torch, eng, reqs[:batch], f"{tag[:-1]}-profile]")
+    check(prof is not None, f"{tag} the kernels' launches were not traced")
     res.update(decode_step_ms=step_ms, launches_per_step=per_step, profile=prof,
-               graphs=check_graphed(eng, tag))
+               launches_traced=prof["launches_traced"], graphs=check_graphed(eng, tag))
     if stepwise_too:  # the same requests with every segment step dispatched eagerly
         stepwise(eng)
         torch.cuda.synchronize()
@@ -2614,10 +2707,22 @@ def code_config_phase(torch, dev, ckpt, prompt, tag, target):
     check(w4a8 or counts["w4a8_matmul"] == 0, f"{tag} a W4A16 target ran W4A8")
     graphs = check_graphed(eng, tag)
     (graph,) = eng._decode_graphs.values()
+    # a traced request: the captured step's launches against the replays' in the trace
+    replays = graph.replays
+    trace, _ = profile_window(torch, f"{tag[:-1]}-trace]",
+                              lambda: eng.generate(input_ids=prompt, max_new_tokens=32),
+                              request_steps)
+    check(trace is not None, f"{tag} the kernels' launches were not traced")
+    replays = graph.replays - replays
+    traced = trace["launches_traced"]
+    per_step = {k: (n - prefill_counts[k]) / replays for k, n in traced.items()}
+    check(all(per_step[k] == graph.launches[k] for k in per_step),
+          f"{tag} launches a step traced {per_step}, captured {graph.launches}")
     res = dict(tokens=len(toks), steps=steps, tok_per_s=1000.0 / out["time_per_output_token"],
                decode_step_ms=out["time_per_output_token"] * len(toks) / steps,
                avg_accept_tokens=out["avg_accept_tokens"], ttft_ms_prefill128=ttft_ms,
-               init_s=init_s, launches=counts, launches_per_step=graph.launches, graphs=graphs,
+               init_s=init_s, launches=counts, launches_per_step=graph.launches,
+               launches_traced=traced, launches_per_step_traced=per_step, graphs=graphs,
                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
     log(f"{tag} {json.dumps(res)}")
     del eng
@@ -2741,9 +2846,9 @@ def pp_config_phase(torch, dev, ckpt, prompt):
           "[pp-config] a staged target must keep the stepwise loop")
     check_tc_route(counts, "[pp-config]")
     per_step = {k: (counts[k] - prefill_counts[k]) / steps for k in counts}
-    profiled = profile_window(
+    profiled, _ = profile_window(
         torch, "[pp-profile]", lambda: eng.generate(input_ids=prompt, max_new_tokens=8),
-        lambda out: max(1, round(len(out["generated_tokens"]) / out["avg_accept_tokens"])))
+        request_steps)
     products = 4 * CFG_70B["num_hidden_layers"]
     check(per_step["w4a16_matmul_layered"] == products and
           prefill_counts["w4a16_matmul_layered"] == products,
@@ -2757,6 +2862,8 @@ def pp_config_phase(torch, dev, ckpt, prompt):
                build_and_stage_s=build_s, init_s=init_s, resident_gb=resident_gb,
                peak_mem_gb=(sum(torch.cuda.max_memory_allocated(c) for c in cards) - base)
                / 2**30, launches=counts, launches_per_step=per_step, profile=profiled)
+    check(profiled is not None, "[pp-config] the kernels' launches were not traced")
+    res["launches_traced"] = profiled["launches_traced"]
     log(f"[pp-config] {json.dumps(res)}")
     del eng
     torch.cuda.empty_cache()
@@ -2798,6 +2905,14 @@ MAIN_KERNELS = ("embed_gather", "attend_flash", "w4a16_matmul", "w4a8f_matmul", 
 LAUNCHES_FROM = {"attend_flash_int8": "lossless-int8", "attend_flash_batched": "serve-bf16",
                  "attend_flash_batched_int8": "serve", "w4a8_matmul": "code-config-w4a8",
                  "w4a16_gate_up_silu": "kernels", "w4a16_matmul_layered": "pp-config"}
+# the profiled window of each phase in which the profiler counted the
+# kernels' launches (held there against the wrappers' counts)
+TRACED_IN = {"main": "[profile] graphed: a 64-token generate()",
+             "lossless-int8": "[lossless-int8]: its generate()",
+             "serve": "[serve-profile]: one segment of 8 steps",
+             "serve-bf16": "[serve-bf16-profile]: one segment of 8 steps",
+             "code-config-w4a8": "[code-config-w4a8-trace]: a 32-token generate()",
+             "pp-config": "[pp-profile]: an 8-token generate()"}
 CHECKPOINT_PHASES = ("checkpoint", "code-config", "code-config-w4a8", "serve-config",
                      "pp-config")
 PHASES = ("kernels", "multi-card", "lossless", "lossless-int8", "lossless-w4a8",
@@ -2900,7 +3015,10 @@ def run(torch, phases):
             **{k: r[k] for k in ("plain_timed_by", "events_ms", "launch_floor_ms") if k in r},
             launches_per_step=path["launches_per_step"][name],
             launches_from=("kernels: awq_gate_up_silu(fused=True), which no shipped config "
-                           "reaches" if src == "kernels" else src)))
+                           "reaches" if src == "kernels" else src),
+            launches_traced=(None if src == "kernels" else
+                             path["launches_traced"].get(name)),
+            launches_traced_in=TRACED_IN.get(src)))
     main, serve = results["main"], results["serve"]
     summary = {k: main[k] for k in ("tok_per_s", "decode_step_ms", "avg_accept_tokens",
                                     "ttft_ms_prefill128", "spec_vs_ar_common_prefix")}

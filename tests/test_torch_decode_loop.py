@@ -302,8 +302,7 @@ def test_buffers_keep_their_addresses_across_requests(port_models, kv_dtype):
 
 def test_multi_turn_block_loop_matches_stepwise(port_models):
     """_prefill, a decode, _append, a decode: the block loop commits the
-    stepwise loop's tokens in both turns (scratch rows written by no-op
-    replays are never read)."""
+    stepwise loop's tokens in both turns."""
     out = []
     for decode in ("_decode_fused", "_decode_stepwise"):
         eng = _port_engine(port_models, eos=-1)
@@ -312,6 +311,77 @@ def test_multi_turn_block_loop_matches_stepwise(port_models):
         assert eng._append(np.asarray([7, 8, 9], np.int32))
         getattr(eng, decode)(20)
         out.append(eng.tokens_host[:eng.num_nodes + 1].tolist())
+    assert out[0] == out[1]
+
+
+def _eos_after(tokens, at_least=8):
+    """A token that first appears at index at_least or later of `tokens`."""
+    return next(t for i, t in enumerate(tokens) if i >= at_least and t not in tokens[:i])
+
+
+def _two_turns(eng, decode, max_new=60):
+    """_prefill, a decode, _append, a decode. Returns, for each turn, (tokens
+    committed after its prefix, steps, eos stop), and the draft KV rows below
+    num_nodes after the first turn."""
+    turns = []
+    assert eng._prefill(np.asarray(PROMPT, np.int32))
+    for turn in range(2):
+        start = eng.num_nodes
+        steps = decode(eng, max_new)
+        turns.append((eng.tokens_host[start:eng.num_nodes + 1].tolist(), steps,
+                      bool(eng._last_eos_stop)))
+        if turn == 0:
+            kv = [np.asarray(t)[:, :, :eng.num_nodes] for t in eng.kv_draft if t is not None]
+            assert eng._append(np.asarray([7, 8, 9], np.int32))
+    return turns, kv
+
+
+def _port_stepwise(eng, max_new):
+    steps = eng._decode_stepwise(max_new)
+    eng._last_eos_stop = eng.tokens_host[eng.num_nodes] in eng.eos_token_ids
+    return steps
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_no_op_replays_leave_the_next_turn_as_stepwise(jax_target, jax_engines, port_models,
+                                                        kv_dtype):
+    """An EOS stops the first turn a few steps into a block, so the block
+    ends in no-op replays. They rewrite no committed draft KV (the draft's
+    rows below num_nodes equal the stepwise loop's, bit for bit), and after
+    _append the second turn's tokens, steps and accept rate equal the
+    stepwise loop's and the JAX package's _decode_fused (whose while_loop
+    exits at once)."""
+    free, _, _ = _fused(jax_engines[kv_dtype], PROMPT, 60)
+    eos = _eos_after(free)
+    jeng = _jax_engine(jax_target, kv_dtype, eos=eos)
+    want, _ = _two_turns(jeng, lambda e, n: e._decode_fused(n))
+    fused = _port_engine(port_models, kv_dtype, eos=eos)
+    got, kv = _two_turns(fused, lambda e, n: e._decode_fused(n))
+    assert got[0][2] and fused.decode_stats["noop_replays"] > 0
+    step, kv_step = _two_turns(_port_engine(port_models, kv_dtype, eos=eos), _port_stepwise)
+    assert got == want == step  # tokens and steps, so avg_accept_tokens too
+    for a, b in zip(kv, kv_step):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_no_op_replays_take_back_their_random_draws(port_models):
+    """Stochastic (temperature 0.8, top-p 0.9, one seed): the first request
+    stops at an EOS inside a block, and its trailing no-op steps' draws are
+    taken back, so the next request draws, and commits, what it would after
+    the stepwise loop."""
+    kw = dict(temperature=0.8, topp=0.9, seed=4)
+    free = _port_engine(port_models, **kw).generate(input_ids=PROMPT, max_new_tokens=60)
+    eos = _eos_after(free["generated_tokens"])
+    out = []
+    for mode in ("fused", "stepwise"):
+        eng = _port_engine(port_models, eos=eos, **kw)
+        if mode == "stepwise":
+            eng._can_decode_fused = lambda: False
+        out.append([eng.generate(input_ids=PROMPT, max_new_tokens=60)["generated_tokens"]
+                    for _ in range(2)])
+        if mode == "fused":
+            assert eng.decode_stats["noop_replays"] > 0
+    assert out[0][0][-1] == eos and len(out[0][0]) < 60
     assert out[0] == out[1]
 
 

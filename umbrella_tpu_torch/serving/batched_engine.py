@@ -36,6 +36,7 @@ MoE"); nor is the request scheduler (ROADMAP queue A, "API, scheduler").
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 import time
@@ -346,22 +347,23 @@ class BatchedStaticEngine:
     def _segment_graphed(self, n_steps: int, use_pen: bool, all_greedy: bool) -> None:
         """n_steps replays of the captured segment step (captured at its
         mode's first use, warmed up with every slot inactive, which writes
-        only scratch rows, and the generator's state restored)."""
+        only scratch rows)."""
         key = (use_pen, all_greedy)
         if key not in self._segment_graphs:
-            sg = self._seg
-
-            def warm():
-                active, gen_state = sg["active"].clone(), self._gen.get_state()
-                sg["active"].zero_()
-                self._segment_step(use_pen, all_greedy)
-                sg["active"].copy_(active)
-                self._gen.set_state(gen_state)
-
             self._segment_graphs[key] = StepGraph.capture(
                 lambda: self._segment_step(use_pen, all_greedy), self.device, self._graph_pool,
-                generators=(self._gen,), warm=warm)
+                generators=(self._gen,), idle=self._all_inactive)
         self._segment_graphs[key].replay(n_steps)
+
+    @contextlib.contextmanager
+    def _all_inactive(self):
+        """Every slot inactive for the block (a step is a no-op), then back."""
+        active = self._seg["active"].clone()
+        self._seg["active"].zero_()
+        try:
+            yield
+        finally:
+            self._seg["active"].copy_(active)
 
     # ------------------------------------------------------------------ slots
 

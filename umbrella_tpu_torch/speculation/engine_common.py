@@ -375,8 +375,11 @@ class SpecEngineBase(BaseEngine):
             before = steps
             nn, cont, steps, eos = (int(x) for x in torch.stack(
                 [st["nn"], st["cont"].int(), st["steps"], st["eos"].int()]).cpu())
+            noop = n - (steps - before)
+            if noop:
+                self._rewind_decode_steps(noop, greedy, use_pen)
             self.decode_stats["replays"] += n
-            self.decode_stats["noop_replays"] += n - (steps - before)
+            self.decode_stats["noop_replays"] += noop
             self.decode_stats["blocks"] += 1
         self.tokens_host[:] = self.tokens.cpu().numpy()
         self.num_nodes = nn

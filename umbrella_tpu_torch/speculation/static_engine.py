@@ -17,6 +17,8 @@ accepted leaf whose KV was skipped; slot nn is the bonus token.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..cuda_graphs import StepGraph
@@ -95,10 +97,13 @@ class StaticEngine(SpecEngineBase):
             if self._defer_leaf and lvl == n_levels - 1:
                 continue  # leaf KV deferred to the next step's level 0
             if self._defer_leaf and lvl == 0:
-                ids = read_window(self.tokens, nn - 1, 2)
-                pos = (nn - 1) + torch.arange(2, device=self.device)
-                mask = causal_mask_rows(nn - 1, 2, L, device=self.device)
-                logits, _ = d_fwd(pd, self.kv_draft, ids, pos, mask, nn - 1)
+                # a no-op step (cont false) runs this forward one slot later, past
+                # the committed prefix, so that it rewrites no committed draft KV
+                lo = nn - 1 if cont is None else torch.where(cont, nn - 1, nn)
+                ids = read_window(self.tokens, lo, 2)
+                pos = lo + torch.arange(2, device=self.device)
+                mask = causal_mask_rows(lo, 2, L, device=self.device)
+                logits, _ = d_fwd(pd, self.kv_draft, ids, pos, mask, lo)
                 logits = logits[1:2]  # expansion samples from the root row
             else:
                 ids = read_window(self.tokens, nn + lv["start"], lv["n"])
@@ -158,24 +163,23 @@ class StaticEngine(SpecEngineBase):
 
     def _decode_graph(self, greedy: bool, topk: int, use_pen: bool) -> StepGraph:
         """The captured `_decode_step` for one sampling mode, cached as the JAX
-        package's `_decode_loop_cache` is. Warmed up with cont false (a no-op
-        step) and the generator's state restored, so the capture leaves the
-        engine's state and random stream as they were."""
+        package's `_decode_loop_cache` is (warmed up as a no-op step)."""
         key = (greedy, topk, use_pen)
         if key not in self._decode_graphs:
-            st = self._loop
-
-            def warm():
-                cont, gen_state = st["cont"].clone(), self._gen.get_state()
-                st["cont"].fill_(False)
-                self._decode_step(greedy, use_pen)
-                st["cont"].copy_(cont)
-                self._gen.set_state(gen_state)
-
             self._decode_graphs[key] = StepGraph.capture(
                 lambda: self._decode_step(greedy, use_pen), self.device, self._graph_pool,
-                generators=(self._gen,), warm=warm)
+                generators=(self._gen,), idle=self._stopped)
         return self._decode_graphs[key]
+
+    @contextlib.contextmanager
+    def _stopped(self):
+        """The continue flag off for the block (a step is a no-op), then back."""
+        cont = self._loop["cont"].clone()
+        self._loop["cont"].fill_(False)
+        try:
+            yield
+        finally:
+            self._loop["cont"].copy_(cont)
 
     def _run_decode_steps(self, n: int, greedy: bool, use_pen: bool) -> None:
         """n steps of the device-resident loop: graph replays on the card, the
@@ -183,5 +187,16 @@ class StaticEngine(SpecEngineBase):
         if self.device.type == "cuda":
             self._decode_graph(greedy, self.topk, use_pen).replay(n)
         else:
+            self._gen_states = []
             for _ in range(n):
+                self._gen_states.append(self._gen.get_state())
                 self._decode_step(greedy, use_pen)
+
+    def _rewind_decode_steps(self, n: int, greedy: bool, use_pen: bool) -> None:
+        """Take back the random draws of the last block's n trailing no-op
+        steps: the next request draws what it would after the stepwise loop
+        (or the JAX package's loop, which exits at once)."""
+        if self.device.type == "cuda":
+            self._decode_graph(greedy, self.topk, use_pen).rewind(n)
+        else:
+            self._gen.set_state(self._gen_states[-n])
