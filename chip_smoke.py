@@ -343,10 +343,10 @@ def kernel_checks(torch, dev):
     return report
 
 
-def launch_floor_ms(torch, dev, S):
-    """cuda_ms of a kernel that does nothing (csrc/embed_gather.cu
-    `empty_launch`: S blocks of 256 threads, embed_gather's launch at S
-    rows), timed as every kernel is: the floor of one launch."""
+def empty_kernel(torch, dev, S, n=1):
+    """A function that launches n times a kernel that does nothing
+    (csrc/embed_gather.cu `empty_launch`, `empty_rows`: S blocks of 256
+    threads, embed_gather's launch at S rows) on dev's current stream."""
     import ctypes
 
     from umbrella_tpu_torch.ops.kernels import build
@@ -358,9 +358,16 @@ def launch_floor_ms(torch, dev, S):
 
     def launch():
         with build.on_device(anchor) as st:
-            build.check(fn(S, st), "empty_launch")
+            for _ in range(n):
+                build.check(fn(S, st), "empty_launch")
 
-    return cuda_ms(torch, launch)
+    return launch
+
+
+def launch_floor_ms(torch, dev, S):
+    """cuda_ms of the empty kernel launched as embed_gather launches at S
+    rows, timed as every kernel is: the floor of one launch."""
+    return cuda_ms(torch, empty_kernel(torch, dev, S))
 
 
 def attention_phase(torch, dev):
@@ -2066,12 +2073,20 @@ def traced_launches(tag, kernel_counts, counted):
     return traced
 
 
+# the profiler loses a prefix of a window's device records (on the card, from
+# one to ~1,600 kernels): a window opens with PAD_LAUNCHES launches of the
+# empty kernel, which every count and time below leaves out
+PAD_LAUNCHES = 10000
+PAD_KERNEL = "empty_rows"
+
+
 def profile_window(torch, tag, fn, count_steps):
     """fn() once under torch.profiler: device time by kernel name (summed over
     launches), device busy and wall time, host ops and kernels per step
     (count_steps(fn's result) steps), and each wrapper's launches as the
     profiler traced them (`launches_traced`; inside CUDA graph replays too),
-    which must equal the wrappers' counts over the window. Returns (the
+    which must equal the wrappers' counts over the window (the window
+    opens with PAD_LAUNCHES empty launches, left out). Returns (the
     profile, or None where the profiler saw no device time; fn's result)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2079,21 +2094,21 @@ def profile_window(torch, tag, fn, count_steps):
 
     torch.cuda.synchronize()
     before = launch_counts()
+    pad = empty_kernel(torch, torch.device("cuda", torch.cuda.current_device()), 1,
+                       PAD_LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # the profiler drops a kernel whose device timestamps, taken to the
-        # host's clock, fall outside its window: a margin at either end keeps
-        # the first and last kernels of fn() (one went missing without it)
-        time.sleep(0.02)
+        pad()
+        torch.cuda.synchronize()
         t0 = time.time()
         out = fn()
         torch.cuda.synchronize()
         wall_ms = 1000 * (time.time() - t0)
-        time.sleep(0.02)
     counted = {k: v - before[k] for k, v in launch_counts().items()}
     by_name, kernel_counts = {}, {}
     for e in prof.key_averages():
         # kernels only: CPU ops repeat the device time of the kernels they launch
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA \
+                or PAD_KERNEL in e.key:
             continue
         kernel_counts[e.key] = kernel_counts.get(e.key, 0) + e.count
         us = getattr(e, "self_device_time_total", None)
@@ -2112,7 +2127,7 @@ def profile_window(torch, tag, fn, count_steps):
     # PyTorch ops called from Python (not ops nested inside other ops), and kernels
     host_ops = sum(1 for e in events if e.device_type != cuda and e.cpu_parent is None
                    and e.name.startswith("aten::"))
-    kernels = sum(1 for e in events if e.device_type == cuda)
+    kernels = sum(1 for e in events if e.device_type == cuda and PAD_KERNEL not in e.name)
     steps = count_steps(out)
     # the W4A16 family's kernels (w4a16_kernel and w4a16_sum_partials); the
     # int8 W4 family's (w4a8_kernel, w4a8_sum_partials, quantize_rows); the
