@@ -10,7 +10,11 @@ lines tagged with its name:
                    it against its plain PyTorch version on the card; time the
                    kernel, the plain version and a PyTorch library yardstick,
                    and compute the card's bound for the same work. Includes
-                   every check of `w4a16` and of `w4a8`.
+                   every check of `w4a16` and of `w4a8`, and the offload
+                   configs' shapes: W4A16 at the four 70B layer shapes at
+                   S=256 and 257 (the dynamic verify), attention at the 70B
+                   257-row verify q [257,64,128] and a 1B draft level
+                   q [16,32,64].
   w4a16            (only when named in --phases; part of `kernels`) the W4A16
                    family alone: the plain mode at the four 8B layer shapes,
                    S=1, 24, 48, 127, 160, 224 and 300 (every token width of
@@ -67,6 +71,17 @@ lines tagged with its name:
                    tokens, and the AR decode's (fp32, bf16), or part from it
                    only at a near tie (int8 KV); the KV rows of the spec and
                    the AR decode are compared layer by layer as the witness.
+  dynamic-lossless full widths, 4 layers, early exit 2, fp32: the dynamic engine
+                   (the default engine; the shipped offload configs' 16 x 16
+                   tree of 24 beams, graphed) and an offload target's
+                   pipelined decode over the same weights (2 layers resident,
+                   2 streamed from pinned memory), static 24x6 and dynamic,
+                   must each equal the AR decode for 64 tokens.
+  offload-lossless full Llama-3.3-70B widths, 6 AWQ layers, bf16: the offload
+                   runtime (2 layers resident, 4 streamed) gives the resident
+                   forward's logits bit for bit at a 128-token prefill and a
+                   257-row dynamic verify, twice in a row; the dynamic engine
+                   over it commits the resident engine's tokens.
   main             the 8B AWQ target (32 layers, damped tail, Int4F shared
                    prefix of 3 layers + lm_head) with its early-exit draft, a
                    Sequoia 24x6 tree, through AutoEngine.from_config ->
@@ -84,6 +99,12 @@ lines tagged with its name:
                    and replayed in each graphed run; a registered generator
                    draws anew at each replay; a step that reads the host must
                    fail its capture (no stepwise fallback).
+  dynamic          the dynamic engine on the 8B target with a random bf16
+                   draft at Llama-3.2-1B widths, the 16 x 16 x 24 tree,
+                   greedy and stochastic (0.6 / 0.9 / 1.05): graphed and
+                   stepwise tokens equal from one seed; tok/s, step ms,
+                   accept, a profiled request (host ops a step, idle share,
+                   traced launches a step = the captured step's).
   serve            the same models behind engine="batched_static": B=32, int8
                    KV, 2x3 tree, 64 requests through run() and then through the
                    pipelined ContinuousBatcher; tok/s, accept, step ms, TTFT,
@@ -114,11 +135,26 @@ lines tagged with its name:
                    tree, max_length 8192; TTFT, step ms, tok/s, accept, peak
                    memory, launches per step (320 layered W4A16 a step), and
                    a profiled 8-token request ([pp-profile]).
+  offload-checkpoint the 8B AutoAWQ directory loaded with offload: true and
+                   num_cache_layers 16: logits equal the resident load's bit
+                   for bit.
+  offload-config   configs/greedy_config_v5e.json and chat_config_v5e_16gb.json
+                   as shipped (the dynamic engine over a random AWQ
+                   Llama-3.3-70B at full widths, 16 layers on the card and the
+                   rest streamed from pinned host memory, depth cut only where
+                   MemAvailable cannot hold 64 streamed layers; the 1B draft
+                   directory above): one request each (TTFT, step ms, tok/s,
+                   accept), streamed_forward_traced at the 257-row verify
+                   (compute and exposed stream ms a layer, H2D GB/s a streamed
+                   layer) and a profiled request whose host-to-device copies
+                   must overlap compute kernels ([offload-profile]); peak
+                   device GB and pinned host GB.
   report           one JSON line of kernels, the card's name and power limit,
                    and the final {"ok": true, ...} line.
-The static and batched engines decode through CUDA graphs in every phase
-but [pp-lossless]'s and [pp-config]'s staged targets, which keep the
-stepwise loop (each phase checks which); a replay adds the captured step's
+The static, dynamic and batched engines decode through CUDA graphs in every
+phase but [pp-lossless]'s and [pp-config]'s staged targets, which keep the
+stepwise loop, and the offload targets, which take the pipelined loop (each
+phase checks which); a replay adds the captured step's
 launches to the kernels' counts. Every kernel must have launched in the
 phase that its `launches` is read from; in [main], [serve], [serve-bf16], [code-config], [serve-config] and
 [pp-config] (bf16) every attention launch must be the tensor-core kernel's,
@@ -132,6 +168,7 @@ H100 80GB HBM3 at 700 W with the tensor-core attention kernel), the
 kernels' build (20-30 s) included; `--phases w4a16` about a minute,
 `--phases w4a8` about 45 s, `--phases attention` about a minute.
 """
+import bisect
 import gc
 import json
 import os
@@ -432,7 +469,7 @@ def attention_checks(torch, dev, gen, randn, err):
     del kc, vc
     torch.cuda.empty_cache()
     report["attend_flash"]["per_shape"] = {"70B verify q [127,64,128]": attention_70b_verify(
-        torch, dev, randn, err)}
+        torch, dev, randn, err), **attention_dynamic_shapes(torch, dev, randn, err)}
     torch.cuda.empty_cache()
     report.update(attention_int8_and_batched_checks(torch, dev, gen, randn, err))
     report["attend_flash"]["tensor_core_checks"] = attention_tc_checks(torch, dev, gen, randn, err)
@@ -488,7 +525,9 @@ def w4a16_plain_checks(torch, dev, gen, randn, err):
     with fp32 scales (the lossless phases' dtypes); the group size 32 at one
     shape (K split); times at S=24 (a draft level), 127 (a verify pass) and
     224 ([serve]'s rows), by graph replay (`ms`) and by events around
-    back-to-back calls (`events_ms`, the host's launch cost included).
+    back-to-back calls (`events_ms`, the host's launch cost included); the
+    four 70B layer shapes at S=256 and 257 (the offload configs' verify),
+    held and timed too.
     Library yardstick: torch.matmul on the pre-dequantized bf16 weight."""
     from umbrella_tpu_torch.ops.kernels.w4a16 import (_dequant_halves_bf16, _plan, w4a16_matmul,
                                                       w4a16_matmul_ref)
@@ -525,6 +564,25 @@ def w4a16_plain_checks(torch, dev, gen, randn, err):
                 library_ms=cuda_ms(torch, lambda: torch.matmul(x, w_deq)),
                 bound_ms=by, bound_by=bb)
             log(f"[kernels] w4a16_matmul {name} K={K} N={N} S={S} {shapes_ms[f'{name} S={S}']}")
+        del q, w_deq
+    torch.cuda.empty_cache()
+    for name, (K, N) in LAYER_SHAPES_70B.items():  # the offload configs' verify: 257 rows
+        q = quantize_pack_device(torch.randn((K, N), generator=gen, device=dev) * 0.02, 128, bf16)
+        w_deq = _dequant_halves_bf16(q)
+        for S in (256, 257):
+            x = randn(S, K)
+            e, m = err(w4a16_matmul(x, q), w4a16_matmul_ref(x, q))
+            check(e <= 2 ** -7 * m, f"w4a16 70B {name} S={S}: err {e} vs max {m}")
+            w_max, w_rel = max(w_max, e), max(w_rel, e / m)
+            by, bb = w4a16_bound(K, N, S, N, K // 128)
+            shapes_ms[f"70B {name} S={S}"] = dict(
+                splits=_plan(S, K, N, 1, 128)["splits"],
+                ms=cuda_ms(torch, lambda: w4a16_matmul(x, q)),
+                plain_ms=cuda_ms(torch, lambda: w4a16_matmul_ref(x, q), iters=5),
+                library_ms=cuda_ms(torch, lambda: torch.matmul(x, w_deq)),
+                bound_ms=by, bound_by=bb)
+            log(f"[kernels] w4a16_matmul 70B {name} K={K} N={N} S={S} "
+                f"{shapes_ms[f'70B {name} S={S}']}")
         del q, w_deq
     torch.cuda.empty_cache()
     g32 = w4a16_group32_checks(torch, dev, gen, randn, err)
@@ -1192,44 +1250,74 @@ def attention_int8_and_batched_checks(torch, dev, gen, randn, err):
     return report
 
 
-def attention_70b_verify(torch, dev, randn, err):
-    """attend_flash at the 70B verify shape that [pp-config] runs 80 times a
-    step: q [127, 64, 128] against 8 kv heads (groups 8) of a [2, 8, 8192, 128]
-    bf16 cache (the pp4 config's max_length), the 24x6 tree mask at kv_limit
-    428; timed beside its plain version, SDPA and its bound."""
+def attention_at(torch, dev, randn, err, tag, nH, KVH, D, L, mask, limit):
+    """attend_flash at one shape: q [S, nH, D] bf16 against a [2, KVH, L, D]
+    bf16 cache (layers 0 and 1 held against the plain version, 2e-2 of its
+    max), timed beside its plain version, SDPA and its bound."""
     import torch.nn.functional as F
 
     from umbrella_tpu_torch.ops.kernels.tree_attention import attend_dense, attend_flash
-    from umbrella_tpu_torch.ops.masks import tree_mask_rows
-    from umbrella_tpu_torch.sequoia import growmap_from_spec
 
-    nH, KVH, D, L = CFG_70B["num_attention_heads"], CFG_70B["num_key_value_heads"], 128, 8192
-    gm = growmap_from_spec(24, 6, acc=ACC_24x6)
-    nn, S = 301, gm.size
-    limit = nn + S
+    S = mask.shape[0]
     kc, vc = randn(2, KVH, L, D), randn(2, KVH, L, D)
-    mask = tree_mask_rows(nn, torch.as_tensor(gm.bitmap, device=dev), L)
     q = randn(S, nH, D)
     e_max, e_rel = 0.0, 0.0
     for layer in (0, 1):
         e, m = err(attend_flash(q, kc, vc, mask, limit, layer),
                    attend_dense(q, kc[layer], vc[layer], mask))
-        check(e <= 2e-2 * m, f"attend_flash 70B verify layer={layer}: err {e} vs max {m}")
+        check(e <= 2e-2 * m, f"attend_flash {tag} layer={layer}: err {e} vs max {m}")
         e_max, e_rel = max(e_max, e), max(e_rel, e / m)
     qs = q.transpose(0, 1)[None]
     ks, vs, ms_ = kc[1:2, :, :limit], vc[1:2, :, :limit], mask[None, None, :, :limit]
     by, bb = attention_bound(torch, mask, [limit], nH, KVH, D, False)
     res = dict(
-        shape=f"q [{S},{nH},{D}] bf16 vs [2,{KVH},{L},{D}] cache (groups {nH // KVH}), tree "
-              f"mask, kv_limit={limit}",
+        shape=f"q [{S},{nH},{D}] bf16 vs [2,{KVH},{L},{D}] cache (groups {nH // KVH}), "
+              f"kv_limit={limit}",
         max_abs_err=e_max, max_rel_err=e_rel,
         ms=cuda_ms(torch, lambda: attend_flash(q, kc, vc, mask, limit, 1)),
         plain_ms=cuda_ms(torch, lambda: attend_dense(q, kc[1], vc[1], mask)),
         library_ms=library_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=ms_, enable_gqa=True)),
         bound_ms=by, bound_by=bb)
-    log(f"[kernels] attend_flash 70B verify {res}")
+    log(f"[kernels] attend_flash {tag} {res}")
     return res
+
+
+def attention_70b_verify(torch, dev, randn, err):
+    """attend_flash at the 70B verify shape that [pp-config] runs 80 times a
+    step: q [127, 64, 128] against 8 kv heads (groups 8) of a [2, 8, 8192, 128]
+    bf16 cache (the pp4 config's max_length), the 24x6 tree mask at kv_limit
+    428."""
+    from umbrella_tpu_torch.ops.masks import tree_mask_rows
+    from umbrella_tpu_torch.sequoia import growmap_from_spec
+
+    gm = growmap_from_spec(24, 6, acc=ACC_24x6)
+    nn = 301
+    mask = tree_mask_rows(nn, torch.as_tensor(gm.bitmap, device=dev), 8192)
+    return attention_at(torch, dev, randn, err, "70B verify", CFG_70B["num_attention_heads"],
+                        CFG_70B["num_key_value_heads"], 128, 8192, mask, nn + gm.size)
+
+
+def attention_dynamic_shapes(torch, dev, randn, err):
+    """attend_flash at the offload configs' shapes (max_length 8192, the
+    prompt's 128 slots committed): the 70B target's 257-row verify over a
+    16 x 16 dynamic tree, q [257, 64, 128], and a 1B draft level of 16 rows
+    (level 8 of that tree), q [16, 32, 64] against 8 kv heads of head dim 64."""
+    from umbrella_tpu_torch.ops.masks import tree_level_mask_rows, tree_mask_rows
+
+    W, Dp = DYN_TREE["width"], DYN_TREE["depth"]
+    bm = dynamic_bitmap(torch, dev, W, Dp, 2)
+    nn, T = PROMPT_LEN, W * Dp + 1
+    lvl = 8
+    start = 1 + (lvl - 1) * W
+    return {
+        "70B dynamic verify q [257,64,128]": attention_at(
+            torch, dev, randn, err, "70B dynamic verify", CFG_70B["num_attention_heads"],
+            CFG_70B["num_key_value_heads"], 128, 8192, tree_mask_rows(nn, bm, 8192), nn + T),
+        "1B draft level q [16,32,64]": attention_at(
+            torch, dev, randn, err, "1B draft level", CFG_1B["num_attention_heads"],
+            CFG_1B["num_key_value_heads"], CFG_1B["head_dim"], 8192,
+            tree_level_mask_rows(nn, bm, start, W, 8192), nn + start + W)}
 
 
 def attention_tc_checks(torch, dev, gen, randn, err):
@@ -2074,9 +2162,12 @@ def traced_launches(tag, kernel_counts, counted):
 
 
 # the profiler loses a prefix of a window's device records (on the card, from
-# one to ~1,600 kernels): a window opens with PAD_LAUNCHES launches of the
-# empty kernel, which every count and time below leaves out
-PAD_LAUNCHES = 10000
+# one to ~1,600 kernels, and in two whole-script runs the prefill's kernels
+# after 10,000 empty launches made back to back): a window opens with
+# PAD_ROUNDS rounds of PAD_LAUNCHES launches of the empty kernel, each round
+# synchronized and followed by PAD_WAIT_S of host time, which every count and
+# time below leaves out; `pad_traced` says how many of them the trace kept
+PAD_ROUNDS, PAD_LAUNCHES, PAD_WAIT_S = 10, 1000, 0.03
 PAD_KERNEL = "empty_rows"
 
 
@@ -2086,8 +2177,10 @@ def profile_window(torch, tag, fn, count_steps):
     (count_steps(fn's result) steps), and each wrapper's launches as the
     profiler traced them (`launches_traced`; inside CUDA graph replays too),
     which must equal the wrappers' counts over the window (the window
-    opens with PAD_LAUNCHES empty launches, left out). Returns (the
-    profile, or None where the profiler saw no device time; fn's result)."""
+    opens with PAD_ROUNDS x PAD_LAUNCHES empty launches, left out). Returns (the
+    profile, or None where the profiler saw no device time; fn's result).
+    Host-to-device copies are left out of the device busy time and reported
+    apart: their ms, and the ms of them that overlap a kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from umbrella_tpu_torch.ops.kernels import launch_counts
@@ -2097,18 +2190,23 @@ def profile_window(torch, tag, fn, count_steps):
     pad = empty_kernel(torch, torch.device("cuda", torch.cuda.current_device()), 1,
                        PAD_LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pad()
-        torch.cuda.synchronize()
+        for _ in range(PAD_ROUNDS):
+            pad()
+            torch.cuda.synchronize()
+            time.sleep(PAD_WAIT_S)
         t0 = time.time()
         out = fn()
         torch.cuda.synchronize()
         wall_ms = 1000 * (time.time() - t0)
     counted = {k: v - before[k] for k, v in launch_counts().items()}
     by_name, kernel_counts = {}, {}
-    for e in prof.key_averages():
-        # kernels only: CPU ops repeat the device time of the kernels they launch
+    averages = prof.key_averages()
+    pad_traced = sum(e.count for e in averages if PAD_KERNEL in e.key)
+    for e in averages:
+        # kernels only: CPU ops repeat the device time of the kernels they launch,
+        # and host-to-device copies run on the copy engines (h2d_overlap below)
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA \
-                or PAD_KERNEL in e.key:
+                or PAD_KERNEL in e.key or e.key.startswith("Memcpy HtoD"):
             continue
         kernel_counts[e.key] = kernel_counts.get(e.key, 0) + e.count
         us = getattr(e, "self_device_time_total", None)
@@ -2119,7 +2217,8 @@ def profile_window(torch, tag, fn, count_steps):
     if not by_name:
         log(f"{tag} the profiler recorded no device time: not measured")
         return None, out
-    launches = traced_launches(tag, kernel_counts, counted)
+    launches = traced_launches(f"{tag} (pad records traced {pad_traced} of "
+                               f"{PAD_ROUNDS * PAD_LAUNCHES})", kernel_counts, counted)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     events = prof.events()
@@ -2141,7 +2240,8 @@ def profile_window(torch, tag, fn, count_steps):
                w4a8_device_ms_per_step=w4a8 / steps, attention_device_ms_per_step=attn / steps,
                device_idle_share=1.0 - busy / wall_ms, host_ops_per_step=host_ops / steps,
                device_kernels_per_step=kernels / steps, launches_traced=launches,
-               top_kernels_ms={k[:90]: v for k, v in top})
+               top_kernels_ms={k[:90]: v for k, v in top}, pad_traced=pad_traced,
+               **h2d_overlap(prof, torch))
     log(f"{tag} {json.dumps(res)}")
     return res, out
 
@@ -2894,6 +2994,495 @@ def pp_config_phase(torch, dev, ckpt, prompt):
     return res
 
 
+# ---------------------------------------------------------------- the dynamic engine and offload
+
+# configs/greedy_config_v5e.json's (and chat_config_v5e_16gb.json's) tree: 257 nodes
+DYN_TREE = dict(width=16, num_beams=24, depth=16)
+DYN_NEW_TOKENS = 32
+# meta-llama/Llama-3.2-1B-Instruct's config.json: the offload configs' draft
+CFG_1B = {k: v for k, v in DRAFT_HF_CONFIG.items()
+          if k not in ("architectures", "hidden_act", "torch_dtype", "bos_token_id")}
+OFFLOAD_LOSSLESS_LAYERS, OFFLOAD_LOSSLESS_CACHED = 6, 2
+OFFLOAD_CACHED = 16  # the offload configs' num_cache_layers, for the 8B directory
+OFFLOAD_NEW_TOKENS = 16
+# host memory kept free beside the pinned layers (the process, the draft
+# directory's reads, the 8B checkpoint files)
+HOST_RESERVE_BYTES = 24 * 2**30
+
+
+def dynamic_engine(torch, dev, target, draft, dtype, **kw):
+    """The dynamic engine (the default: no `engine` key) with the shipped
+    configs' 16 x 16 tree of 24 beams."""
+    from umbrella_tpu_torch.speculation.auto_engine import AutoEngine
+    from umbrella_tpu_torch.speculation.dynamic_engine import DynamicEngine
+
+    eng = AutoEngine.from_config(
+        device=dev, model=target, draft_model=draft, max_length=kw.pop("max_length", MAX_LEN),
+        temperature=0.0, eos_token_ids=kw.pop("eos_token_ids", [-100]), dtype=dtype,
+        **dict(DYN_TREE, **kw))
+    check(isinstance(eng, DynamicEngine), "from_config without an engine key: not dynamic")
+    eng.initialize()
+    return eng
+
+
+def dynamic_bitmap(torch, dev, width, depth, seed):
+    """The ancestor bitmap of a random dynamic tree as the engine builds one:
+    each node of a level under a node of the level before, its row its
+    parent's row and itself."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    T = width * depth + 1
+    bm = np.eye(T, dtype=bool)
+    for lvl in range(depth):
+        lo, n_prev = (0, 1) if lvl == 0 else (1 + (lvl - 1) * width, width)
+        for j in range(width):
+            v = 1 + lvl * width + j
+            bm[v] |= bm[lo + rng.integers(n_prev)]
+    return torch.as_tensor(bm, device=dev)
+
+
+def dynamic_lossless_check(torch, dev, prompt):
+    """fp32, full 8B widths, 4 layers (as [lossless]): dynamic spec decode
+    (graphed) and an offload target's pipelined decode, static (24x6) and
+    dynamic, over the same weights (2 layers resident, 2 streamed) must each
+    equal the AR decode for LOSSLESS_NEW_TOKENS tokens."""
+    from umbrella_tpu_torch.offload.streaming import OffloadModelRuntime
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    tag = "[dynamic-lossless]"
+    target, draft = build_target(torch, dev, n_layers=4, exit_layer=2, dtype=torch.float32)
+    off = OffloadModelRuntime.from_params(target.params, target.cfg, MAX_LEN, dtype=torch.float32,
+                                          num_cache_layers=2, device=dev)
+    check((off.n_resident, off.n_streamed) == (2, 2), f"{tag} offload split {off.n_resident}")
+    res, decodes = {}, {}
+    for name, (t, kind) in {"dynamic": (target, "dynamic"), "offload-static": (off, "static"),
+                            "offload-dynamic": (off, "dynamic")}.items():
+        eng = (dynamic_engine(torch, dev, t, draft, torch.float32) if kind == "dynamic"
+               else make_engine(torch, dev, t, draft, torch.float32))
+        check(eng._offload == (t is off) and eng._can_decode_fused() == (t is target),
+              f"{tag} {name}: wrong decode loop")
+        reset_launch_counts()
+        out = eng.generate(input_ids=prompt, max_new_tokens=LOSSLESS_NEW_TOKENS)
+        counts = launch_counts()
+        decodes[name] = out["generated_tokens"]
+        steps = request_steps(out)
+        res[name] = dict(tokens=len(out["generated_tokens"]),
+                         avg_accept_tokens=out["avg_accept_tokens"], launches=counts,
+                         launches_per_step={k: n / steps for k, n in counts.items()})
+        if t is target:
+            res[name]["graphs"] = check_graphed(eng, f"{tag} {name}")
+        for k in ("attend_flash", "w4a16_matmul", "w4a8f_matmul", "embed_gather"):
+            check(counts[k] > 0, f"{tag} {name}: kernel {k} was never launched")
+        del eng
+    n = max(len(v) for v in decodes.values())
+    ar, gaps, _, _ = greedy_ar_decode(torch, target, prompt, n)
+    for name, toks in decodes.items():
+        same = first_difference(toks, ar)
+        res[name].update(identical_prefix=same,
+                         gap_at_first_difference=gaps[same] if same < len(toks) else None)
+        check(len(toks) >= LOSSLESS_NEW_TOKENS and same >= LOSSLESS_NEW_TOKENS,
+              f"{tag} {name} and the AR decode differ at token {same}: {toks} vs {ar}")
+    log(f"{tag} {json.dumps(res)}")
+    res["identical_prefix"] = min(r["identical_prefix"] for r in res.values())
+    return res
+
+
+def build_draft_1b(torch, dev, max_length):
+    """A random bf16 draft at Llama-3.2-1B's widths (16 layers, tied head)."""
+    from umbrella_tpu_torch.config import ModelConfig
+    from umbrella_tpu_torch.models.auto_model import random_runtime
+
+    return random_runtime(ModelConfig(**CFG_1B), max_length, dtype=torch.bfloat16, seed=5,
+                          device=dev)
+
+
+def dynamic_phase(torch, dev, prompt, target, draft):
+    """The dynamic engine on the 8B AWQ target (32 layers, resident) with a
+    random bf16 1B draft, the shipped configs' tree (16 x 16, 24 beams):
+    greedy and stochastic (temperature 0.6, top-p 0.9, repetition penalty
+    1.05). Graphed (the step replayed as a CUDA graph) and stepwise decodes
+    from one seed give the same tokens; tok/s, step ms, accept; a profiled
+    3-token request each (host ops a step, device idle share), whose traced
+    launches a step equal the captured step's."""
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    res = {}
+    for mode, sampling in (("greedy", {}), ("stochastic", dict(
+            temperature=0.6, topp=0.9, repetition_penalty=1.05))):
+        tag = f"[dynamic] {mode}"
+        outs, r = {}, {}
+        for loop in ("graphed", "stepwise"):
+            eng = dynamic_engine(torch, dev, target, draft, torch.bfloat16, seed=11)
+            if loop == "stepwise":
+                stepwise(eng)
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t1 = time.time()
+            check(eng._prefill(prompt), f"{tag} prefill refused")
+            torch.cuda.synchronize()
+            ttft_ms = 1000 * (time.time() - t1)
+            prefill_counts = launch_counts()
+            eng.reset()
+            reset_launch_counts()
+            out = eng.generate(input_ids=prompt, max_new_tokens=DYN_NEW_TOKENS, **sampling)
+            counts = launch_counts()
+            toks = out["generated_tokens"]
+            steps = request_steps(out)
+            outs[loop] = toks
+            r[loop] = dict(tokens=len(toks), steps=steps,
+                           tok_per_s=1000.0 / out["time_per_output_token"],
+                           decode_step_ms=out["time_per_output_token"] * len(toks) / steps,
+                           avg_accept_tokens=out["avg_accept_tokens"], ttft_ms_prefill128=ttft_ms)
+            if loop == "graphed":
+                r[loop]["graphs"] = check_graphed(eng, tag)
+                (graph,) = eng._decode_graphs.values()
+                replays = graph.replays
+                # ~21,000 kernels a step: a window of 3 steps keeps the trace small (an
+                # 8-step window, ~170,000 kernel records, lost ~100 of them in one run)
+                prof, _ = profile_window(torch, f"[dynamic-profile] {mode}", lambda: eng.generate(
+                    input_ids=prompt, max_new_tokens=3, **sampling), request_steps)
+                check(prof is not None, f"{tag}: the kernels' launches were not traced")
+                replays = graph.replays - replays
+                per_step = {k: (n - prefill_counts[k]) / replays
+                            for k, n in prof["launches_traced"].items()}
+                check(all(per_step[k] == graph.launches[k] for k in per_step),
+                      f"{tag} launches a step traced {per_step}, captured {graph.launches}")
+                r[loop].update(profile=prof, launches=counts, launches_per_step=graph.launches,
+                               launches_per_step_traced=per_step, capture_ms=graph.capture_ms)
+                for k in MAIN_KERNELS:
+                    check(counts[k] > 0, f"{tag}: kernel {k} was never launched")
+                check_tc_route(counts, tag)
+            del eng
+        check(outs["graphed"] == outs["stepwise"],
+              f"{tag}: graphed {outs['graphed']} vs stepwise {outs['stepwise']}")
+        check(len(outs["graphed"]) >= DYN_NEW_TOKENS
+              and all(0 <= t < CFG_8B["vocab_size"] for t in outs["graphed"]),
+              f"{tag}: {len(outs['graphed'])} tokens or a token out of range")
+        r["graphed_equal_stepwise"] = True
+        res[mode] = r
+        log(f"{tag} {json.dumps(r)}")
+    g = res["greedy"]["graphed"]
+    res.update({k: g[k] for k in ("tok_per_s", "decode_step_ms", "avg_accept_tokens",
+                                  "launches", "launches_per_step")})
+    return res
+
+
+def offload_lossless_check(torch, dev, prompt):
+    """Full Llama-3.3-70B widths, OFFLOAD_LOSSLESS_LAYERS AWQ layers (tail damped
+    from layer 2), bf16: the offload runtime over the same weights
+    (OFFLOAD_LOSSLESS_CACHED layers resident, the rest streamed) gives the
+    resident forward's logits bit for bit at a 128-token prefill and at the
+    dynamic tree's 257-row verify, twice in a row; the dynamic engine over
+    it (the pipelined loop) commits the resident engine's (graphed) tokens
+    with the target's 2-layer early-exit draft."""
+    from umbrella_tpu_torch.config import ModelConfig
+    from umbrella_tpu_torch.models.auto_model import (ModelRuntime, early_exit_runtime,
+                                                      random_awq_runtime)
+    from umbrella_tpu_torch.offload.streaming import OffloadModelRuntime
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.ops.masks import causal_mask_rows, tree_mask_rows
+
+    tag = "[offload-lossless]"
+    cfg = ModelConfig(**dict(CFG_70B, num_hidden_layers=OFFLOAD_LOSSLESS_LAYERS))
+    p = random_awq_runtime(cfg, MAX_LEN, dtype=torch.bfloat16, seed=6, device=dev).params
+    resident = ModelRuntime(cfg, dict(p, layers=damp_tail(p["layers"], 2)), MAX_LEN,
+                            dtype=torch.bfloat16, device=dev)
+    del p
+    off = OffloadModelRuntime.from_params(resident.params, cfg, MAX_LEN, dtype=torch.bfloat16,
+                                          num_cache_layers=OFFLOAD_LOSSLESS_CACHED, device=dev)
+    check(all(t.is_pinned() for lw in off.host_layers[OFFLOAD_LOSSLESS_CACHED:]
+              for v in lw.values() for t in (v if isinstance(v, tuple) else (v,))),
+          f"{tag} streamed layers not in pinned memory")
+    T = DYN_TREE["width"] * DYN_TREE["depth"] + 1
+    bm = dynamic_bitmap(torch, dev, DYN_TREE["width"], DYN_TREE["depth"], 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    res = {}
+    for name, S, offset, mask in (
+            ("prefill128", PROMPT_LEN, 0, causal_mask_rows(0, PROMPT_LEN, MAX_LEN, device=dev)),
+            ("verify257", T, PROMPT_LEN, tree_mask_rows(PROMPT_LEN, bm, MAX_LEN))):
+        ids = torch.randint(0, cfg.vocab_size, (S,), generator=gen, device=dev)
+        pos = offset + torch.arange(S, device=dev)
+        want, _ = resident.forward(resident.params, resident.init_kv(), ids, pos, mask, offset)
+        reset_launch_counts()
+        kv = off.init_kv()
+        for _ in range(2):
+            got, kv = off.streamed_forward(kv, ids, pos, mask,
+                                           torch.tensor(offset, dtype=torch.int32, device=dev))
+            check(torch.equal(got, want), f"{tag} {name}: streamed logits differ from resident: "
+                  f"max abs diff {(got - want).abs().max().item()}")
+        counts = launch_counts()
+        res[name] = dict(rows=S, bit_equal=True, launches_two_forwards={
+            k: counts[k] for k in ("embed_gather", "attend_flash", "w4a16_matmul")})
+        check(counts["w4a16_matmul"] > 0 and counts["attend_flash"] > 0,
+              f"{tag} {name}: kernels not launched")
+    draft = early_exit_runtime(resident, 2)
+    toks = {}
+    for name, t in (("resident", resident), ("offload", off)):
+        eng = dynamic_engine(torch, dev, t, draft, torch.bfloat16)
+        out = eng.generate(input_ids=prompt, max_new_tokens=32)
+        toks[name] = out["generated_tokens"]
+        res[f"{name}_decode"] = dict(tokens=len(toks[name]),
+                                     avg_accept_tokens=out["avg_accept_tokens"],
+                                     ms_per_token=out["time_per_output_token"])
+        if t is resident:
+            res["resident_decode"]["graphs"] = check_graphed(eng, tag)
+        else:
+            check(graph_stats(eng)["graphs"] == 0, f"{tag} the offload target was graphed")
+        del eng
+    same = first_difference(toks["resident"], toks["offload"])
+    res["decode_identical_prefix"] = same
+    log(f"{tag} {json.dumps(res)}")
+    check(len(toks["offload"]) >= 32 and toks["offload"] == toks["resident"],
+          f"{tag} offload and resident decodes differ at token {same}")
+    return res
+
+
+def host_available_bytes():
+    """MemAvailable from /proc/meminfo."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def build_offload_70b(torch, dev, max_length, cached):
+    """A random AWQ Llama-3.3-70B at full widths (g128, bf16 scales, bf16
+    embedding and untied head; tail wo/down scales x0.05 from layer 3 on) as
+    an OffloadModelRuntime with `cached` layers on the card: each layer
+    is made on the card and a streamed one moved to pinned host memory before
+    the next, so the model is never whole on the card. Depth: the 80 layers
+    where MemAvailable, less HOST_RESERVE_BYTES, holds the streamed ones;
+    fewer otherwise (the cut is reported)."""
+    from umbrella_tpu_torch.config import ModelConfig
+    from umbrella_tpu_torch.offload.streaming import OffloadModelRuntime, map_layer, to_host
+    from umbrella_tpu_torch.ops.rope import rope_params
+    from umbrella_tpu_torch.quantization.awq import concat_awq, quantize_pack_device
+
+    cfg = ModelConfig(**CFG_70B)
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    D = cfg.resolved_head_dim
+    Hq, KV = cfg.num_attention_heads * D, cfg.num_key_value_heads * D
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def q(k_dim, n_dim, scale=1.0):
+        parts = [quantize_pack_device(torch.randn((k_dim, min(8192, n_dim - n0)), generator=gen,
+                                                  device=dev) * 0.02, 128, dtype=torch.bfloat16)
+                 for n0 in range(0, n_dim, 8192)]
+        t = parts[0] if len(parts) == 1 else concat_awq(parts)
+        return t._replace(scales=t.scales * scale) if scale != 1.0 else t
+
+    shapes = [(H, Hq + 2 * KV), (Hq, H), (H, 2 * I), (I, H)]
+    layer_bytes = sum(k // 2 * n + 2 * (k // 128) * n * 2 for k, n in shapes) + 2 * H * 2
+    avail = host_available_bytes()
+    n_layers = min(cfg.num_hidden_layers,
+                   cached + max(0, (avail - HOST_RESERVE_BYTES) // layer_bytes))
+    t0 = time.time()
+    layers, pin = [], dev.type == "cuda"
+    for i in range(n_layers):
+        damp = 0.05 if i >= 3 else 1.0
+        lw = {"input_norm": torch.ones(H, dtype=torch.bfloat16, device=dev),
+              "post_norm": torch.ones(H, dtype=torch.bfloat16, device=dev),
+              "wqkv": q(H, Hq + 2 * KV), "wo": q(Hq, H, damp), "gate_up": q(H, 2 * I),
+              "down": q(I, H, damp)}
+        layers.append(lw if i < cached else map_layer(lambda t: to_host(t, pin), lw))
+        del lw
+    top = {"embed": (torch.randn((V, H), generator=gen, device=dev) * 0.02).to(torch.bfloat16),
+           "lm_head": (torch.randn((H, V), generator=gen, device=dev) * 0.02).to(torch.bfloat16),
+           "final_norm": torch.ones(H, dtype=torch.bfloat16, device=dev),
+           **rope_params(cfg, device=dev)}
+    off = OffloadModelRuntime(cfg, top, layers, max_length, dtype=torch.bfloat16,
+                              num_cache_layers=cached, device=dev)
+    check(off.streamed_layer_bytes == layer_bytes,
+          f"streamed layer {off.streamed_layer_bytes} bytes, expected {layer_bytes}")
+    info = dict(n_layers=n_layers, published_layers=cfg.num_hidden_layers,
+                n_resident=off.n_resident, n_streamed=off.n_streamed,
+                streamed_layer_gb=layer_bytes / 1e9,
+                pinned_host_gb=off.n_streamed * layer_bytes / 1e9,
+                host_available_gb_before=avail / 1e9, build_s=time.time() - t0)
+    return off, info
+
+
+def h2d_overlap(prof, torch):
+    """From a profiler trace: the host-to-device copies' total ms and the ms of
+    them that overlap a kernel (any kernel but the pad), and their count."""
+    cuda = torch.autograd.DeviceType.CUDA
+    h2d, kern = [], []
+    for e in prof.events():
+        if e.device_type != cuda:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if e.name.startswith("Memcpy HtoD"):
+            h2d.append(span)
+        elif not e.name.startswith(("Memcpy", "Memset")) and PAD_KERNEL not in e.name:
+            kern.append(span)
+    union = []
+    for s, t in sorted(kern):
+        if union and s <= union[-1][1]:
+            union[-1][1] = max(union[-1][1], t)
+        else:
+            union.append([s, t])
+    starts = [u[0] for u in union]
+    overlapped = 0.0
+    for s, t in h2d:
+        i = max(0, bisect.bisect_right(starts, s) - 1)
+        while i < len(union) and union[i][0] < t:
+            overlapped += max(0.0, min(t, union[i][1]) - max(s, union[i][0]))
+            i += 1
+    return dict(h2d_copies=len(h2d), h2d_ms=sum(t - s for s, t in h2d) / 1000.0,
+                h2d_overlapped_ms=overlapped / 1000.0)
+
+
+def offload_config_phase(torch, dev, ckpt, prompt):
+    """configs/greedy_config_v5e.json and configs/chat_config_v5e_16gb.json as
+    shipped (offload, num_cache_layers 16, dynamic 16 x 16 tree of 24 beams,
+    max_length 8192; greedy, and temperature 0.6 / top-p 0.9 / penalty 1.05),
+    `model` the random offloaded 70B of build_offload_70b, `draft_model` the
+    synthetic Llama-3.2-1B bf16 directory written above, through
+    AutoEngine.from_config -> initialize -> generate(): one request of
+    OFFLOAD_NEW_TOKENS new tokens each (TTFT, step ms, tok/s, accept);
+    streamed_forward_traced at the 257-row verify (compute and exposed stream
+    ms per layer, H2D GB/s per streamed layer); a profiled 2-token request
+    whose host-to-device copies must overlap compute kernels; peak device GB
+    and pinned host GB."""
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.ops.masks import tree_mask_rows
+    from umbrella_tpu_torch.speculation.auto_engine import AutoEngine
+    from umbrella_tpu_torch.speculation.dynamic_engine import DynamicEngine
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfgs = {}
+    for name in ("greedy_config_v5e.json", "chat_config_v5e_16gb.json"):
+        with open(os.path.join(here, "configs", name)) as f:
+            cfgs[name] = json.load(f)
+    (cached,) = {c["num_cache_layers"] for c in cfgs.values()}
+    (max_length,) = {c["max_length"] for c in cfgs.values()}
+    off, info = build_offload_70b(torch, dev, max_length, cached)
+    log(f"[offload-config] target {json.dumps(info)}")
+    res = dict(target=info)
+    for name, cfg in cfgs.items():
+        tag = f"[offload-config] {name}"
+        eng = AutoEngine.from_config(device=dev, **dict(cfg, model=off,
+                                                        draft_model=ckpt["dirs"]["draft"]))
+        eng.initialize()
+        check(isinstance(eng, DynamicEngine) and eng._offload and eng.tree_size == 257
+              and eng.target_model.n_resident == cfg["num_cache_layers"],
+              f"{tag}: not a dynamic engine over the offloaded target")
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.time()
+        check(eng._prefill(prompt), f"{tag} prefill refused")
+        torch.cuda.synchronize()
+        ttft_ms = 1000 * (time.time() - t1)
+        prefill_counts = launch_counts()
+        eng.reset()
+        reset_launch_counts()
+        out = eng.generate(input_ids=prompt, max_new_tokens=OFFLOAD_NEW_TOKENS)
+        counts = launch_counts()
+        toks = out["generated_tokens"]
+        steps = request_steps(out)
+        check(len(toks) >= OFFLOAD_NEW_TOKENS or toks[-1] in set(eng.eos_token_ids),
+              f"{tag} stopped early: {len(toks)}")
+        check(all(0 <= t < CFG_70B["vocab_size"] for t in toks), f"{tag} token out of range")
+        for k in ("embed_gather", "attend_flash", "w4a16_matmul"):
+            check(counts[k] > 0, f"{tag}: kernel {k} was never launched")
+        check_tc_route(counts, tag)
+        check(graph_stats(eng)["graphs"] == 0, f"{tag}: the offload target was graphed")
+        r = dict(tokens=len(toks), steps=steps, tok_per_s=1000.0 / out["time_per_output_token"],
+                 decode_step_ms=out["time_per_output_token"] * len(toks) / steps,
+                 avg_accept_tokens=out["avg_accept_tokens"], ttft_ms_prefill128=ttft_ms,
+                 temperature=eng.temperature, launches=counts,
+                 launches_per_step={k: (n - prefill_counts[k]) / steps
+                                    for k, n in counts.items()})
+        if name.startswith("greedy"):
+            # the verify's streamed forward, layer by layer
+            gen = torch.Generator(device=dev).manual_seed(9)
+            ids = torch.randint(0, CFG_70B["vocab_size"], (eng.tree_size,), generator=gen,
+                                device=dev)
+            bm = dynamic_bitmap(torch, dev, eng.tree_width, eng.tree_depth, 1)
+            pos = PROMPT_LEN + eng._depth
+            mask = tree_mask_rows(PROMPT_LEN, bm, max_length)
+            _, _, stats = off.streamed_forward_traced(eng.kv_target, ids, pos, mask, PROMPT_LEN)
+            per = stats.pop("per_layer")
+            stats.pop("per_layer_head")
+            streamed = [p for p in per if "copy_ms" in p]
+            resident_rows = [p for p in per if "copy_ms" not in p]
+            gbps = [p["h2d_gbps"] for p in streamed if p["h2d_gbps"] is not None] or [None]
+            stats.update(
+                resident_compute_ms_mean=sum(p["compute_ms"] for p in resident_rows)
+                / max(len(resident_rows), 1),
+                streamed_compute_ms_mean=sum(p["compute_ms"] for p in streamed)
+                / max(len(streamed), 1),
+                streamed_exposed_ms_mean=sum(p["stream_exposed_ms"] for p in streamed)
+                / max(len(streamed), 1),
+                h2d_gbps_min=min(gbps, key=lambda g: g or 0),
+                h2d_gbps_max=max(gbps, key=lambda g: g or 0),
+                per_layer=[{k: round(v, 4) if isinstance(v, float) else v for k, v in p.items()}
+                           for p in per])
+            r["traced_forward_verify257"] = stats
+            log(f"{tag} streamed_forward_traced {json.dumps(stats)}")
+            eng.reset()
+            prof, _ = profile_window(torch, "[offload-profile]", lambda: eng.generate(
+                input_ids=prompt, max_new_tokens=2), request_steps)
+            check(prof is not None, f"{tag}: the kernels' launches were not traced")
+            r["profile"] = prof
+            check(prof["h2d_copies"] > 0 and prof["h2d_overlapped_ms"] > 0,
+                  f"{tag}: the streamed layers' copies did not overlap compute kernels: "
+                  f"{ {k: prof[k] for k in ('h2d_copies', 'h2d_ms', 'h2d_overlapped_ms')} }")
+        res[name] = r
+        log(f"{tag} {json.dumps({k: v for k, v in r.items() if k != 'profile'})}")
+        del eng
+        gc.collect()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    res["pinned_host_gb"] = info["pinned_host_gb"]
+    log(f"[offload-config] peak device {res['peak_mem_gb']:.2f} GB, pinned host "
+        f"{res['pinned_host_gb']:.2f} GB")
+    g = res["greedy_config_v5e.json"]
+    res.update(launches=g["launches"], launches_per_step=g["launches_per_step"])
+    del off
+    return res
+
+
+def offload_checkpoint_phase(torch, dev, ckpt):
+    """The 8B AutoAWQ directory loaded with offload: true, num_cache_layers 16
+    (16 layers on the card, 16 streamed from pinned memory; half the layers
+    each where [checkpoint] cut the depth): its logits for a PROMPT_LEN prompt
+    equal the resident load's bit for bit."""
+    from umbrella_tpu_torch.models.auto_model import AutoModelLM
+    from umbrella_tpu_torch.offload.streaming import OffloadModelRuntime
+    from umbrella_tpu_torch.ops.masks import causal_mask_rows
+
+    L = 256
+    path = ckpt["dirs"]["target"]
+    cached = min(OFFLOAD_CACHED, ckpt["target_layers"] // 2)
+    t0 = time.time()
+    off = AutoModelLM.from_pretrained(path, offload=True, num_cache_layers=cached, max_length=L,
+                                      device=dev)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    check(isinstance(off, OffloadModelRuntime)
+          and (off.n_resident, off.n_streamed) == (cached, ckpt["target_layers"] - cached),
+          f"[offload-checkpoint] not an offload runtime with {cached} resident layers")
+    res_rt = AutoModelLM.from_pretrained(path, max_length=L, device=dev)
+    ids = torch.arange(PROMPT_LEN, device=dev) * 7 % res_rt.cfg.vocab_size
+    pos = torch.arange(PROMPT_LEN, device=dev)
+    mask = causal_mask_rows(0, PROMPT_LEN, L, device=dev)
+    want, _ = res_rt.forward(res_rt.params, res_rt.init_kv(), ids, pos, mask, 0)
+    got, _ = off.streamed_forward(off.init_kv(), ids, pos, mask, 0)
+    check(bool(torch.isfinite(got).all()), "[offload-checkpoint] logits not finite")
+    check(torch.equal(got, want), "[offload-checkpoint] offload logits differ from the resident "
+          f"load's: max abs diff {(got - want).abs().max().item()}")
+    res = dict(load_s=load_s, n_resident=off.n_resident, n_streamed=off.n_streamed,
+               pinned_host_gb=off.n_streamed * off.streamed_layer_bytes / 1e9,
+               logits_equal_resident=True)
+    log(f"[offload-checkpoint] {json.dumps(res)}")
+    del off, res_rt
+    return res
+
+
 # ---------------------------------------------------------------- main
 
 KERNEL_META = {
@@ -2929,6 +3518,13 @@ MAIN_KERNELS = ("embed_gather", "attend_flash", "w4a16_matmul", "w4a8f_matmul", 
 LAUNCHES_FROM = {"attend_flash_int8": "lossless-int8", "attend_flash_batched": "serve-bf16",
                  "attend_flash_batched_int8": "serve", "w4a8_matmul": "code-config-w4a8",
                  "w4a16_gate_up_silu": "kernels", "w4a16_matmul_layered": "pp-config"}
+# the phases of the dynamic engine and the offload tier: each kernel's launches a
+# step there (the dynamic main path's from its captured step)
+NEW_PATHS = ("dynamic", "offload-config")
+# the per-shape timings of the offload configs' shapes ([kernels]): W4A16 at the
+# 70B layer shapes at S=256 and 257, attention at the 257-row verify and a 1B level
+NEW_SHAPES = ("70B wqkv S=25", "70B wo S=25", "70B gate_up S=25", "70B down S=25",
+              "70B dynamic verify", "1B draft level")
 # the profiled window of each phase in which the profiler counted the
 # kernels' launches (held there against the wrappers' counts)
 TRACED_IN = {"main": "[profile] graphed: a 64-token generate()",
@@ -2938,10 +3534,10 @@ TRACED_IN = {"main": "[profile] graphed: a 64-token generate()",
              "code-config-w4a8": "[code-config-w4a8-trace]: a 32-token generate()",
              "pp-config": "[pp-profile]: an 8-token generate()"}
 CHECKPOINT_PHASES = ("checkpoint", "code-config", "code-config-w4a8", "serve-config",
-                     "pp-config")
+                     "pp-config", "offload-checkpoint", "offload-config")
 PHASES = ("kernels", "multi-card", "lossless", "lossless-int8", "lossless-w4a8",
-          "batched-lossless", "pp-lossless", "main", "graph", "serve", "serve-bf16",
-          "serve-stochastic") + CHECKPOINT_PHASES
+          "batched-lossless", "pp-lossless", "dynamic-lossless", "offload-lossless", "main",
+          "graph", "dynamic", "serve", "serve-bf16", "serve-stochastic") + CHECKPOINT_PHASES
 # phases that run only when named in --phases: `w4a16`, `w4a8` and
 # `attention` are subsets of `kernels`
 SUBSET_PHASES = ("w4a16", "w4a8", "attention")
@@ -2988,14 +3584,20 @@ def run(torch, phases):
     phase("lossless-w4a8", lossless_check, torch, dev, prompt.tolist(), None, "int8")
     phase("batched-lossless", batched_lossless_check, torch, dev)
     phase("pp-lossless", pp_lossless_check, torch, dev, prompt.tolist())
+    phase("dynamic-lossless", dynamic_lossless_check, torch, dev, prompt.tolist())
+    phase("offload-lossless", offload_lossless_check, torch, dev, prompt.tolist())
 
-    if {"main", "graph", "serve", "serve-bf16", "serve-stochastic"} & set(phases):
+    if {"main", "graph", "dynamic", "serve", "serve-bf16", "serve-stochastic"} & set(phases):
         t0 = time.time()
         target, draft = build_target(torch, dev, n_layers=32, exit_layer=3, dtype=torch.bfloat16)
         torch.cuda.synchronize()
         log(f"[setup] 8B target and draft built in {time.time() - t0:.1f} s")
         phase("main", main_path, torch, dev, prompt.tolist(), target, draft)
         phase("graph", graph_phase, torch, dev, prompt.tolist(), target, draft)
+        if "dynamic" in phases:
+            draft_1b = build_draft_1b(torch, dev, MAX_LEN)
+            phase("dynamic", dynamic_phase, torch, dev, prompt.tolist(), target, draft_1b)
+            del draft_1b
         phase("serve", serve_phase, torch, dev, target, draft, "[serve]", 32, (2, 3), "int8",
               64, "attend_flash_batched_int8", True, True)
         phase("serve-bf16", serve_phase, torch, dev, target, draft, "[serve-bf16]", 8, (3, 4),
@@ -3019,6 +3621,8 @@ def run(torch, phases):
                   "[code-config-w4a8]", "target-w4a8")
             phase("serve-config", serve_config_phase, torch, dev, ckpt)
             phase("pp-config", pp_config_phase, torch, dev, ckpt, prompt.tolist())
+            phase("offload-checkpoint", offload_checkpoint_phase, torch, dev, ckpt)
+            phase("offload-config", offload_config_phase, torch, dev, ckpt, prompt.tolist())
         finally:
             shutil.rmtree(root, ignore_errors=True)
 
@@ -3042,7 +3646,12 @@ def run(torch, phases):
                            "reaches" if src == "kernels" else src),
             launches_traced=(None if src == "kernels" else
                              path["launches_traced"].get(name)),
-            launches_traced_in=TRACED_IN.get(src)))
+            launches_traced_in=TRACED_IN.get(src),
+            launches_per_step_in={p: results[p]["launches_per_step"][name]
+                                  for p in NEW_PATHS if results[p]["launches_per_step"][name]},
+            **({"offload_config_shapes": {k: v for k, v in r["per_shape"].items()
+                                          if k.startswith(NEW_SHAPES)}}
+               if "per_shape" in r else {})))
     main, serve = results["main"], results["serve"]
     summary = {k: main[k] for k in ("tok_per_s", "decode_step_ms", "avg_accept_tokens",
                                     "ttft_ms_prefill128", "spec_vs_ar_common_prefix")}
@@ -3100,6 +3709,27 @@ def run(torch, phases):
     summary["device_ms_per_step"] = {
         tag: {k: prof[f"{k}_device_ms_per_step"] for k in ("attention", "w4a16", "w4a8")}
         for tag, prof in profiles.items() if prof}
+    dyn = results["dynamic"]
+    summary["dynamic"] = {mode: dict({k: dyn[mode]["graphed"][k] for k in (
+        "tok_per_s", "decode_step_ms", "avg_accept_tokens", "ttft_ms_prefill128")},
+        stepwise_tok_per_s=dyn[mode]["stepwise"]["tok_per_s"],
+        graphed_equal_stepwise=dyn[mode]["graphed_equal_stepwise"],
+        profile=idle(dyn[mode]["graphed"]["profile"])) for mode in ("greedy", "stochastic")}
+    summary["dynamic-lossless"] = results["dynamic-lossless"]["identical_prefix"]
+    summary["offload-lossless"] = results["offload-lossless"]["decode_identical_prefix"]
+    summary["offload-checkpoint"] = results["offload-checkpoint"]["logits_equal_resident"]
+    oc = results["offload-config"]
+    summary["offload-config"] = dict(
+        target=oc["target"], peak_mem_gb=oc["peak_mem_gb"], pinned_host_gb=oc["pinned_host_gb"],
+        **{name: {k: oc[name][k] for k in ("tok_per_s", "decode_step_ms", "avg_accept_tokens",
+                                           "ttft_ms_prefill128")}
+           for name in ("greedy_config_v5e.json", "chat_config_v5e_16gb.json")})
+    g = oc["greedy_config_v5e.json"]
+    summary["offload-config"]["verify257"] = {k: g["traced_forward_verify257"][k] for k in (
+        "compute_ms", "stream_exposed_ms", "stream_ms", "h2d_gbps", "h2d_gbps_min",
+        "h2d_gbps_max", "streamed_exposed_ms_mean", "streamed_compute_ms_mean")}
+    summary["offload-config"]["profile"] = dict(idle(g["profile"]), **{
+        k: g["profile"][k] for k in ("h2d_copies", "h2d_ms", "h2d_overlapped_ms")})
     summary["seconds"] = time.time() - t_all
     log(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -695,7 +695,9 @@ def test_start_refuses_while_previous_loop_alive(port_models):
 
 def test_batched_static_allowlist_and_refusals(port_models):
     """The batched_static key allowlist is the JAX package's; keys the port
-    does not carry raise and name their ROADMAP item; quantize_draft is taken."""
+    does not carry raise and name their ROADMAP item; quantize_draft is taken,
+    and num_cache_layers is accepted and unused (resident models), as in the
+    JAX package."""
     assert auto_engine._ENGINE_CONFIG_KEYS["batched_static"] == \
         jax_auto_engine._ENGINE_CONFIG_KEYS["batched_static"]
     target, draft = port_models
@@ -715,8 +717,8 @@ def test_batched_static_allowlist_and_refusals(port_models):
         auto_engine.AutoEngine.from_config(**base, pipeline_parallel=2)
     with pytest.raises(ValueError, match="resident"):
         auto_engine.AutoEngine.from_config(**base, offload=True)
-    with pytest.raises(NotImplementedError, match="the offload tier"):
-        auto_engine.AutoEngine.from_config(**base, num_cache_layers=2)
+    assert auto_engine.AutoEngine.from_config(**base, num_cache_layers=2).config == \
+        {"num_cache_layers": 2}
     # quantize_draft is ported: initialize() W4-quantizes the fp draft and its head
     eng = auto_engine.AutoEngine.from_config(**base, batch_size=2, quantize_draft=True)
     eng.initialize()

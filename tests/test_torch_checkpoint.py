@@ -323,6 +323,33 @@ def test_from_pretrained_logits_match_jax(ckpts, which, kw):
     np.testing.assert_allclose(_logits_port(prt, ids), _logits_jax(jrt, ids), atol=1e-4)
 
 
+@pytest.mark.parametrize("which,cached", [("awq", 1), ("fp", 1), ("qwen", 0)])
+def test_from_pretrained_offload_matches_resident_and_jax(ckpts, which, cached):
+    """offload=True loads an OffloadModelRuntime layer by layer (`cached`
+    layers resident, the rest streamed): its streamed logits equal the
+    resident load's exactly, and JAX's offload load's within 1e-4 abs."""
+    from umbrella_tpu_torch.offload.streaming import OffloadModelRuntime
+
+    dirs, _ = ckpts
+    kw = dict(max_length=MAX_LEN, offload=True, num_cache_layers=cached)
+    off = auto_model.AutoModelLM.from_pretrained(dirs[which], dtype=torch.float32, device=CPU,
+                                                 **kw)
+    assert isinstance(off, OffloadModelRuntime)
+    assert (off.n_resident, off.n_streamed) == (cached, off.n_layers - cached) \
+        and off.n_streamed >= 1
+    res = auto_model.AutoModelLM.from_pretrained(dirs[which], max_length=MAX_LEN,
+                                                 dtype=torch.float32, device=CPU)
+    joff = jax_auto.AutoModelLM.from_pretrained(dirs[which], dtype=jnp.float32, **kw)
+    ids = list(np.random.default_rng(3).integers(0, res.cfg.vocab_size, size=7))
+    S = len(ids)
+    args = (torch.tensor(ids), torch.arange(S), masks.causal_mask_rows(0, S, MAX_LEN), 0)
+    got, _ = off.streamed_forward(off.init_kv(), *args)
+    np.testing.assert_array_equal(got.numpy(), _logits_port(res, ids))
+    jl, _ = joff.streamed_forward(joff.init_kv(), jnp.asarray(ids, jnp.int32), jnp.arange(S),
+                                  jax_masks.causal_mask_rows(0, S, MAX_LEN), jnp.int32(0))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jl), atol=1e-4)
+
+
 def test_awq_dir_loads_like_the_in_memory_conversion(ckpts):
     """Exact: the directory through from_pretrained and the same tensors
     through awq_params_from_hf_state_dict in memory."""
@@ -338,8 +365,6 @@ def test_awq_dir_loads_like_the_in_memory_conversion(ckpts):
 
 def test_from_pretrained_refusals(ckpts, tmp_path):
     dirs, _ = ckpts
-    with pytest.raises(NotImplementedError, match="the offload tier"):
-        auto_model.AutoModelLM.from_pretrained(dirs["awq"], offload=True, device=CPU)
     with open(tmp_path / "config.json", "w") as f:
         json.dump(dict(SMALL, model_type="gemma2"), f)
     with pytest.raises(NotImplementedError, match="Gemma2 and MoE"):
@@ -482,7 +507,8 @@ SHIPPED = ["code_config_8b_awq_v5e.json", "chat_config_8b_awq_v5e.json",
 @pytest.mark.parametrize("name", SHIPPED)
 def test_shipped_8b_config_keys_are_accepted(ckpts, name):
     """Every key of the shipped 8B configs is accepted (model, draft_model and
-    growmap_path rewritten); offload and num_cache_layers still raise by name."""
+    growmap_path rewritten), and so are offload and num_cache_layers on the
+    single-slot engines; the batched engine refuses offload."""
     dirs, _ = ckpts
     with open(os.path.join(REPO, "configs", name)) as f:
         cfg = json.load(f)
@@ -491,11 +517,10 @@ def test_shipped_8b_config_keys_are_accepted(ckpts, name):
                                          os.path.basename(cfg["growmap_path"])))
     eng = AutoEngine.from_config(device=CPU, **cfg)
     assert eng.draft_model_name == dirs["draft"]
-    with pytest.raises(NotImplementedError, match="the offload tier"):
-        AutoEngine.from_config(device=CPU, **dict(cfg, num_cache_layers=2))
+    assert AutoEngine.from_config(device=CPU, **dict(cfg, num_cache_layers=2)).config[
+        "num_cache_layers"] == 2
     if cfg["engine"] == "static":
-        with pytest.raises(NotImplementedError, match="the offload tier"):
-            AutoEngine.from_config(device=CPU, **dict(cfg, offload=True))
+        assert AutoEngine.from_config(device=CPU, **dict(cfg, offload=True)).config["offload"]
     else:
         with pytest.raises(ValueError, match="resident"):
             AutoEngine.from_config(device=CPU, **dict(cfg, offload=True))

@@ -485,8 +485,11 @@ def test_engine_rejects_what_this_slice_does_not_port():
     base = dict(device=CPU, model=rt, draft_model=rt, growmap=growmap_from_spec(3, 4))
     with pytest.raises(NotImplementedError, match="tensor and expert parallelism"):
         AutoEngine.from_config(engine="static", tensor_parallel=2, **base)
-    with pytest.raises(NotImplementedError, match="the dynamic engine"):
+    # the dynamic engine is ported: it takes no growmap
+    with pytest.raises(ValueError, match="not consumed"):
         AutoEngine.from_config(engine="dynamic", **base)
+    assert type(AutoEngine.from_config(engine="dynamic", device=CPU, model=rt,
+                                       draft_model=rt)).__name__ == "DynamicEngine"
     with pytest.raises(ValueError, match="not consumed"):
         AutoEngine.from_config(engine="static", tensor_paralel=2, **base)
     # stochastic verify is ported (ROADMAP A.7): a request may switch to it

@@ -4,8 +4,9 @@ Counterpart of `umbrella_tpu/models/auto_model.py`: ModelRuntime, loading a
 checkpoint directory (`AutoModelLM.from_pretrained`: HF fp or AutoAWQ
 safetensors / .bin), early-exit drafts and random runtimes. The family is
 resolved from the checkpoint's `model_type` as in the JAX package; Gemma2 and
-MoE resolve but are not ported (ROADMAP queue A, "Gemma2 and MoE"), nor is
-offload (ROADMAP queue A, "the offload tier").
+MoE resolve but are not ported (ROADMAP queue A, "Gemma2 and MoE").
+`offload=True` loads an OffloadModelRuntime (offload/streaming.py) layer by
+layer instead, its first `num_cache_layers` layers on the device.
 """
 from __future__ import annotations
 
@@ -153,16 +154,16 @@ class AutoModelLM:
         """`model_name` is a checkpoint directory (config.json + *.safetensors or
         pytorch_model*.bin); an AWQ `quantization_config` selects the AWQ
         loader. exit_layer > 0 loads only the first exit_layer decoder layers.
-        packed=False keeps q/k/v and gate/up separate. Other keyword arguments
-        (an engine's config) are ignored, as in the JAX package."""
+        packed=False keeps q/k/v and gate/up separate. offload=True returns an
+        OffloadModelRuntime (packed layout) with `num_cache_layers` layers on
+        the device and the rest in host memory. Other keyword arguments (an
+        engine's config) are ignored, as in the JAX package."""
         from ..utils import resolve_device
 
         device = resolve_device(device)
         cfg = ModelConfig.from_pretrained(model_name)
         family = resolve_family(model_name, cfg)
         _check_family(family)
-        if offload:
-            raise NotImplementedError("offload is not ported yet (ROADMAP queue A, the offload tier)")
         if family == "qwen2":
             # Qwen2.5 checkpoints pad the embedding; serve the real vocab so
             # draft and target token ids align
@@ -172,8 +173,15 @@ class AutoModelLM:
             from ..quantization.loader import load_awq_runtime
 
             return load_awq_runtime(model_name, cfg, max_length=max_length, dtype=dtype,
-                                    family=family, n_layers=n_layers, packed=packed,
+                                    family=family, n_layers=n_layers, offload=offload,
+                                    num_cache_layers=num_cache_layers, packed=packed,
                                     device=device)
+        if offload:
+            from ..offload.streaming import OffloadModelRuntime
+
+            return OffloadModelRuntime.load(model_name, cfg, max_length=max_length, dtype=dtype,
+                                            family=family, n_layers=n_layers,
+                                            num_cache_layers=num_cache_layers, device=device)
         params = load_llama_params(model_name, cfg, max_length, dtype, n_layers=n_layers,
                                    packed=packed, device=device)
         return ModelRuntime(cfg, params, max_length, dtype=dtype, family=family,

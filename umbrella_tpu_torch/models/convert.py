@@ -1,5 +1,7 @@
 """Carry weights and KV state from numpy (e.g. the JAX package's trees after
-`jax.tree_util.tree_map(np.asarray, ...)`) into the port's tensors.
+`jax.tree_util.tree_map(np.asarray, ...)`) into the port's tensors, and the
+JAX package's offload runtime (its top params and host layers) into the
+port's.
 
 Quantized leaves are recognised by their fields, not their types: an object with
 `w8`/`scales`/`zeros` becomes an AwqTensor, one with `w8`/`a`/`b` an Int4FTensor.
@@ -62,6 +64,20 @@ def params_from_numpy(params: dict, device="cpu", dtype=None) -> dict:
     """The JAX package's llama param tree (numpy leaves) -> the port's tree with
     the same keys. Scalars (rope_scale) become Python floats."""
     return _convert(params, torch.device(device), dtype)
+
+
+def offload_runtime_from_numpy(top: dict, host_layers, cfg, max_length: int,
+                               dtype=torch.float32, num_cache_layers: int = 0, device="cpu"):
+    """The JAX package's OffloadModelRuntime, as its `top` params and its
+    per-layer `host_layers` (numpy leaves), -> the port's OffloadModelRuntime
+    over the same weights, `num_cache_layers` of them on `device`."""
+    from ..offload.streaming import OffloadModelRuntime
+
+    device = torch.device(device)
+    return OffloadModelRuntime(cfg, params_from_numpy(top, device),
+                               [params_from_numpy(lw, device) for lw in host_layers],
+                               max_length, dtype=dtype, num_cache_layers=num_cache_layers,
+                               device=device)
 
 
 def kv_from_numpy(kv, device="cpu"):

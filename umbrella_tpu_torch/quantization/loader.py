@@ -81,14 +81,22 @@ def load_awq_runtime(path: str, cfg: ModelConfig, max_length: int, dtype=torch.b
                      family: str = "llama", n_layers: Optional[int] = None,
                      offload: bool = False, num_cache_layers: int = 0, packed: bool = True,
                      device="cuda"):
+    """An AutoAWQ directory as a ModelRuntime on `device`, or with `offload` as an
+    OffloadModelRuntime: layer by layer, `num_cache_layers` of them on the
+    device and the rest in host memory."""
     from ..models.auto_model import ModelRuntime
     from ..utils import resolve_device
 
-    if offload:
-        raise NotImplementedError("offload is not ported yet (ROADMAP queue A, the offload tier)")
     device = resolve_device(device)
     sd = _load_state_dict(path)
     try:
+        if offload:
+            from ..offload.streaming import OffloadModelRuntime
+
+            return OffloadModelRuntime.from_state_dict(
+                sd, cfg, max_length, dtype=dtype, family=family, n_layers=n_layers,
+                num_cache_layers=num_cache_layers, quantized=True, model_name=path,
+                device=device)
         params = awq_params_from_hf_state_dict(sd, cfg, max_length, dtype, n_layers=n_layers,
                                                packed=packed, device=device)
     finally:

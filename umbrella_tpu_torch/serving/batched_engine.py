@@ -67,7 +67,6 @@ PREFILL_BUCKETS = (32, 64, 128, 256, 512)
 _NOT_PORTED = {
     "tensor_parallel": "ROADMAP queue A, tensor and expert parallelism",
     "expert_parallel": "ROADMAP queue A, tensor and expert parallelism",
-    "num_cache_layers": "ROADMAP queue A, the offload tier",
 }
 
 
@@ -173,6 +172,8 @@ class BatchedStaticEngine:
 
         self.draft_model = self._load(self.draft_model_name)
         self.target_model = self._load(self.target_model_name)
+        if not all(isinstance(m, ModelRuntime) for m in (self.draft_model, self.target_model)):
+            raise ValueError("the batched engine requires resident (non-offload) models")
         self.draft_model = quantize_draft_runtime(self.draft_model, self.quantize_draft,
                                                   self.dtype)
         if self.tokenizer is None:

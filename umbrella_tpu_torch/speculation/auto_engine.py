@@ -2,13 +2,14 @@
 
 `from_config` validates config keys against the selected engine's consumed-key
 allowlist (as `umbrella_tpu/speculation/auto_engine.py` does), so a typo'd or
-unsupported key raises instead of being ignored. The static and the batched
-(continuous-batching) engines are ported; the dynamic engine raises and names
-the ROADMAP item that brings it.
+unsupported key raises instead of being ignored. The dynamic engine is the
+default, as in the JAX package; the static and the batched
+(continuous-batching) engines are the others.
 """
 from __future__ import annotations
 
 from ..serving.batched_engine import BatchedStaticEngine
+from .dynamic_engine import DynamicEngine
 from .static_engine import StaticEngine
 
 _APP_KEYS = frozenset({"template", "generation_length", "max_turns", "scheduler"})
@@ -23,6 +24,9 @@ _ENGINE_CONFIG_KEYS = {
     "static": _COMMON_KEYS | _MODEL_KEYS | _APP_KEYS | {
         "growmap_path", "growmap", "tensor_parallel", "pipeline_parallel",
         "expert_parallel"},
+    "dynamic": _COMMON_KEYS | _MODEL_KEYS | _APP_KEYS | {
+        "width", "num_beams", "depth", "tensor_parallel", "pipeline_parallel",
+        "expert_parallel"},
     # batched: no offload and no pipeline_parallel (BatchedStaticEngine raises
     # for both; listed so the error names them as unsupported, not unknown)
     "batched_static": (_COMMON_KEYS - {"stop_distance"}) | _APP_KEYS | {
@@ -32,19 +36,12 @@ _ENGINE_CONFIG_KEYS = {
         "quantize_draft"},
 }
 
-_NOT_PORTED = {
-    "dynamic": "ROADMAP queue A, the dynamic engine",
-}
-
-
 class AutoEngine:
-    _ENGINE_MAPPING = {"static": StaticEngine, "batched_static": BatchedStaticEngine}
+    _ENGINE_MAPPING = {"static": StaticEngine, "dynamic": DynamicEngine,
+                       "batched_static": BatchedStaticEngine}
 
     @classmethod
     def _resolve(cls, engine_name: str):
-        if engine_name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"engine '{engine_name}' is not ported yet ({_NOT_PORTED[engine_name]})")
         if engine_name not in cls._ENGINE_MAPPING:
             raise ValueError(
                 f"Engine type '{engine_name}' is not supported. Supported types: "

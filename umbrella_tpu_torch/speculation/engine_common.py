@@ -30,9 +30,24 @@ cuda:i .. cuda:i+N-1 from the engine's cuda:i, one card a stage, and raises
 when there are fewer; on the CPU every stage is the CPU. A target the caller
 staged already (shard_runtime_pp, which may put several stages on one card)
 keeps its stages. The draft stays whole on the engine's device.
+
+`offload: true` loads the target as an OffloadModelRuntime (offload/
+streaming.py: the first `num_cache_layers` layers on the device, the rest
+streamed from pinned host memory), exclusive with every parallel mode as in
+the JAX package. Its forward is `streamed_forward` in prefill and verify, and
+its decode loop is the pipelined one (`_decode_offload_pipelined`): the host
+issues step k+1 while the device runs step k, with num_nodes and the continue
+flag on the device, and reads each step's (accept_len, cont, block) back
+from pinned memory behind that step's event, one step behind.
+
+The step machinery here is shared by the static and the dynamic engine; each
+supplies `_build(nn, cont)` (the draft phase) and the tree's device buffers
+`_bitmap`, `_parents`, `_depth` and `_node_in_path`, with `tree_size` and
+`max_step_advance` (the most one step commits).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Union
@@ -40,11 +55,14 @@ from typing import Union
 import numpy as np
 import torch
 
+from ..cuda_graphs import StepGraph
 from ..models.auto_model import AutoModelLM, ModelRuntime
-from ..ops.masks import causal_mask_rows
+from ..offload.streaming import OffloadModelRuntime
+from ..ops.masks import causal_mask_rows, read_window, tree_mask_rows
 from ..utils import TextColors, resolve_device, setup_logger
 from .base import BaseEngine
 from .spec_utils import is_sentence_complete_regex, next_bucket
+from .verify import gated_verify_tail, verify_tail
 
 logger = setup_logger()
 
@@ -52,22 +70,21 @@ PREFILL_BUCKETS = (32, 64, 128, 256, 512)
 PREFILL_CHUNK = 512
 
 _NOT_PORTED = {
-    "offload": "ROADMAP queue A, the offload tier",
     "tensor_parallel": "ROADMAP queue A, tensor and expert parallelism",
     "expert_parallel": "ROADMAP queue A, tensor and expert parallelism",
-    "num_cache_layers": "ROADMAP queue A, the offload tier",
 }
 
 
 def load_runtime(spec, max_length: int, dtype, device: torch.device, config: dict,
-                 packed: bool = True) -> ModelRuntime:
+                 packed: bool = True, offload: bool = False):
     """A checkpoint directory -> AutoModelLM.from_pretrained with the engine's
-    config (exit_layer and the rest; keys it does not use are ignored); a
-    ModelRuntime is taken as it is and must live on `device`."""
+    config (exit_layer, num_cache_layers and the rest; keys it does not use are
+    ignored) and `offload` (an OffloadModelRuntime where true); a runtime is
+    taken as it is and must live on `device`."""
     if isinstance(spec, str):
         kw = {k: v for k, v in config.items() if k != "offload"}
-        return AutoModelLM.from_pretrained(spec, max_length=max_length, dtype=dtype,
-                                           packed=packed, device=device, **kw)
+        return AutoModelLM.from_pretrained(spec, offload=offload, max_length=max_length,
+                                           dtype=dtype, packed=packed, device=device, **kw)
     if spec.device != device:
         raise ValueError(f"model on {spec.device}, engine on {device}")
     return spec
@@ -114,7 +131,10 @@ def _sync(device: torch.device) -> None:
 
 
 class SpecEngineBase(BaseEngine):
-    """Common state + loops; subclasses implement initialize/build_tree/verify."""
+    """Common state, the step and the loops; subclasses implement initialize
+    and `_build` (see the module docstring)."""
+
+    ban_eos_at_prefill = False  # the dynamic engine bans EOS as the first token
 
     def __init__(self, draft_model_name: Union[str, ModelRuntime],
                  target_model_name: Union[str, ModelRuntime], dtype=torch.bfloat16,
@@ -142,9 +162,10 @@ class SpecEngineBase(BaseEngine):
         if sum(int(n > 1) for n in parallel + [self.pipeline_parallel]) > 1:
             raise ValueError("tensor_parallel / pipeline_parallel / expert_parallel are "
                              "mutually exclusive")
-        if self.pipeline_parallel > 1 and kwargs.get("offload"):
-            raise ValueError("pipeline_parallel and offload are mutually exclusive: PP "
-                             "stages resident layer blocks over devices")
+        if kwargs.get("offload") and max(parallel + [self.pipeline_parallel]) > 1:
+            raise ValueError("tensor_parallel / pipeline_parallel / expert_parallel and "
+                             "offload are mutually exclusive: they shard or stage resident "
+                             "weights, offload streams them from host memory")
         for key, item in _NOT_PORTED.items():
             value = kwargs.get(key)
             if value and not (key.endswith("_parallel") and int(value) <= 1):
@@ -153,8 +174,9 @@ class SpecEngineBase(BaseEngine):
 
     # ------------------------------------------------------------ model setup
 
-    def _load_model(self, spec) -> ModelRuntime:
-        return load_runtime(spec, self.max_length, self.dtype, self.device, self.config)
+    def _load_model(self, spec, offload: bool = False) -> ModelRuntime:
+        return load_runtime(spec, self.max_length, self.dtype, self.device, self.config,
+                            offload=offload)
 
     def _pipeline_devices(self):
         """The stage devices for `pipeline_parallel` over an unstaged target: one
@@ -182,7 +204,8 @@ class SpecEngineBase(BaseEngine):
             if self.pipeline_parallel > 1 and not staged else None
         self.draft_model = quantize_draft_runtime(self._load_model(self.draft_model_name),
                                                   self.config.get("quantize_draft"), self.dtype)
-        self.target_model = self._load_model(target)
+        self.target_model = self._load_model(target, offload=bool(self.config.get("offload")))
+        self._offload = isinstance(self.target_model, OffloadModelRuntime)
         if stage_devices is not None:
             from ..parallel.pipeline import shard_runtime_pp
 
@@ -208,6 +231,7 @@ class SpecEngineBase(BaseEngine):
         self._sampling = {k: torch.zeros((), dtype=torch.float32, device=dev)
                           for k in ("temperature", "topp", "penalty")}
         self._graph_pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+        self._decode_graphs = {}  # (greedy, topk, use_pen) -> StepGraph, as _decode_loop_cache
         # device-resident loop counters: replays (steps run, live or not),
         # no-op replays (run after a stop inside a block) and blocks (one host read each)
         self.decode_stats = dict(replays=0, noop_replays=0, blocks=0)
@@ -225,13 +249,27 @@ class SpecEngineBase(BaseEngine):
         mask = causal_mask_rows(start, bucket, L, device=self.device)
         _, self.kv_draft = self.draft_model.forward(
             self.draft_model.params, self.kv_draft, ids, pos, mask, start)
-        logits, self.kv_target = self.target_model.forward(
-            self.target_model.params, self.kv_target, ids, pos, mask, start)
+        logits = self._target_forward(ids, pos, mask, start)
         if not emit:
             return None
-        next_tok = torch.argmax(logits[n_valid - 1]).to(torch.int32)
+        row = logits[n_valid - 1]
+        if self.ban_eos_at_prefill:
+            vocab = torch.arange(row.shape[0], device=row.device)
+            row = row.masked_fill(torch.isin(vocab, self._eos_arr), -torch.inf)
+        next_tok = torch.argmax(row).to(torch.int32)
         self.tokens[start + n_valid] = next_tok
         return next_tok
+
+    def _target_forward(self, ids, pos, mask, offset):
+        """The target's fp32 logits over ids (its KV cache written in place):
+        `streamed_forward` for an offload target, else its forward."""
+        if self._offload:
+            logits, _ = self.target_model.streamed_forward(self.kv_target, ids, pos, mask,
+                                                           offset)
+        else:
+            logits, _ = self.target_model.forward(self.target_model.params, self.kv_target,
+                                                  ids, pos, mask, offset)
+        return logits
 
     def _run_prefix(self, start: int, n_valid: int):
         """Forward tokens[start : start+n_valid] through both models in bucketed
@@ -349,10 +387,98 @@ class SpecEngineBase(BaseEngine):
             self._sampling[k].fill_(float(v))
         return self.temperature < 0.05, abs(self.repetition_penalty - 1.0) > 0.01
 
+    # ------------------------------------------------------------ the step
+
+    def _target_logits(self, nn):
+        ids = read_window(self.tokens, nn, self.tree_size)
+        pos = nn + self._depth
+        mask = tree_mask_rows(nn, self._bitmap, self.max_length)
+        return self._target_forward(ids, pos, mask, nn)
+
+    def _tail_kw(self, greedy: bool, use_pen: bool) -> dict:
+        s = self._sampling
+        return dict(tree_size=self.tree_size, greedy=greedy, use_pen=use_pen,
+                    generator=self._gen, temperature=s["temperature"], topp=s["topp"],
+                    penalty=s["penalty"], topk=self.topk)
+
+    def build_tree(self):
+        """The stepwise loop's draft phase at the host num_nodes."""
+        self._build(self.num_nodes)
+
+    def verify(self) -> bool:
+        """The stepwise loop's verify phase: target forward over the tree
+        (streamed for an offload target), sampling (greedy below temperature
+        0.05), accept rule, commit, and the step's one host read; returns the
+        continue flag."""
+        nn = self.num_nodes
+        greedy, use_pen = self._sampling_mode()
+        accept_len, eos_found, block = verify_tail(
+            self._target_logits(nn), self.kv_target, self.kv_draft, self.tokens, nn,
+            self._bitmap, self._parents, self._node_in_path, self._eos_arr,
+            **self._tail_kw(greedy, use_pen))
+        return self._commit_verify_result(accept_len, eos_found, block)
+
+    def _decode_step(self, greedy: bool, use_pen: bool):
+        """One step of the device-resident loop on the engine's persistent
+        state (`_loop`: nn, cont, start, max_new, steps, eos; 0-d device
+        tensors), updated in place: build, verify and the gated commit
+        (a no-op where cont is false). No host read. Returns the step's
+        (accept_len, block) as device tensors."""
+        st = self._loop
+        nn, cont = st["nn"], st["cont"]
+        self._build(nn, cont)
+        nn_out, cont_out, accept_len, eos, block = gated_verify_tail(
+            self._target_logits(nn), self.kv_target, self.kv_draft, self.tokens, nn, cont,
+            st["start"], st["max_new"], self.max_length - self.safe_buffer, self._bitmap,
+            self._parents, self._node_in_path, self._eos_arr, **self._tail_kw(greedy, use_pen))
+        st["steps"].add_(cont.to(torch.int32))
+        st["eos"].copy_(torch.where(cont, eos, st["eos"]))
+        st["nn"].copy_(nn_out)
+        st["cont"].copy_(cont_out)
+        return accept_len, block
+
+    def _decode_graph(self, greedy: bool, topk: int, use_pen: bool) -> StepGraph:
+        """The captured `_decode_step` for one sampling mode, cached as the JAX
+        package's `_decode_loop_cache` is (warmed up as a no-op step)."""
+        key = (greedy, topk, use_pen)
+        if key not in self._decode_graphs:
+            self._decode_graphs[key] = StepGraph.capture(
+                lambda: self._decode_step(greedy, use_pen), self.device, self._graph_pool,
+                generators=(self._gen,), idle=self._stopped)
+        return self._decode_graphs[key]
+
+    @contextlib.contextmanager
+    def _stopped(self):
+        """The continue flag off for the block (a step is a no-op), then back."""
+        cont = self._loop["cont"].clone()
+        self._loop["cont"].fill_(False)
+        try:
+            yield
+        finally:
+            self._loop["cont"].copy_(cont)
+
+    def _run_decode_steps(self, n: int, greedy: bool, use_pen: bool) -> None:
+        """n steps of the device-resident loop: graph replays on the card, the
+        same step run eagerly on the CPU (the plain version)."""
+        if self.device.type == "cuda":
+            self._decode_graph(greedy, self.topk, use_pen).replay(n)
+        else:
+            self._gen_states = []
+            for _ in range(n):
+                self._gen_states.append(self._gen.get_state())
+                self._decode_step(greedy, use_pen)
+
+    def _rewind_decode_steps(self, n: int, greedy: bool, use_pen: bool) -> None:
+        """Take back the random draws of the last block's n trailing no-op
+        steps: the next request draws what it would after the stepwise loop
+        (or the JAX package's loop, which exits at once)."""
+        if self.device.type == "cuda":
+            self._decode_graph(greedy, self.topk, use_pen).rewind(n)
+        else:
+            self._gen.set_state(self._gen_states[-n])
+
     def _can_decode_fused(self) -> bool:
-        return (getattr(self, "_run_decode_steps", None) is not None
-                and self.target_model.supports_fused_phases
-                and self.draft_model.supports_fused_phases)
+        return self.target_model.supports_fused_phases and self.draft_model.supports_fused_phases
 
     def _decode_fused(self, max_new_tokens: int) -> int:
         """The device-resident decode loop from num_nodes on, for up to
@@ -386,6 +512,59 @@ class SpecEngineBase(BaseEngine):
         self._last_eos_stop = bool(eos)
         return max(steps, 1)
 
+    def _decode_offload_pipelined(self, max_new_tokens: int, host_stop=None) -> int:
+        """The decode loop of an offload target (the JAX package's
+        `_decode_offload_pipelined`): eager steps (`_decode_step`) on the
+        device-resident state, the host one step ahead of the device, so that
+        step k+1's layer streams and launches overlap step k's tail. Each
+        step's (accept_len, cont, block) go to a pinned host buffer with a
+        non-blocking copy behind an event; the host waits on the event of the
+        step before, never on the device as a whole. The step in flight when
+        the loop stops is a gated no-op. host_stop(committed tokens) may stop
+        the loop early; returns the committed steps."""
+        greedy, use_pen = self._sampling_mode()
+        st, start = self._loop, self.num_nodes
+        for k, v in (("nn", start), ("start", start), ("max_new", max_new_tokens), ("steps", 0),
+                     ("cont", True), ("eos", False)):
+            st[k].fill_(v)
+        cuda = self.device.type == "cuda"
+        host = [torch.empty(self.tree_size + 3, dtype=torch.int32, pin_memory=cuda)
+                for _ in range(2)]
+        pending, steps, k = None, 0, 0
+        while True:
+            accept_len, block = self._decode_step(greedy, use_pen)
+            out = torch.cat([accept_len.reshape(1).to(torch.int32),
+                             st["cont"].reshape(1).to(torch.int32), block.to(torch.int32)])
+            buf = host[k % 2]
+            buf.copy_(out, non_blocking=cuda)
+            event = None
+            if cuda:
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
+            if pending is not None:
+                steps += 1
+                if self._commit_pending(pending, host_stop):
+                    return steps
+            pending, k = (buf, event), k + 1
+
+    def _commit_pending(self, pending, host_stop) -> bool:
+        """Read one finished step's (accept_len, cont, block) from its pinned
+        buffer (waiting on that step's event only) and sync the host token
+        row. Returns True when decoding should stop."""
+        buf, event = pending
+        if event is not None:
+            event.synchronize()
+        out = buf.numpy()
+        alen, cont, block = int(out[0]), bool(out[1]), out[2:]
+        old = self.num_nodes
+        self.num_nodes = old + alen
+        end = min(old + len(block), self.max_length)
+        self.tokens_host[old:end] = block[:end - old]
+        self._last_eos_stop = not cont
+        if host_stop is not None and host_stop(alen):
+            return True
+        return not cont
+
     def _decode_stepwise(self, max_new_tokens: int) -> int:
         """The stepwise loop: build_tree(); verify() with a host read each step."""
         steps, decode, start = 0, True, self.num_nodes
@@ -406,6 +585,23 @@ class SpecEngineBase(BaseEngine):
         start = self.num_nodes
         generated_ids = []
         fused = self._can_decode_fused()
+        if not fused and self._offload:
+            # the pipelined loop: the per-commit callback streams and stops while
+            # the next step is already in flight on the device
+            state = {"steps": 0}
+
+            def host_stop(alen):
+                state["steps"] += 1
+                begin = self.num_nodes - alen
+                generated_ids.extend(self.tokens_host[begin:self.num_nodes].tolist())
+                last_words = on_progress(generated_ids, time.time() - t1, state["steps"])
+                return (is_sentence_complete_regex(last_words)
+                        and (self.num_nodes - start >= max_new_tokens - self.stop_distance)) \
+                    or (self.num_nodes - start >= max_new_tokens)
+
+            steps = self._decode_offload_pipelined(max_new_tokens, host_stop)
+            _sync(self.device)
+            return self.num_nodes - start + 1, time.time() - t1, steps
         while decode and self.validate_status():
             begin = self.num_nodes
             if fused:
@@ -483,6 +679,8 @@ class SpecEngineBase(BaseEngine):
         start = self.num_nodes
         if self._can_decode_fused():
             steps = self._decode_fused(max_new_tokens)
+        elif self._offload:
+            steps = self._decode_offload_pipelined(max_new_tokens)
         else:
             steps = self._decode_stepwise(max_new_tokens)
         _sync(self.device)

@@ -3,11 +3,14 @@
 Counterpart of `umbrella_tpu/speculation/static_engine.py`. A step is the
 draft's level forwards and top-k expansion (`_build`), the target's forward
 over the whole tree, the accept rule and the compaction of both KV caches
-(`_verify`), at a committed length `nn` that is a host int (the stepwise
+(`verify`), at a committed length `nn` that is a host int (the stepwise
 loop: `build_tree()`; `verify()`, one host read a step) or a 0-d device
 tensor (the device-resident loop: `_decode_step`, the counterpart of
 `decode_loop_fn`'s body with `gated_tail_fn`'s gated commit, replayed as a
-CUDA graph on the card; see engine_common._decode_fused).
+CUDA graph on the card; or, over an offload target, `_offload_step`'s
+counterpart in the pipelined loop). This module holds the growmap's
+constants and `_build`; the step, the graphs and the loops are shared with
+the dynamic engine (engine_common.py).
 
 Deferred-leaf build (as in the JAX package): the last level's forward would only
 write draft KV for leaves of which at most one is ever read, on the next step.
@@ -17,18 +20,13 @@ accepted leaf whose KV was skipped; slot nn is the bonus token.
 """
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
-from ..cuda_graphs import StepGraph
-from ..ops.masks import (causal_mask_rows, read_window, tree_level_mask_rows, tree_mask_rows,
-                         write_window)
+from ..ops.masks import causal_mask_rows, read_window, tree_level_mask_rows, write_window
 from ..ops.sampling import draft_topk
 from ..utils import TextColors, setup_logger
 from .engine_common import SpecEngineBase
 from .tree import GrowMap
-from .verify import gated_verify_tail, verify_tail
 
 logger = setup_logger()
 
@@ -82,7 +80,6 @@ class StaticEngine(SpecEngineBase):
         # the most one step commits: accept_and_commit accepts a root-to-node
         # path (node_in_path = depth + 1 nodes), so at most the tree's level count
         self.max_step_advance = int(gm.node_in_path.max())
-        self._decode_graphs = {}  # (greedy, topk, use_pen) -> StepGraph, as _decode_loop_cache
 
     # -------------------------------------------------------------- decode phases
 
@@ -113,90 +110,3 @@ class StaticEngine(SpecEngineBase):
             if lv["topk"] > 0:
                 cand = draft_topk(logits, lv["topk"], self.draft_topk_recall)[1].reshape(-1)
                 write_window(self.tokens, nn + lv["start"] + lv["n"], cand[lv["gather"]], cont)
-
-    def _target_logits(self, nn):
-        ids = read_window(self.tokens, nn, self.tree_size)
-        pos = nn + self._depth
-        mask = tree_mask_rows(nn, self._bitmap, self.max_length)
-        logits, _ = self.target_model.forward(self.target_model.params, self.kv_target, ids,
-                                              pos, mask, nn)
-        return logits
-
-    def _tail_kw(self, greedy: bool, use_pen: bool) -> dict:
-        s = self._sampling
-        return dict(tree_size=self.tree_size, greedy=greedy, use_pen=use_pen,
-                    generator=self._gen, temperature=s["temperature"], topp=s["topp"],
-                    penalty=s["penalty"], topk=self.topk)
-
-    def build_tree(self):
-        """The stepwise loop's draft phase at the host num_nodes."""
-        self._build(self.num_nodes)
-
-    def verify(self) -> bool:
-        """The stepwise loop's verify phase: target forward over the tree,
-        sampling (greedy below temperature 0.05), accept rule, commit, and the
-        step's one host read; returns the continue flag."""
-        nn = self.num_nodes
-        greedy, use_pen = self._sampling_mode()
-        accept_len, eos_found, block = verify_tail(
-            self._target_logits(nn), self.kv_target, self.kv_draft, self.tokens, nn,
-            self._bitmap, self._parents, self._node_in_path, self._eos_arr,
-            **self._tail_kw(greedy, use_pen))
-        return self._commit_verify_result(accept_len, eos_found, block)
-
-    def _decode_step(self, greedy: bool, use_pen: bool):
-        """One step of the device-resident loop on the engine's persistent
-        state (`_loop`: nn, cont, start, max_new, steps, eos; 0-d device
-        tensors), updated in place: build, verify and the gated commit
-        (a no-op where cont is false). No host read."""
-        st = self._loop
-        nn, cont = st["nn"], st["cont"]
-        self._build(nn, cont)
-        nn_out, cont_out, _, eos, _ = gated_verify_tail(
-            self._target_logits(nn), self.kv_target, self.kv_draft, self.tokens, nn, cont,
-            st["start"], st["max_new"], self.max_length - self.safe_buffer, self._bitmap,
-            self._parents, self._node_in_path, self._eos_arr, **self._tail_kw(greedy, use_pen))
-        st["steps"].add_(cont.to(torch.int32))
-        st["eos"].copy_(torch.where(cont, eos, st["eos"]))
-        st["nn"].copy_(nn_out)
-        st["cont"].copy_(cont_out)
-
-    def _decode_graph(self, greedy: bool, topk: int, use_pen: bool) -> StepGraph:
-        """The captured `_decode_step` for one sampling mode, cached as the JAX
-        package's `_decode_loop_cache` is (warmed up as a no-op step)."""
-        key = (greedy, topk, use_pen)
-        if key not in self._decode_graphs:
-            self._decode_graphs[key] = StepGraph.capture(
-                lambda: self._decode_step(greedy, use_pen), self.device, self._graph_pool,
-                generators=(self._gen,), idle=self._stopped)
-        return self._decode_graphs[key]
-
-    @contextlib.contextmanager
-    def _stopped(self):
-        """The continue flag off for the block (a step is a no-op), then back."""
-        cont = self._loop["cont"].clone()
-        self._loop["cont"].fill_(False)
-        try:
-            yield
-        finally:
-            self._loop["cont"].copy_(cont)
-
-    def _run_decode_steps(self, n: int, greedy: bool, use_pen: bool) -> None:
-        """n steps of the device-resident loop: graph replays on the card, the
-        same step run eagerly on the CPU (the plain version)."""
-        if self.device.type == "cuda":
-            self._decode_graph(greedy, self.topk, use_pen).replay(n)
-        else:
-            self._gen_states = []
-            for _ in range(n):
-                self._gen_states.append(self._gen.get_state())
-                self._decode_step(greedy, use_pen)
-
-    def _rewind_decode_steps(self, n: int, greedy: bool, use_pen: bool) -> None:
-        """Take back the random draws of the last block's n trailing no-op
-        steps: the next request draws what it would after the stepwise loop
-        (or the JAX package's loop, which exits at once)."""
-        if self.device.type == "cuda":
-            self._decode_graph(greedy, self.topk, use_pen).rewind(n)
-        else:
-            self._gen.set_state(self._gen_states[-n])
