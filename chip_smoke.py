@@ -66,7 +66,8 @@ lines tagged with its name:
                    the single-slot StaticEngine's tokens (48 or more).
   pp-lossless      full Llama-3.3-70B width, 8 AWQ layers, early-exit draft
                    of 2 layers; the target staged in 4 stages of 2 layers
-                   (pipeline_parallel 4): fp32, fp32 with int8 KV, and bf16.
+                   (pipeline_parallel 4) and decoded on the graphed loop:
+                   fp32, fp32 with int8 KV, and bf16.
                    generate() must equal the unstaged engine's tokens for 64
                    tokens, and the AR decode's (fp32, bf16), or part from it
                    only at a near tie (int8 KV); the KV rows of the spec and
@@ -75,13 +76,15 @@ lines tagged with its name:
                    (the default engine; the shipped offload configs' 16 x 16
                    tree of 24 beams, graphed) and an offload target's
                    pipelined decode over the same weights (2 layers resident,
-                   2 streamed from pinned memory), static 24x6 and dynamic,
-                   must each equal the AR decode for 64 tokens.
+                   2 streamed from pinned memory; the draft phase and the
+                   tail graphed), static 24x6 and dynamic, must each equal
+                   the AR decode for 64 tokens.
   offload-lossless full Llama-3.3-70B widths, 6 AWQ layers, bf16: the offload
                    runtime (2 layers resident, 4 streamed) gives the resident
                    forward's logits bit for bit at a 128-token prefill and a
                    257-row dynamic verify, twice in a row; the dynamic engine
-                   over it commits the resident engine's tokens.
+                   over it commits the resident engine's tokens, its step
+                   graphed and again all eager.
   main             the 8B AWQ target (32 layers, damped tail, Int4F shared
                    prefix of 3 layers + lm_head) with its early-exit draft, a
                    Sequoia 24x6 tree, through AutoEngine.from_config ->
@@ -105,6 +108,10 @@ lines tagged with its name:
                    stepwise tokens equal from one seed; tok/s, step ms,
                    accept, a profiled request (host ops a step, idle share,
                    traced launches a step = the captured step's).
+  dynamic-pp       the dynamic engine (16 x 16 x 24, greedy, 32 tokens) over
+                   an 8B AWQ target staged in 4 stages (pipeline_parallel 4)
+                   with the 1B draft: graphed, stepwise and the unstaged
+                   target's decode give the same tokens.
   serve            the same models behind engine="batched_static": B=32, int8
                    KV, 2x3 tree, 64 requests through run() and then through the
                    pipelined ContinuousBatcher; tok/s, accept, step ms, TTFT,
@@ -132,9 +139,13 @@ lines tagged with its name:
                    stages (one per card on a host with 4, else all on this
                    card), the 8B AutoAWQ directory above as its draft,
                    temperature 0.6, top-p 0.9, repetition penalty 1.05, 24x6
-                   tree, max_length 8192; TTFT, step ms, tok/s, accept, peak
-                   memory, launches per step (320 layered W4A16 a step), and
-                   a profiled 8-token request ([pp-profile]).
+                   tree, max_length 8192; graphed and stepwise from one
+                   generator state, the same tokens: TTFT, step ms, tok/s,
+                   accept, peak memory, launches per step (320 layered W4A16
+                   a step), capture ms, pool GB by card, segments a step,
+                   and each loop's decode profiled alone ([pp-profile],
+                   [pp-profile-stepwise]; host ops a decode step, graphed
+                   under a tenth of stepwise).
   offload-checkpoint the 8B AutoAWQ directory loaded with offload: true and
                    num_cache_layers 16: logits equal the resident load's bit
                    for bit.
@@ -143,29 +154,32 @@ lines tagged with its name:
                    Llama-3.3-70B at full widths, 16 layers on the card and the
                    rest streamed from pinned host memory, depth cut only where
                    MemAvailable cannot hold 64 streamed layers; the 1B draft
-                   directory above): one request each (TTFT, step ms, tok/s,
-                   accept), streamed_forward_traced at the 257-row verify
-                   (compute and exposed stream ms a layer, H2D GB/s a streamed
-                   layer) and a profiled request whose host-to-device copies
-                   must overlap compute kernels ([offload-profile]); peak
-                   device GB and pinned host GB.
+                   directory above): one request each on the graphed step
+                   (TTFT, step ms, tok/s, accept), greedy again all eager
+                   (the same tokens), streamed_forward_traced at the 257-row
+                   verify (compute and exposed stream ms a layer, H2D GB/s a
+                   streamed layer) and each loop's decode profiled alone
+                   ([offload-profile], whose host-to-device copies must
+                   overlap compute kernels, and [offload-profile-eager]);
+                   peak device GB and pinned host GB.
   report           one JSON line of kernels, the card's name and power limit,
                    and the final {"ok": true, ...} line.
 The static, dynamic and batched engines decode through CUDA graphs in every
-phase but [pp-lossless]'s and [pp-config]'s staged targets, which keep the
-stepwise loop, and the offload targets, which take the pipelined loop (each
-phase checks which); a replay adds the captured step's
-launches to the kernels' counts. Every kernel must have launched in the
-phase that its `launches` is read from; in [main], [serve], [serve-bf16], [code-config], [serve-config] and
+phase (each phase checks it): a step is one graph on one card, one graph a
+run of phases on one card for a target staged across cards, and two graphs
+around the eager streamed forward for an offload target (its pipelined
+loop); a replay adds the captured step's launches to the kernels' counts.
+Every kernel must have launched in the phase that its `launches` is read
+from; in [main], [serve], [serve-bf16], [code-config], [serve-config] and
 [pp-config] (bf16) every attention launch must be the tensor-core kernel's,
 in [lossless], [lossless-int8] and [lossless-w4a8] (fp32) the scalar
 kernel's. `--phases a,b` runs a subset (no report).
 
 Weights are random (seeded). The script needs CUDA and the repository's
 umbrella_tpu_torch package beside it; without either it exits with code 2.
-The whole script takes five to seven minutes on one H100 (291-418 s on an
-H100 80GB HBM3 at 700 W with the tensor-core attention kernel), the
-kernels' build (20-30 s) included; `--phases w4a16` about a minute,
+The whole script takes about twelve minutes on one H100 (726 s of command
+time on an H100 80GB HBM3 at 700 W with every phase above), the kernels'
+build (20-30 s) included; `--phases w4a16` about a minute,
 `--phases w4a8` about 45 s, `--phases attention` about a minute.
 """
 import bisect
@@ -303,17 +317,38 @@ def check_tc_route(counts, tag):
 
 
 def graph_stats(eng):
-    """An engine's CUDA graphs of its decode step: how many were captured,
-    their replays, capture ms and memory pool GB (and, for the static
-    engine, the no-op replays and the blocks of replays, each one host read)."""
+    """An engine's CUDA graphs of its decode step: how many steps were
+    captured, their replays, capture ms, memory pool GB (in all and by
+    device) and segments a step (one graph a run of phases on one device,
+    or an eager run; the most of any captured step), and, for the static
+    and dynamic engines, the no-op replays and the blocks of replays, each
+    one host read."""
     graphs = list(getattr(eng, "_decode_graphs", getattr(eng, "_segment_graphs", {})).values())
+    by_device = {}
+    for g in graphs:
+        for d, n in g.pool_bytes_by_device.items():
+            by_device[str(d)] = by_device.get(str(d), 0.0) + n / 2**30
     res = dict(graphs=len(graphs), replays=sum(g.replays for g in graphs),
                capture_ms=sum(g.capture_ms for g in graphs),
-               pool_gb=sum(g.pool_bytes for g in graphs) / 2**30)
+               pool_gb=sum(g.pool_bytes for g in graphs) / 2**30, pool_gb_by_device=by_device,
+               segments=max((g.segments for g in graphs), default=0))
     if hasattr(eng, "decode_stats"):
         res.update(noop_replays=eng.decode_stats["noop_replays"],
                    blocks=eng.decode_stats["blocks"])
     return res
+
+
+# an offload target's captured step (JAX's `_offload_step`): the draft phase one
+# graph, the streamed forward eager, the tail one graph reading the logits
+# from a static buffer: (eager, phases, hops) of each segment
+OFFLOAD_PLAN = [(False, ("draft",), ()), (True, ("streamed_forward",), ()),
+                (False, ("commit", "compact0", "update"), ("logits",))]
+
+
+def offload_plan(eng):
+    """Every captured step of an engine is the offload plan."""
+    return all([(e, n, h) for _, e, n, h in g.plan] == OFFLOAD_PLAN
+               for g in eng._decode_graphs.values())
 
 
 def check_graphed(eng, tag):
@@ -325,10 +360,15 @@ def check_graphed(eng, tag):
 
 
 def stepwise(eng):
-    """Make a static engine take its stepwise loop (build_tree(); verify(), one
-    host read a step) and a batched engine its eager segments, for a
-    comparison with the graphs; `graphed(eng)` undoes it."""
-    if hasattr(eng, "_decode_graphs"):
+    """Make an engine take its eager loop, for a comparison with the graphs:
+    a static or dynamic engine its stepwise loop (build_tree(); verify(), one
+    host read a step), over an offload target its pipelined loop with the
+    step's phases run eagerly (`_eager_decode_steps`), a batched engine its
+    eager segments; `graphed(eng)` undoes it (call it before dropping an
+    offload engine: the bound method would keep the engine in a cycle)."""
+    if getattr(eng, "_offload", False):
+        eng._run_decode_steps = eng._eager_decode_steps
+    elif hasattr(eng, "_decode_graphs"):
         eng._can_decode_fused = lambda: False
     else:
         eng._run_segment = eng._segment_eager
@@ -336,8 +376,8 @@ def stepwise(eng):
 
 
 def graphed(eng):
-    eng.__dict__.pop("_can_decode_fused" if hasattr(eng, "_decode_graphs") else "_run_segment",
-                     None)
+    for name in ("_run_decode_steps", "_can_decode_fused", "_run_segment"):
+        eng.__dict__.pop(name, None)
     return eng
 
 
@@ -1771,7 +1811,9 @@ def pp_lossless_check(torch, dev, prompt):
     """Full Llama-3.3-70B width, 8 random AWQ layers (damped tail), W4 head,
     and its early-exit draft of 2 layers. The target is staged by
     shard_runtime_pp over PP_STAGES stages (2 layers each, so the layered index
-    takes both values) and run through pipeline_parallel. Three cases: fp32
+    takes both values) and run through pipeline_parallel, on the
+    device-resident loop (its step captured as CUDA graphs: one on one card,
+    one a run of phases on one card across cards). Three cases: fp32
     activations with an fp32 KV cache, fp32 with int8 KV, and bf16 activations
     and KV (the pp4 config's dtype). In each, the staged engine's greedy
     generate() of LOSSLESS_NEW_TOKENS tokens must equal the unstaged engine's
@@ -1817,8 +1859,9 @@ def pp_lossless_check(torch, dev, prompt):
         reset_launch_counts()
         out = eng.generate(input_ids=prompt, max_new_tokens=LOSSLESS_NEW_TOKENS)
         counts = launch_counts()
-        check(not eng._can_decode_fused() and graph_stats(eng)["replays"] == 0,
-              "[pp-lossless]: a staged target must keep the stepwise loop")
+        check(eng._can_decode_fused(), "[pp-lossless]: the staged engine does not take the "
+              "device-resident loop")
+        graphs = check_graphed(eng, f"[pp-lossless] {case}")
         del eng
         toks = out["generated_tokens"]
         unstaged = make_engine(torch, dev, target, draft, dtype, kv_dtype=kv_dtype).generate(
@@ -1842,7 +1885,7 @@ def pp_lossless_check(torch, dev, prompt):
         r = dict(case=case, tokens=len(toks), identical_to_unstaged=same,
                  identical_to_ar=same_ar, avg_accept_tokens=out["avg_accept_tokens"],
                  min_ar_gap=min(gaps), stages=[str(d) for d in staged.stage_devices],
-                 kv_slots_compared=n, kv_witness=witness, launches=counts)
+                 kv_slots_compared=n, kv_witness=witness, launches=counts, graphs=graphs)
         if parted:
             r["ar_at_first_difference"] = dict(
                 gap=gaps[same_ar], max_abs_logit=scales[same_ar], spec_token=toks[same_ar],
@@ -2097,7 +2140,7 @@ def replays_draw_anew(torch, dev):
     warm-up): two replays draw different numbers, the same numbers as two
     eager calls from the same state, and a replay after rewind(1) draws the
     second replay's numbers again."""
-    from umbrella_tpu_torch.cuda_graphs import StepGraph
+    from umbrella_tpu_torch.cuda_graphs import Phase, StepGraph
 
     gen = torch.Generator(device=dev).manual_seed(5)
     out = torch.zeros(8, device=dev)
@@ -2110,7 +2153,7 @@ def replays_draw_anew(torch, dev):
         step()
         eager.append(out.clone())
     gen.set_state(state)
-    graph = StepGraph.capture(step, dev, torch.cuda.graph_pool_handle(), generators=(gen,))
+    graph = StepGraph.capture([Phase("draw", dev, step)], {}, generators=(gen,))
     for _ in range(2):
         graph.replay(1)
         got.append(out.clone())
@@ -2909,6 +2952,19 @@ def serve_config_phase(torch, dev, ckpt):
 
 
 PP_CONFIG_NEW_TOKENS = 64
+# the decode-only profiles of [pp-config]: tokens of the graphed and of the stepwise loop
+PP_PROFILE_TOKENS, PP_PROFILE_STEPWISE_TOKENS = 8, 3
+
+
+def decode_profile(torch, eng, prompt, tag, decode):
+    """A profile of a decode loop alone: the prompt prefilled outside the
+    window, then decode(eng), which returns its steps, profiled (host ops
+    and busy ms a step are the decode's); the engine reset after."""
+    check(eng._prefill(prompt), f"{tag} prefill refused")
+    prof, _ = profile_window(torch, tag, lambda: decode(eng), lambda steps: steps)
+    eng.reset()
+    check(prof is not None, f"{tag}: the kernels' launches were not traced")
+    return prof
 
 
 def pp_config_phase(torch, dev, ckpt, prompt):
@@ -2919,8 +2975,15 @@ def pp_config_phase(torch, dev, ckpt, prompt):
     cards, else all on this card); `draft_model` is the synthetic
     Meta-Llama-3.1-8B-Instruct-AWQ-INT4 directory written above, the format of
     the config's own draft. TTFT of a PROMPT_LEN prompt, then
-    PP_CONFIG_NEW_TOKENS new tokens: step ms, tok/s, accept, peak device
-    memory, launches per step."""
+    PP_CONFIG_NEW_TOKENS new tokens on the device-resident loop (the step
+    captured as CUDA graphs) and again on the stepwise loop from the same
+    generator state, which must give the same tokens: step ms, tok/s,
+    accept, peak device memory, launches per step, capture ms, graph pool GB
+    by device and segments a step. Each loop's decode is profiled alone
+    ([pp-profile]: PP_PROFILE_TOKENS tokens graphed; [pp-profile-stepwise]:
+    PP_PROFILE_STEPWISE_TOKENS stepwise): host ops a decode step (the
+    graphed loop's must be under a tenth of the stepwise loop's), idle share
+    and busy ms a step, traced launches equal to the counted ones."""
     from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from umbrella_tpu_torch.speculation.auto_engine import AutoEngine
 
@@ -2946,7 +3009,10 @@ def pp_config_phase(torch, dev, ckpt, prompt):
     check(len(stages) == PP_STAGES and eng.pipeline_parallel == PP_STAGES
           and (eng.temperature, eng.topp, eng.repetition_penalty) == (0.6, 0.9, 1.05),
           "[pp-config] the engine did not take the config as shipped")
-    eng.generate(input_ids=prompt, max_new_tokens=8)  # warm-up
+    check(eng._can_decode_fused(), "[pp-config] the staged engine does not take the "
+          "device-resident loop")
+    eng.generate(input_ids=prompt, max_new_tokens=8)  # warm-up: captures the step
+    (graph,) = eng._decode_graphs.values()
     reset_launch_counts()
     torch.cuda.synchronize()
     t1 = time.time()
@@ -2955,39 +3021,73 @@ def pp_config_phase(torch, dev, ckpt, prompt):
     ttft_ms = 1000 * (time.time() - t1)
     prefill_counts = launch_counts()
     eng.reset()
-    reset_launch_counts()
-    out = eng.generate(input_ids=prompt, max_new_tokens=PP_CONFIG_NEW_TOKENS)
-    counts = launch_counts()
-    toks = out["generated_tokens"]
-    steps = max(1, round(len(toks) / out["avg_accept_tokens"]))
-    eos = set(eng.eos_token_ids)
-    check(len(toks) >= PP_CONFIG_NEW_TOKENS or toks[-1] in eos,
-          f"[pp-config] stopped early: {len(toks)}")
-    check(all(0 <= t < CFG_70B["vocab_size"] for t in toks), "[pp-config] token out of range")
+    runs, state, eos = {}, eng._gen.get_state(), set(eng.eos_token_ids)
+    for loop in ("graphed", "stepwise"):
+        (graphed if loop == "graphed" else stepwise)(eng)
+        eng._gen.set_state(state)
+        reset_launch_counts()
+        replays = graph.replays
+        out = eng.generate(input_ids=prompt, max_new_tokens=PP_CONFIG_NEW_TOKENS)
+        counts = launch_counts()
+        toks = out["generated_tokens"]
+        steps = request_steps(out)
+        runs[loop] = dict(tokens=len(toks), steps=steps,
+                          tok_per_s=1000.0 / out["time_per_output_token"],
+                          decode_step_ms=out["time_per_output_token"] * len(toks) / steps,
+                          avg_accept_tokens=out["avg_accept_tokens"],
+                          replays=graph.replays - replays, launches=counts,
+                          launches_per_step={k: (counts[k] - prefill_counts[k]) / steps
+                                             for k in counts})
+        runs.setdefault("tokens", {})[loop] = toks
+        check(len(toks) >= PP_CONFIG_NEW_TOKENS or toks[-1] in eos,
+              f"[pp-config] {loop} stopped early: {len(toks)}")
+    graphed(eng)
+    toks = runs.pop("tokens")
+    g, sw = runs["graphed"], runs["stepwise"]
+    check(toks["graphed"] == toks["stepwise"],
+          f"[pp-config] graphed {toks['graphed']} vs stepwise {toks['stepwise']}")
+    check(g["replays"] >= g["steps"] > 0 and sw["replays"] == 0,
+          f"[pp-config] graphed {g['replays']} replays, stepwise {sw['replays']}")
+    check(all(0 <= t < CFG_70B["vocab_size"] for t in toks["graphed"]),
+          "[pp-config] token out of range")
+    counts = g["launches"]
     for name in ("embed_gather", "attend_flash", "w4a16_matmul", "w4a16_matmul_layered"):
         check(counts[name] > 0, f"[pp-config] kernel {name} was never launched")
-    check(not eng._can_decode_fused() and graph_stats(eng)["replays"] == 0,
-          "[pp-config] a staged target must keep the stepwise loop")
     check_tc_route(counts, "[pp-config]")
-    per_step = {k: (counts[k] - prefill_counts[k]) / steps for k in counts}
-    profiled, _ = profile_window(
-        torch, "[pp-profile]", lambda: eng.generate(input_ids=prompt, max_new_tokens=8),
-        request_steps)
     products = 4 * CFG_70B["num_hidden_layers"]
-    check(per_step["w4a16_matmul_layered"] == products and
-          prefill_counts["w4a16_matmul_layered"] == products,
-          f"[pp-config] {per_step['w4a16_matmul_layered']} layered launches a step, "
+    check(graph.launches["w4a16_matmul_layered"] == products
+          and sw["launches_per_step"]["w4a16_matmul_layered"] == products
+          and prefill_counts["w4a16_matmul_layered"] == products,
+          f"[pp-config] {graph.launches['w4a16_matmul_layered']} layered launches a captured "
+          f"step, {sw['launches_per_step']['w4a16_matmul_layered']} a stepwise one, "
           f"{prefill_counts['w4a16_matmul_layered']} in the prefill; want {products}")
+    check(all(sw["launches_per_step"][k] == graph.launches[k] for k in graph.launches),
+          f"[pp-config] launches a step: stepwise {sw['launches_per_step']}, captured "
+          f"{graph.launches}")
+    g["profile"] = decode_profile(torch, eng, prompt, "[pp-profile]",
+                                  lambda e: e._decode_fused(PP_PROFILE_TOKENS))
+    stepwise(eng)
+    sw["profile"] = decode_profile(torch, eng, prompt, "[pp-profile-stepwise]",
+                                   lambda e: e._decode_stepwise(PP_PROFILE_STEPWISE_TOKENS))
+    graphed(eng)
+    host_ops = {k: r["profile"]["host_ops_per_step"] for k, r in runs.items()}
+    check(10 * host_ops["graphed"] < host_ops["stepwise"],
+          f"[pp-config] host ops a decode step, graphed {host_ops['graphed']} against stepwise "
+          f"{host_ops['stepwise']}: not under a tenth")
+    stats = graph_stats(eng)
     res = dict(stage_devices=[str(d) for d in stages], distinct_cards=len(set(stages)),
-               draft_layers=eng.draft_model.args.n_layers, tokens=len(toks), steps=steps,
-               tok_per_s=1000.0 / out["time_per_output_token"],
-               decode_step_ms=out["time_per_output_token"] * len(toks) / steps,
-               avg_accept_tokens=out["avg_accept_tokens"], ttft_ms_prefill128=ttft_ms,
+               draft_layers=eng.draft_model.args.n_layers, tokens=g["tokens"], steps=g["steps"],
+               tok_per_s=g["tok_per_s"], decode_step_ms=g["decode_step_ms"],
+               avg_accept_tokens=g["avg_accept_tokens"], ttft_ms_prefill128=ttft_ms,
                build_and_stage_s=build_s, init_s=init_s, resident_gb=resident_gb,
                peak_mem_gb=(sum(torch.cuda.max_memory_allocated(c) for c in cards) - base)
-               / 2**30, launches=counts, launches_per_step=per_step, profile=profiled)
-    check(profiled is not None, "[pp-config] the kernels' launches were not traced")
-    res["launches_traced"] = profiled["launches_traced"]
+               / 2**30, launches=counts, launches_per_step=graph.launches,
+               graphed_equal_stepwise=True, capture_ms=graph.capture_ms,
+               pool_gb_by_device=stats["pool_gb_by_device"], segments=graph.segments,
+               plan=[(str(d), eager, list(names), list(hops)) for d, eager, names, hops
+                     in graph.plan],
+               graphed=g, stepwise=sw, profile=g["profile"],
+               launches_traced=g["profile"]["launches_traced"])
     log(f"[pp-config] {json.dumps(res)}")
     del eng
     torch.cuda.empty_cache()
@@ -3044,9 +3144,10 @@ def dynamic_bitmap(torch, dev, width, depth, seed):
 
 def dynamic_lossless_check(torch, dev, prompt):
     """fp32, full 8B widths, 4 layers (as [lossless]): dynamic spec decode
-    (graphed) and an offload target's pipelined decode, static (24x6) and
-    dynamic, over the same weights (2 layers resident, 2 streamed) must each
-    equal the AR decode for LOSSLESS_NEW_TOKENS tokens."""
+    (graphed) and an offload target's pipelined decode (its draft phase and
+    tail graphed, the streamed forward eager between them), static (24x6)
+    and dynamic, over the same weights (2 layers resident, 2 streamed) must
+    each equal the AR decode for LOSSLESS_NEW_TOKENS tokens."""
     from umbrella_tpu_torch.offload.streaming import OffloadModelRuntime
     from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
@@ -3070,8 +3171,8 @@ def dynamic_lossless_check(torch, dev, prompt):
         res[name] = dict(tokens=len(out["generated_tokens"]),
                          avg_accept_tokens=out["avg_accept_tokens"], launches=counts,
                          launches_per_step={k: n / steps for k, n in counts.items()})
-        if t is target:
-            res[name]["graphs"] = check_graphed(eng, f"{tag} {name}")
+        res[name]["graphs"] = check_graphed(eng, f"{tag} {name}")
+        check(t is target or offload_plan(eng), f"{tag} {name}: not the offload step's plan")
         for k in ("attend_flash", "w4a16_matmul", "w4a8f_matmul", "embed_gather"):
             check(counts[k] > 0, f"{tag} {name}: kernel {k} was never launched")
         del eng
@@ -3168,14 +3269,76 @@ def dynamic_phase(torch, dev, prompt, target, draft):
     return res
 
 
+def dynamic_pp_phase(torch, dev, prompt, draft):
+    """The dynamic engine (the shipped offload configs' 16 x 16 tree of 24
+    beams, greedy) over the [dynamic] path's 8B AWQ target staged in
+    PP_STAGES stages (pipeline_parallel; one card a stage where there are 4,
+    else all on this card) with the random 1B draft: DYN_NEW_TOKENS tokens on
+    the device-resident loop (graphed), on the stepwise loop, and on the
+    unstaged target (graphed), all equal. The target is random_awq_runtime's
+    8B with [dynamic]'s damped tail and W4 head, without its Int4F shared
+    prefix (staging takes AWQ and dense layers only)."""
+    from umbrella_tpu_torch.config import ModelConfig
+    from umbrella_tpu_torch.models.auto_model import ModelRuntime, random_awq_runtime
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.parallel.pipeline import shard_runtime_pp
+
+    tag = "[dynamic-pp]"
+    cfg = ModelConfig(**CFG_8B)
+    params = random_awq_runtime(cfg, MAX_LEN, dtype=torch.bfloat16, seed=2,
+                                quantize_lm_head=True, device=dev).params
+    params = dict(params, layers=damp_tail(params["layers"], 3))
+    unstaged = ModelRuntime(cfg, params, MAX_LEN, dtype=torch.bfloat16, device=dev)
+    staged = shard_runtime_pp(ModelRuntime(cfg, dict(params), MAX_LEN, dtype=torch.bfloat16,
+                                           device=dev), stage_devices(torch, dev))
+    del params
+    outs, res = {}, {}
+    for name, target, loop in (("graphed", staged, graphed), ("stepwise", staged, stepwise),
+                               ("unstaged", unstaged, graphed)):
+        kw = dict(pipeline_parallel=PP_STAGES) if target is staged else {}
+        eng = dynamic_engine(torch, dev, target, draft, torch.bfloat16, seed=11, **kw)
+        check(eng._can_decode_fused(), f"{tag} {name}: not on the device-resident loop")
+        loop(eng)
+        reset_launch_counts()
+        out = eng.generate(input_ids=prompt, max_new_tokens=DYN_NEW_TOKENS)
+        counts = launch_counts()
+        outs[name] = out["generated_tokens"]
+        steps = request_steps(out)
+        res[name] = dict(tokens=len(outs[name]), steps=steps,
+                         tok_per_s=1000.0 / out["time_per_output_token"],
+                         decode_step_ms=out["time_per_output_token"] * len(outs[name]) / steps,
+                         avg_accept_tokens=out["avg_accept_tokens"])
+        if loop is graphed:
+            res[name]["graphs"] = check_graphed(eng, f"{tag} {name}")
+            for k in ("embed_gather", "attend_flash", "w4a16_matmul"):
+                check(counts[k] > 0, f"{tag} {name}: kernel {k} was never launched")
+            check_tc_route(counts, f"{tag} {name}")
+        if target is staged:
+            check(counts["w4a16_matmul_layered"] > 0, f"{tag} {name}: the layered kernel was "
+                  "never launched")
+            res[name]["stages"] = [str(d) for d in eng.target_model.stage_devices]
+        del eng
+    for name in ("stepwise", "unstaged"):
+        check(outs[name] == outs["graphed"], f"{tag} graphed {outs['graphed']} vs {name} "
+              f"{outs[name]}")
+    check(len(outs["graphed"]) >= DYN_NEW_TOKENS
+          and all(0 <= t < CFG_8B["vocab_size"] for t in outs["graphed"]),
+          f"{tag} {len(outs['graphed'])} tokens or a token out of range")
+    res["graphed_equal_stepwise_and_unstaged"] = True
+    log(f"{tag} {json.dumps(res)}")
+    return res
+
+
 def offload_lossless_check(torch, dev, prompt):
     """Full Llama-3.3-70B widths, OFFLOAD_LOSSLESS_LAYERS AWQ layers (tail damped
     from layer 2), bf16: the offload runtime over the same weights
     (OFFLOAD_LOSSLESS_CACHED layers resident, the rest streamed) gives the
     resident forward's logits bit for bit at a 128-token prefill and at the
     dynamic tree's 257-row verify, twice in a row; the dynamic engine over
-    it (the pipelined loop) commits the resident engine's (graphed) tokens
-    with the target's 2-layer early-exit draft."""
+    it (the pipelined loop: its step's draft phase and tail graphed, the
+    streamed forward eager between them, and again with the whole step
+    eager) commits the resident engine's (graphed) tokens with the target's
+    2-layer early-exit draft."""
     from umbrella_tpu_torch.config import ModelConfig
     from umbrella_tpu_torch.models.auto_model import (ModelRuntime, early_exit_runtime,
                                                       random_awq_runtime)
@@ -3218,23 +3381,27 @@ def offload_lossless_check(torch, dev, prompt):
               f"{tag} {name}: kernels not launched")
     draft = early_exit_runtime(resident, 2)
     toks = {}
-    for name, t in (("resident", resident), ("offload", off)):
-        eng = dynamic_engine(torch, dev, t, draft, torch.bfloat16)
+    for name, t, loop in (("resident", resident, graphed), ("offload", off, graphed),
+                          ("offload-eager", off, stepwise)):
+        eng = loop(dynamic_engine(torch, dev, t, draft, torch.bfloat16))
         out = eng.generate(input_ids=prompt, max_new_tokens=32)
         toks[name] = out["generated_tokens"]
         res[f"{name}_decode"] = dict(tokens=len(toks[name]),
                                      avg_accept_tokens=out["avg_accept_tokens"],
                                      ms_per_token=out["time_per_output_token"])
-        if t is resident:
-            res["resident_decode"]["graphs"] = check_graphed(eng, tag)
+        if loop is graphed:
+            res[f"{name}_decode"]["graphs"] = check_graphed(eng, f"{tag} {name}")
+            check(t is resident or offload_plan(eng), f"{tag}: not the offload step's plan")
         else:
-            check(graph_stats(eng)["graphs"] == 0, f"{tag} the offload target was graphed")
+            check(graph_stats(eng)["graphs"] == 0, f"{tag} {name}: a graph was captured")
+        graphed(eng)  # no bound method left to keep the engine in a cycle
         del eng
-    same = first_difference(toks["resident"], toks["offload"])
+    same = min(first_difference(toks["resident"], toks[k]) for k in ("offload", "offload-eager"))
     res["decode_identical_prefix"] = same
     log(f"{tag} {json.dumps(res)}")
-    check(len(toks["offload"]) >= 32 and toks["offload"] == toks["resident"],
-          f"{tag} offload and resident decodes differ at token {same}")
+    check(len(toks["offload"]) >= 32 and toks["offload"] == toks["resident"]
+          and toks["offload-eager"] == toks["resident"],
+          f"{tag} offload (graphed, eager) and resident decodes differ at token {same}")
     return res
 
 
@@ -3334,6 +3501,14 @@ def h2d_overlap(prof, torch):
                 h2d_overlapped_ms=overlapped / 1000.0)
 
 
+def pipelined_steps(eng, max_new_tokens):
+    """The offload engine's pipelined loop from its prefilled prompt; returns
+    the steps it ran (the committed ones and the one in flight at the stop)."""
+    before = eng.decode_stats["replays"]
+    eng._decode_offload_pipelined(max_new_tokens)
+    return eng.decode_stats["replays"] - before
+
+
 def offload_config_phase(torch, dev, ckpt, prompt):
     """configs/greedy_config_v5e.json and configs/chat_config_v5e_16gb.json as
     shipped (offload, num_cache_layers 16, dynamic 16 x 16 tree of 24 beams,
@@ -3341,11 +3516,15 @@ def offload_config_phase(torch, dev, ckpt, prompt):
     `model` the random offloaded 70B of build_offload_70b, `draft_model` the
     synthetic Llama-3.2-1B bf16 directory written above, through
     AutoEngine.from_config -> initialize -> generate(): one request of
-    OFFLOAD_NEW_TOKENS new tokens each (TTFT, step ms, tok/s, accept);
+    OFFLOAD_NEW_TOKENS new tokens each on the captured step (the draft phase
+    and the tail as CUDA graphs, the streamed forward eager between them;
+    TTFT, step ms, tok/s, accept, capture ms); for the greedy config, the
+    same request with the whole step eager (the same tokens, its step ms),
     streamed_forward_traced at the 257-row verify (compute and exposed stream
-    ms per layer, H2D GB/s per streamed layer); a profiled 2-token request
-    whose host-to-device copies must overlap compute kernels; peak device GB
-    and pinned host GB."""
+    ms per layer, H2D GB/s per streamed layer), and 2 tokens of each loop's
+    decode profiled alone (host ops a step; [offload-profile], the graphed
+    one, whose host-to-device copies must overlap compute kernels, and
+    [offload-profile-eager]); peak device GB and pinned host GB."""
     from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from umbrella_tpu_torch.ops.masks import tree_mask_rows
     from umbrella_tpu_torch.speculation.auto_engine import AutoEngine
@@ -3379,6 +3558,9 @@ def offload_config_phase(torch, dev, ckpt, prompt):
         ttft_ms = 1000 * (time.time() - t1)
         prefill_counts = launch_counts()
         eng.reset()
+        greedy, use_pen = eng._sampling_mode()
+        graph = eng._decode_graph(greedy, eng.topk, use_pen)  # captured before the timed request
+        check(offload_plan(eng), f"{tag}: not the offload step's plan: {graph.plan}")
         reset_launch_counts()
         out = eng.generate(input_ids=prompt, max_new_tokens=OFFLOAD_NEW_TOKENS)
         counts = launch_counts()
@@ -3390,13 +3572,14 @@ def offload_config_phase(torch, dev, ckpt, prompt):
         for k in ("embed_gather", "attend_flash", "w4a16_matmul"):
             check(counts[k] > 0, f"{tag}: kernel {k} was never launched")
         check_tc_route(counts, tag)
-        check(graph_stats(eng)["graphs"] == 0, f"{tag}: the offload target was graphed")
         r = dict(tokens=len(toks), steps=steps, tok_per_s=1000.0 / out["time_per_output_token"],
                  decode_step_ms=out["time_per_output_token"] * len(toks) / steps,
                  avg_accept_tokens=out["avg_accept_tokens"], ttft_ms_prefill128=ttft_ms,
                  temperature=eng.temperature, launches=counts,
                  launches_per_step={k: (n - prefill_counts[k]) / steps
-                                    for k, n in counts.items()})
+                                    for k, n in counts.items()},
+                 graphs=check_graphed(eng, tag), capture_ms=graph.capture_ms,
+                 launches_per_step_graphs=graph.launches)
         if name.startswith("greedy"):
             # the verify's streamed forward, layer by layer
             gen = torch.Generator(device=dev).manual_seed(9)
@@ -3425,15 +3608,28 @@ def offload_config_phase(torch, dev, ckpt, prompt):
             r["traced_forward_verify257"] = stats
             log(f"{tag} streamed_forward_traced {json.dumps(stats)}")
             eng.reset()
-            prof, _ = profile_window(torch, "[offload-profile]", lambda: eng.generate(
-                input_ids=prompt, max_new_tokens=2), request_steps)
-            check(prof is not None, f"{tag}: the kernels' launches were not traced")
+            # the same request with the whole step eager (PR 10's loop): the same tokens
+            stepwise(eng)
+            eager = eng.generate(input_ids=prompt, max_new_tokens=OFFLOAD_NEW_TOKENS)
+            check(eager["generated_tokens"] == toks,
+                  f"{tag}: graphed {toks} vs eager {eager['generated_tokens']}")
+            r["eager"] = dict(decode_step_ms=eager["time_per_output_token"] * len(toks)
+                              / request_steps(eager),
+                              tok_per_s=1000.0 / eager["time_per_output_token"],
+                              equal_to_graphed=True)
+            # the decode alone, prefill outside the window: every step run (the
+            # in-flight one too)
+            r["profile_eager"] = decode_profile(torch, eng, prompt, "[offload-profile-eager]",
+                                                lambda e: pipelined_steps(e, 2))
+            graphed(eng)
+            prof = decode_profile(torch, eng, prompt, "[offload-profile]",
+                                  lambda e: pipelined_steps(e, 2))
             r["profile"] = prof
             check(prof["h2d_copies"] > 0 and prof["h2d_overlapped_ms"] > 0,
                   f"{tag}: the streamed layers' copies did not overlap compute kernels: "
                   f"{ {k: prof[k] for k in ('h2d_copies', 'h2d_ms', 'h2d_overlapped_ms')} }")
         res[name] = r
-        log(f"{tag} {json.dumps({k: v for k, v in r.items() if k != 'profile'})}")
+        log(f"{tag} {json.dumps({k: v for k, v in r.items() if not k.startswith('profile')})}")
         del eng
         gc.collect()
     res["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -3532,12 +3728,14 @@ TRACED_IN = {"main": "[profile] graphed: a 64-token generate()",
              "serve": "[serve-profile]: one segment of 8 steps",
              "serve-bf16": "[serve-bf16-profile]: one segment of 8 steps",
              "code-config-w4a8": "[code-config-w4a8-trace]: a 32-token generate()",
-             "pp-config": "[pp-profile]: an 8-token generate()"}
+             "pp-config": "[pp-profile]: 8 tokens of the graphed decode loop (prefill "
+                          "outside the window)"}
 CHECKPOINT_PHASES = ("checkpoint", "code-config", "code-config-w4a8", "serve-config",
                      "pp-config", "offload-checkpoint", "offload-config")
 PHASES = ("kernels", "multi-card", "lossless", "lossless-int8", "lossless-w4a8",
           "batched-lossless", "pp-lossless", "dynamic-lossless", "offload-lossless", "main",
-          "graph", "dynamic", "serve", "serve-bf16", "serve-stochastic") + CHECKPOINT_PHASES
+          "graph", "dynamic", "dynamic-pp", "serve", "serve-bf16",
+          "serve-stochastic") + CHECKPOINT_PHASES
 # phases that run only when named in --phases: `w4a16`, `w4a8` and
 # `attention` are subsets of `kernels`
 SUBSET_PHASES = ("w4a16", "w4a8", "attention")
@@ -3587,16 +3785,18 @@ def run(torch, phases):
     phase("dynamic-lossless", dynamic_lossless_check, torch, dev, prompt.tolist())
     phase("offload-lossless", offload_lossless_check, torch, dev, prompt.tolist())
 
-    if {"main", "graph", "dynamic", "serve", "serve-bf16", "serve-stochastic"} & set(phases):
+    if {"main", "graph", "dynamic", "dynamic-pp", "serve", "serve-bf16",
+            "serve-stochastic"} & set(phases):
         t0 = time.time()
         target, draft = build_target(torch, dev, n_layers=32, exit_layer=3, dtype=torch.bfloat16)
         torch.cuda.synchronize()
         log(f"[setup] 8B target and draft built in {time.time() - t0:.1f} s")
         phase("main", main_path, torch, dev, prompt.tolist(), target, draft)
         phase("graph", graph_phase, torch, dev, prompt.tolist(), target, draft)
-        if "dynamic" in phases:
+        if {"dynamic", "dynamic-pp"} & set(phases):
             draft_1b = build_draft_1b(torch, dev, MAX_LEN)
             phase("dynamic", dynamic_phase, torch, dev, prompt.tolist(), target, draft_1b)
+            phase("dynamic-pp", dynamic_pp_phase, torch, dev, prompt.tolist(), draft_1b)
             del draft_1b
         phase("serve", serve_phase, torch, dev, target, draft, "[serve]", 32, (2, 3), "int8",
               64, "attend_flash_batched_int8", True, True)
@@ -3697,12 +3897,14 @@ def run(torch, phases):
         "tok_per_s", "avg_accept_tokens", "peak_mem_gb")}
     summary["pp-lossless"] = {kv: (r["identical_to_unstaged"], r["identical_to_ar"])
                               for kv, r in results["pp-lossless"].items()}
-    summary["pp-config"] = {k: results["pp-config"][k] for k in (
+    pp = results["pp-config"]
+    summary["pp-config"] = {k: pp[k] for k in (
         "tok_per_s", "decode_step_ms", "avg_accept_tokens", "ttft_ms_prefill128",
-        "peak_mem_gb", "distinct_cards")}
-    if results["pp-config"]["profile"]:
-        summary["pp-config"]["device_idle_share"] = \
-            results["pp-config"]["profile"]["device_idle_share"]
+        "peak_mem_gb", "distinct_cards", "capture_ms", "pool_gb_by_device", "segments")}
+    summary["pp-config"]["device_idle_share"] = pp["profile"]["device_idle_share"]
+    summary["graphed_vs_stepwise"]["pp-config"] = {
+        loop: dict({k: pp[loop][k] for k in ("tok_per_s", "decode_step_ms", "replays")},
+                   profile=idle(pp[loop]["profile"])) for loop in ("graphed", "stepwise")}
     # device ms a step in each profile: the attention kernels, W4A16, the int8 W4 family
     profiles = {"profile": main["profile"], "serve-profile": serve["profile"],
                 "pp-profile": results["pp-config"]["profile"]}
@@ -3715,6 +3917,9 @@ def run(torch, phases):
         stepwise_tok_per_s=dyn[mode]["stepwise"]["tok_per_s"],
         graphed_equal_stepwise=dyn[mode]["graphed_equal_stepwise"],
         profile=idle(dyn[mode]["graphed"]["profile"])) for mode in ("greedy", "stochastic")}
+    summary["dynamic-pp"] = {k: {m: r[m] for m in ("tok_per_s", "decode_step_ms", "stages")
+                                 if m in r}
+                             for k, r in results["dynamic-pp"].items() if isinstance(r, dict)}
     summary["dynamic-lossless"] = results["dynamic-lossless"]["identical_prefix"]
     summary["offload-lossless"] = results["offload-lossless"]["decode_identical_prefix"]
     summary["offload-checkpoint"] = results["offload-checkpoint"]["logits_equal_resident"]
@@ -3730,6 +3935,11 @@ def run(torch, phases):
         "h2d_gbps_max", "streamed_exposed_ms_mean", "streamed_compute_ms_mean")}
     summary["offload-config"]["profile"] = dict(idle(g["profile"]), **{
         k: g["profile"][k] for k in ("h2d_copies", "h2d_ms", "h2d_overlapped_ms")})
+    summary["graphed_vs_stepwise"]["offload-config"] = {
+        "graphed": dict(decode_step_ms=g["decode_step_ms"], capture_ms=g["capture_ms"],
+                        profile=idle(g["profile"])),
+        "eager": dict(decode_step_ms=g["eager"]["decode_step_ms"],
+                      profile=idle(g["profile_eager"]))}
     summary["seconds"] = time.time() - t_all
     log(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,8 +10,11 @@ an EOS inside a block, a budget that ends inside one and the context cap. The
 step must make no host read, and the engines' buffers must keep their
 addresses (a captured graph holds them). The batched segment refills its
 persistent inputs in place: two greedy segments with a new repetition penalty
-and a slot admitted between them give JAX's tokens. Tokens are compared
-exactly.
+and a slot admitted between them give JAX's tokens. A pipeline-staged target
+takes the same loop (JAX's `_decode_fused` over `pipeline_parallel`). Tokens
+are compared exactly. `unsplit_step` (the step as one function) and
+`engine_state` serve the pipeline and offload tests' comparisons of the
+step's phases too.
 """
 import contextlib
 import weakref
@@ -37,6 +40,7 @@ from umbrella_tpu_torch.parallel.pipeline import shard_runtime_pp
 from umbrella_tpu_torch.sequoia import growmap_from_spec
 from umbrella_tpu_torch.serving.batched_engine import BatchedStaticEngine
 from umbrella_tpu_torch.speculation.auto_engine import AutoEngine
+from umbrella_tpu_torch.speculation.verify import gated_stop, verify_tail
 
 MAX_LEN = 256
 CPU = "cpu"
@@ -385,22 +389,80 @@ def test_no_op_replays_take_back_their_random_draws(port_models):
     assert out[0] == out[1]
 
 
-def test_staged_target_keeps_the_stepwise_loop(port_models):
-    """A pipeline-staged target does not support fused phases: its engine
-    runs the stepwise loop, with the same tokens as the unstaged engine's
-    block loop."""
+def unsplit_step(eng, greedy: bool, use_pen: bool) -> torch.Tensor:
+    """The device-resident loop's step written as one function (the port's
+    step before it became phases): the draft build, the target's forward
+    (`_target_logits`), verify_tail gated on the continue flag (both caches
+    compacted), the stop rule and the loop state's update. Returns the
+    step's packed (accept_len, cont, block)."""
+    st = eng._loop
+    nn, cont = st["nn"], st["cont"]
+    eng._build(nn, cont)
+    alen, eos, block = verify_tail(
+        eng._target_logits(nn), eng.kv_target, eng.kv_draft, eng.tokens, nn, eng._bitmap,
+        eng._parents, eng._node_in_path, eng._eos_arr, cont=cont,
+        **eng._tail_kw(greedy, use_pen))
+    nn_out, cont_out = gated_stop(nn, cont, alen, eos, st["start"], st["max_new"],
+                                  eng.max_length - eng.safe_buffer)
+    st["steps"].add_(cont.to(torch.int32))
+    st["eos"].copy_(torch.where(cont, eos, st["eos"]))
+    st["nn"].copy_(nn_out)
+    st["cont"].copy_(cont_out)
+    return torch.cat([alen.reshape(1), cont_out.reshape(1).to(torch.int32), block])
+
+
+def engine_state(eng) -> list:
+    """Everything a step writes: the token row, the loop state and every KV
+    buffer (a staged cache's stages in order)."""
+    caches = [c for kv in (eng.kv_draft, eng.kv_target) for c in getattr(kv, "stages", (kv,))]
+    return [eng.tokens.clone(), *(t.clone() for t in eng._loop.values()),
+            *(t.clone() for c in caches for t in c if t is not None)]
+
+
+def _staged(target, stages=2):
+    return shard_runtime_pp(auto_model.ModelRuntime(target.cfg, dict(target.params), MAX_LEN,
+                                                    dtype=torch.float32, device=CPU),
+                            [CPU] * stages)
+
+
+def test_staged_target_runs_the_fused_loop(jax_target, port_models):
+    """A pipeline-staged target supports fused phases, as in the JAX package:
+    its engine takes the device-resident loop, whose tokens and step count
+    equal the staged engine's stepwise loop, the unstaged engine's block loop
+    and JAX's `_decode_fused` on a pipeline_parallel=2 engine (2 of its 8
+    host devices a stage); the committed KV rows of the three port decodes
+    are equal bit for bit (a staged cache's stages concatenated)."""
     target, draft = port_models
-    assert target.supports_fused_phases
-    staged = auto_model.ModelRuntime(target.cfg, dict(target.params), MAX_LEN,
-                                     dtype=torch.float32, device=CPU)
-    shard_runtime_pp(staged, [CPU, CPU])
-    assert not staged.supports_fused_phases
+    staged = _staged(target)
+    assert staged.supports_fused_phases
     eng = _port_engine((staged, draft))
-    assert not eng._can_decode_fused()
-    got = eng.generate(input_ids=PROMPT, max_new_tokens=24)
-    want = _port_engine(port_models).generate(input_ids=PROMPT, max_new_tokens=24)
-    assert got["generated_tokens"] == want["generated_tokens"]
-    assert eng.decode_stats["replays"] == 0
+    assert eng._can_decode_fused()
+    out = {}
+    for name, e, decode in (("fused", eng, "_decode_fused"),
+                            ("stepwise", _port_engine((staged, draft)), "_decode_stepwise"),
+                            ("unstaged", _port_engine(port_models), "_decode_fused")):
+        assert e._prefill(np.asarray(PROMPT, np.int32))
+        start = e.num_nodes
+        steps = getattr(e, decode)(24)
+        n = e.num_nodes
+        rows = [torch.cat([c[f] for c in getattr(e.kv_target, "stages", (e.kv_target,))])[:, :, :n]
+                for f in range(2)]
+        out[name] = (e.tokens_host[start:n + 1].tolist(), steps, rows)
+    assert eng.decode_stats["replays"] >= out["fused"][1] > 0
+    for name in ("stepwise", "unstaged"):
+        assert out[name][:2] == out["fused"][:2], name
+        assert all(torch.equal(a, b) for a, b in zip(out[name][2], out["fused"][2])), name
+    jeng = JaxStaticEngine(
+        draft_model_name=jax_auto.early_exit_runtime(jax_target, exit_layer=EXIT),
+        target_model_name=jax_auto.ModelRuntime(JaxConfig(**SMALL), dict(jax_target.params),
+                                                MAX_LEN, dtype=jnp.float32),
+        dtype=jnp.float32, growmap=jax_growmap_from_spec(*TREE), max_length=MAX_LEN,
+        safe_buffer=32, eos_token_ids=[-1], draft_topk_recall=1.0, pipeline_parallel=2)
+    jeng.initialize()
+    assert jeng._can_decode_fused()
+    toks, steps, _ = _fused(jeng, PROMPT, 24)
+    assert (toks, steps) == out["fused"][:2]
+    assert len(toks) > 24
 
 
 # ------------------------------------------------------------------ batched segments

@@ -5,7 +5,8 @@ package's `DynamicEngine` run on the same weights (carried across with
 `params_from_numpy`), fp32, with the exact draft top-k on both sides
 (`draft_topk_recall=1.0`): the trees (tokens, bitmap, parents), the committed
 tokens and the accept lengths must be equal, and the greedy tokens must equal
-the port's own autoregressive decode. Stochastic decoding is held against
+the port's own autoregressive decode, over a resident target and over one
+staged in pipeline stages. Stochastic decoding is held against
 the exact target distribution with a chi-square test. The accept rule over
 static and dynamic bitmaps is held against `tests/test_accept_parity.py`'s
 numpy re-expression of the reference's rule. Tokens are compared exactly;
@@ -205,6 +206,33 @@ def test_device_resident_loop_matches_jax_fused_and_stepwise(damped, kv_dtype):
     assert res[1] == res[0] and res[2] == res[0]
     assert len(res[0][0]) > 48 and len(res[0][0]) / res[0][1] > 2  # deep accepts
     assert eng.decode_stats["replays"] >= res[0][1]
+
+
+def test_dynamic_engine_over_a_staged_target(damped):
+    """pipeline_parallel=2 in the dynamic engine: greedy generate() over the
+    staged target (the device-resident loop, stages on the CPU) gives JAX's
+    dynamic engine with pipeline_parallel=2 (2 of its 8 host devices a
+    stage) the same tokens and accept length, and the port's unstaged
+    dynamic engine's; a second request repeats the first."""
+    (jt, jd), (pt, pd) = damped
+    kw = dict(width=4, num_beams=6, depth=4)
+    jstaged = jax_auto.ModelRuntime(jt.cfg, dict(jt.params), MAX_LEN, dtype=jnp.float32)
+    pstaged = auto_model.ModelRuntime(pt.cfg, dict(pt.params), MAX_LEN, dtype=torch.float32,
+                                      device=CPU)
+    jeng = _jax_engine(jstaged, jd, pipeline_parallel=2, **kw)
+    eng = _port_engine(pstaged, pd, pipeline_parallel=2, **kw)
+    assert eng.target_model.stage_devices == (torch.device(CPU),) * 2
+    assert eng._can_decode_fused() and jeng._can_decode_fused()
+    want = jeng.generate(input_ids=PROMPT, max_new_tokens=40)
+    got = eng.generate(input_ids=PROMPT, max_new_tokens=40)
+    unstaged = _port_engine(pt, pd, **kw).generate(input_ids=PROMPT, max_new_tokens=40)
+    assert len(got["generated_tokens"]) >= 40 and eng.decode_stats["replays"] > 0
+    for other in (want, unstaged):
+        assert got["generated_tokens"] == other["generated_tokens"]
+        assert got["avg_accept_tokens"] == other["avg_accept_tokens"]
+    assert got["avg_accept_tokens"] > 2  # deep accepts
+    assert eng.generate(input_ids=PROMPT, max_new_tokens=40)["generated_tokens"] == \
+        got["generated_tokens"]
 
 
 def test_ban_eos_at_prefill(runtimes):

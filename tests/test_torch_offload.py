@@ -7,8 +7,10 @@ device buffers layer by layer) against the JAX package's
 port's resident forward exactly (same ops, same order) and JAX's within
 1e-5 (fp32 summation order); the static and dynamic engines over an offload
 target (stepwise verify, the pipelined loop, the streaming loop) commit the
-JAX engines' tokens and the AR decode's exactly. The cases mirror
-tests/test_offload.py and tests/test_mistral_and_awq_offload.py.
+JAX engines' tokens and the AR decode's exactly; the step split around the
+streamed forward (the graphed loop's draft and tail segments) equals the
+unsplit step bit for bit. The cases mirror tests/test_offload.py and
+tests/test_mistral_and_awq_offload.py.
 """
 import jax
 import jax.numpy as jnp
@@ -27,6 +29,7 @@ from umbrella_tpu.sequoia import growmap_from_spec as jax_growmap_from_spec
 from umbrella_tpu.speculation.dynamic_engine import DynamicEngine as JaxDynamicEngine
 from umbrella_tpu.speculation.static_engine import StaticEngine as JaxStaticEngine
 from umbrella_tpu_torch.config import ModelConfig
+from umbrella_tpu_torch.cuda_graphs import plan_segments
 from umbrella_tpu_torch.models import auto_model
 from umbrella_tpu_torch.models.convert import offload_runtime_from_numpy, params_from_numpy
 from umbrella_tpu_torch.offload.streaming import OffloadModelRuntime
@@ -224,6 +227,34 @@ def test_offload_pipelined_generate_matches_jax(models, engine, num_cache_layers
     toks = got["generated_tokens"]
     assert toks == _greedy_ar_decode(jt, PROMPT, len(toks))
     assert eng.generate(input_ids=PROMPT, max_new_tokens=max_new)["generated_tokens"] == toks
+
+
+@pytest.mark.parametrize("engine", ["static", "dynamic"])
+def test_offload_step_splits_around_the_streamed_forward(models, engine):
+    """The offload engine's step as the graphed loop runs it (JAX's
+    `_offload_step`): the draft phase and the tail (sampling, accept rule,
+    commit, both compactions, the stop rule) each one captured segment, the
+    streamed forward an eager segment between them whose logits the tail
+    reads from a static buffer. Run as split (stochastic, repetition
+    penalty), four steps equal the unsplit step bit for bit: the packed
+    result, tokens, loop state and both KV caches."""
+    from test_torch_decode_loop import engine_state, unsplit_step
+
+    kw = dict(temperature=0.8, repetition_penalty=1.2, seed=5)
+    split, whole = (_engines(models, engine, num_cache_layers=1, **kw)[1] for _ in range(2))
+    plan = plan_segments(split._step_phases(False, True))
+    assert [(seg.eager, [ph.name for ph in seg.phases], seg.hops) for seg in plan] == [
+        (False, ["draft"], ()), (True, ["streamed_forward"], ()),
+        (False, ["commit", "compact0", "update"], ("logits",))]
+    for e in (split, whole):
+        assert e._prefill(np.asarray(PROMPT))
+        for k, v in (("nn", e.num_nodes), ("start", e.num_nodes), ("max_new", 64),
+                     ("cont", True)):
+            e._loop[k].fill_(v)
+    for _ in range(4):
+        assert torch.equal(split._decode_step(False, True), unsplit_step(whole, False, True))
+        assert all(torch.equal(a, b) for a, b in zip(engine_state(split), engine_state(whole)))
+    assert int(split._loop["steps"]) == 4
 
 
 @pytest.mark.parametrize("engine", ["static", "dynamic"])

@@ -8,7 +8,9 @@ params_from_numpy, or numpy arrays from a seed; each comparison states its
 tolerance. The staged static engine's greedy tokens equal the JAX
 pipeline_parallel engine's (tests/test_pp_infer.py's sizes: H 64, 4 layers) and
 the port's own AR decode. The JAX side stages on the 8 virtual CPU devices of
-tests/conftest.py; the port stages every stage on the CPU.
+tests/conftest.py; the port stages every stage on the CPU. The graphed step's
+segment plan over stages on several cards is held as a pure function, and
+run per card on the CPU against the unsplit step.
 """
 import contextlib
 import functools
@@ -31,6 +33,7 @@ from umbrella_tpu.quantization import awq as jax_awq
 from umbrella_tpu.sequoia import growmap_from_spec as jax_growmap_from_spec
 from umbrella_tpu.speculation.static_engine import StaticEngine as JaxStaticEngine
 from umbrella_tpu_torch.config import ModelConfig
+from umbrella_tpu_torch.cuda_graphs import Phase, StepGraph, plan_segments
 from umbrella_tpu_torch.models import auto_model, llama
 from umbrella_tpu_torch.models.convert import params_from_numpy
 from umbrella_tpu_torch.models.kv_cache import KVCache, StagedKVCache
@@ -474,3 +477,97 @@ def test_pp4_config_accepted_with_random_stand_ins():
     out = eng.generate(input_ids=PROMPT.tolist(), max_new_tokens=8)
     toks = out["generated_tokens"]
     assert len(toks) >= 8 and all(0 <= t < SMALL["vocab_size"] for t in toks)
+
+
+# ------------------------------------------------------------------ the step's segment plan
+
+# the segments of a step over a target staged in 4 stages, by the stages' cards:
+# (card, phase names, the values copied in from another card)
+INPUTS = ("hidden", "pos", "mask", "nn")
+COMPACT = ("path", "nn", "alen")
+PLANS = {
+    (0, 0, 0, 0): [(0, ["draft", "embed", "stage0", "stage1", "stage2", "stage3", "head",
+                        "commit", "compact0", "compact1", "compact2", "compact3", "update"], ())],
+    (0, 1, 2, 3): [(0, ["draft", "embed", "stage0"], ()), (1, ["stage1"], INPUTS),
+                   (2, ["stage2"], INPUTS), (3, ["stage3"], INPUTS),
+                   (0, ["head", "commit", "compact0"], ("hidden",)),
+                   (1, ["compact1"], COMPACT), (2, ["compact2"], COMPACT),
+                   (3, ["compact3"], COMPACT), (0, ["update"], ())],
+    (0, 0, 1, 1): [(0, ["draft", "embed", "stage0", "stage1"], ()),
+                   (1, ["stage2", "stage3"], INPUTS),
+                   (0, ["head", "commit", "compact0", "compact1"], ("hidden",)),
+                   (1, ["compact2", "compact3"], COMPACT), (0, ["update"], ())],
+}
+
+
+def _on_cards(phases, cards):
+    """The phases with stage s's phases (its layers, its compaction) on
+    cuda:cards[s] and the rest on cuda:cards[0] (no card is touched)."""
+    def card(name):
+        s = name[-1] if name.startswith(("stage", "compact")) else "0"
+        return torch.device("cuda", cards[int(s)])
+
+    return [ph._replace(device=card(ph.name)) for ph in phases]
+
+
+def _run_plan_per_card(phases, plan):
+    """Run the CPU phases in the order of a plan over cards, each card
+    reading only what its own segments wrote and what the plan copies in
+    (a clone, as a graphed step copies into a static buffer): a value the
+    plan fails to copy is missing or stale."""
+    by_name = {ph.name: ph for ph in phases}
+    ctx, last = {}, {}  # card -> its values; value -> the card that last wrote it
+    for seg in plan:
+        own = ctx.setdefault(seg.device, {})
+        local = {k: ctx[last[k]][k].clone() for k in seg.hops}
+        for ph in seg.phases:
+            fn = by_name[ph.name]
+            out = fn.fn(*(local[k] if k in local else own[k] for k in fn.inputs))
+            out = (out,) if len(fn.outputs) == 1 else (out or ())
+            for k, v in zip(fn.outputs, out, strict=True):
+                local[k] = own[k] = v
+                last[k] = seg.device
+    return ctx[plan[-1].device]["result"]
+
+
+@pytest.mark.parametrize("cards", list(PLANS))
+def test_step_plan_cuts_at_each_change_of_card(cards):
+    """The graphed step's segment plan (cuda_graphs.plan_segments, a pure
+    function) for a 4-stage target whose stages sit on `cards`: one graph on
+    one card; across cards the draft, embedding and first stages, each run
+    of stages, the head and the tail, each card's compaction, then the state
+    update, with the hidden state, positions, mask and offset copied to each
+    stage's card, the hidden state back, and the path, offset and accept
+    length to each compaction. Run in that order (stochastic, repetition
+    penalty), each card reading only its own values and the copies, three
+    steps equal the unsplit step and `_decode_step` bit for bit: tokens,
+    loop state, both KV caches, and each step's packed result."""
+    from test_torch_decode_loop import engine_state, unsplit_step
+
+    kw = dict(temperature=0.8, repetition_penalty=1.2, seed=3)
+    engines = [_port_engine(_port_runtime("dense", 2), _port_runtime("dense", 1),
+                            pipeline_parallel=4, **kw) for _ in range(3)]
+    for e in engines:
+        assert e._prefill(PROMPT)
+        for k, v in (("nn", e.num_nodes), ("start", e.num_nodes), ("max_new", 64),
+                     ("cont", True)):
+            e._loop[k].fill_(v)
+    plan = plan_segments(_on_cards(engines[0]._step_phases(False, True), cards))
+    assert [(seg.device.index, [ph.name for ph in seg.phases], seg.hops) for seg in plan] == \
+        [(c, names, tuple(hops)) for c, names, hops in PLANS[cards]]
+    assert not any(seg.eager for seg in plan)
+    for _ in range(3):
+        results = [_run_plan_per_card(engines[0]._step_phases(False, True), plan),
+                   engines[1]._decode_step(False, True), unsplit_step(engines[2], False, True)]
+        assert all(torch.equal(r, results[2]) for r in results)
+        states = [engine_state(e) for e in engines]
+        assert all(torch.equal(a, b) for st in states[:2] for a, b in zip(st, states[2]))
+    assert int(engines[2]._loop["nn"]) >= len(PROMPT) + 3  # three live steps
+
+
+def test_a_captured_step_takes_no_outside_values():
+    """StepGraph.capture refuses a phase that reads a value no phase before
+    it writes (a graph could not follow it), before it touches a card."""
+    read = Phase("reads_x", torch.device(CPU), lambda x: x, ("x",), ("y",))
+    with pytest.raises(ValueError, match=r"reads_x reads \['x'\]"):
+        StepGraph.capture([read], {})

@@ -15,6 +15,7 @@ from typing import Callable, Optional
 import torch
 
 from ..config import ModelConfig
+from ..cuda_graphs import Phase
 from ..utils import resolve_device
 from .kv_cache import KVCache, init_kv_cache
 from .llama import StaticModelArgs, init_llama_params, llama_forward
@@ -112,10 +113,9 @@ class ModelRuntime:
     @property
     def supports_fused_phases(self) -> bool:
         """Whether the engines may run this model inside the device-resident
-        decode loop (a captured CUDA graph on the card): true for a resident
-        runtime, false for a staged one, whose forward hops between stage
-        devices and keeps the stepwise loop."""
-        return self.stage_devices is None
+        decode loop (CUDA graphs on the card): true for every resident
+        runtime, a staged one included, as in the JAX package."""
+        return True
 
     @property
     def forward(self) -> Callable:
@@ -130,6 +130,22 @@ class ModelRuntime:
                                  write_offset)
 
         return fwd
+
+    def forward_phases(self, kv) -> list:
+        """The forward over `kv` (written in place) as phases of a step
+        (cuda_graphs.Phase): the step values ids, pos, mask and nn (the write
+        offset) -> logits. One phase on the runtime's device, or a staged
+        runtime's embedding, stages and head (parallel.pipeline.pp_phases)."""
+        if self.stage_devices is not None:
+            from ..parallel.pipeline import pp_phases
+
+            return pp_phases(self.args, self.params, kv)
+        fwd = self.forward
+
+        def forward(ids, pos, mask, nn):
+            return fwd(self.params, kv, ids, pos, mask, nn)[0]
+
+        return [Phase("forward", self.device, forward, ("ids", "pos", "mask", "nn"), ("logits",))]
 
     def init_kv(self, kv_dtype=None) -> KVCache:
         if self.stage_devices is not None:

@@ -19,7 +19,8 @@ form reads anything back to the host.
 A staged (pipeline-parallel) model keeps one KVCache per stage, over that
 stage's layers and on its device (`StagedKVCache`); the stage's layers call
 `update_layer` on their own cache with their local layer index, and
-`gather_compact` compacts every stage.
+`gather_compact` compacts every stage (as phases, one a stage on its device:
+`compact_phases`, which the engines' graphed step captures).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..config import ModelConfig
+from ..cuda_graphs import Phase, run_phases
 from ..ops.masks import window_index
 
 
@@ -94,6 +96,20 @@ def update_layer(kv: KVCache, layer_idx: int, k_new: torch.Tensor, v_new: torch.
     return kv
 
 
+def compact_phases(kv) -> list:
+    """gather_compact as phases (cuda_graphs.Phase) over the step values path
+    (the accepted tree-local slots), nn (the offset) and alen (the accept
+    length): one phase a cache, a StagedKVCache's stages each on its device."""
+    def compact(cache):
+        def run(path, nn, alen):
+            gather_compact(cache, path, nn, alen)
+        return run
+
+    caches = kv.stages if isinstance(kv, StagedKVCache) else (kv,)
+    return [Phase(f"compact{s}", cache.k.device, compact(cache), ("path", "nn", "alen"))
+            for s, cache in enumerate(caches)]
+
+
 def gather_compact(kv, local_indices: torch.Tensor, offset, accept_len):
     """Copy accepted tree slots down to the linear prefix; zero the rest of the window.
 
@@ -101,15 +117,10 @@ def gather_compact(kv, local_indices: torch.Tensor, offset, accept_len):
     `accept_len` (an int or a 0-d tensor) are ignored and their destination
     slots are zeroed, as in the JAX package. `offset` is a host int or a 0-d
     device tensor. int8 scales move with their rows. A StagedKVCache is
-    compacted stage by stage, the indices, offset and accept length copied to
-    each stage's device (no host read)."""
+    compacted stage by stage (compact_phases), the indices, offset and accept
+    length copied to each stage's device (no host read)."""
     if isinstance(kv, StagedKVCache):
-        def on(x, dev):
-            return x.to(dev, non_blocking=True) if isinstance(x, torch.Tensor) else x
-
-        for stage in kv.stages:
-            dev = stage.k.device
-            gather_compact(stage, on(local_indices, dev), on(offset, dev), on(accept_len, dev))
+        run_phases(compact_phases(kv), dict(path=local_indices, nn=offset, alen=accept_len))
         return kv
     T = local_indices.shape[0]
     dst = window_index(offset, T, kv.k.shape[2], local_indices.device)

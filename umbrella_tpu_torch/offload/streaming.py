@@ -21,7 +21,11 @@ kernels at its shapes in its order, and its logits equal a resident
 forward's of the same weights bit for bit.
 
 The engines call `streamed_forward`: this runtime does not support the fused
-phases (a captured CUDA graph), as in the JAX package.
+phases (one captured dispatch a step), as in the JAX package. Its forward is
+one eager phase of the engines' step (`forward_phases`): the graphed step
+replays the draft build as one CUDA graph, runs the streamed forward, and
+replays the verify tail as another (JAX's `_offload_step`: `_build_tree_jit`,
+`streamed_forward`, the gated tail).
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from typing import List, Optional
 import torch
 
 from ..config import ModelConfig
+from ..cuda_graphs import Phase
 from ..models.kv_cache import KVCache, init_kv_cache
 from ..models.llama import StaticModelArgs, kv_limit_of, llama_layer, lm_head_logits
 from ..models.weights import SafetensorsReader, _load_state_dict, fetch, trim_vocab_rows
@@ -360,6 +365,17 @@ class OffloadModelRuntime:
         return logits, kv, stats
 
     # ------------------------------------------------------- the runtime contract
+
+    def forward_phases(self, kv: KVCache) -> list:
+        """streamed_forward over `kv` as one eager phase of a step
+        (cuda_graphs.Phase): the step values ids, pos, mask and nn (the write
+        offset) -> logits. A graphed step runs it between its graphs' replays,
+        its side stream and events as they are."""
+        def forward(ids, pos, mask, nn):
+            return self.streamed_forward(kv, ids, pos, mask, nn)[0]
+
+        return [Phase("streamed_forward", self.device, forward, ("ids", "pos", "mask", "nn"),
+                      ("logits",), eager=True)]
 
     @property
     def forward(self):

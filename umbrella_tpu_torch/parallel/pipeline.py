@@ -10,7 +10,10 @@ device over its own KV cache, and the hidden state moves to the next stage's
 device between them (a peer copy over NVLink between two cards). The embedding,
 the final norm and the head run on stage 0's device, which is the runtime's
 (and its engine's) device, as the JAX package runs them replicated outside the
-`shard_map`.
+`shard_map`. The forward is a list of phases (`pp_phases`, cuda_graphs.Phase):
+`pp_forward` runs them eagerly (the prefill, the stepwise loop, the CPU), and
+the engines' device-resident loop captures them inside its step, one CUDA
+graph for each run of phases on one device (cuda_graphs.StepGraph).
 
 A device may repeat in the stage list: one card (or the CPU) can hold every
 stage, as the JAX tests stage a model on XLA's virtual host devices.
@@ -34,6 +37,7 @@ from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
+from ..cuda_graphs import Phase, run_phases
 from ..models.kv_cache import StagedKVCache, init_kv_cache
 from ..models.llama import (kv_limit_of, llama_layer, lm_head_logits, split_scan_layers,
                             view_scan_layer)
@@ -140,32 +144,48 @@ def _current_device(device: torch.device):
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
-def pp_forward(runtime):
-    """The engine-contract forward (params, kv, ids, pos, mask, off) -> (fp32
-    logits, kv) of a staged runtime: embed on stage 0's device, each stage's
-    layers on its device over its KV cache, the final norm and head back on
-    stage 0's device."""
-    args = runtime.args
+def pp_phases(args, params: dict, kv: StagedKVCache) -> list:
+    """The staged forward as phases (cuda_graphs.Phase) over the step values
+    ids, pos, mask and nn (the write offset) -> logits (fp32): the embedding
+    on stage 0's device, each stage's layers on its device over its KV cache
+    (written in place; the hidden state, positions, mask and offset read on
+    that device), the final norm and head back on stage 0's device."""
+    dev0 = params["embed"].device
 
-    def fwd(params, kv, input_ids, position_ids, attn_mask, write_offset):
-        rope_scale = params["rope_scale"]
-        hidden = embed_lookup(params["embed"], input_ids, params["final_norm"].dtype)
-        for stage, stage_kv in zip(params["stages"], kv.stages):
-            dev = stage.device
-            hidden = hidden.to(dev, non_blocking=True)
-            pos = position_ids.to(dev, non_blocking=True)
-            mask = attn_mask.to(dev, non_blocking=True)
-            awq, dense = split_scan_layers(stage.layers)
-            with _current_device(dev):
-                kv_limit = kv_limit_of(write_offset, input_ids.shape[0], stage_kv)
+    def embed(ids):
+        return embed_lookup(params["embed"], ids, params["final_norm"].dtype)
+
+    def stage_fn(stage, stage_kv):
+        awq, dense = split_scan_layers(stage.layers)
+
+        def run(hidden, pos, mask, nn):
+            with _current_device(stage.device):
+                kv_limit = kv_limit_of(nn, hidden.shape[0], stage_kv)
                 for i in range(stage.layer_ids.shape[0]):
                     lw = view_scan_layer(awq, {k: v[i] for k, v in dense.items()},
                                          stage.layer_ids[i])
-                    hidden, stage_kv = llama_layer(args, lw, hidden, stage_kv, i, pos, mask,
-                                                   write_offset, stage.inv_freq, rope_scale,
-                                                   kv_limit)
-        hidden = hidden.to(params["embed"].device, non_blocking=True)
-        hidden = rms_norm(hidden, params["final_norm"], args.rms_eps)
-        return lm_head_logits(params, hidden), kv
+                    hidden, _ = llama_layer(args, lw, hidden, stage_kv, i, pos, mask, nn,
+                                            stage.inv_freq, params["rope_scale"], kv_limit)
+            return hidden
+        return run
+
+    def head(hidden):
+        return lm_head_logits(params, rms_norm(hidden, params["final_norm"], args.rms_eps))
+
+    return ([Phase("embed", dev0, embed, ("ids",), ("hidden",))]
+            + [Phase(f"stage{s}", stage.device, stage_fn(stage, stage_kv),
+                     ("hidden", "pos", "mask", "nn"), ("hidden",))
+               for s, (stage, stage_kv) in enumerate(zip(params["stages"], kv.stages))]
+            + [Phase("head", dev0, head, ("hidden",), ("logits",))])
+
+
+def pp_forward(runtime):
+    """The engine-contract forward (params, kv, ids, pos, mask, off) -> (fp32
+    logits, kv) of a staged runtime: its phases (pp_phases) run eagerly, the
+    hidden state and the stage inputs copied to each stage's device."""
+
+    def fwd(params, kv, input_ids, position_ids, attn_mask, write_offset):
+        values = dict(ids=input_ids, pos=position_ids, mask=attn_mask, nn=write_offset)
+        return run_phases(pp_phases(runtime.args, params, kv), values)["logits"], kv
 
     return fwd

@@ -47,7 +47,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from ..cuda_graphs import StepGraph
+from ..cuda_graphs import Phase, StepGraph
 from ..models.auto_model import ModelRuntime
 from ..models.batched import (batched_llama_forward, gather_compact_batched, init_batched_kv,
                               slot_llama_forward)
@@ -222,7 +222,7 @@ class BatchedStaticEngine:
         self._dev_nn = None  # the device-carried nn/active (async segments), when valid
         self._dev_active = None
         self.steps_dispatched = 0  # decode steps queued so far (all slots at once)
-        self._graph_pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+        self._graph_pools = {}  # device -> the graph pool of this engine's graphs
         self._segment_graphs = {}  # (use_pen, all_greedy) -> StepGraph
 
     # ------------------------------------------------------------------ token rows
@@ -351,9 +351,10 @@ class BatchedStaticEngine:
         only scratch rows)."""
         key = (use_pen, all_greedy)
         if key not in self._segment_graphs:
+            step = Phase("segment_step", self.device,
+                         lambda: self._segment_step(use_pen, all_greedy))
             self._segment_graphs[key] = StepGraph.capture(
-                lambda: self._segment_step(use_pen, all_greedy), self.device, self._graph_pool,
-                generators=(self._gen,), idle=self._all_inactive)
+                [step], self._graph_pools, generators=(self._gen,), idle=self._all_inactive)
         self._segment_graphs[key].replay(n_steps)
 
     @contextlib.contextmanager

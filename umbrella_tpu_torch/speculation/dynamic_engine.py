@@ -22,7 +22,7 @@ first, as with `lax.top_k`, and `log(p + 1e-4)` makes equal scores common
 (every p far below 1e-4 gives the same fp32 value).
 
 The verify, the device-resident step (`_decode_step`, captured and replayed
-as a CUDA graph on the card), the stepwise loop and the pipelined loop over
+as CUDA graphs on the card), the stepwise loop and the pipelined loop over
 an offload target are the static engine's (engine_common.py), over this
 engine's buffers. The first token after a prefill is the target's argmax
 with the EOS ids banned (`ban_eos_at_prefill`), as in the JAX package.

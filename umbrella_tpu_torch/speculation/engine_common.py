@@ -7,15 +7,18 @@ Counterpart of `umbrella_tpu/speculation/engine_common.py`. Two decode loops:
   JAX package's one-dispatch `decode_loop_fn`. num_nodes, the continue flag,
   the step count and the stop rule (EOS, token budget, context cap) live on
   the device; a step is a gated build + verify + commit that is a no-op once
-  the request has stopped. On the card the step is captured once per
-  sampling mode as a CUDA graph and replayed in blocks of
+  the request has stopped. The step is a list of phases (`_step_phases`,
+  cuda_graphs.Phase). On the card it is captured once per sampling mode as
+  CUDA graphs, one a run of phases on one device (one graph for a resident
+  target, or a target staged on one card; a target staged over several
+  cards cuts the step at each change of card), and replayed in blocks of
   ceil(room / max_step_advance) replays, room being what is left of the
   budget or of the context, so that only EOS can turn a replay into a no-op;
   the host reads (nn, cont, steps) once a block and the token row once at
   the end. On the CPU the same step runs eagerly (the plain version).
 - The stepwise loop (`build_tree(); verify()`, one host read a step), which
-  a pipeline-staged target takes (its runtime does not support fused
-  phases) and which the card's checks compare the graphs against.
+  the card's checks compare the graphs against; no engine takes it by
+  itself on the card.
 
 Buffers the graphs read stay where they are: prefill, append and reset
 write `tokens` and both KV caches in place.
@@ -38,7 +41,9 @@ the JAX package. Its forward is `streamed_forward` in prefill and verify, and
 its decode loop is the pipelined one (`_decode_offload_pipelined`): the host
 issues step k+1 while the device runs step k, with num_nodes and the continue
 flag on the device, and reads each step's (accept_len, cont, block) back
-from pinned memory behind that step's event, one step behind.
+from pinned memory behind that step's event, one step behind. On the card
+the step is the same captured step: the draft phase and the tail each a
+graph, the streamed forward run eagerly between them.
 
 The step machinery here is shared by the static and the dynamic engine; each
 supplies `_build(nn, cont)` (the draft phase) and the tree's device buffers
@@ -55,14 +60,15 @@ from typing import Union
 import numpy as np
 import torch
 
-from ..cuda_graphs import StepGraph
+from ..cuda_graphs import Phase, StepGraph, run_phases
 from ..models.auto_model import AutoModelLM, ModelRuntime
+from ..models.kv_cache import compact_phases, gather_compact
 from ..offload.streaming import OffloadModelRuntime
 from ..ops.masks import causal_mask_rows, read_window, tree_mask_rows
 from ..utils import TextColors, resolve_device, setup_logger
 from .base import BaseEngine
 from .spec_utils import is_sentence_complete_regex, next_bucket
-from .verify import gated_verify_tail, verify_tail
+from .verify import gated_stop, verify_commit, verify_tail
 
 logger = setup_logger()
 
@@ -230,7 +236,7 @@ class SpecEngineBase(BaseEngine):
                       for k in ("nn", "cont", "start", "max_new", "steps", "eos")}
         self._sampling = {k: torch.zeros((), dtype=torch.float32, device=dev)
                           for k in ("temperature", "topp", "penalty")}
-        self._graph_pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+        self._graph_pools = {}  # device -> the graph pool of this engine's graphs there
         self._decode_graphs = {}  # (greedy, topk, use_pen) -> StepGraph, as _decode_loop_cache
         # device-resident loop counters: replays (steps run, live or not),
         # no-op replays (run after a stop inside a block) and blocks (one host read each)
@@ -418,32 +424,64 @@ class SpecEngineBase(BaseEngine):
             **self._tail_kw(greedy, use_pen))
         return self._commit_verify_result(accept_len, eos_found, block)
 
-    def _decode_step(self, greedy: bool, use_pen: bool):
-        """One step of the device-resident loop on the engine's persistent
-        state (`_loop`: nn, cont, start, max_new, steps, eos; 0-d device
-        tensors), updated in place: build, verify and the gated commit
-        (a no-op where cont is false). No host read. Returns the step's
-        (accept_len, block) as device tensors."""
-        st = self._loop
-        nn, cont = st["nn"], st["cont"]
-        self._build(nn, cont)
-        nn_out, cont_out, accept_len, eos, block = gated_verify_tail(
-            self._target_logits(nn), self.kv_target, self.kv_draft, self.tokens, nn, cont,
-            st["start"], st["max_new"], self.max_length - self.safe_buffer, self._bitmap,
-            self._parents, self._node_in_path, self._eos_arr, **self._tail_kw(greedy, use_pen))
-        st["steps"].add_(cont.to(torch.int32))
-        st["eos"].copy_(torch.where(cont, eos, st["eos"]))
-        st["nn"].copy_(nn_out)
-        st["cont"].copy_(cont_out)
-        return accept_len, block
+    def _step_phases(self, greedy: bool, use_pen: bool) -> list:
+        """One step of the device-resident loop as phases (cuda_graphs.Phase)
+        on the engine's persistent state (`_loop`: nn, cont, start, max_new,
+        steps, eos; 0-d device tensors), updated in place: the draft build
+        and the target's inputs (`draft`); the target's forward phases (one;
+        a staged target's embedding, stages and head; an offload target's
+        eager streamed forward); sampling, the accept rule, the gated token
+        commit and the draft KV's compaction (`commit`); the target KV's
+        (a phase a stage, each on its device); the stop rule and the state's
+        update (`update`), which packs the step's (accept_len, cont, block)
+        as `result`. A no-op where cont is false. No host read."""
+        dev, st, T = self.device, self._loop, self.tree_size
+        cap = self.max_length - self.safe_buffer
+        kw = self._tail_kw(greedy, use_pen)
+
+        def draft():
+            nn, cont = st["nn"], st["cont"]
+            self._build(nn, cont)
+            return (nn, cont, read_window(self.tokens, nn, T), nn + self._depth,
+                    tree_mask_rows(nn, self._bitmap, self.max_length))
+
+        def commit(logits, nn, cont):
+            alen, eos, block, path = verify_commit(
+                logits, self.tokens, nn, self._bitmap, self._parents, self._node_in_path,
+                self._eos_arr, cont=cont, **kw)
+            gather_compact(self.kv_draft, path, nn, alen)
+            return alen, eos, block, path
+
+        def update(nn, cont, alen, eos, block):
+            nn_out, cont_out = gated_stop(nn, cont, alen, eos, st["start"], st["max_new"], cap)
+            st["steps"].add_(cont.to(torch.int32))
+            st["eos"].copy_(torch.where(cont, eos, st["eos"]))
+            st["nn"].copy_(nn_out)
+            st["cont"].copy_(cont_out)
+            return torch.cat([alen.reshape(1), cont_out.reshape(1).to(torch.int32), block])
+
+        return ([Phase("draft", dev, draft, (), ("nn", "cont", "ids", "pos", "mask"))]
+                + self.target_model.forward_phases(self.kv_target)
+                + [Phase("commit", dev, commit, ("logits", "nn", "cont"),
+                         ("alen", "eos", "block", "path"))]
+                + compact_phases(self.kv_target)
+                + [Phase("update", dev, update, ("nn", "cont", "alen", "eos", "block"),
+                         ("result",))])
+
+    def _decode_step(self, greedy: bool, use_pen: bool) -> torch.Tensor:
+        """One step of the device-resident loop run eagerly (its phases in
+        order); returns the step's `result`: int32 [accept_len, cont, block]."""
+        return run_phases(self._step_phases(greedy, use_pen))["result"]
 
     def _decode_graph(self, greedy: bool, topk: int, use_pen: bool) -> StepGraph:
-        """The captured `_decode_step` for one sampling mode, cached as the JAX
-        package's `_decode_loop_cache` is (warmed up as a no-op step)."""
+        """The captured step for one sampling mode, cached as the JAX
+        package's `_decode_loop_cache` is (warmed up as a no-op step): one
+        graph a run of phases on one device, an offload target's streamed
+        forward run eagerly between two."""
         key = (greedy, topk, use_pen)
         if key not in self._decode_graphs:
             self._decode_graphs[key] = StepGraph.capture(
-                lambda: self._decode_step(greedy, use_pen), self.device, self._graph_pool,
+                self._step_phases(greedy, use_pen), self._graph_pools,
                 generators=(self._gen,), idle=self._stopped)
         return self._decode_graphs[key]
 
@@ -457,16 +495,24 @@ class SpecEngineBase(BaseEngine):
         finally:
             self._loop["cont"].copy_(cont)
 
-    def _run_decode_steps(self, n: int, greedy: bool, use_pen: bool) -> None:
+    def _run_decode_steps(self, n: int, greedy: bool, use_pen: bool) -> torch.Tensor:
         """n steps of the device-resident loop: graph replays on the card, the
-        same step run eagerly on the CPU (the plain version)."""
+        same step run eagerly on the CPU (the plain version). Returns the
+        last step's `result`."""
         if self.device.type == "cuda":
-            self._decode_graph(greedy, self.topk, use_pen).replay(n)
-        else:
-            self._gen_states = []
-            for _ in range(n):
-                self._gen_states.append(self._gen.get_state())
-                self._decode_step(greedy, use_pen)
+            graph = self._decode_graph(greedy, self.topk, use_pen)
+            graph.replay(n)
+            return graph.output("result")
+        return self._eager_decode_steps(n, greedy, use_pen)
+
+    def _eager_decode_steps(self, n: int, greedy: bool, use_pen: bool) -> torch.Tensor:
+        """n steps run eagerly, the generator's state kept before each (for
+        `_rewind_decode_steps`); returns the last step's `result`."""
+        self._gen_states = []
+        for _ in range(n):
+            self._gen_states.append(self._gen.get_state())
+            result = self._decode_step(greedy, use_pen)
+        return result
 
     def _rewind_decode_steps(self, n: int, greedy: bool, use_pen: bool) -> None:
         """Take back the random draws of the last block's n trailing no-op
@@ -514,14 +560,17 @@ class SpecEngineBase(BaseEngine):
 
     def _decode_offload_pipelined(self, max_new_tokens: int, host_stop=None) -> int:
         """The decode loop of an offload target (the JAX package's
-        `_decode_offload_pipelined`): eager steps (`_decode_step`) on the
-        device-resident state, the host one step ahead of the device, so that
-        step k+1's layer streams and launches overlap step k's tail. Each
-        step's (accept_len, cont, block) go to a pinned host buffer with a
-        non-blocking copy behind an event; the host waits on the event of the
-        step before, never on the device as a whole. The step in flight when
-        the loop stops is a gated no-op. host_stop(committed tokens) may stop
-        the loop early; returns the committed steps."""
+        `_decode_offload_pipelined`): steps on the device-resident state (on
+        the card the captured step: the draft phase's graph, the streamed
+        forward run eagerly, the tail's graph, as JAX's `_offload_step`), the
+        host one step ahead of the device, so that step k+1's layer streams
+        and launches overlap step k's tail. Each step's (accept_len, cont,
+        block) go to a pinned host buffer with a non-blocking copy behind an
+        event; the host waits on the event of the step before, never on the
+        device as a whole. The step in flight when the loop stops is a gated
+        no-op (its draws are not taken back, as in JAX's loop).
+        host_stop(committed tokens) may stop the loop early; returns the
+        committed steps."""
         greedy, use_pen = self._sampling_mode()
         st, start = self._loop, self.num_nodes
         for k, v in (("nn", start), ("start", start), ("max_new", max_new_tokens), ("steps", 0),
@@ -532,9 +581,8 @@ class SpecEngineBase(BaseEngine):
                 for _ in range(2)]
         pending, steps, k = None, 0, 0
         while True:
-            accept_len, block = self._decode_step(greedy, use_pen)
-            out = torch.cat([accept_len.reshape(1).to(torch.int32),
-                             st["cont"].reshape(1).to(torch.int32), block.to(torch.int32)])
+            out = self._run_decode_steps(1, greedy, use_pen)
+            self.decode_stats["replays"] += 1
             buf = host[k % 2]
             buf.copy_(out, non_blocking=cuda)
             event = None

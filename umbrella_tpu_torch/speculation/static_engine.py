@@ -6,9 +6,10 @@ over the whole tree, the accept rule and the compaction of both KV caches
 (`verify`), at a committed length `nn` that is a host int (the stepwise
 loop: `build_tree()`; `verify()`, one host read a step) or a 0-d device
 tensor (the device-resident loop: `_decode_step`, the counterpart of
-`decode_loop_fn`'s body with `gated_tail_fn`'s gated commit, replayed as a
-CUDA graph on the card; or, over an offload target, `_offload_step`'s
-counterpart in the pipelined loop). This module holds the growmap's
+`decode_loop_fn`'s body with `gated_tail_fn`'s gated commit, replayed as
+CUDA graphs on the card; or, over an offload target, `_offload_step`'s
+counterpart in the pipelined loop, its streamed forward eager between two
+graphs). This module holds the growmap's
 constants and `_build`; the step, the graphs and the loops are shared with
 the dynamic engine (engine_common.py).
 

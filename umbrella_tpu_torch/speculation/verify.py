@@ -4,7 +4,8 @@ Counterpart of `umbrella_tpu/speculation/verify.py`, with native gathers where
 the JAX package uses one-hot selects and a `torch.Generator` where it threads a
 `jax.random` key. Everything stays on the device: the stepwise loop reads
 (accept_len, eos_found, block) back once per step, the device-resident loop
-(`gated_verify_tail`) carries num_nodes and the stop flag on the device.
+(`verify_commit` gated on its continue flag, `gated_stop`) carries num_nodes
+and the stop flag on the device.
 """
 from __future__ import annotations
 
@@ -53,19 +54,19 @@ def accept_and_commit(ids, sampled, old_block, bitmap, parents, node_in_path, eo
     return block.to(torch.int32), path, alen.to(torch.int32), eos_found
 
 
-def verify_tail(logits, kv_t, kv_d, tokens, num_nodes, bitmap, parents, node_in_path,
-                eos_arr, *, tree_size: int, greedy: bool = True, use_pen: bool = False,
-                generator=None, temperature=1.0, topp=1.0, penalty=1.0, topk: int = 32,
-                cont=None):
+def verify_commit(logits, tokens, num_nodes, bitmap, parents, node_in_path, eos_arr, *,
+                  tree_size: int, greedy: bool = True, use_pen: bool = False, generator=None,
+                  temperature=1.0, topp=1.0, penalty=1.0, topk: int = 32, cont=None):
     """Sample the target logits over the tree (argmax if `greedy`, else top-k /
     top-p at `temperature` from `generator`; with `use_pen`, after the
-    repetition penalty over tokens[:num_nodes + 1]), run the accept rule, write
-    accepted + bonus tokens into `tokens`, and compact both KV caches in place.
-    `num_nodes` is a host int or a 0-d device tensor; the sampling parameters
-    are floats or device scalars. With `cont` (a 0-d bool device tensor) the
-    commit is gated: where it is false the step accepts nothing, tokens keep
-    their values and only the KV window past num_nodes is rewritten (zeroed).
-    Returns (accept_len, eos_found, block[tree_size + 1]) as device tensors."""
+    repetition penalty over tokens[:num_nodes + 1]), run the accept rule and
+    write accepted + bonus tokens into `tokens`. `num_nodes` is a host int or
+    a 0-d device tensor; the sampling parameters are floats or device
+    scalars. With `cont` (a 0-d bool device tensor) the commit is gated:
+    where it is false the step accepts nothing and tokens keep their values.
+    Returns (accept_len, eos_found, block[tree_size + 1], path) as device
+    tensors: `path` and `accept_len` are what the KV caches' compaction
+    (gather_compact) takes."""
     T = tree_size
     ids = read_window(tokens, num_nodes, T)
     if use_pen:
@@ -82,22 +83,28 @@ def verify_tail(logits, kv_t, kv_d, tokens, num_nodes, bitmap, parents, node_in_
     if cont is not None:
         accept_len = torch.where(cont, accept_len, 0)
     write_window(tokens, num_nodes, block, gate=cont)
+    return accept_len, eos_found, block, path
+
+
+def verify_tail(logits, kv_t, kv_d, tokens, num_nodes, bitmap, parents, node_in_path,
+                eos_arr, **kw):
+    """verify_commit, then both KV caches compacted in place (with `cont`
+    false only the KV window past num_nodes is rewritten: zeroed). Returns
+    (accept_len, eos_found, block[tree_size + 1]) as device tensors."""
+    accept_len, eos_found, block, path = verify_commit(
+        logits, tokens, num_nodes, bitmap, parents, node_in_path, eos_arr, **kw)
     gather_compact(kv_t, path, num_nodes, accept_len)
     gather_compact(kv_d, path, num_nodes, accept_len)
     return accept_len, eos_found, block
 
 
-def gated_verify_tail(logits, kv_t, kv_d, tokens, num_nodes, cont, start, max_new, cap: int,
-                      bitmap, parents, node_in_path, eos_arr, **kw):
-    """verify_tail gated on the device-resident continue flag, as the JAX
-    package's `gated_tail_fn` (speculation/static_engine.py): where `cont` is
-    false the step is a no-op, and the stop rule (EOS, the token budget
-    `max_new` counted from `start`, the context cap) is folded into the new
-    flag. All of num_nodes, cont, start and max_new are 0-d device tensors.
-    Returns (nn_out, cont_out, accept_len, eos_found, block)."""
-    accept_len, eos_found, block = verify_tail(
-        logits, kv_t, kv_d, tokens, num_nodes, bitmap, parents, node_in_path, eos_arr,
-        cont=cont, **kw)
+def gated_stop(num_nodes, cont, accept_len, eos_found, start, max_new, cap: int):
+    """The device-resident loop's stop rule, as the JAX package's
+    `gated_tail_fn` (speculation/static_engine.py) folds it into the gated
+    step: num_nodes advances by the (gated) accept length, and the continue
+    flag stays set unless the step found EOS, spent the token budget
+    `max_new` counted from `start`, or passed the context cap. All but `cap`
+    are 0-d device tensors. Returns (nn_out, cont_out)."""
     nn_out = num_nodes + accept_len
     cont_out = cont & ~eos_found & ((nn_out - start) < max_new) & (nn_out <= cap)
-    return nn_out, cont_out, accept_len, eos_found, block
+    return nn_out, cont_out
