@@ -53,9 +53,11 @@ lines tagged with its name:
                    127 past a slot's kv_limit changes nothing, soft cap 30.0,
                    rows with no live slot and kv_limit 0 exactly 0.
   multi-card       the static and the batched engine built on the last card
-                   while cuda:0 is current: 16 tokens each must equal the same
-                   engines' tokens on cuda:0 (needs a host with 2+ cards; on
-                   one card it prints "skipped: 1 card" and passes).
+                   while cuda:0 is current: 16 tokens each, through APIServer
+                   and a ContinuousBatcher (threads that start on cuda:0) and
+                   directly, must equal the same engines' tokens on cuda:0
+                   (needs a host with 2+ cards; on one card it prints
+                   "skipped: 1 card" and passes).
   lossless         full widths, 4 layers, early exit 2, fp32 activations:
                    greedy static-tree generate() must equal the port's own
                    greedy autoregressive decode for 64 tokens.
@@ -134,6 +136,25 @@ lines tagged with its name:
   code-config-w4a8 the same on the awq_act "int8" target (w4a8_matmul).
   serve-config     configs/serve_batched_8b_awq_int8kv_v5e.json as shipped:
                    B=32, int8 KV, Int4F draft, 2x3 tree, temperature 0.6.
+  api-serve        the same config served through APIServer on port 0 with its
+                   "scheduler": {} key (make_scheduler's 40 workers in front
+                   of a ContinuousBatcher over [serve-config]'s engine): 64
+                   client threads send one request each (128 prompt and 128
+                   new tokens, priorities 1/10/20; 16 stream, 16 greedy),
+                   then get_metrics; the same requests through run() and the
+                   direct batcher (the batcher and the server twice, in
+                   turn), then through the server with a worker a request
+                   and without the scheduler key (the loop thread sends).
+                   Greedy tokens equal run()'s on every route, stream frames
+                   grow into the result; tok/s of each path, client TTFT,
+                   slot admission times, frames a stream, host ms a segment
+                   in the loop's callbacks, the scheduler's metrics.
+  api-chat         configs/chat_config_8b_awq_v5e.json as shipped (static
+                   engine, 24x6, W4 1B draft, stochastic) built and served by
+                   APIServer's single-engine worker: a greedy request equals
+                   the direct generate(), a streamed one gives its text, two
+                   stochastic ones complete; tok/s, TPOT, accept, time to the
+                   first frame.
   pp-config        configs/chat_config_70b_awq_pp4.json as shipped: a random
                    AWQ Llama-3.3-70B at full shape (80 layers) staged in 4
                    stages (one per card on a host with 4, else all on this
@@ -177,7 +198,7 @@ kernel's. `--phases a,b` runs a subset (no report).
 
 Weights are random (seeded). The script needs CUDA and the repository's
 umbrella_tpu_torch package beside it; without either it exits with code 2.
-The whole script takes about twelve minutes on one H100 (726 s of command
+The whole script takes about thirteen minutes on one H100 (791 s of command
 time on an H100 80GB HBM3 at 700 W with every phase above), the kernels'
 build (20-30 s) included; `--phases w4a16` about a minute,
 `--phases w4a8` about 45 s, `--phases attention` about a minute.
@@ -188,8 +209,10 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 import traceback
+import weakref
 
 PROMPT_LEN = 128
 MAIN_NEW_TOKENS = 128
@@ -2362,8 +2385,14 @@ def multi_card_phase(torch, dev):
     is current (4 layers, bf16; the batched engine with int8 KV, B=4): 16
     tokens from each must equal the same engines' tokens on cuda:0, with every
     kernel of the path launched on the last card (the ctypes kernels launch
-    on their tensors' card, not the current one). Skipped on one card."""
+    on their tensors' card, not the current one). The static engine serves
+    its first request through APIServer (the worker thread captures the
+    decode graph) and the batched engine through a ContinuousBatcher (its
+    loop thread): both threads start on cuda:0, and their tokens must equal
+    the direct calls'. Skipped on one card."""
+    from umbrella_tpu_torch.api.server import APIServer
     from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.serving.batched_engine import ContinuousBatcher
 
     n_cards = torch.cuda.device_count()
     if n_cards < 2:
@@ -2377,14 +2406,31 @@ def multi_card_phase(torch, dev):
         target, draft = build_target(torch, d, n_layers=4, exit_layer=2, dtype=torch.bfloat16)
         reset_launch_counts()
         eng = make_engine(torch, d, target, draft, torch.bfloat16)
+        # first through the server, whose worker thread (on cuda:0 when it
+        # starts) captures the decode graph, then directly
+        server = APIServer({}, device=d, port=0, engine=eng)
+        server.start()
+        try:
+            served = client_request(server.port, "get", dict(
+                input_ids=prompt, max_new_tokens=MULTI_CARD_TOKENS))[0]["generated_tokens"]
+        finally:
+            server.shutdown()
         static = eng.generate(input_ids=prompt,
                               max_new_tokens=MULTI_CARD_TOKENS)["generated_tokens"]
-        del eng
+        del eng, server
         eng = batched_engine(torch, d, target, draft, 4, (2, 3), "int8", torch.bfloat16)
+        batcher = ContinuousBatcher(eng)  # its loop thread starts on cuda:0 too
+        batcher.start()
+        try:
+            via_batcher = [f.result(timeout=300)["generated_tokens"]
+                           for f in [batcher.submit(**dict(r)) for r in reqs]]
+        finally:
+            batcher.shutdown()
         batched = [o["generated_tokens"] for o in eng.run(reqs)]
         torch.cuda.synchronize(d)
         check(torch.cuda.current_device() == 0, "[multi-card] an engine changed the current card")
-        tokens[str(d)], counts[str(d)] = dict(static=static, batched=batched), launch_counts()
+        tokens[str(d)], counts[str(d)] = dict(static=static, served=served, batched=batched,
+                                              batcher=via_batcher), launch_counts()
         del eng, target, draft
         torch.cuda.empty_cache()
     first, last = tokens.values()
@@ -2392,6 +2438,9 @@ def multi_card_phase(torch, dev):
     log(f"[multi-card] {json.dumps(res)}")
     check(first == last, "[multi-card] the engines on the last card give other tokens than on "
           "cuda:0")
+    check(all(t["served"] == t["static"] and t["batcher"] == t["batched"]
+              for t in tokens.values()),
+          "[multi-card] the server or the batcher gave other tokens than the direct calls")
     for name in ("embed_gather", "attend_flash", "attend_flash_batched_int8", "w4a16_matmul",
                  "w4a8f_matmul", "w4a8_quantize"):
         check(list(counts.values())[-1][name] > 0,
@@ -2897,7 +2946,7 @@ def code_config_phase(torch, dev, ckpt, prompt, tag, target):
     return res
 
 
-def serve_config_phase(torch, dev, ckpt):
+def serve_config_phase(torch, dev, ckpt, shared=None):
     """configs/serve_batched_8b_awq_int8kv_v5e.json as shipped (B=32, int8 KV,
     Int4F draft, 2x3 tree, temperature 0.6, segment_steps 16): 32 requests of
     PROMPT_LEN random tokens and SERVE_CONFIG_NEW_TOKENS new ones through run()."""
@@ -2946,7 +2995,400 @@ def serve_config_phase(torch, dev, ckpt):
                launches_per_step={k: n / max(steps, 1) for k, n in counts.items()},
                graphs=graphs, peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
     log(f"[serve-config] {json.dumps(res)}")
+    if shared is not None:  # [api-serve] serves this engine next
+        shared["serve-config"] = eng
     del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+class WordTokenizer:
+    """A stand-in tokenizer for the synthetic checkpoints (they ship none, and
+    the card's machine has no `transformers`): one word a token, a token
+    divisible by 13 ends its word with a period (so that the streaming
+    loop's sentence-complete stop runs); encode maps characters to ids."""
+
+    def encode(self, text):
+        return [128000] + [ord(c) % 120000 for c in text]
+
+    def decode(self, ids, **kw):
+        return " ".join(f"w{i}." if i % 13 == 0 else f"w{i}" for i in ids)
+
+
+API_SERVE_REQUESTS = 64
+API_NEW_TOKENS = 128
+API_PRIORITIES = (1, 10, 20)
+
+
+def frames_grow(texts):
+    """Each streamed frame's text extends the one before."""
+    return all(b.startswith(a.rstrip()) for a, b in zip(texts, texts[1:]))
+
+
+def client_request(port, kind, req):
+    """One client connection and request: `kind` "stream" reads the frames
+    (stream_output), else one answer (get_output). Returns the result, the
+    frames' texts, the seconds to the first frame (or answer) and to the
+    result."""
+    from umbrella_tpu_torch.api.client import APIClient
+
+    client = APIClient(port=port, retry_seconds=0.2)
+    client.run()
+    t0 = time.time()
+    texts, first = [], None
+    if kind == "stream":
+        for frame in client.stream_output(**req):
+            first = first or time.time() - t0
+            if frame.get("partial"):
+                texts.append(frame["generated_text"])
+            else:
+                result = frame
+    else:
+        result = client.get_output(**req)
+        first = time.time() - t0
+    done = time.time() - t0
+    client.close()
+    return result, texts, first, done
+
+
+def timed_callbacks(be):
+    """Wrap the serving loop's host callbacks (the stream frames of
+    `_SlotTracker.emit_partials`, the futures resolved by `_resolve`, which
+    run their done-callbacks inline) to sum their seconds; count the synced
+    segments. Returns (stats, undo)."""
+    stats = dict(emit_s=0.0, resolve_s=0.0, segments=0, max_call_ms=0.0)
+    emit, resolve, sync = be._SlotTracker.emit_partials, be._resolve, \
+        be.BatchedStaticEngine.sync_segment
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                dt = time.perf_counter() - t0
+                stats[key] += dt
+                stats["max_call_ms"] = max(stats["max_call_ms"], 1000 * dt)
+        return run
+
+    def counted(*a, **k):
+        stats["segments"] += 1
+        return sync(*a, **k)
+
+    be._SlotTracker.emit_partials = timed(emit, "emit_s")
+    be._resolve = timed(resolve, "resolve_s")
+    be.BatchedStaticEngine.sync_segment = counted
+
+    def undo():
+        be._SlotTracker.emit_partials, be._resolve = emit, resolve
+        be.BatchedStaticEngine.sync_segment = sync
+    return stats, undo
+
+
+def check_released(engine, threads, tag):
+    """Every thread started since `threads` was taken has ended (the servers'
+    listeners, connections and workers, the batchers' loops), and the engine
+    behind the weak reference `engine` has been freed with them."""
+    for t in set(threading.enumerate()) - threads:
+        t.join(timeout=10)
+    gc.collect()
+    check(engine() is None, f"{tag} the engine outlived its servers (a thread still holds it)")
+
+
+def serve_clients(eng, cfg, dev, reqs, kinds):
+    """Serve `reqs` to one client thread each through an APIServer built from
+    `cfg` over a new ContinuousBatcher on `eng` (with its scheduler key, the
+    scheduler's route, and then the metrics; without, the batcher's route,
+    where the loop thread sends each result and frame itself). Returns the
+    clients' (result, frame texts, first, done), the wall seconds, the
+    metrics, the scheduler's workers, each request's arrival and slot
+    admission (seconds from the start) and the loop's callback times
+    (timed_callbacks)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from umbrella_tpu_torch.api.server import APIServer
+    from umbrella_tpu_torch.serving import batched_engine as be
+    from umbrella_tpu_torch.serving.scheduler import BatcherBackend
+
+    server = APIServer(cfg, device=dev, port=0, batcher=be.ContinuousBatcher(eng),
+                       max_client=len(reqs))
+    server.start()
+    sched, arrived, admitted, t0 = server.scheduler, [], [], time.time()
+    if sched is not None:
+        submit, on_admission = sched.submit, sched._on_slot_admission
+        sched.submit = lambda **kw: arrived.append(time.time() - t0) or submit(**kw)
+        sched._on_slot_admission = \
+            lambda *a: admitted.append(time.time() - t0) or on_admission(*a)
+    stats, undo = timed_callbacks(be)
+    try:
+        with ThreadPoolExecutor(max_workers=len(reqs)) as pool:
+            t0 = time.time()
+            futs = [pool.submit(client_request, server.port, kind, dict(r, req_id=i))
+                    for i, (r, kind) in enumerate(zip(reqs, kinds))]
+            served = [f.result(timeout=600) for f in futs]
+            wall = time.time() - t0
+        metrics = sched and client_request(server.port, "get_metrics",
+                                           dict(get_metrics=True))[0]
+    finally:
+        undo()
+        server.shutdown()
+    return dict(served=served, s=wall, metrics=metrics, workers=len(sched.engines) if sched else 0,
+                batcher_backends=bool(sched) and all(isinstance(w, BatcherBackend)
+                                                     for w in sched.engines),
+                arrived=arrived, admitted=admitted, stats=stats)
+
+
+def api_serve_phase(torch, dev, ckpt, shared):
+    """configs/serve_batched_8b_awq_int8kv_v5e.json as shipped, served through
+    APIServer on port 0: `"scheduler": {}` puts make_scheduler's 40 workers
+    (B=32) in front of a ContinuousBatcher over [serve-config]'s engine.
+    API_SERVE_REQUESTS client threads send one request each (PROMPT_LEN
+    prompt tokens, API_NEW_TOKENS new ones, priorities 1/10/20; 16 stream
+    their frames, 16 are greedy, the rest sample at the config's 0.6 / 0.9),
+    then one get_metrics request. The same requests go through run() and the
+    direct ContinuousBatcher (the batcher and the server twice, in turn).
+    Greedy tokens through the server equal
+    run()'s; stream frames grow and end in the result; the kernels launched;
+    the decode was graphed. Then the same requests again with a worker a
+    request (`"scheduler": {"workers": 64}`), which puts every request in the
+    batcher's FIFO as the direct run does, and without the scheduler key
+    (the batcher's route: the loop thread sends results and frames)."""
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.serving import batched_engine as be
+    from umbrella_tpu_torch.speculation.auto_engine import AutoEngine
+
+    threads = set(threading.enumerate())
+    cfg = shipped_config("serve_batched_8b_awq_int8kv_v5e.json", ckpt)
+    check(cfg.get("scheduler") == {}, "[api-serve] the shipped config has no scheduler key")
+    eng = shared.pop("serve-config", None)
+    if eng is None:  # run without [serve-config]
+        eng = AutoEngine.from_config(device=dev, **{k: v for k, v in cfg.items()
+                                                    if k != "scheduler"})
+        eng.initialize()
+    eng.tokenizer = WordTokenizer()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reqs = random_requests(11, API_SERVE_REQUESTS, API_NEW_TOKENS)
+    kinds = ["greedy" if i % 4 == 0 else "stream" if i % 4 == 1 else "sampled"
+             for i in range(len(reqs))]
+    for r, kind, i in zip(reqs, kinds, range(len(reqs))):
+        r["priority"] = API_PRIORITIES[i % len(API_PRIORITIES)]
+        if kind == "greedy":
+            r["temperature"] = 0.0
+    plain = [{k: v for k, v in r.items() if k != "priority"} for r in reqs]
+    eng.run([dict(r, max_new_tokens=8) for r in plain[:eng.batch_size]])  # warm-up
+
+    def tokens_of(outs):
+        return sum(len(o["generated_tokens"]) for o in outs)
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    run_outs = eng.run([dict(r) for r in plain])
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    def batch_direct():
+        """All requests submitted at once to a ContinuousBatcher of this thread."""
+        batcher, admit = be.ContinuousBatcher(eng), []
+        batcher.start()
+        try:
+            t0 = time.time()
+            futs = [batcher.submit(_admit_cb=lambda _d: admit.append(time.time() - t0),
+                                   **dict(r)) for r in plain]
+            outs = [f.result(timeout=600) for f in futs]
+            return outs, time.time() - t0, admit
+        finally:
+            batcher.shutdown()
+
+    # the direct batcher and the server (the config's scheduler key in front of
+    # a new batcher on the same engine) in turn, twice
+    direct, direct_s, direct_admit = batch_direct()
+    reset_launch_counts()
+    shipped = serve_clients(eng, cfg, dev, reqs, kinds)
+    counts = launch_counts()
+    check(shipped["workers"] == 40 and shipped["batcher_backends"],
+          "[api-serve] the scheduler key did not put 40 BatcherBackend workers in front")
+    direct2, direct2_s, _ = batch_direct()
+    shipped2 = serve_clients(eng, cfg, dev, reqs, kinds)
+    # again with a worker a request: every request waits inside the batcher's
+    # FIFO, as in the direct run (the shipped lookahead is B // 4 = 8)
+    every = serve_clients(eng, dict(cfg, scheduler={"workers": len(reqs)}), dev, reqs, kinds)
+    # and without the scheduler key: the batcher's route (JSON and sendall on the loop thread)
+    direct_route = serve_clients(eng, {k: v for k, v in cfg.items() if k != "scheduler"}, dev,
+                                 reqs, kinds)
+    served, server_s, metrics, stats = (shipped[k] for k in ("served", "s", "metrics", "stats"))
+    results = [s[0] for s in served]
+    check(all(r.get("processed") is True for r in results),
+          f"[api-serve] {sum(r.get('processed') is not True for r in results)} requests failed")
+    check([r["req_id"] for r in results] == list(range(len(reqs))), "[api-serve] req_id lost")
+    eos = set(eng.eos_token_ids)
+    for r in results:
+        toks = r["generated_tokens"]
+        check(len(toks) <= API_NEW_TOKENS + 1 and (len(toks) >= API_NEW_TOKENS or toks[-1] in eos)
+              and all(0 <= t < 128256 for t in toks), f"[api-serve] request got {len(toks)} tokens")
+    greedy = [i for i, k in enumerate(kinds) if k == "greedy"]
+    equal = sum(results[i]["generated_tokens"] == run_outs[i]["generated_tokens"]
+                == direct[i]["generated_tokens"] == every["served"][i][0]["generated_tokens"]
+                == direct_route["served"][i][0]["generated_tokens"]
+                == direct2[i]["generated_tokens"] == shipped2["served"][i][0]["generated_tokens"]
+                for i in greedy)
+    check(equal == len(greedy), f"[api-serve] greedy tokens through the server (each route) "
+          f"equal run()'s and the batcher's for {equal} of {len(greedy)} requests")
+    check(all(r.get("processed") is True for r, *_ in every["served"] + direct_route["served"]
+              + shipped2["served"]),
+          "[api-serve] a request failed with a worker a request or without the scheduler")
+    streams = [i for i, k in enumerate(kinds) if k == "stream"]
+    frames = [len(served[i][1]) for i in streams]
+    for i in streams:
+        texts, result = served[i][1], results[i]
+        check(len(texts) >= 2 and frames_grow(texts) and texts[-1] == result["generated_text"]
+              == eng.tokenizer.decode(result["generated_tokens"]),
+              f"[api-serve] request {i}: stream frames do not grow into the result")
+    for name in ("attend_flash_batched_int8", "w4a16_matmul", "w4a8f_matmul", "w4a8_quantize",
+                 "embed_gather"):
+        check(counts[name] > 0, f"[api-serve] kernel {name} was never launched")
+    check_tc_route(counts, "[api-serve]")
+    graphs = check_graphed(eng, "[api-serve]")
+    check(metrics["requests"] == len(reqs) and metrics["tokens"] == tokens_of(results)
+          and set(metrics["by_priority"]) == {str(p) for p in API_PRIORITIES},
+          f"[api-serve] scheduler metrics {metrics}")
+    client_ttft = [1000 * served[i][2] for i in streams]
+    res = dict(
+        requests=len(reqs), new_tokens=API_NEW_TOKENS, greedy=len(greedy), streams=len(streams),
+        workers=shipped["workers"], server_tok_per_s=tokens_of(results) / server_s,
+        server_s=server_s, batcher_tok_per_s=tokens_of(direct) / direct_s, batcher_s=direct_s,
+        server2_tok_per_s=tokens_of([r for r, *_ in shipped2["served"]]) / shipped2["s"],
+        batcher2_tok_per_s=tokens_of(direct2) / direct2_s,
+        run_tok_per_s=tokens_of(run_outs) / run_s, run_s=run_s, greedy_equal_to_run=equal,
+        client_ttft_ms_p50=pct(client_ttft, 50), client_ttft_ms_p95=pct(client_ttft, 95),
+        server_ttft_ms_p50=pct([r["ttft_ms"] for r in results], 50),
+        server_ttft_ms_p95=pct([r["ttft_ms"] for r in results], 95),
+        batcher_ttft_ms_p50=pct([r["ttft_ms"] for r in direct], 50),
+        client_s_p50=pct([s[3] for s in served], 50),
+        arrival_s_p50=pct(shipped["arrived"], 50), arrival_s_max=max(shipped["arrived"]),
+        admitted_s_p50=pct(shipped["admitted"], 50), admitted_s_p95=pct(shipped["admitted"], 95),
+        batcher_admitted_s_p50=pct(direct_admit, 50),
+        batcher_admitted_s_p95=pct(direct_admit, 95),
+        frames_per_stream=sum(frames) / len(frames), segments=stats["segments"],
+        callback_ms_per_segment=1000 * (stats["emit_s"] + stats["resolve_s"])
+        / max(stats["segments"], 1),
+        emit_ms_per_segment=1000 * stats["emit_s"] / max(stats["segments"], 1),
+        callback_max_ms=stats["max_call_ms"],
+        scheduler={k: metrics[k] for k in ("requests", "tokens", "expired",
+                                           "priority_inversions", "queue_seconds",
+                                           "busy_seconds", "by_priority")},
+        worker_a_request=dict(
+            workers=every["workers"],
+            server_tok_per_s=tokens_of([r for r, *_ in every["served"]]) / every["s"],
+            server_s=every["s"],
+            server_ttft_ms_p50=pct([r["ttft_ms"] for r, *_ in every["served"]], 50),
+            admitted_s_p50=pct(every["admitted"], 50), admitted_s_p95=pct(every["admitted"], 95),
+            priority_inversions=every["metrics"]["priority_inversions"]),
+        batcher_route=dict(
+            server_tok_per_s=tokens_of([r for r, *_ in direct_route["served"]])
+            / direct_route["s"], server_s=direct_route["s"],
+            server_ttft_ms_p50=pct([r["ttft_ms"] for r, *_ in direct_route["served"]], 50),
+            callback_ms_per_segment=1000 * (direct_route["stats"]["emit_s"]
+                                            + direct_route["stats"]["resolve_s"])
+            / max(direct_route["stats"]["segments"], 1),
+            callback_max_ms=direct_route["stats"]["max_call_ms"],
+            segments=direct_route["stats"]["segments"]),
+        launches=counts, graphs=graphs,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+    log(f"[api-serve] {json.dumps(res)}")
+    engine = weakref.ref(eng)
+    del eng
+    check_released(engine, threads, "[api-serve]")
+    torch.cuda.empty_cache()
+    return res
+
+
+def api_chat_phase(torch, dev, ckpt, prompt):
+    """configs/chat_config_8b_awq_v5e.json as shipped (the static engine, 24x6
+    tree, the 1B draft W4-quantized, temperature 0.6 / top-p 0.9 /
+    repetition penalty 1.05) served by APIServer on port 0, which builds the
+    engine from the config; its single worker runs the requests (and
+    captures the decode graphs) on its own thread. One greedy request through
+    the server equals the direct generate(); a streamed greedy request's
+    text is those tokens' (up to its sentence stop); two stochastic requests
+    complete."""
+    from umbrella_tpu_torch.api.server import APIServer
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    threads = set(threading.enumerate())
+    cfg = dict(shipped_config("chat_config_8b_awq_v5e.json", ckpt), tokenizer=WordTokenizer())
+    torch.cuda.reset_peak_memory_stats(dev)
+    server = APIServer(cfg, device=dev, port=0)
+    t0 = time.time()
+    server.start()
+    init_s = time.time() - t0
+    eng = server.engine
+    check(server.scheduler is None and server.batcher is None and eng is not None,
+          "[api-chat] the chat config must take the single-engine path")
+    greedy = dict(input_ids=prompt, max_new_tokens=API_NEW_TOKENS, temperature=0.0)
+    sampled = dict(input_ids=prompt, max_new_tokens=API_NEW_TOKENS, temperature=0.6, topp=0.9,
+                   repetition_penalty=1.05)
+    try:
+        client_request(server.port, "get", dict(greedy, max_new_tokens=16))  # warm-up
+        reset_launch_counts()
+        served, _, _, served_s = client_request(server.port, "get", dict(greedy))
+        counts = launch_counts()
+        # served and direct (on this thread, nothing in flight) in turn, twice
+        runs = {"served": [(served, served_s)], "direct": []}
+        for i in range(3):
+            if i:
+                runs["served"].append(client_request(server.port, "get", dict(greedy))[::3])
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = eng.generate(**dict(greedy))
+            torch.cuda.synchronize()
+            runs["direct"].append((out, time.time() - t0))
+        direct = runs["direct"][0][0]
+        stream, texts, first_s, stream_s = client_request(server.port, "stream", dict(greedy))
+        stochastic = [client_request(server.port, "get", dict(sampled))[0] for _ in range(2)]
+    finally:
+        server.shutdown()
+    toks = served["generated_tokens"]
+    eos = set(eng.eos_token_ids)
+
+    def finished(t):
+        return len(t) >= API_NEW_TOKENS or (len(t) > 0 and t[-1] in eos)
+
+    check(served.get("processed") is True and finished(toks),
+          f"[api-chat] the greedy request got {len(toks)} tokens")
+    for out, _ in runs["served"] + runs["direct"]:
+        check(out["generated_tokens"] == direct["generated_tokens"],
+              f"[api-chat] the server's greedy tokens differ from generate()'s at "
+              f"{first_difference(out['generated_tokens'], direct['generated_tokens'])}")
+    words = stream["generated_text"].split()
+    want = eng.tokenizer.decode(toks).split()
+    check(stream.get("processed") is True and frames_grow(texts) and len(texts) >= 1
+          and (len(words) >= API_NEW_TOKENS - eng.stop_distance or toks[-1] in eos)
+          and words[:len(want)] == want[:len(words)],
+          "[api-chat] the streamed greedy text is not the greedy tokens'")
+    for r in stochastic:
+        t = r["generated_tokens"]
+        check(r.get("processed") is True and finished(t)
+              and all(0 <= x < 128256 for x in t), "[api-chat] a stochastic request failed")
+    for name in ("embed_gather", "attend_flash", "w4a16_matmul"):
+        check(counts[name] > 0, f"[api-chat] kernel {name} was never launched")
+    check_tc_route(counts, "[api-chat]")
+    graphs = check_graphed(eng, "[api-chat]")
+    walls = {k: [w for _, w in v] for k, v in runs.items()}
+    tpots = {k: [o["time_per_output_token"] for o, _ in v] for k, v in runs.items()}
+    res = dict(
+        init_s=init_s, tokens=len(toks), server_tok_per_s=len(toks) / pct(walls["served"], 50),
+        direct_tok_per_s=len(toks) / pct(walls["direct"], 50), server_s=walls["served"],
+        direct_s=walls["direct"], tpot_ms=pct(tpots["served"], 50),
+        direct_tpot_ms=pct(tpots["direct"], 50), tpot_ms_served=tpots["served"],
+        tpot_ms_direct=tpots["direct"],
+        avg_accept_tokens=served["avg_accept_tokens"],
+        stochastic_accept=[r["avg_accept_tokens"] for r in stochastic],
+        first_frame_ms=1000 * first_s, stream_s=stream_s, stream_frames=len(texts),
+        stream_words=len(words), launches=counts, graphs=graphs,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+    log(f"[api-chat] {json.dumps(res)}")
+    engine = weakref.ref(eng)
+    del eng, server
+    check_released(engine, threads, "[api-chat]")
     torch.cuda.empty_cache()
     return res
 
@@ -3731,7 +4173,8 @@ TRACED_IN = {"main": "[profile] graphed: a 64-token generate()",
              "pp-config": "[pp-profile]: 8 tokens of the graphed decode loop (prefill "
                           "outside the window)"}
 CHECKPOINT_PHASES = ("checkpoint", "code-config", "code-config-w4a8", "serve-config",
-                     "pp-config", "offload-checkpoint", "offload-config")
+                     "api-serve", "api-chat", "pp-config", "offload-checkpoint",
+                     "offload-config")
 PHASES = ("kernels", "multi-card", "lossless", "lossless-int8", "lossless-w4a8",
           "batched-lossless", "pp-lossless", "dynamic-lossless", "offload-lossless", "main",
           "graph", "dynamic", "dynamic-pp", "serve", "serve-bf16",
@@ -3819,7 +4262,11 @@ def run(torch, phases):
                   "[code-config]", "target")
             phase("code-config-w4a8", code_config_phase, torch, dev, ckpt, prompt.tolist(),
                   "[code-config-w4a8]", "target-w4a8")
-            phase("serve-config", serve_config_phase, torch, dev, ckpt)
+            shared = {} if "api-serve" in phases else None
+            phase("serve-config", serve_config_phase, torch, dev, ckpt, shared)
+            phase("api-serve", api_serve_phase, torch, dev, ckpt, shared or {})
+            shared = None
+            phase("api-chat", api_chat_phase, torch, dev, ckpt, prompt.tolist())
             phase("pp-config", pp_config_phase, torch, dev, ckpt, prompt.tolist())
             phase("offload-checkpoint", offload_checkpoint_phase, torch, dev, ckpt)
             phase("offload-config", offload_config_phase, torch, dev, ckpt, prompt.tolist())
@@ -3895,6 +4342,19 @@ def run(torch, phases):
         results["code-config-w4a8"]["launches_per_step"]["w4a8_matmul"]
     summary["serve-config"] = {k: results["serve-config"][k] for k in (
         "tok_per_s", "avg_accept_tokens", "peak_mem_gb")}
+    api = results["api-serve"]
+    summary["api-serve"] = {k: api[k] for k in (
+        "server_tok_per_s", "batcher_tok_per_s", "server2_tok_per_s", "batcher2_tok_per_s",
+        "run_tok_per_s", "client_ttft_ms_p50", "client_ttft_ms_p95", "server_ttft_ms_p50",
+        "frames_per_stream", "callback_ms_per_segment", "greedy_equal_to_run", "peak_mem_gb")}
+    summary["api-serve"].update(
+        priority_inversions=api["scheduler"]["priority_inversions"],
+        worker_a_request_tok_per_s=api["worker_a_request"]["server_tok_per_s"],
+        batcher_route_tok_per_s=api["batcher_route"]["server_tok_per_s"],
+        batcher_route_callback_ms_per_segment=api["batcher_route"]["callback_ms_per_segment"])
+    summary["api-chat"] = {k: results["api-chat"][k] for k in (
+        "server_tok_per_s", "direct_tok_per_s", "tpot_ms", "avg_accept_tokens",
+        "first_frame_ms", "peak_mem_gb")}
     summary["pp-lossless"] = {kv: (r["identical_to_unstaged"], r["identical_to_ar"])
                               for kv, r in results["pp-lossless"].items()}
     pp = results["pp-config"]

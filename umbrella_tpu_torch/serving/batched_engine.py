@@ -32,7 +32,8 @@ by contract and stays eager.
 
 Tensor and expert parallelism and the Gemma2/MoE batched forwards are not
 ported (ROADMAP queue A, "tensor and expert parallelism" and "Gemma2 and
-MoE"); nor is the request scheduler (ROADMAP queue A, "API, scheduler").
+MoE"). The request scheduler in front of ContinuousBatcher is
+serving/scheduler.py.
 """
 from __future__ import annotations
 
@@ -58,7 +59,7 @@ from ..speculation.engine_common import load_runtime, load_tokenizer, quantize_d
 from ..speculation.spec_utils import next_bucket
 from ..speculation.tree import GrowMap
 from ..speculation.verify import accept_and_commit
-from ..utils import resolve_device, setup_logger
+from ..utils import device_scope, resolve_device, setup_logger
 
 logger = setup_logger()
 
@@ -652,6 +653,12 @@ class _SlotTracker:
         self.first_tok_t[slot] = None
         self.max_new[slot] = int(req.get("max_new_tokens", 128))
         self.stop_at[slot] = self.slot_start[slot] + self.max_new[slot]
+        cb = req.get("_admit_cb")  # the scheduler's priority-inversion count
+        if cb is not None:
+            try:
+                cb(bool(req.get("_downstream_better", False)))
+            except Exception:
+                logger.exception("_admit_cb failed")
 
     def try_admit(self, slot: int, tag, req) -> bool:
         """Synchronous whole-prompt admission (run()'s path)."""
@@ -842,7 +849,8 @@ class ContinuousBatcher:
         """If the loop thread dies, every in-flight and queued request gets the
         exception at once, and later submits fail fast."""
         try:
-            loop()
+            with device_scope(self.engine.device):  # a new thread starts on cuda:0
+                loop()
         except BaseException as e:  # noqa: B036 -- deliver even SystemExit
             logger.exception("serving loop crashed; failing in-flight requests")
             futs = self._st.futures() if self._st is not None else []
@@ -897,11 +905,19 @@ class ContinuousBatcher:
 
     def _pop_request(self):
         """Pop one queued (req, fut) under the lock; admission itself runs
-        outside it, so submit() never waits for device work."""
+        outside it, so submit() never waits for device work. A request with a
+        scheduler `_priority` is marked `_downstream_better` when a request of
+        a strictly better priority waits behind it in this queue; its slot's
+        registration reports that through `_admit_cb`."""
         with self._lock:
             if not self._queue:
                 return None
-            return self._queue.popleft()
+            req, fut = self._queue.popleft()
+            mine = req.get("_priority")
+            if mine is not None:
+                req["_downstream_better"] = any(
+                    r.get("_priority", 1 << 30) < mine for r, _ in self._queue)
+            return req, fut
 
     def _reset_engine(self, eng):
         # the engine goes back reusable: serial callers seed from the host

@@ -40,3 +40,6 @@ class BaseEngine(ABC):
 
     @abstractmethod
     def generate(self, **api_args): ...
+
+    @abstractmethod
+    def generate_stream(self, **api_args): ...

@@ -560,17 +560,29 @@ class SpecEngineBase(BaseEngine):
 
     def _decode_offload_pipelined(self, max_new_tokens: int, host_stop=None) -> int:
         """The decode loop of an offload target (the JAX package's
-        `_decode_offload_pipelined`): steps on the device-resident state (on
-        the card the captured step: the draft phase's graph, the streamed
-        forward run eagerly, the tail's graph, as JAX's `_offload_step`), the
-        host one step ahead of the device, so that step k+1's layer streams
-        and launches overlap step k's tail. Each step's (accept_len, cont,
-        block) go to a pinned host buffer with a non-blocking copy behind an
-        event; the host waits on the event of the step before, never on the
-        device as a whole. The step in flight when the loop stops is a gated
-        no-op (its draws are not taken back, as in JAX's loop).
-        host_stop(committed tokens) may stop the loop early; returns the
-        committed steps."""
+        `_decode_offload_pipelined`) run to its end: `_offload_steps`, with
+        host_stop(committed tokens) asked after each step whether to stop
+        early. Returns the committed steps."""
+        steps = 0
+        for alen in self._offload_steps(max_new_tokens):
+            steps += 1
+            if host_stop is not None and host_stop(alen):
+                break
+        return steps
+
+    def _offload_steps(self, max_new_tokens: int):
+        """The pipelined loop of an offload target as a generator: steps on the
+        device-resident state (on the card the captured step: the draft
+        phase's graph, the streamed forward run eagerly, the tail's graph, as
+        JAX's `_offload_step`), the host one step ahead of the device, so
+        that step k+1's layer streams and launches overlap step k's tail.
+        Each step's (accept_len, cont, block) go to a pinned host buffer with
+        a non-blocking copy behind an event; the host waits on the event of
+        the step before, never on the device as a whole. Yields each committed
+        step's accept length, the host token row already synced; ends where
+        the device stopped. The caller may stop at any yield: the step in
+        flight then is a gated no-op or left uncommitted (its draws are not
+        taken back, as in JAX's loop)."""
         greedy, use_pen = self._sampling_mode()
         st, start = self._loop, self.num_nodes
         for k, v in (("nn", start), ("start", start), ("max_new", max_new_tokens), ("steps", 0),
@@ -579,7 +591,7 @@ class SpecEngineBase(BaseEngine):
         cuda = self.device.type == "cuda"
         host = [torch.empty(self.tree_size + 3, dtype=torch.int32, pin_memory=cuda)
                 for _ in range(2)]
-        pending, steps, k = None, 0, 0
+        pending, k = None, 0
         while True:
             out = self._run_decode_steps(1, greedy, use_pen)
             self.decode_stats["replays"] += 1
@@ -590,15 +602,16 @@ class SpecEngineBase(BaseEngine):
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(self.device))
             if pending is not None:
-                steps += 1
-                if self._commit_pending(pending, host_stop):
-                    return steps
+                alen, cont = self._commit_pending(pending)
+                yield alen
+                if not cont:
+                    return
             pending, k = (buf, event), k + 1
 
-    def _commit_pending(self, pending, host_stop) -> bool:
+    def _commit_pending(self, pending):
         """Read one finished step's (accept_len, cont, block) from its pinned
         buffer (waiting on that step's event only) and sync the host token
-        row. Returns True when decoding should stop."""
+        row. Returns (accept_len, cont)."""
         buf, event = pending
         if event is not None:
             event.synchronize()
@@ -609,9 +622,7 @@ class SpecEngineBase(BaseEngine):
         end = min(old + len(block), self.max_length)
         self.tokens_host[old:end] = block[:end - old]
         self._last_eos_stop = not cont
-        if host_stop is not None and host_stop(alen):
-            return True
-        return not cont
+        return alen, cont
 
     def _decode_stepwise(self, max_new_tokens: int) -> int:
         """The stepwise loop: build_tree(); verify() with a host read each step."""
@@ -622,34 +633,36 @@ class SpecEngineBase(BaseEngine):
             steps += 1
         return steps
 
-    def _decode_segments(self, max_new_tokens: int, on_progress):
-        """Shared streaming loop. Calls on_progress(generated_ids, elapsed,
-        steps) after every commit (every segment on the device-resident
-        loop); returns (dec_len, elapsed, steps)."""
-        _sync(self.device)
-        t1 = time.time()
-        steps = 0
-        decode = True
-        start = self.num_nodes
-        generated_ids = []
-        fused = self._can_decode_fused()
-        if not fused and self._offload:
-            # the pipelined loop: the per-commit callback streams and stops while
-            # the next step is already in flight on the device
-            state = {"steps": 0}
+    def _decode_segments(self, max_new_tokens: int):
+        """The streaming loop shared by speculative_decoding and
+        generate_stream, as a generator: after every commit (a segment of
+        `stream_segment` tokens on the device-resident loop, a step on the
+        pipelined and the stepwise loops) it yields (words, steps): the text
+        decoded so far split on spaces (`_decode_words`) and the large-model
+        steps so far. It stops at EOS, the context cap, `max_new_tokens`, or
+        at the end of a sentence once `max_new_tokens - stop_distance` tokens
+        are committed."""
+        start, steps, generated_ids = self.num_nodes, 0, []
 
-            def host_stop(alen):
-                state["steps"] += 1
-                begin = self.num_nodes - alen
-                generated_ids.extend(self.tokens_host[begin:self.num_nodes].tolist())
-                last_words = on_progress(generated_ids, time.time() - t1, state["steps"])
-                return (is_sentence_complete_regex(last_words)
-                        and (self.num_nodes - start >= max_new_tokens - self.stop_distance)) \
-                    or (self.num_nodes - start >= max_new_tokens)
+        def commit(begin):
+            generated_ids.extend(self.tokens_host[begin:self.num_nodes].tolist())
+            words = self._decode_words(generated_ids)
+            done = (is_sentence_complete_regex(words[-1])
+                    and self.num_nodes - start >= max_new_tokens - self.stop_distance) \
+                or self.num_nodes - start >= max_new_tokens
+            return words, done
 
-            steps = self._decode_offload_pipelined(max_new_tokens, host_stop)
-            _sync(self.device)
-            return self.num_nodes - start + 1, time.time() - t1, steps
+        if not self._can_decode_fused() and self._offload:
+            # the pipelined loop: each commit streams while the next step is
+            # already in flight on the device
+            for alen in self._offload_steps(max_new_tokens):
+                steps += 1
+                words, done = commit(self.num_nodes - alen)
+                yield words, steps
+                if done:
+                    return
+            return
+        fused, decode = self._can_decode_fused(), True
         while decode and self.validate_status():
             begin = self.num_nodes
             if fused:
@@ -660,36 +673,67 @@ class SpecEngineBase(BaseEngine):
                 self.build_tree()
                 decode = self.verify()
                 steps += 1
-            generated_ids.extend(self.tokens_host[begin:self.num_nodes].tolist())
-            last_words = on_progress(generated_ids, time.time() - t1, steps)
-            if (is_sentence_complete_regex(last_words)
-                    and (self.num_nodes - start >= max_new_tokens - self.stop_distance)) \
-                    or (self.num_nodes - start >= max_new_tokens):
-                decode = False
-        _sync(self.device)
-        return self.num_nodes - start + 1, time.time() - t1, steps
+            words, done = commit(begin)
+            yield words, steps
+            decode = decode and not done
+
+    @staticmethod
+    def _perf_log(dec_len: int, steps: int, elapsed: float) -> str:
+        return "Output Tokens {} | Avg Accept Tokens {:.2f} | TPOT {:.2f} ms ".format(
+            dec_len, dec_len / max(steps, 1), 1000 * elapsed / dec_len)
 
     def speculative_decoding(self, max_new_tokens: int = 128):
         """Streaming decode: prints words as they commit; returns
         (dec_len, elapsed seconds, large-model steps)."""
         max_new_tokens = max(max_new_tokens, self.stop_distance)
-        state = {"pos": 0, "words": [""]}
-
-        def on_progress(generated_ids, elapsed, steps):
-            words = self._decode_words(generated_ids)
-            state["words"] = words
+        _sync(self.device)
+        t1, start = time.time(), self.num_nodes
+        pos, words, steps = 0, [""], 0
+        for words, steps in self._decode_segments(max_new_tokens):
             now = len(words) - 1
-            if now > state["pos"]:
-                print(" ".join(words[state["pos"]:now]), end=" ", flush=True)
-                state["pos"] = now
-            return words[-1]
-
-        dec_len, elapsed, steps = self._decode_segments(max_new_tokens, on_progress)
-        print(" ".join(state["words"][state["pos"]:]), flush=True)
+            if now > pos:
+                print(" ".join(words[pos:now]), end=" ", flush=True)
+                pos = now
+        print(" ".join(words[pos:]), flush=True)
+        _sync(self.device)
+        dec_len, elapsed = self.num_nodes - start + 1, time.time() - t1
         logger.info(TextColors.colorize(
             "Avg Accept Tokens {:.2f} | TPOT {:.2f} ms ".format(
                 dec_len / max(steps, 1), 1000 * elapsed / dec_len), "magenta"))
         return dec_len, elapsed, steps
+
+    def generate_stream(self, **api_args):
+        """Streaming generation for one request (the JAX package's
+        `generate_stream`): yields (partial_text, perf_log) each time a commit
+        completes new words, then the final (text, perf_log); the engine is
+        reset afterwards. The budget is max(max_new_tokens, stop_distance)
+        and the loop stops at the end of a sentence within stop_distance of
+        it. A request that cannot start yields one frame, "Exceeding reserved
+        allowed context length" twice."""
+        self.update_generation_args(**api_args)
+        ok, _ = self._start_request(api_args)
+        if not ok:
+            msg = "Exceeding reserved allowed context length"
+            yield msg, msg
+            return
+        try:
+            max_new_tokens = max(api_args.get("max_new_tokens", 128), self.stop_distance)
+            _sync(self.device)
+            t1, start = time.time(), self.num_nodes
+            pos, words, steps, text = 0, [""], 0, ""
+            for words, steps in self._decode_segments(max_new_tokens):
+                now = len(words) - 1
+                if now > pos:
+                    text += " ".join(words[pos:now]) + " "
+                    pos = now
+                    yield text, self._perf_log(self.num_nodes - start + 1, steps,
+                                               time.time() - t1)
+            text += " ".join(words[pos:])
+            perf_log = self._perf_log(self.num_nodes - start + 1, steps, time.time() - t1)
+            yield text, perf_log
+            logger.info(TextColors.colorize(perf_log, "magenta"))
+        finally:
+            self.reset()
 
     def _start_request(self, api_args):
         input_ids = api_args.get("input_ids", None)

@@ -1,4 +1,5 @@
 """Console colorization, logging, and device resolution helpers."""
+import contextlib
 import logging
 
 import torch
@@ -50,3 +51,13 @@ def resolve_device(device="cuda") -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def device_scope(device):
+    """`device` as the calling thread's current CUDA device, for code that
+    reads the current device (graph captures, streams, events): a thread
+    starts on cuda:0 whatever device its engine is on. Nothing on the CPU
+    or for None."""
+    if device is None or torch.device(device).type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(torch.device(device))
