@@ -99,8 +99,9 @@ lines tagged with its name:
   graph            graphed against stepwise tokens: the static engine on the
                    fp32 lossless model, on the bf16 8B main path (greedy, and
                    stochastic from one seed) and the batched engine at B=32
-                   with int8 KV; every replay under
-                   torch.cuda.set_sync_debug_mode("error"); a graph captured
+                   with int8 KV; every replay inside no_host_sync (the
+                   replaying thread's check; the process-wide sync debug
+                   mode left alone); a graph captured
                    and replayed in each graphed run; a registered generator
                    draws anew at each replay; a step that reads the host must
                    fail its capture (no stepwise fallback).
@@ -124,7 +125,9 @@ lines tagged with its name:
   serve-stochastic B=32 int8 KV at temperature 0.6, top-p 0.9.
   checkpoint       write synthetic checkpoints under build/ (deleted at the
                    end) in the published on-disk formats: an AutoAWQ GEMM
-                   Llama-3.1-8B target (two safetensors shards; a second
+                   Llama-3.1-8B target at 8 of its 32 layers (the depth cut
+                   keeps the script inside its time limit; two safetensors
+                   shards; a second
                    directory over the same files says awq_act "int8") and a
                    bf16 Llama-3.2-1B draft; load both through
                    AutoModelLM.from_pretrained (time, host RSS, device
@@ -156,25 +159,28 @@ lines tagged with its name:
                    stochastic ones complete; tok/s, TPOT, accept, time to the
                    first frame.
   pp-config        configs/chat_config_70b_awq_pp4.json as shipped: a random
-                   AWQ Llama-3.3-70B at full shape (80 layers) staged in 4
+                   AWQ Llama-3.3-70B at full widths and 40 of its 80 layers
+                   (PP_CONFIG_LAYERS; the cut keeps the script inside its
+                   time limit) staged in 4
                    stages (one per card on a host with 4, else all on this
                    card), the 8B AutoAWQ directory above as its draft,
                    temperature 0.6, top-p 0.9, repetition penalty 1.05, 24x6
                    tree, max_length 8192; graphed and stepwise from one
                    generator state, the same tokens: TTFT, step ms, tok/s,
-                   accept, peak memory, launches per step (320 layered W4A16
+                   accept, peak memory, launches per step (160 layered W4A16
                    a step), capture ms, pool GB by card, segments a step,
                    and each loop's decode profiled alone ([pp-profile],
                    [pp-profile-stepwise]; host ops a decode step, graphed
                    under a tenth of stepwise).
   offload-checkpoint the 8B AutoAWQ directory loaded with offload: true and
-                   num_cache_layers 16: logits equal the resident load's bit
-                   for bit.
+                   num_cache_layers half its layers (4 of 8): logits equal
+                   the resident load's bit for bit.
   offload-config   configs/greedy_config_v5e.json and chat_config_v5e_16gb.json
                    as shipped (the dynamic engine over a random AWQ
-                   Llama-3.3-70B at full widths, 16 layers on the card and the
-                   rest streamed from pinned host memory, depth cut only where
-                   MemAvailable cannot hold 64 streamed layers; the 1B draft
+                   Llama-3.3-70B at full widths and 32 of its 80 layers
+                   (OFFLOAD_CONFIG_LAYERS), 16 on the card and the
+                   rest streamed from pinned host memory, depth cut further
+                   where MemAvailable cannot hold 16 streamed layers; the 1B draft
                    directory above): one request each on the graphed step
                    (TTFT, step ms, tok/s, accept), greedy again all eager
                    (the same tokens), streamed_forward_traced at the 257-row
@@ -183,6 +189,59 @@ lines tagged with its name:
                    ([offload-profile], whose host-to-device copies must
                    overlap compute kernels, and [offload-profile-eager]);
                    peak device GB and pinned host GB.
+  gemma-lossless   Gemma-2-9B widths, 4 layers, fp32, tail post norms damped,
+                   early-exit draft of 2: the static engine (graphed and
+                   stepwise) and the dynamic engine equal the AR decode for
+                   64 tokens; the batched engine (B=4, 2x3, graphed and
+                   stepwise) gives 5 requests the single-slot engine's tokens.
+  gemma-config     synthetic google/gemma-2-9b-it (42 layers) and -2b-it (26)
+                   directories written under build/ (bf16 HF safetensors,
+                   23.7 GB, deleted after the Gemma phases) through
+                   configs/chat_config_8b_v5e.json's keys (static 5x6, 0.6 /
+                   0.9 / 1.05, max_length 8192, template gemma2-it): a sampled
+                   128-token request and a greedy one on a 4,200-token prompt
+                   (past the 4,096-slot window), each graphed and stepwise
+                   from one generator state (the stepwise loop's 8 tokens
+                   equal); TTFT; [gemma-profile] (the greedy decode alone,
+                   traced launches = the captured step's); attend_flash at
+                   the 9B verify past the window (head dim 256, soft cap 50,
+                   window and full masks), attend_flash_batched at the B=8
+                   verify and embed_gather from the 256000-row table, each
+                   against its plain version; then the default dynamic
+                   engine over the same models (graphed; stepwise equal).
+                   The checkpoints' embedding is drawn at 0.02 / sqrt(3584)
+                   (the tied, sqrt(hidden)-scaled embedding would otherwise
+                   echo the input token), and every decode is guarded
+                   (check_not_degenerate): few echoes, many distinct tokens,
+                   and an independent draft's accept below 0.9 of the most.
+  gemma-serve      configs/serve_batched_8b_v5e.json's keys (B=8, bf16 KV,
+                   3x4, max_length 4096) over the same models: greedy
+                   requests through run() and the pipelined batcher, one
+                   profiled segment; run() equals the single-slot engine or
+                   parts from it only where both tokens are near the top
+                   logit (within 2^-7 max|logit| or twice the row-count
+                   noise measured there, itself within 2^-3 max|logit|).
+  moe-checkpoint   synthetic mistralai/Mistral-7B-Instruct-v0.3 (32 layers)
+                   and Mixtral-8x7B-Instruct-v0.1 (full widths, 2 layers)
+                   directories (20.8 GB, deleted after the MoE phases): the
+                   Mixtral directory's logits equal the same tensors built in
+                   memory, bit for bit; the Mistral one loads as a draft.
+  moe-config       configs/chat_config_mixtral_ep.json's keys without
+                   expert_parallel (static 24x6, 0.6 / 0.9 / 1.05): a random
+                   bf16 MoE target at Mixtral widths and 16 of its 32 layers
+                   (12 if the card runs short), the Mistral directory as the
+                   draft (V = 32768 against 32000): a sampled 128-token
+                   request graphed and stepwise (8 tokens equal); TTFT;
+                   [moe-profile]; attend_flash, attend_flash_batched_int8 and
+                   embed_gather at this family's shapes.
+  moe-serve        configs/serve_batched_mixtral_ep.json's keys without
+                   expert_parallel (B=8, int8 KV, 3x4, 8-step segments) over
+                   the same models: greedy requests through run() and the
+                   pipelined batcher, one profiled segment; run() equals the
+                   single-slot engine or parts from it at a near tie of the
+                   logits or of the router on the rows before the parting
+                   (router_margins); then fp32 at Mixtral widths (2 layers,
+                   int8 KV): run() equals the single-slot engine.
   report           one JSON line of kernels, the card's name and power limit,
                    and the final {"ok": true, ...} line.
 The static, dynamic and batched engines decode through CUDA graphs in every
@@ -198,8 +257,9 @@ kernel's. `--phases a,b` runs a subset (no report).
 
 Weights are random (seeded). The script needs CUDA and the repository's
 umbrella_tpu_torch package beside it; without either it exits with code 2.
-The whole script takes about thirteen minutes on one H100 (791 s of command
-time on an H100 80GB HBM3 at 700 W with every phase above), the kernels'
+The whole script takes about nineteen minutes on one H100 (1,142.4 s of
+command time on an H100 80GB HBM3 at 700 W with a 16-layer 8B checkpoint;
+the six Gemma2 and MoE phases take about 6 minutes alone), the kernels'
 build (20-30 s) included; `--phases w4a16` about a minute,
 `--phases w4a8` about 45 s, `--phases attention` about a minute.
 """
@@ -1707,19 +1767,22 @@ def lossless_check(torch, dev, prompt, kv_dtype=None, awq_act="bf16"):
     whatever rows share the call (see ops/norms.py); int8 KV rounding and the
     W4A8 layers' int8 activations would turn any last-bit difference into a
     quantum. awq_act="int8": the W4 layers past the Int4F prefix run W4A8."""
-    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.ops.kernels import launch_counts
 
     tag = ("[lossless-w4a8]" if awq_act == "int8" else
            "[lossless]" if kv_dtype is None else f"[lossless-{kv_dtype}]")
     target, draft = build_target(torch, dev, n_layers=4, exit_layer=2, dtype=torch.float32,
                                  awq_act=awq_act)
     eng = make_engine(torch, dev, target, draft, torch.float32, kv_dtype=kv_dtype)
-    reset_launch_counts()
+    start = {}
+
+    def request():  # the counts before each profiled window (the last one counts)
+        start.update(launch_counts())
+        return eng.generate(input_ids=prompt, max_new_tokens=LOSSLESS_NEW_TOKENS)
+
     trace, out = profile_window(  # the kernels' launches traced and held against the counts
-        torch, f"{tag[:-1]}-trace]",
-        lambda: eng.generate(input_ids=prompt, max_new_tokens=LOSSLESS_NEW_TOKENS),
-        request_steps)
-    counts = launch_counts()
+        torch, f"{tag[:-1]}-trace]", request, request_steps)
+    counts = {k: n - start[k] for k, n in launch_counts().items()}
     check(trace is not None, f"{tag} the kernels' launches were not traced")
     graphs = check_graphed(eng, tag)
     toks = out["generated_tokens"]
@@ -1935,16 +1998,16 @@ def pp_lossless_check(torch, dev, prompt):
 
 
 def build_70b(torch, dev, devices, max_length):
-    """A random AWQ Llama-3.3-70B at full shape (80 layers, g128, bf16 scales,
-    bf16 embedding and untied head, tail wo/down scales x0.05 from layer 3 on),
-    built on `dev` and staged by shard_runtime_pp over `devices`. No reference
-    to the per-layer tensors outlives this function's locals, so staging frees
-    them as it stacks."""
+    """A random AWQ Llama-3.3-70B at full widths and PP_CONFIG_LAYERS of its 80
+    layers (g128, bf16 scales, bf16 embedding and untied head, tail wo/down
+    scales x0.05 from layer 3 on), built on `dev` and staged by
+    shard_runtime_pp over `devices`. No reference to the per-layer tensors
+    outlives this function's locals, so staging frees them as it stacks."""
     from umbrella_tpu_torch.config import ModelConfig
     from umbrella_tpu_torch.models.auto_model import ModelRuntime, random_awq_runtime
     from umbrella_tpu_torch.parallel.pipeline import shard_runtime_pp
 
-    cfg = ModelConfig(**CFG_70B)
+    cfg = ModelConfig(**dict(CFG_70B, num_hidden_layers=PP_CONFIG_LAYERS))
     params = random_awq_runtime(cfg, max_length, dtype=torch.bfloat16, seed=4,
                                 device=dev).params
     rt = ModelRuntime(cfg, dict(params, layers=damp_tail(params["layers"], 3)), max_length,
@@ -1995,10 +2058,13 @@ def main_path(torch, dev, prompt, target, draft):
                  else steps, launches=counts,
                  prefill_launches=prefill_counts,
                  launches_per_step={k: (counts[k] - prefill_counts[k]) / steps for k in counts})
-        before = graph_stats(eng)
-        r["profile"], _ = profile_window(
-            torch, f"[profile] {mode}", lambda: eng.generate(input_ids=prompt, max_new_tokens=64),
-            request_steps)
+
+        def request():  # the replays before each profiled window (the last one counts)
+            nonlocal before
+            before = graph_stats(eng)
+            return eng.generate(input_ids=prompt, max_new_tokens=64)
+
+        r["profile"], _ = profile_window(torch, f"[profile] {mode}", request, request_steps)
         after = graph_stats(eng)
         check(r["profile"] is not None, f"[profile] {mode}: the kernels' launches were not "
               "traced (the profiler saw no device time)")
@@ -2047,17 +2113,21 @@ def graph_phase(torch, dev, prompt, target, draft):
     batched engine at B=32 with int8 KV (32 requests through run()); the
     tokens must be equal, also in a request that follows one stopped by an
     EOS inside a block. Each graphed run must have captured and replayed a
-    graph (a silent stepwise run fails), with every replay under
-    torch.cuda.set_sync_debug_mode("error"); two replays of a stochastic
-    step draw different numbers (the second one's again after a rewind),
-    and the stochastic static decode equals the stepwise one for one seed; a
+    graph (a silent stepwise run fails), with every replay inside
+    cuda_graphs.no_host_sync on its thread and the process-wide sync debug
+    mode at its default (0, so that other threads' host reads go through);
+    two replays of a stochastic step draw different numbers (the second
+    one's again after a rewind), and the stochastic static decode equals
+    the stepwise one for one seed; a
     step that reads the host during its capture must raise, not fall back to
     stepwise."""
+    from umbrella_tpu_torch.cuda_graphs import host_reads_checked
+
     modes = []
     real_replay = torch.cuda.CUDAGraph.replay
 
-    def replay(graph):  # record the sync debug mode every replay runs under
-        modes.append(torch.cuda.get_sync_debug_mode())
+    def replay(graph):  # record the checks every replay runs under
+        modes.append((host_reads_checked() > 0, torch.cuda.get_sync_debug_mode()))
         return real_replay(graph)
 
     res = {}
@@ -2098,8 +2168,10 @@ def graph_phase(torch, dev, prompt, target, draft):
         check(same == len(reqs), f"[graph] batched: {same} of {len(reqs)} requests equal")
     finally:
         torch.cuda.CUDAGraph.replay = real_replay
-    res["replay_sync_debug_modes"] = sorted(set(modes))
-    check(modes and set(modes) == {2}, f"[graph] replays ran under sync debug modes {set(modes)}")
+    res["replay_checks"] = [dict(no_host_sync=a, sync_debug_mode=b)
+                            for a, b in sorted(set(modes))]
+    check(modes and set(modes) == {(True, 0)},
+          f"[graph] replays ran under (no_host_sync, sync debug mode) {set(modes)}")
     check(res["generator"]["differ"] and res["generator"]["equal_to_eager"]
           and res["generator"]["rewound"],
           f"[graph] replays of a registered generator's draw: {res['generator']}")
@@ -2211,6 +2283,16 @@ def traced_launches(tag, kernel_counts, counted):
     profiler's kernel names and counts) against the wrappers' counts over the
     same window; return each wrapper's launches as traced, where it was the
     only wrapper of its kernel that the window ran."""
+    traced, wrong = trace_against_counts(kernel_counts, counted)
+    if wrong:
+        log(f"{tag} kernels traced: {json.dumps({k[:100]: c for k, c in kernel_counts.items()})}")
+    check(not wrong, f"{tag}: the profiler's trace and the wrappers' counts differ: {wrong}")
+    return traced
+
+
+def trace_against_counts(kernel_counts, counted):
+    """(each wrapper's launches as traced, the kernels whose traced launches
+    differ from the wrappers' counts)."""
     traced, wrong = {}, []
     for patterns, names in TRACED_KERNELS:
         n = sum(c for k, c in kernel_counts.items() if any(p in k for p in patterns))
@@ -2221,10 +2303,7 @@ def traced_launches(tag, kernel_counts, counted):
         for name in names:
             if counted[name] == want:
                 traced[name] = n
-    if wrong:
-        log(f"{tag} kernels traced: {json.dumps({k[:100]: c for k, c in kernel_counts.items()})}")
-    check(not wrong, f"{tag}: the profiler's trace and the wrappers' counts differ: {wrong}")
-    return traced
+    return traced, wrong
 
 
 # the profiler loses a prefix of a window's device records (on the card, from
@@ -2234,10 +2313,11 @@ def traced_launches(tag, kernel_counts, counted):
 # synchronized and followed by PAD_WAIT_S of host time, which every count and
 # time below leaves out; `pad_traced` says how many of them the trace kept
 PAD_ROUNDS, PAD_LAUNCHES, PAD_WAIT_S = 10, 1000, 0.03
+PROFILE_ATTEMPTS = 3  # windows run where the profiler dropped records (profile_window)
 PAD_KERNEL = "empty_rows"
 
 
-def profile_window(torch, tag, fn, count_steps):
+def profile_window(torch, tag, fn, count_steps, attempts=None):
     """fn() once under torch.profiler: device time by kernel name (summed over
     launches), device busy and wall time, host ops and kernels per step
     (count_steps(fn's result) steps), and each wrapper's launches as the
@@ -2246,43 +2326,57 @@ def profile_window(torch, tag, fn, count_steps):
     opens with PAD_ROUNDS x PAD_LAUNCHES empty launches, left out). Returns (the
     profile, or None where the profiler saw no device time; fn's result).
     Host-to-device copies are left out of the device busy time and reported
-    apart: their ms, and the ms of them that overlap a kernel."""
+    apart: their ms, and the ms of them that overlap a kernel. With
+    `attempts` (PROFILE_ATTEMPTS by default; fn must be repeatable, and a
+    caller that counts around the window counts inside fn), a window whose
+    trace differs from the counts runs again: the profiler also drops
+    records inside a window now and then (one of 624 attention launches in
+    a 3-step window, 112 of 3,616 in a 32-token request, on the card). The
+    counts must equal one window's whole trace, and the earlier windows'
+    differences are reported (`lost_in_earlier_windows`)."""
     from torch.profiler import ProfilerActivity, profile
 
     from umbrella_tpu_torch.ops.kernels import launch_counts
 
-    torch.cuda.synchronize()
-    before = launch_counts()
     pad = empty_kernel(torch, torch.device("cuda", torch.cuda.current_device()), 1,
                        PAD_LAUNCHES)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PAD_ROUNDS):
-            pad()
-            torch.cuda.synchronize()
-            time.sleep(PAD_WAIT_S)
-        t0 = time.time()
-        out = fn()
+    lost, attempts = [], attempts or PROFILE_ATTEMPTS
+    for attempt in range(attempts):
         torch.cuda.synchronize()
-        wall_ms = 1000 * (time.time() - t0)
-    counted = {k: v - before[k] for k, v in launch_counts().items()}
-    by_name, kernel_counts = {}, {}
-    averages = prof.key_averages()
-    pad_traced = sum(e.count for e in averages if PAD_KERNEL in e.key)
-    for e in averages:
-        # kernels only: CPU ops repeat the device time of the kernels they launch,
-        # and host-to-device copies run on the copy engines (h2d_overlap below)
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA \
-                or PAD_KERNEL in e.key or e.key.startswith("Memcpy HtoD"):
-            continue
-        kernel_counts[e.key] = kernel_counts.get(e.key, 0) + e.count
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1000.0
-    if not by_name:
-        log(f"{tag} the profiler recorded no device time: not measured")
-        return None, out
+        before = launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PAD_ROUNDS):
+                pad()
+                torch.cuda.synchronize()
+                time.sleep(PAD_WAIT_S)
+            t0 = time.time()
+            out = fn()
+            torch.cuda.synchronize()
+            wall_ms = 1000 * (time.time() - t0)
+        counted = {k: v - before[k] for k, v in launch_counts().items()}
+        by_name, kernel_counts = {}, {}
+        averages = prof.key_averages()
+        pad_traced = sum(e.count for e in averages if PAD_KERNEL in e.key)
+        for e in averages:
+            # kernels only: CPU ops repeat the device time of the kernels they launch,
+            # and host-to-device copies run on the copy engines (h2d_overlap below)
+            if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA \
+                    or PAD_KERNEL in e.key or e.key.startswith("Memcpy HtoD"):
+                continue
+            kernel_counts[e.key] = kernel_counts.get(e.key, 0) + e.count
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            if us > 0:
+                by_name[e.key] = by_name.get(e.key, 0.0) + us / 1000.0
+        if not by_name:
+            log(f"{tag} the profiler recorded no device time: not measured")
+            return None, out
+        wrong = trace_against_counts(kernel_counts, counted)[1]
+        if not wrong or attempt == attempts - 1:
+            break
+        lost.append(dict(pad_traced=pad_traced, differ=wrong))
+        log(f"{tag} window {attempt + 1}: the trace lost device records ({wrong}); again")
     launches = traced_launches(f"{tag} (pad records traced {pad_traced} of "
                                f"{PAD_ROUNDS * PAD_LAUNCHES})", kernel_counts, counted)
     busy = sum(by_name.values())
@@ -2307,7 +2401,7 @@ def profile_window(torch, tag, fn, count_steps):
                device_idle_share=1.0 - busy / wall_ms, host_ops_per_step=host_ops / steps,
                device_kernels_per_step=kernels / steps, launches_traced=launches,
                top_kernels_ms={k[:90]: v for k, v in top}, pad_traced=pad_traced,
-               **h2d_overlap(prof, torch))
+               lost_in_earlier_windows=lost, **h2d_overlap(prof, torch))
     log(f"{tag} {json.dumps(res)}")
     return res, out
 
@@ -2448,10 +2542,10 @@ def multi_card_phase(torch, dev):
     return res
 
 
-def decode_segment(torch, eng, reqs, tag):
+def decode_segment(torch, eng, reqs, tag, profile_steps=SEGMENT_STEPS):
     """Admit B requests, then time one synced segment of SEGMENT_STEPS steps
     at full occupancy (ms per step, kernel launches per step); profile a
-    second one."""
+    second one of `profile_steps` steps."""
     for b, r in enumerate(reqs):
         check(eng.admit(b, r["input_ids"]), "admission failed")
     stop = [int(eng.num_nodes[b]) + 10**6 for b in range(eng.batch_size)]
@@ -2465,8 +2559,8 @@ def decode_segment(torch, eng, reqs, tag):
     ms = 1000 * (time.time() - t0) / SEGMENT_STEPS
     per_step = {k: n / SEGMENT_STEPS for k, n in launch_counts().items()}
     check(int(steps.min()) == SEGMENT_STEPS, "decode segment ran short")
-    prof, _ = profile_window(torch, tag, lambda: eng.step_many(SEGMENT_STEPS, stop),
-                             lambda _: SEGMENT_STEPS)
+    prof, _ = profile_window(torch, tag, lambda: eng.step_many(profile_steps, stop),
+                             lambda _: profile_steps)
     eng.active[:] = False
     return ms, per_step, prof
 
@@ -2610,6 +2704,10 @@ DRAFT_HF_CONFIG = dict(
     tie_word_embeddings=True, bos_token_id=128000, eos_token_id=LLAMA3_EOS,
     hidden_act="silu", torch_dtype="bfloat16")
 CONFIG_NEW_TOKENS = 128
+# the 8B checkpoint directory's depth, a quarter of the published 32 (its
+# phases, [code-config] to [api-chat] and [pp-config]'s draft, then fit the
+# script's time limit beside the Gemma2 and MoE phases)
+CHECKPOINT_TARGET_LAYERS = 8
 SERVE_CONFIG_REQUESTS = 32
 SERVE_CONFIG_NEW_TOKENS = 64
 _ST_CODES = {"float32": "F32", "float16": "F16", "bfloat16": "BF16", "int32": "I32",
@@ -2731,13 +2829,14 @@ def _write_dir(path, hf, shards):
 
 
 def write_checkpoints(torch, dev, root):
-    """The target (two shards, as published), a second target directory with
-    `"awq_act": "int8"` over the same files, and the draft. If the disk cannot
-    hold them, the target's depth is cut (never its width)."""
+    """The target (two shards, as published) at CHECKPOINT_TARGET_LAYERS of
+    its 32 layers, a second target directory with `"awq_act": "int8"` over
+    the same files, and the draft. If the disk cannot hold them, the
+    target's depth is cut further (never its width)."""
     import shutil
 
     free = shutil.disk_usage(root).free
-    target_hf = dict(TARGET_HF_CONFIG)
+    target_hf = dict(TARGET_HF_CONFIG, num_hidden_layers=CHECKPOINT_TARGET_LAYERS)
     gen = torch.Generator(device=dev)
     d_bytes = spec_bytes(torch, draft_specs(torch, dev, gen, DRAFT_HF_CONFIG))
     while True:
@@ -2924,12 +3023,15 @@ def code_config_phase(torch, dev, ckpt, prompt, tag, target):
     graphs = check_graphed(eng, tag)
     (graph,) = eng._decode_graphs.values()
     # a traced request: the captured step's launches against the replays' in the trace
-    replays = graph.replays
-    trace, _ = profile_window(torch, f"{tag[:-1]}-trace]",
-                              lambda: eng.generate(input_ids=prompt, max_new_tokens=32),
-                              request_steps)
+    before = {}
+
+    def request():  # the replays before each profiled window (the last one counts)
+        before["replays"] = graph.replays
+        return eng.generate(input_ids=prompt, max_new_tokens=32)
+
+    trace, _ = profile_window(torch, f"{tag[:-1]}-trace]", request, request_steps)
     check(trace is not None, f"{tag} the kernels' launches were not traced")
-    replays = graph.replays - replays
+    replays = graph.replays - before["replays"]
     traced = trace["launches_traced"]
     per_step = {k: (n - prefill_counts[k]) / replays for k, n in traced.items()}
     check(all(per_step[k] == graph.launches[k] for k in per_step),
@@ -3394,16 +3496,20 @@ def api_chat_phase(torch, dev, ckpt, prompt):
 
 
 PP_CONFIG_NEW_TOKENS = 64
+# the depth of [pp-config]'s 70B (half the published 80) and of
+# [offload-config]'s (16 cached + 16 streamed), so that the
+# whole script, with the Gemma2 and MoE phases, stays inside its time limit
+PP_CONFIG_LAYERS, OFFLOAD_CONFIG_LAYERS = 40, 32
 # the decode-only profiles of [pp-config]: tokens of the graphed and of the stepwise loop
 PP_PROFILE_TOKENS, PP_PROFILE_STEPWISE_TOKENS = 8, 3
 
 
-def decode_profile(torch, eng, prompt, tag, decode):
+def decode_profile(torch, eng, prompt, tag, decode, attempts=None):
     """A profile of a decode loop alone: the prompt prefilled outside the
     window, then decode(eng), which returns its steps, profiled (host ops
     and busy ms a step are the decode's); the engine reset after."""
     check(eng._prefill(prompt), f"{tag} prefill refused")
-    prof, _ = profile_window(torch, tag, lambda: decode(eng), lambda steps: steps)
+    prof, _ = profile_window(torch, tag, lambda: decode(eng), lambda steps: steps, attempts)
     eng.reset()
     check(prof is not None, f"{tag}: the kernels' launches were not traced")
     return prof
@@ -3496,7 +3602,7 @@ def pp_config_phase(torch, dev, ckpt, prompt):
     for name in ("embed_gather", "attend_flash", "w4a16_matmul", "w4a16_matmul_layered"):
         check(counts[name] > 0, f"[pp-config] kernel {name} was never launched")
     check_tc_route(counts, "[pp-config]")
-    products = 4 * CFG_70B["num_hidden_layers"]
+    products = 4 * PP_CONFIG_LAYERS
     check(graph.launches["w4a16_matmul_layered"] == products
           and sw["launches_per_step"]["w4a16_matmul_layered"] == products
           and prefill_counts["w4a16_matmul_layered"] == products,
@@ -3680,13 +3786,18 @@ def dynamic_phase(torch, dev, prompt, target, draft):
             if loop == "graphed":
                 r[loop]["graphs"] = check_graphed(eng, tag)
                 (graph,) = eng._decode_graphs.values()
-                replays = graph.replays
+                before = {}
+
+                def request():  # the replays before each profiled window (the last counts)
+                    before["replays"] = graph.replays
+                    return eng.generate(input_ids=prompt, max_new_tokens=3, **sampling)
+
                 # ~21,000 kernels a step: a window of 3 steps keeps the trace small (an
                 # 8-step window, ~170,000 kernel records, lost ~100 of them in one run)
-                prof, _ = profile_window(torch, f"[dynamic-profile] {mode}", lambda: eng.generate(
-                    input_ids=prompt, max_new_tokens=3, **sampling), request_steps)
+                prof, _ = profile_window(torch, f"[dynamic-profile] {mode}", request,
+                                         request_steps)
                 check(prof is not None, f"{tag}: the kernels' launches were not traced")
-                replays = graph.replays - replays
+                replays = graph.replays - before["replays"]
                 per_step = {k: (n - prefill_counts[k]) / replays
                             for k, n in prof["launches_traced"].items()}
                 check(all(per_step[k] == graph.launches[k] for k in per_step),
@@ -3861,9 +3972,10 @@ def build_offload_70b(torch, dev, max_length, cached):
     embedding and untied head; tail wo/down scales x0.05 from layer 3 on) as
     an OffloadModelRuntime with `cached` layers on the card: each layer
     is made on the card and a streamed one moved to pinned host memory before
-    the next, so the model is never whole on the card. Depth: the 80 layers
-    where MemAvailable, less HOST_RESERVE_BYTES, holds the streamed ones;
-    fewer otherwise (the cut is reported)."""
+    the next, so the model is never whole on the card. Depth:
+    OFFLOAD_CONFIG_LAYERS of the 80 where MemAvailable, less
+    HOST_RESERVE_BYTES, holds the streamed ones; fewer otherwise (the cut is
+    reported)."""
     from umbrella_tpu_torch.config import ModelConfig
     from umbrella_tpu_torch.offload.streaming import OffloadModelRuntime, map_layer, to_host
     from umbrella_tpu_torch.ops.rope import rope_params
@@ -3885,7 +3997,7 @@ def build_offload_70b(torch, dev, max_length, cached):
     shapes = [(H, Hq + 2 * KV), (Hq, H), (H, 2 * I), (I, H)]
     layer_bytes = sum(k // 2 * n + 2 * (k // 128) * n * 2 for k, n in shapes) + 2 * H * 2
     avail = host_available_bytes()
-    n_layers = min(cfg.num_hidden_layers,
+    n_layers = min(OFFLOAD_CONFIG_LAYERS,
                    cached + max(0, (avail - HOST_RESERVE_BYTES) // layer_bytes))
     t0 = time.time()
     layers, pin = [], dev.type == "cuda"
@@ -4121,6 +4233,1154 @@ def offload_checkpoint_phase(torch, dev, ckpt):
     return res
 
 
+# ---------------------------------------------------------------- the Gemma2 and MoE families
+
+# the published config.json of google/gemma-2-9b-it and google/gemma-2-2b-it
+GEMMA_9B_HF = dict(
+    architectures=["Gemma2ForCausalLM"], model_type="gemma2", vocab_size=256000,
+    hidden_size=3584, intermediate_size=14336, num_hidden_layers=42, num_attention_heads=16,
+    num_key_value_heads=8, head_dim=256, rms_norm_eps=1e-6, rope_theta=10000.0,
+    max_position_embeddings=8192, query_pre_attn_scalar=256, sliding_window=4096,
+    attn_logit_softcapping=50.0, final_logit_softcapping=30.0, tie_word_embeddings=True,
+    hidden_activation="gelu_pytorch_tanh", bos_token_id=2, eos_token_id=1, pad_token_id=0,
+    torch_dtype="bfloat16")
+GEMMA_2B_HF = dict(GEMMA_9B_HF, hidden_size=2304, intermediate_size=9216, num_hidden_layers=26,
+                   num_attention_heads=8, num_key_value_heads=4)
+# ... of mistralai/Mixtral-8x7B-Instruct-v0.1 and mistralai/Mistral-7B-Instruct-v0.3
+MIXTRAL_HF = dict(
+    architectures=["MixtralForCausalLM"], model_type="mixtral", vocab_size=32000,
+    hidden_size=4096, intermediate_size=14336, num_hidden_layers=32, num_attention_heads=32,
+    num_key_value_heads=8, num_local_experts=8, num_experts_per_tok=2, rms_norm_eps=1e-5,
+    rope_theta=1e6, max_position_embeddings=32768, sliding_window=None,
+    tie_word_embeddings=False, bos_token_id=1, eos_token_id=2, torch_dtype="bfloat16")
+MISTRAL_HF = dict(
+    architectures=["MistralForCausalLM"], model_type="mistral", vocab_size=32768,
+    hidden_size=4096, intermediate_size=14336, num_hidden_layers=32, num_attention_heads=32,
+    num_key_value_heads=8, head_dim=128, rms_norm_eps=1e-5, rope_theta=1e6,
+    max_position_embeddings=32768, sliding_window=None, tie_word_embeddings=False,
+    bos_token_id=1, eos_token_id=2, torch_dtype="bfloat16")
+FAMILY_MAX_LEN = 8192  # the single-slot configs' max_length
+LONG_PROMPT_LEN = 4200  # past Gemma-2's 4,096-slot window
+FAMILY_NEW_TOKENS = 128
+# the random pairs accept ~1 token a step, so every token is a step: the
+# counts below keep the six phases inside the script's time limit
+FAMILY_STEPWISE_TOKENS = 8  # the stepwise loop's share of a graphed request, compared
+FAMILY_DYN_TOKENS, FAMILY_DYN_STEPWISE_TOKENS = 8, 4
+FAMILY_SERVE_REQUESTS, FAMILY_SERVE_TOKENS, FAMILY_SINGLE_CHECKED = 12, 32, 3
+# steps in a profiled window: at 16,000-22,500 kernels a step, an 8-step
+# window (130,000-180,000 kernel records) lost records in some runs
+FAMILY_PROFILE_TOKENS = FAMILY_PROFILE_STEPS = 3
+MOE_LAYERS, MOE_LAYERS_CUT = 16, 12  # of Mixtral's 32 (all 32 need EP over 4 cards)
+MOE_CHECKPOINT_LAYERS = 2
+MOE_SINGLE_CHECKED = 2  # [moe-serve] requests held to the single-slot engine
+MOE_EMBED_STD = 4.0  # build_moe_target's embedding
+PEAK_LIMIT_BYTES = 75e9
+
+
+def dense_specs(torch, dev, gen, hf, dtype=None, std=0.02, damp_from=None):
+    """The HF tensors of a llama/mistral, gemma2 or mixtral checkpoint in file
+    order, [(name, dtype, shape, make)]: N(0, std) weights made on the card
+    from `gen`, unit norms (gemma2 stores w of its 1 + w scale: zeros).
+    Gemma2's embedding is drawn at std / sqrt(hidden): the model multiplies
+    it by sqrt(hidden) (59.75 at 9B width) and ties its head to it, so at
+    std the input token's own row would win every logit row (by ~40 against
+    ~1) and the model would echo its last input token; at std / sqrt(hidden)
+    the scaled input has std `std` and the layers decide the next token. From
+    layer `damp_from` on the layers' output is damped x0.05 (bench.py's
+    damped tail): gemma2's post norms (which would undo a damped o_proj),
+    the others' o_proj and down (Mixtral's experts' w2)."""
+    dtype = dtype or torch.bfloat16
+    H, I, V = hf["hidden_size"], hf["intermediate_size"], hf["vocab_size"]
+    gemma, moe = hf["model_type"] == "gemma2", hf["model_type"] == "mixtral"
+
+    def normal(shape, scale=1.0):
+        return lambda: (torch.randn(shape, generator=gen, device=dev) * (std * scale)).to(dtype)
+
+    def full(value):
+        return lambda: torch.full((H,), value, dtype=dtype, device=dev)
+
+    def add(name, shape, make):
+        specs.append((name, dtype, shape, make))
+
+    specs = []
+    add("model.embed_tokens.weight", (V, H), normal((V, H), H ** -0.5 if gemma else 1.0))
+    norms = ("input_layernorm", "post_attention_layernorm") + (
+        ("pre_feedforward_layernorm", "post_feedforward_layernorm") if gemma else ())
+    for i in range(hf["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        damp = 0.05 if damp_from is not None and i >= damp_from else 1.0
+        for n in norms:
+            add(p + n + ".weight", (H,), full((damp if n.startswith("post") else 1.0) - 1.0
+                                              if gemma else 1.0))
+        for name, k, o in _proj_shapes(hf)[:4]:
+            add(p + name + ".weight", (o, k),
+                normal((o, k), damp if name.endswith("o_proj") and not gemma else 1.0))
+        if moe:
+            E = hf["num_local_experts"]
+            add(p + "block_sparse_moe.gate.weight", (E, H), normal((E, H)))
+            for e in range(E):
+                for w, shape in (("w1", (I, H)), ("w2", (H, I)), ("w3", (I, H))):
+                    add(p + f"block_sparse_moe.experts.{e}.{w}.weight", shape,
+                        normal(shape, damp if w == "w2" else 1.0))
+        else:
+            for name, k, o in _proj_shapes(hf)[4:]:
+                add(p + name + ".weight", (o, k),
+                    normal((o, k), damp if name.endswith("down_proj") and not gemma else 1.0))
+    add("model.norm.weight", (H,), full(0.0 if gemma else 1.0))
+    if not hf["tie_word_embeddings"]:
+        add("lm_head.weight", (V, H), normal((V, H)))
+    return specs
+
+
+def family_runtime(torch, dev, hf, seed, dtype, max_length, damp_from=None, spec_dtype=None):
+    """A ModelRuntime of the config's family over dense_specs(seed) built in
+    memory on the card (no checkpoint directory), through the family's HF
+    conversion."""
+    from umbrella_tpu_torch.config import ModelConfig
+    from umbrella_tpu_torch.models.auto_model import ModelRuntime, resolve_family
+    from umbrella_tpu_torch.models.gemma import gemma_params_from_hf_state_dict
+    from umbrella_tpu_torch.models.moe import moe_params_from_hf_state_dict
+    from umbrella_tpu_torch.models.weights import params_from_hf_state_dict
+
+    cfg = ModelConfig.from_dict(hf)
+    family = resolve_family("", cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sd = {name: make() for name, _, _, make in dense_specs(
+        torch, dev, gen, hf, dtype=spec_dtype or dtype, damp_from=damp_from)}
+    if family == "gemma2":
+        params = gemma_params_from_hf_state_dict(sd, cfg, max_length, dtype, device=dev)
+    elif family == "moe":
+        params = moe_params_from_hf_state_dict(sd, cfg, dtype, device=dev)
+    else:
+        params = params_from_hf_state_dict(sd, cfg, max_length, dtype, device=dev)
+    del sd
+    torch.cuda.empty_cache()
+    return ModelRuntime(cfg, params, max_length, dtype=dtype, family=family, device=dev)
+
+
+def write_family_dirs(torch, dev, root, models, tag):
+    """Write HF-format checkpoint directories, [(name, hf, seed, shards)] ->
+    {name: dict(dir, hf, gb, layers, write_s)}, tensor by tensor
+    (dense_specs, bf16). Where the disk cannot hold them all, the first
+    model's depth is cut, 2 layers at a time (never a width), and the cut
+    is reported."""
+    import shutil
+
+    free = shutil.disk_usage(root).free
+    gen = torch.Generator(device=dev)
+    hfs = [dict(hf) for _, hf, _, _ in models]
+
+    def total():
+        return sum(spec_bytes(torch, dense_specs(torch, dev, gen, hf)) for hf in hfs)
+
+    while total() + 2e9 > free and hfs[0]["num_hidden_layers"] > 2:
+        hfs[0]["num_hidden_layers"] -= 2
+    check(total() + 2e9 <= free, f"{tag} not enough disk ({free / 1e9:.1f} GB free)")
+    out = {}
+    for (name, hf0, seed, shards), hf in zip(models, hfs):
+        path = os.path.join(root, name)
+        t0 = time.time()
+        specs = dense_specs(torch, dev, gen.manual_seed(seed), hf)
+        per = -(-len(specs) // shards)
+        _write_dir(path, hf, [specs[i:i + per] for i in range(0, len(specs), per)])
+        out[name] = dict(dir=path, hf=hf, gb=spec_bytes(torch, specs) / 1e9,
+                         layers=hf["num_hidden_layers"], seed=seed,
+                         depth_cut=hf["num_hidden_layers"] != hf0["num_hidden_layers"],
+                         write_s=time.time() - t0)
+        torch.cuda.empty_cache()
+    log(f"{tag} free disk {free / 1e9:.1f} GB; wrote {json.dumps(dir_report(out))}")
+    return out
+
+
+def dir_report(dirs):
+    return {k: {f: v[f] for f in ("gb", "layers", "depth_cut", "write_s")}
+            for k, v in dirs.items()}
+
+
+def family_config(name, target, draft, **overrides):
+    """A shipped config with its model and draft_model replaced (paths or
+    runtimes), growmap_path pointed at the port's copy of its tree, and
+    `overrides` applied (None drops a key)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "configs", name)) as f:
+        cfg = json.load(f)
+    cfg.update(model=target, draft_model=draft)
+    if "growmap_path" in cfg:
+        cfg["growmap_path"] = os.path.join(here, "umbrella_tpu_torch", "trees",
+                                           os.path.basename(cfg["growmap_path"]))
+    for k, v in overrides.items():
+        if v is None:
+            cfg.pop(k, None)
+        else:
+            cfg[k] = v
+    return cfg
+
+
+def family_requests(seed, n, new_tokens, vocab, prompt_len=PROMPT_LEN, **sampling):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [dict(input_ids=rng.integers(3, vocab, size=prompt_len).astype(np.int32).tolist(),
+                 max_new_tokens=new_tokens, **sampling) for _ in range(n)]
+
+
+def family_kernel_shapes(torch, dev, family):
+    """The attention and embedding kernels at the shapes this family's
+    configs give them, each against its plain version on the same inputs,
+    timed beside it, its bound and (where PyTorch has one call for the same
+    function) the library call. gemma2: attend_flash at the Gemma-2-9B
+    verify of the 5x6 tree at position 4,300 (past the 4,096-slot window:
+    the even layers' window mask leaves the first three 64-slot KV tiles
+    fully masked) and the odd layers' full mask, head dim 256, soft cap 50,
+    scale 256 ** -0.5; attend_flash_batched at [gemma-serve]'s B=8 3x4
+    verify; embed_gather from the 256000 x 3584 table. moe: attend_flash at
+    the Mixtral 24x6 verify (head dim 128), attend_flash_batched_int8 at
+    [moe-serve]'s B=8 3x4 verify, embed_gather from the 32000 and 32768 x
+    4096 tables. Soft-capped attention has no library call
+    (scaled_dot_product_attention takes no cap): its SDPA time without the
+    cap is reported apart (`sdpa_without_cap_ms`)."""
+    import torch.nn.functional as F
+
+    from umbrella_tpu_torch.models.gemma import sliding_mask
+    from umbrella_tpu_torch.models.kv_cache import _quantize_block
+    from umbrella_tpu_torch.ops.kernels.embed_gather import embed_gather, embed_gather_ref
+    from umbrella_tpu_torch.ops.kernels.tree_attention import (
+        attend_flash, attend_flash_batched, attend_flash_batched_ref, attend_flash_ref)
+    from umbrella_tpu_torch.ops.masks import tree_mask_rows, tree_mask_rows_batched
+
+    tag = f"[{'gemma' if family == 'gemma2' else 'moe'}-kernels]"
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item(), b.float().abs().max().item()
+
+    tol = "max abs err <= 2e-2 * max|plain| (bf16 output; p rounded at other points)"
+    out = {}
+    if family == "gemma2":
+        nH, KVH, D, cap, scale, window = 16, 8, 256, 50.0, 256 ** -0.5, 4096
+        single_tree, nn = "5x6", LONG_PROMPT_LEN + 100
+    else:
+        nH, KVH, D, cap, scale, window = 32, 8, 128, 0.0, None, 0
+        single_tree, nn = "24x6", 300
+    # -- attend_flash: the single-slot verify at nn over an 8192-slot cache
+    gm = shipped_tree(f"sequoia_tree-{single_tree}.json")
+    L, S = FAMILY_MAX_LEN, gm.size
+    bitmap = torch.as_tensor(gm.bitmap, device=dev)
+    full = tree_mask_rows(nn, bitmap, L)
+    pos = nn + torch.as_tensor(gm.depth, device=dev)
+    masks = {"full mask": full}
+    if window:
+        masks = {"window mask": sliding_mask(full, pos, window), **masks}
+    kc, vc = randn(2, KVH, L, D), randn(2, KVH, L, D)
+    q = randn(S, nH, D)
+    limit = nn + S
+    for what, mask in masks.items():
+        e_max, e_rel = 0.0, 0.0
+        for layer in (0, 1):
+            e, m = err(attend_flash(q, kc, vc, mask, limit, layer, scale=scale, soft_cap=cap),
+                       attend_flash_ref(q, kc[layer], vc[layer], mask, limit, scale=scale,
+                                        soft_cap=cap))
+            check(e <= 2e-2 * m, f"{tag} attend_flash {what} layer={layer}: err {e} vs max {m}")
+            e_max, e_rel = max(e_max, e), max(e_rel, e / m)
+        dead = int((~mask[:, :limit].any(0)).sum())
+        qs = q.transpose(0, 1)[None]
+        ks, vs, ms_ = kc[1:2, :, :limit], vc[1:2, :, :limit], mask[None, None, :, :limit]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=ms_, enable_gqa=True,
+                                                  scale=scale)
+
+        by, bb = attention_bound(torch, mask, [limit], nH, KVH, D, False)
+        r = dict(shape=f"q [{S},{nH},{D}] bf16 vs [2,{KVH},{L},{D}] cache, {single_tree} "
+                       f"tree at slot {nn}, {what}, soft cap {cap}",
+                 tolerance=tol, max_abs_err=e_max, max_rel_err=e_rel,
+                 slots_masked_for_every_row=dead,
+                 ms=cuda_ms(torch, lambda: attend_flash(q, kc, vc, mask, limit, 1, scale=scale,
+                                                        soft_cap=cap)),
+                 plain_ms=cuda_ms(torch, lambda: attend_flash_ref(
+                     q, kc[1], vc[1], mask, limit, scale=scale, soft_cap=cap), graph=False),
+                 plain_timed_by="events around 20 back-to-back calls (host time included)",
+                 bound_ms=by, bound_by=bb)
+        if cap:
+            r.update(library_ms=None, sdpa_without_cap_ms=library_ms(torch, sdpa))
+        else:
+            r.update(library_ms=library_ms(torch, sdpa))
+        out[f"attend_flash {what}"] = r
+        log(f"{tag} attend_flash {what} {json.dumps(r)}")
+    del kc, vc
+    # -- attend_flash_batched: B=8 slots of the 3x4 tree over a 4096-slot cache
+    gm = shipped_tree("sequoia_tree-3x4.json")
+    B, L, S = 8, 4096, gm.size
+    int8 = family == "moe"
+    nn_b = torch.arange(B, device=dev, dtype=torch.int32) * 97 + 135
+    mask = tree_mask_rows_batched(nn_b, torch.as_tensor(gm.bitmap, device=dev), L)
+    limits = (nn_b + S).to(torch.int32)
+    k, v = randn(2, B, KVH, L, D), randn(2, B, KVH, L, D)
+    ksc = vsc = None
+    if int8:
+        (k, ksc), (v, vsc) = _quantize_block(k), _quantize_block(v)
+    q = randn(B, S, nH, D)
+    name = "attend_flash_batched_int8" if int8 else "attend_flash_batched"
+    e_max, e_rel = 0.0, 0.0
+    for layer in (0, 1):
+        e, m = err(attend_flash_batched(q, k, v, mask, limits, layer, scale=scale, soft_cap=cap,
+                                        k_scale=ksc, v_scale=vsc),
+                   attend_flash_batched_ref(q, k, v, mask, limits, layer, scale=scale,
+                                            soft_cap=cap, k_scale=ksc, v_scale=vsc))
+        check(e <= 2e-2 * m, f"{tag} {name} layer={layer}: err {e} vs max {m}")
+        e_max, e_rel = max(e_max, e), max(e_rel, e / m)
+    live = int(limits.max())
+
+    def lib():
+        kd, vd = k[1, :, :, :live], v[1, :, :, :live]
+        if int8:
+            kd = (kd.float() * ksc[1, :, :, :live, None]).to(q.dtype)
+            vd = (vd.float() * vsc[1, :, :, :live, None]).to(q.dtype)
+        return F.scaled_dot_product_attention(q.transpose(1, 2), kd, vd,
+                                              attn_mask=mask[:, None, :, :live],
+                                              enable_gqa=True, scale=scale)
+
+    by, bb = attention_bound(torch, mask, limits.tolist(), nH, KVH, D, int8)
+    r = dict(shape=f"q [{B},{S},{nH},{D}] bf16 vs {'int8' if int8 else 'bf16'} "
+                   f"[2,{B},{KVH},{L},{D}] caches, 3x4 tree a slot, "
+                   f"kv limits {limits.tolist()}, soft cap {cap}",
+             tolerance=tol, max_abs_err=e_max, max_rel_err=e_rel,
+             ms=cuda_ms(torch, lambda: attend_flash_batched(
+                 q, k, v, mask, limits, 1, scale=scale, soft_cap=cap, k_scale=ksc, v_scale=vsc)),
+             plain_ms=cuda_ms(torch, lambda: attend_flash_batched_ref(
+                 q, k, v, mask, limits, 1, scale=scale, soft_cap=cap, k_scale=ksc,
+                 v_scale=vsc)),
+             bound_ms=by, bound_by=bb)
+    if cap:
+        r.update(library_ms=None, sdpa_without_cap_ms=library_ms(torch, lib))
+    else:
+        r.update(library_ms=library_ms(torch, lib),
+                 library="dequantize (1 call) + scaled_dot_product_attention (1 call)"
+                 if int8 else "scaled_dot_product_attention")
+    out[name] = r
+    log(f"{tag} {name} {json.dumps(r)}")
+    del k, v, ksc, vsc
+    # -- embed_gather: the verify's rows from the family's tables
+    tables = ((256000, 3584),) if family == "gemma2" else ((32000, 4096), (32768, 4096))
+    S = shipped_tree(f"sequoia_tree-{single_tree}.json").size
+    for V, H in tables:
+        table = randn(V, H)
+        ids = torch.randint(0, V, (S,), generator=gen, device=dev, dtype=torch.int32)
+        e, _ = err(embed_gather(table, ids), embed_gather_ref(table, ids))
+        check(e == 0.0, f"{tag} embed_gather {V}x{H}: err {e}")
+        by, bb = bound(2 * S * H * 2 + 4 * S, 0, "bf16")
+        r = dict(shape=f"[{V},{H}] bf16 table, {S} ids", tolerance="exact", max_abs_err=e,
+                 ms=cuda_ms(torch, lambda: embed_gather(table, ids)),
+                 plain_ms=cuda_ms(torch, lambda: embed_gather_ref(table, ids)),
+                 library_ms=library_ms(torch, lambda: F.embedding(ids.long(), table)),
+                 bound_ms=by, bound_by=bb)
+        out[f"embed_gather {V}x{H}"] = r
+        log(f"{tag} embed_gather {json.dumps(r)}")
+        del table
+    torch.cuda.empty_cache()
+    return out
+
+
+# a decode whose tokens repeat the token before them this often, or hold
+# fewer distinct tokens than this share of their count, is degenerate (a
+# random pair that echoes its input passes every token-equality check)
+ECHO_SHARE, DISTINCT_SHARE = 0.25, 0.25
+ACCEPT_SHARE = 0.9  # of the most one step commits, for a draft independent of its target
+
+
+def check_not_degenerate(tag, decodes, accept=None, max_accept=None):
+    """`decodes`: [(prompt ids, generated tokens)]. Fails where the tokens
+    echo the token before them (the prompt's last for the first) in more
+    than ECHO_SHARE of the places or hold fewer than DISTINCT_SHARE distinct
+    tokens, or (with `accept`) where an independent draft's accept rate
+    reaches ACCEPT_SHARE of the most a step commits. Returns the shares."""
+    echo = distinct = n = 0
+    for prompt, toks in decodes:
+        prev = [prompt[-1]] + list(toks[:-1])
+        echo += sum(a == b for a, b in zip(toks, prev))
+        distinct += len(set(toks))
+        n += len(toks)
+    out = dict(echo_share=echo / max(n, 1), distinct_share=distinct / max(n, 1))
+    check(n > 0 and out["echo_share"] <= ECHO_SHARE and out["distinct_share"] >= DISTINCT_SHARE,
+          f"{tag} degenerate decode (it echoes its input or repeats itself): {out}")
+    if accept is not None:
+        out.update(accept=accept, max_accept=max_accept)
+        check(accept < ACCEPT_SHARE * max_accept,
+              f"{tag} accept {accept} at the tree's most ({max_accept}): an independent "
+              "draft cannot agree with its target that often")
+    return out
+
+
+def warm_up(eng, prompt):
+    """Capture the decode step of both sampling modes (a graph each)."""
+    eng.generate(input_ids=prompt, max_new_tokens=3, temperature=0.0)
+    eng.generate(input_ids=prompt, max_new_tokens=3, temperature=0.6, topp=0.9,
+                 repetition_penalty=1.05)
+
+
+def graphed_and_stepwise(torch, eng, tag, **request):
+    """One request on the graphed loop and again stepwise, for its first
+    FAMILY_STEPWISE_TOKENS tokens, from the same generator state: each
+    loop's tokens, tok/s, step ms and accept; the stepwise tokens must be
+    the graphed ones."""
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    runs, toks, state = {}, {}, eng._gen.get_state()
+    for loop in ("graphed", "stepwise"):
+        (graphed if loop == "graphed" else stepwise)(eng)
+        eng._gen.set_state(state)
+        reset_launch_counts()
+        out = eng.generate(**dict(request, max_new_tokens=request["max_new_tokens"] if loop
+                                  == "graphed" else FAMILY_STEPWISE_TOKENS))
+        toks[loop] = out["generated_tokens"]
+        steps = request_steps(out)
+        runs[loop] = dict(tokens=len(toks[loop]), steps=steps,
+                          tok_per_s=1000.0 / out["time_per_output_token"],
+                          decode_step_ms=out["time_per_output_token"] * len(toks[loop]) / steps,
+                          avg_accept_tokens=out["avg_accept_tokens"], launches=launch_counts())
+    graphed(eng)
+    runs["degenerate_guard"] = check_not_degenerate(
+        tag, [(request["input_ids"], toks["graphed"])], runs["graphed"]["avg_accept_tokens"],
+        eng.max_step_advance)
+    n = min(len(toks["graphed"]), len(toks["stepwise"]))
+    check(n >= min(FAMILY_STEPWISE_TOKENS, len(toks["graphed"]))
+          and toks["graphed"][:n] == toks["stepwise"][:n],
+          f"{tag} graphed {toks['graphed']} vs stepwise {toks['stepwise']}")
+    check(len(toks["graphed"]) >= request["max_new_tokens"]
+          or toks["graphed"][-1] in set(eng.eos_token_ids), f"{tag} stopped early")
+    runs["graphed_equal_stepwise"] = n
+    runs["tokens"] = toks["graphed"]
+    return runs
+
+
+def single_engine_report(torch, dev, eng, prompt, tag, kernels):
+    """TTFT of `prompt`, then a [<family>-profile] window over the greedy
+    decode alone (the prompt prefilled outside it, FAMILY_PROFILE_TOKENS
+    tokens on the graphed loop), whose traced launches a step must equal
+    the captured step's: busy ms a step, idle share, host ops a step; peak
+    and pool GB."""
+    from umbrella_tpu_torch.ops.kernels import reset_launch_counts
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.time()
+    check(eng._prefill(prompt), f"{tag} prefill refused")
+    torch.cuda.synchronize()
+    ttft_ms = 1000 * (time.time() - t1)
+    eng.reset()
+    graphs = check_graphed(eng, tag)
+    eng.update_generation_args(temperature=0.0)
+    profile_tag = f"{tag[:tag.index('-')]}-profile]"
+    before = {}
+
+    def decode(e):  # the replays before each profiled window (the last one counts)
+        before.update({k: g.replays for k, g in e._decode_graphs.items()})
+        return e._decode_fused(FAMILY_PROFILE_TOKENS)
+
+    prof = decode_profile(torch, eng, prompt, profile_tag, decode)
+    (key,) = [k for k, g in eng._decode_graphs.items() if g.replays > before.get(k, 0)]
+    graph = eng._decode_graphs[key]
+    replays = graph.replays - before[key]
+    per_step = {k: n / replays for k, n in prof["launches_traced"].items()}
+    check(all(per_step[k] == graph.launches[k] for k in per_step),
+          f"{profile_tag} launches a step traced {per_step}, captured {graph.launches}")
+    for name in kernels:
+        check(graph.launches[name] > 0, f"{tag} kernel {name} is not in the captured step")
+    return dict(ttft_ms_prefill128=ttft_ms, launches_per_step=graph.launches,
+                launches_per_step_traced=per_step, profile=prof, graphs=graphs,
+                capture_ms=graph.capture_ms, pool_gb_by_device=graphs["pool_gb_by_device"],
+                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+
+
+def gemma_lossless_check(torch, dev, prompt):
+    """Gemma-2-9B widths, 4 layers, fp32, the last 2 layers' post norms damped
+    x0.05 and the draft the first 2 (early exit): the static engine (graphed,
+    and stepwise) and the dynamic engine (graphed) each equal the AR decode
+    for LOSSLESS_NEW_TOKENS tokens; the batched engine (B=4, 2x3 tree,
+    graphed and stepwise) gives each of 5 requests of staggered lengths the
+    single-slot engine's tokens."""
+    from umbrella_tpu_torch.models.auto_model import early_exit_runtime
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    tag = "[gemma-lossless]"
+    target = family_runtime(torch, dev, dict(GEMMA_9B_HF, num_hidden_layers=4), 21,
+                            torch.float32, MAX_LEN, damp_from=2)
+    draft = early_exit_runtime(target, 2)
+    check(target.family == "gemma2" and target.gemma_args.attn_scale
+          == GEMMA_9B_HF["query_pre_attn_scalar"] ** -0.5,
+          f"{tag} not a Gemma2 runtime")
+    res, decodes = {}, {}
+    for name in ("static", "static-stepwise", "dynamic"):
+        eng = (dynamic_engine(torch, dev, target, draft, torch.float32) if name == "dynamic"
+               else make_engine(torch, dev, target, draft, torch.float32))
+        if name == "static-stepwise":
+            stepwise(eng)
+        reset_launch_counts()
+        out = eng.generate(input_ids=prompt, max_new_tokens=LOSSLESS_NEW_TOKENS)
+        counts = launch_counts()
+        decodes[name] = out["generated_tokens"]
+        res[name] = dict(tokens=len(out["generated_tokens"]),
+                         avg_accept_tokens=out["avg_accept_tokens"])
+        if name != "static-stepwise":
+            res[name]["graphs"] = check_graphed(eng, f"{tag} {name}")
+        for k in ("attend_flash", "embed_gather"):
+            check(counts[k] > 0, f"{tag} {name}: kernel {k} was never launched")
+        check(counts["attend_flash_scalar"] == counts["attend_flash"],
+              f"{tag} {name}: fp32 q must take the scalar attention kernel")
+        del eng
+    check(decodes["static"] == decodes["static-stepwise"],
+          f"{tag} static graphed {decodes['static']} vs stepwise {decodes['static-stepwise']}")
+    n = max(len(v) for v in decodes.values())
+    ar, gaps, _, _ = greedy_ar_decode(torch, target, prompt, n)
+    # the draft is the target's first layers (the rest damped): a high
+    # accept rate is by design, so only the tokens are guarded
+    guard = check_not_degenerate(tag, [(prompt, ar)])
+    for name, toks in decodes.items():
+        same = first_difference(toks, ar)
+        res[name].update(identical_prefix=same,
+                         gap_at_first_difference=gaps[same] if same < len(toks) else None)
+        check(len(toks) >= LOSSLESS_NEW_TOKENS and same >= LOSSLESS_NEW_TOKENS,
+              f"{tag} {name} and the AR decode differ at token {same}: {toks} vs {ar}")
+    reqs = [dict(r, input_ids=r["input_ids"][:PROMPT_LEN - PROMPT_LEN // 8 * i])
+            for i, r in enumerate(family_requests(3, 5, BATCHED_LOSSLESS_TOKENS,
+                                                  GEMMA_9B_HF["vocab_size"]))]
+    beng = batched_engine(torch, dev, target, draft, 4, (2, 3), None, torch.float32)
+    reset_launch_counts()
+    outs = beng.run(reqs)
+    counts = launch_counts()
+    res["batched"] = dict(graphs=check_graphed(beng, f"{tag} batched"))
+    check(counts["attend_flash_batched"] > 0, f"{tag} batched: attention never launched")
+    stepwise(beng)
+    souts = beng.run(reqs)
+    graphed(beng)
+    del beng
+    check(all(a["generated_tokens"] == b["generated_tokens"] for a, b in zip(outs, souts)),
+          f"{tag} batched graphed and stepwise segments gave other tokens")
+    single = make_engine(torch, dev, target, draft, torch.float32, tree=(2, 3))
+    same = []
+    for r, o in zip(reqs, outs):
+        want = single.generate(input_ids=r["input_ids"],
+                               max_new_tokens=BATCHED_LOSSLESS_TOKENS)["generated_tokens"]
+        same.append(first_difference(o["generated_tokens"], want))
+    del single
+    res["batched"].update(identical_prefix=same, prompt_lens=[len(r["input_ids"]) for r in reqs],
+                          avg_accept_tokens=[o["avg_accept_tokens"] for o in outs])
+    check(min(same) >= BATCHED_LOSSLESS_TOKENS,
+          f"{tag} batched and single-slot tokens differ: {same}")
+    res["identical_prefix"] = min(min(r["identical_prefix"] for k, r in res.items()
+                                      if k != "batched"), min(same))
+    res["degenerate_guard"] = guard
+    log(f"{tag} {json.dumps(res)}")
+    return res
+
+
+def gemma_config_phase(torch, dev, dirs, prompt, shared):
+    """configs/chat_config_8b_v5e.json's keys over the Gemma-2-9B directory
+    (target) and the Gemma-2-2B directory (draft), "template": "gemma2-it",
+    max_length 8192: the static engine with the 5x6 tree at 0.6 / 0.9 /
+    1.05. A stochastic request (FAMILY_NEW_TOKENS new tokens) and a greedy
+    one with a LONG_PROMPT_LEN-token prompt, past the window, each graphed
+    and stepwise from one generator state (graphed_and_stepwise: equal
+    tokens); TTFT, the kernels
+    at this family's shapes (family_kernel_shapes) and a [gemma-profile]
+    window. Then the same runtimes under the default dynamic engine: a
+    greedy request graphed, and stepwise for its first tokens."""
+    import numpy as np
+
+    from umbrella_tpu_torch.speculation.auto_engine import AutoEngine
+    from umbrella_tpu_torch.speculation.dynamic_engine import DynamicEngine
+    from umbrella_tpu_torch.speculation.static_engine import StaticEngine
+
+    tag = "[gemma-config]"
+    cfg = family_config("chat_config_8b_v5e.json", dirs["gemma-2-9b"]["dir"],
+                        dirs["gemma-2-2b"]["dir"], template="gemma2-it",
+                        max_length=FAMILY_MAX_LEN)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    eng = AutoEngine.from_config(device=dev, **cfg)
+    eng.initialize()
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    t, d = eng.target_model, eng.draft_model
+    check(isinstance(eng, StaticEngine) and t.family == d.family == "gemma2"
+          and (t.args.n_layers, d.args.n_layers) == (dirs["gemma-2-9b"]["layers"],
+                                                      dirs["gemma-2-2b"]["layers"])
+          and (eng.temperature, eng.topp, eng.repetition_penalty) == (0.6, 0.9, 1.05)
+          and t.gemma_args.sliding_window == GEMMA_9B_HF["sliding_window"]
+          and t.gemma_args.attn_softcap == GEMMA_9B_HF["attn_logit_softcapping"],
+          f"{tag} the engine did not take the config and the directories as shipped")
+    resident_gb = torch.cuda.memory_allocated(dev) / 2**30
+    vocab = GEMMA_9B_HF["vocab_size"]
+    long_prompt = np.random.default_rng(7).integers(3, vocab, LONG_PROMPT_LEN).tolist()
+    warm_up(eng, prompt)
+    res = dict(init_s=init_s, resident_gb=resident_gb, dirs=dir_report(dirs))
+    res["stochastic"] = graphed_and_stepwise(
+        torch, eng, f"{tag} stochastic", input_ids=prompt, max_new_tokens=FAMILY_NEW_TOKENS,
+        temperature=0.6, topp=0.9, repetition_penalty=1.05)
+    res["greedy_long"] = graphed_and_stepwise(
+        torch, eng, f"{tag} greedy {LONG_PROMPT_LEN}-token prompt", input_ids=long_prompt,
+        max_new_tokens=FAMILY_NEW_TOKENS, temperature=0.0)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    check(eng._prefill(long_prompt), f"{tag} long prefill refused")
+    torch.cuda.synchronize()
+    res["ttft_ms_prefill4200"] = 1000 * (time.time() - t1)
+    eng.reset()
+    for r in ("stochastic", "greedy_long"):
+        check(all(0 <= x < vocab for x in res[r].pop("tokens")), f"{tag} token out of range")
+        counts = res[r]["graphed"]["launches"]
+        for k in ("embed_gather", "attend_flash"):
+            check(counts[k] > 0, f"{tag} {r}: kernel {k} was never launched")
+        check_tc_route(counts, f"{tag} {r}")
+    res.update(single_engine_report(torch, dev, eng, prompt, tag,
+                                    ("embed_gather", "attend_flash")))
+    g = res["stochastic"]["graphed"]
+    res.update(tok_per_s=g["tok_per_s"], decode_step_ms=g["decode_step_ms"],
+               avg_accept_tokens=g["avg_accept_tokens"], launches=g["launches"])
+    res["kernel_shapes"] = family_kernel_shapes(torch, dev, "gemma2")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the default engine (no `engine` key, its default tree) over the same runtimes
+    torch.cuda.reset_peak_memory_stats(dev)
+    deng = AutoEngine.from_config(device=dev, **family_config(
+        "chat_config_8b_v5e.json", t, d, engine=None, growmap_path=None,
+        template="gemma2-it", max_length=FAMILY_MAX_LEN))
+    deng.initialize()
+    check(isinstance(deng, DynamicEngine), f"{tag} no engine key: not the dynamic engine")
+    deng.generate(input_ids=prompt, max_new_tokens=4, temperature=0.0)  # warm-up
+    out = deng.generate(input_ids=prompt, max_new_tokens=FAMILY_DYN_TOKENS, temperature=0.0)
+    toks = out["generated_tokens"]
+    steps = request_steps(out)
+    stepwise(deng)
+    sw = deng.generate(input_ids=prompt, max_new_tokens=FAMILY_DYN_STEPWISE_TOKENS,
+                       temperature=0.0)
+    graphed(deng)
+    n = len(sw["generated_tokens"])
+    check(toks[:n] == sw["generated_tokens"],
+          f"{tag} dynamic graphed {toks[:n]} vs stepwise {sw['generated_tokens']}")
+    guard = check_not_degenerate(f"{tag} dynamic", [(prompt, toks)], out["avg_accept_tokens"],
+                                 deng.max_step_advance)
+    res["dynamic"] = dict(
+        tree=(deng.tree_width, deng.num_beams, deng.tree_depth), tokens=len(toks), steps=steps,
+        tok_per_s=1000.0 / out["time_per_output_token"],
+        decode_step_ms=out["time_per_output_token"] * len(toks) / steps,
+        avg_accept_tokens=out["avg_accept_tokens"], graphs=check_graphed(deng, f"{tag} dynamic"),
+        stepwise_tok_per_s=1000.0 / sw["time_per_output_token"], graphed_equal_stepwise=n,
+        degenerate_guard=guard,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+    log(f"{tag} {json.dumps(res)}")
+    del deng
+    shared["runtimes"] = (t, d)
+    return res
+
+
+# run() and the single-slot engine compute a slot's rows in products of other
+# row counts (B x tree rows against tree rows): in bf16 the dense products'
+# last bits differ, so the two decodes may part where both tokens' logits
+# are near the top. A parting passes where the batched and the single-slot
+# tokens are both within SERVE_NEAR_TIE of max|logit|, or within twice the
+# noise that the row count puts on that row's logits, of the top logit
+# (next_token_gap). The noise is measured between the single-slot engine's
+# row counts and the batched engine's forwards over the same tokens, and
+# must itself stay within SERVE_FORM_TOL of max|logit| for a dense target (a
+# wrong batched form would be far outside it). A random Gemma2 pair's
+# logits are flat (max ~0.09 over 256,000 tokens), so its top tokens lie
+# within that noise.
+SERVE_NEAR_TIE = 2 ** -7
+SERVE_FORM_TOL = 2 ** -3
+# an MoE target's rows may also part where the router's k-th and (k+1)-th
+# logits are this close (the same share of the row's max|router logit|): a
+# last-bit difference before the router then swaps an expert
+ROUTER_TIE = 2 ** -7
+
+
+def next_token_gap(torch, runtime, ids, token, single, batch, rows):
+    """The target's greedy choice after `ids`, computed as the single-slot
+    engine does: the prefix in one forward, then the last `rows` rows (a
+    verify's row count) in another; from that row, top-1 minus top-2 logit
+    (`gap`), top-1 minus `token`'s and `single`'s logits (`token_gap`,
+    `single_gap`), max|logit| and whether `token` is the runner-up. `form_noise`: max|difference| of those
+    rows' logits from the batched engine's forwards (model_forwards) over
+    `batch` copies of `ids`, each slot's prefix through the slot form (as
+    the batched engine prefills) and the last `rows` rows of every slot in
+    one batched forward (batch x rows against rows)."""
+    from umbrella_tpu_torch.models.batched import init_batched_kv, model_forwards
+    from umbrella_tpu_torch.ops.masks import causal_mask_rows
+
+    dev, S, P = runtime.device, len(ids), runtime.params
+    n0 = S - rows
+    x = torch.tensor(ids, device=dev, dtype=torch.int32)
+    pos = torch.arange(S, device=dev, dtype=torch.int32)
+    kv = runtime.init_kv()
+    runtime.forward(P, kv, x[:n0], pos[:n0], causal_mask_rows(0, n0, runtime.max_length,
+                                                              device=dev), 0)
+    logits, _ = runtime.forward(P, kv, x[n0:], pos[n0:],
+                                causal_mask_rows(n0, rows, runtime.max_length, device=dev), n0)
+    row = logits[-1]
+    del kv
+    L = -(-S // 64) * 64
+    kv = init_batched_kv(runtime.cfg, batch, L, runtime.dtype, num_layers=runtime.args.n_layers,
+                         device=dev)
+    batched_fwd, slot_fwd = model_forwards(runtime)
+    for b in range(batch):
+        slot_fwd(P, kv, x[:n0], pos[:n0], causal_mask_rows(0, n0, L, device=dev), b, 0)
+    many, _ = batched_fwd(
+        P, kv, x[n0:].expand(batch, rows).contiguous(), pos[n0:].expand(batch, rows).contiguous(),
+        causal_mask_rows(n0, rows, L, device=dev).expand(batch, rows, L).contiguous(),
+        torch.full((batch,), n0, dtype=torch.int32, device=dev))
+    noise = float((many - logits).abs().max())
+    del many, kv, logits
+    top = torch.topk(row, 2)
+    torch.cuda.empty_cache()
+    return dict(gap=float(top.values[0] - top.values[1]),
+                token_gap=float(top.values[0] - row[token]),
+                single_gap=float(top.values[0] - row[single]), form_noise=noise,
+                max_abs_logit=float(row.abs().max()), runner_up=int(top.indices[1]) == token)
+
+
+def router_margins(torch, runtime, ids, prompt_len):
+    """Why an MoE decode may part at the row after `ids`: the target's router
+    logits at every layer for the rows the engines computed in other row
+    counts (from the prompt's last row, prompt_len - 1, to the last), from
+    one forward over all of `ids` and again from two (the rows before, then
+    these rows): two row counts. A row's top-k margin is its k-th minus its
+    (k+1)-th router logit over max|router logit|; `tie` where the least
+    margin of the two computations is within ROUTER_TIE, a bf16 ulp-scale
+    tie that a last-bit difference before the router can swap. Also: the
+    (layer, row) of the least margin, the top-k sets that the two row counts
+    already swap, and the share of the prompt's rows' decisions within
+    ROUTER_TIE (how often a tie turns up by chance)."""
+    from umbrella_tpu_torch.models import moe
+    from umbrella_tpu_torch.ops.masks import causal_mask_rows
+
+    dev, S, L, n = runtime.device, len(ids), runtime.max_length, runtime.args.n_layers
+    k, lo = runtime.cfg.num_experts_per_tok, prompt_len - 1
+    real_route = moe.route
+
+    def router_logits(splits):
+        logged = []
+
+        def route(lw, x, top_k):
+            logged.append((x.float() @ lw["router"].float()).reshape(-1, lw["router"].shape[-1]))
+            return real_route(lw, x, top_k)
+
+        kv = runtime.init_kv()
+        moe.route = route
+        try:
+            for a, b in splits:
+                runtime.forward(runtime.params, kv, torch.tensor(ids[a:b], device=dev),
+                                torch.arange(a, b, device=dev),
+                                causal_mask_rows(a, b - a, L, device=dev), a)
+        finally:
+            moe.route = real_route
+        del kv
+        return torch.stack([torch.cat(logged[l::n]) for l in range(n)])  # [n, S, E]
+
+    def shares(logits):
+        top = torch.sort(logits, dim=-1, descending=True, stable=True)
+        return (top.values[..., k - 1] - top.values[..., k]) / logits.abs().amax(-1), \
+            top.indices[..., :k].sort(-1).values
+
+    whole, whole_sets = shares(router_logits([(0, S)]))
+    split, split_sets = shares(router_logits([(0, lo), (lo, S)]))
+    window = torch.minimum(whole[:, lo:], split[:, lo:])
+    least = float(window.min())
+    layer, row = divmod(int(window.argmin()), window.shape[1])
+    swapped = (whole_sets[:, lo:] != split_sets[:, lo:]).any(-1)
+    torch.cuda.empty_cache()
+    return dict(tie=least <= ROUTER_TIE, least_margin=least, at_layer=layer,
+                at_position=lo + row, rows=S - lo, decisions=window.numel(),
+                swapped_by_row_count=int(swapped.sum()),
+                prompt_tie_rate=float((whole[:, :lo] <= ROUTER_TIE).float().mean()))
+
+
+def family_serve_phase(torch, dev, tag, cfg, vocab, attn_kernel, router_ties=False,
+                       single_checked=FAMILY_SINGLE_CHECKED):
+    """A shipped batched config over runtimes already loaded (EOS off, so that
+    every request decodes its budget and a profiled segment runs whole):
+    greedy requests (FAMILY_SERVE_REQUESTS, FAMILY_SERVE_TOKENS new tokens
+    each) through run() and through the pipelined ContinuousBatcher (the
+    same tokens, reported); one profiled segment; the first
+    `single_checked` requests against the single-slot static engine
+    over the same runtimes and tree: they must equal it or part from it only
+    at a near tie of the target's logits (SERVE_NEAR_TIE), or, with
+    `router_ties` (an MoE target), where router_margins finds a router tie
+    on the rows before the parting."""
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.serving.batched_engine import ContinuousBatcher
+    from umbrella_tpu_torch.speculation.auto_engine import AutoEngine
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = AutoEngine.from_config(device=dev, **cfg)
+    eng.initialize()
+    B = eng.batch_size
+    reqs = family_requests(17, FAMILY_SERVE_REQUESTS, FAMILY_SERVE_TOKENS, vocab,
+                           temperature=0.0)
+    eng.run([dict(r, max_new_tokens=8) for r in reqs[:B]])  # warm-up
+    reset_launch_counts()
+    steps0 = eng.steps_dispatched
+    torch.cuda.synchronize()
+    t0 = time.time()
+    outs = eng.run([dict(r) for r in reqs])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launch_counts()
+    steps = eng.steps_dispatched - steps0
+    for name in (attn_kernel, "embed_gather"):
+        check(counts[name] > 0, f"{tag} kernel {name} was never launched")
+    check_tc_route(counts, tag)
+    for r, o in zip(reqs, outs):
+        toks = o["generated_tokens"]
+        check(r["max_new_tokens"] <= len(toks) <= r["max_new_tokens"] + 1
+              or toks[-1] in set(eng.eos_token_ids), f"{tag} request got {len(toks)} tokens")
+        check(all(0 <= x < vocab for x in toks), f"{tag} token out of range")
+    batcher = ContinuousBatcher(eng)
+    batcher.start()
+    try:
+        t0 = time.time()
+        futs = [batcher.submit(**dict(r)) for r in reqs]
+        pouts = [f.result(timeout=600) for f in futs]
+        pwall = time.time() - t0
+    finally:
+        batcher.shutdown()
+    same = sum(p["generated_tokens"] == o["generated_tokens"] for p, o in zip(pouts, outs))
+    step_ms, per_step, prof = decode_segment(torch, eng, reqs[:B], f"{tag[:-1]}-profile]",
+                                             FAMILY_PROFILE_STEPS)
+    check(prof is not None, f"{tag} the kernels' launches were not traced")
+    res = dict(batch=B, kv_dtype=eng.kv_dtype or "bf16", tree=eng.tree_size,
+               segment_steps=eng.segment_steps, requests=len(reqs),
+               run_tok_per_s=sum(len(o["generated_tokens"]) for o in outs) / wall,
+               run_s=wall, run_steps=steps,
+               pipelined_tok_per_s=sum(len(p["generated_tokens"]) for p in pouts) / pwall,
+               pipelined_equal_to_run=same,
+               avg_accept_tokens=sum(o["avg_accept_tokens"] for o in outs) / len(outs),
+               ttft_ms_p50=pct([p["ttft_ms"] for p in pouts], 50),
+               tpot_ms_p50=pct([p["time_per_output_token"] for p in pouts], 50),
+               decode_step_ms=step_ms, launches=counts, launches_per_step=per_step,
+               profile=prof, launches_traced=prof["launches_traced"],
+               graphs=check_graphed(eng, tag))
+    t, d = eng.target_model, eng.draft_model
+    gm = eng.growmap
+    res["degenerate_guard"] = check_not_degenerate(
+        tag, [(r["input_ids"], o["generated_tokens"]) for r, o in zip(reqs, outs)],
+        res["avg_accept_tokens"], int(gm.node_in_path.max()))
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    del eng, batcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    single = AutoEngine.from_config(device=dev, engine="static", model=t, draft_model=d,
+                                    growmap=gm, max_length=t.max_length, temperature=0.0,
+                                    eos_token_ids=cfg.get("eos_token_ids"), dtype=torch.bfloat16,
+                                    kv_dtype=cfg.get("kv_dtype"))
+    single.initialize()
+    firsts, partings = [], []
+    for r, o in zip(reqs[:single_checked], outs):
+        want = single.generate(input_ids=r["input_ids"], max_new_tokens=FAMILY_SERVE_TOKENS,
+                               temperature=0.0)["generated_tokens"]
+        got = o["generated_tokens"]
+        j = first_difference(got, want)
+        firsts.append(j)
+        if j < FAMILY_SERVE_TOKENS:
+            ids = r["input_ids"] + want[:j]
+            p = dict(request=len(firsts) - 1, token=j, batched=got[j], single=want[j],
+                     **next_token_gap(torch, t, ids, got[j], want[j], B, gm.size))
+            m = p["max_abs_logit"]
+            p["logit_near_tie"] = max(p["token_gap"], p["single_gap"]) <= max(
+                SERVE_NEAR_TIE * m, 2 * p["form_noise"])
+            check(router_ties or p["form_noise"] <= SERVE_FORM_TOL * m,
+                  f"{tag} the batched form's logits differ from the plain forward's by "
+                  f"{p['form_noise']} (max|logit| {m})")
+            if router_ties:
+                p["router"] = router_margins(torch, t, ids, len(r["input_ids"]))
+            partings.append(p)
+    del single
+    res.update(single_slot_identical_prefix=firsts, partings=partings)
+    log(f"{tag} {json.dumps(res)}")
+    check(all(p["logit_near_tie"] or (router_ties and p["router"]["tie"]) for p in partings),
+          f"{tag} run() and the single-slot engine part away from a near tie"
+          f"{' of the logits or the router' if router_ties else ''}: {partings}")
+    return res
+
+
+def gemma_serve_phase(torch, dev, dirs, shared):
+    """configs/serve_batched_8b_v5e.json's keys (B=8, bf16 KV, 3x4 tree,
+    max_length 4096) over [gemma-config]'s Gemma-2-9B / 2B runtimes (the
+    directories loaded again where that phase did not run)."""
+    from umbrella_tpu_torch.models.auto_model import AutoModelLM
+
+    t, d = shared.get("runtimes") or [AutoModelLM.from_pretrained(
+        dirs[k]["dir"], max_length=FAMILY_MAX_LEN, device=dev) for k in ("gemma-2-9b",
+                                                                        "gemma-2-2b")]
+    cfg = family_config("serve_batched_8b_v5e.json", t, d, template="gemma2-it",
+                        eos_token_ids=[-100])
+    return family_serve_phase(torch, dev, "[gemma-serve]", cfg, GEMMA_9B_HF["vocab_size"],
+                              "attend_flash_batched")
+
+
+def moe_checkpoint_phase(torch, dev, dirs):
+    """The Mixtral-8x7B-format directory (full widths, MOE_CHECKPOINT_LAYERS
+    layers, two shards) through AutoModelLM.from_pretrained: family moe, the
+    expert stacks' shapes, and logits for a 16-token prompt equal bit for bit
+    to those of the same tensors built in memory; the Mistral-7B-v0.3
+    directory loads as a mistral draft with finite logits over its 32768-token
+    vocabulary."""
+    from umbrella_tpu_torch.ops.masks import causal_mask_rows
+
+    tag = "[moe-checkpoint]"
+    L = 256
+    mix = dirs["mixtral-8x7b"]
+    target, t_load = _timed_load(torch, dev, mix["dir"], max_length=L)
+    E, H, I = (MIXTRAL_HF[k] for k in ("num_local_experts", "hidden_size", "intermediate_size"))
+    lw = target.params["layers"]
+    check(target.family == "moe" and lw["expert_gate"].shape == (mix["layers"], E, H, I)
+          and lw["expert_down"].shape == (mix["layers"], E, I, H)
+          and lw["router"].shape == (mix["layers"], H, E)
+          and lw["expert_up"].dtype == torch.bfloat16, f"{tag} target loaded in the wrong form")
+    ids = torch.arange(100, 116, device=dev)
+    pos = torch.arange(16, device=dev)
+    mask = causal_mask_rows(0, 16, L, device=dev)
+
+    def logits(rt):
+        return rt.forward(rt.params, rt.init_kv(), ids, pos, mask, 0)[0]
+
+    got = logits(target)
+    del target, lw
+    torch.cuda.empty_cache()
+    mem = family_runtime(torch, dev, mix["hf"], mix["seed"], torch.bfloat16, L)
+    want = logits(mem)
+    del mem
+    torch.cuda.empty_cache()
+    check(bool(torch.isfinite(got).all()), f"{tag} logits not finite")
+    check(torch.equal(got, want), f"{tag} the loaded directory's logits differ from the "
+          f"in-memory build: max abs diff {(got - want).abs().max().item()}")
+    draft, d_load = _timed_load(torch, dev, dirs["mistral-7b-v0.3"]["dir"], max_length=L)
+    check(draft.family == "mistral" and draft.params["embed"].shape[0] == MISTRAL_HF["vocab_size"]
+          and draft.params["lm_head"].shape == (H, MISTRAL_HF["vocab_size"]),
+          f"{tag} draft loaded in the wrong form")
+    d_logits = logits(draft)
+    check(bool(torch.isfinite(d_logits).all())
+          and d_logits.shape[-1] == MISTRAL_HF["vocab_size"],
+          f"{tag} draft logits")
+    del draft
+    torch.cuda.empty_cache()
+    res = dict(target=t_load, draft=d_load, target_layers=mix["layers"],
+               logits_equal_in_memory=True, dirs=dir_report(dirs))
+    log(f"{tag} {json.dumps(res)}")
+    return res
+
+
+def build_moe_target(torch, dev, n_layers):
+    """A random bf16 MoE runtime at Mixtral-8x7B's widths, n_layers deep,
+    built on the card from init_moe_llama_params, its embedding scaled to
+    MOE_EMBED_STD: drawn Glorot (std 0.0074 at 32000 x 4096) the input token
+    is lost against the layers' outputs (RMS ~1.3 each), and the greedy
+    decode collapses onto a few repeated tokens (on the card, 61% of tokens
+    repeated the one before and 14% were distinct; at std 1, 34% and 36%)."""
+    from umbrella_tpu_torch.config import ModelConfig
+    from umbrella_tpu_torch.models.moe import init_moe_llama_params, moe_runtime
+
+    cfg = ModelConfig.from_dict(dict(MIXTRAL_HF, num_hidden_layers=n_layers))
+    params = init_moe_llama_params(cfg, torch.Generator(device=dev).manual_seed(41),
+                                   cfg.num_local_experts, torch.bfloat16, device=dev)
+    params["embed"] *= MOE_EMBED_STD * ((cfg.vocab_size + cfg.hidden_size) / 2) ** 0.5
+    return moe_runtime(cfg, params, FAMILY_MAX_LEN, dtype=torch.bfloat16,
+                       top_k=cfg.num_experts_per_tok, device=dev)
+
+
+def moe_config_phase(torch, dev, dirs, prompt, shared):
+    """configs/chat_config_mixtral_ep.json's keys without expert_parallel (the
+    static engine, 24x6 tree, 0.6 / 0.9 / 1.05): the target a random MoE
+    runtime at Mixtral-8x7B's widths and MOE_LAYERS of its 32 layers (all 32
+    need expert parallelism over four cards; MOE_LAYERS_CUT where the card
+    runs out of memory or the peak passes PEAK_LIMIT_BYTES), the draft the
+    Mistral-7B-v0.3 directory (its 32768-token vocabulary wider than the
+    target's 32000). A stochastic request graphed and stepwise from one
+    generator state (graphed_and_stepwise: equal tokens); TTFT, the kernels at this family's
+    shapes and a [moe-profile] window (greedy)."""
+    from umbrella_tpu_torch.speculation.auto_engine import AutoEngine
+    from umbrella_tpu_torch.speculation.static_engine import StaticEngine
+
+    tag = "[moe-config]"
+    vocab = MIXTRAL_HF["vocab_size"]
+    res, eng = {}, None
+    for layers in (MOE_LAYERS, MOE_LAYERS_CUT):
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            t0 = time.time()
+            target = build_moe_target(torch, dev, layers)
+            torch.cuda.synchronize()
+            res["build_s"] = time.time() - t0
+            cfg = family_config("chat_config_mixtral_ep.json", target,
+                                dirs["mistral-7b-v0.3"]["dir"], expert_parallel=None,
+                                max_length=FAMILY_MAX_LEN)
+            del target
+            t0 = time.time()
+            eng = AutoEngine.from_config(device=dev, **cfg)
+            eng.initialize()
+            torch.cuda.synchronize()
+            res["init_s"] = time.time() - t0
+            warm_up(eng, prompt)
+            peak = torch.cuda.max_memory_allocated(dev)
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"{tag} {layers} layers: out of memory ({str(e).splitlines()[0]})")
+            eng = target = peak = None
+        if peak is not None and (peak <= PEAK_LIMIT_BYTES or layers == MOE_LAYERS_CUT):
+            break
+        log(f"{tag} {layers} layers: peak {peak and peak / 1e9} GB; cut to {MOE_LAYERS_CUT}")
+        eng = target = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(eng is not None, f"{tag} no depth fits the card")
+    t, d = eng.target_model, eng.draft_model
+    check(isinstance(eng, StaticEngine) and t.family == "moe" and d.family == "mistral"
+          and (eng.temperature, eng.topp, eng.repetition_penalty) == (0.6, 0.9, 1.05)
+          and eng.tree_size == shipped_tree("sequoia_tree-24x6.json").size,
+          f"{tag} the engine did not take the config as shipped")
+    res.update(target_layers=t.args.n_layers, depth_cut=t.args.n_layers != MOE_LAYERS,
+               resident_gb=torch.cuda.memory_allocated(dev) / 2**30)
+    res["stochastic"] = graphed_and_stepwise(
+        torch, eng, f"{tag} stochastic", input_ids=prompt, max_new_tokens=FAMILY_NEW_TOKENS,
+        temperature=0.6, topp=0.9, repetition_penalty=1.05)
+    check(all(0 <= x < vocab for x in res["stochastic"].pop("tokens")),
+          f"{tag} token out of range")
+    counts = res["stochastic"]["graphed"]["launches"]
+    for k in ("embed_gather", "attend_flash"):
+        check(counts[k] > 0, f"{tag}: kernel {k} was never launched")
+    check_tc_route(counts, tag)
+    res.update(single_engine_report(torch, dev, eng, prompt, tag,
+                                    ("embed_gather", "attend_flash")))
+    g = res["stochastic"]["graphed"]
+    res.update(tok_per_s=g["tok_per_s"], decode_step_ms=g["decode_step_ms"],
+               avg_accept_tokens=g["avg_accept_tokens"], launches=g["launches"])
+    res["kernel_shapes"] = family_kernel_shapes(torch, dev, "moe")
+    log(f"{tag} {json.dumps(res)}")
+    shared["runtimes"] = (t, d)
+    del eng
+    return res
+
+
+def shipped_tree(name):
+    """A shipped Sequoia tree (the port's copy of umbrella_tpu/trees/`name`)."""
+    from umbrella_tpu_torch.speculation.tree import GrowMap
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    return GrowMap.from_json(os.path.join(here, "umbrella_tpu_torch", "trees", name))
+
+
+def moe_batched_lossless(torch, dev):
+    """fp32, Mixtral-8x7B widths, 2 layers (the second's o_proj and experts'
+    w2 damped x0.05), the draft the first layer (early exit), int8 KV, B=4,
+    3x4 tree: BatchedStaticEngine.run() gives each of 5 requests of staggered
+    prompt lengths the single-slot engine's tokens (BATCHED_LOSSLESS_TOKENS
+    or more)."""
+    from umbrella_tpu_torch.models.auto_model import early_exit_runtime
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    tag = "[moe-serve] fp32"
+    target = family_runtime(torch, dev, dict(MIXTRAL_HF, num_hidden_layers=2), 61,
+                            torch.float32, MAX_LEN, damp_from=1)
+    draft = early_exit_runtime(target, 1)
+    reqs = [dict(r, input_ids=r["input_ids"][:PROMPT_LEN - PROMPT_LEN // 8 * i])
+            for i, r in enumerate(family_requests(3, 5, BATCHED_LOSSLESS_TOKENS,
+                                                  MIXTRAL_HF["vocab_size"]))]
+    eng = batched_engine(torch, dev, target, draft, 4, (3, 4), "int8", torch.float32)
+    reset_launch_counts()
+    outs = eng.run(reqs)
+    counts = launch_counts()
+    graphs = check_graphed(eng, tag)
+    check(counts["attend_flash_batched_int8"] > 0, f"{tag} attention never launched")
+    del eng
+    single = make_engine(torch, dev, target, draft, torch.float32, kv_dtype="int8", tree=(3, 4))
+    same = [first_difference(o["generated_tokens"], single.generate(
+        input_ids=r["input_ids"], max_new_tokens=BATCHED_LOSSLESS_TOKENS)["generated_tokens"])
+        for r, o in zip(reqs, outs)]
+    del single, target, draft
+    res = dict(identical_prefix=same, prompt_lens=[len(r["input_ids"]) for r in reqs],
+               avg_accept_tokens=[o["avg_accept_tokens"] for o in outs], graphs=graphs)
+    log(f"{tag} {json.dumps(res)}")
+    check(min(same) >= BATCHED_LOSSLESS_TOKENS,
+          f"{tag} batched and single-slot tokens differ: {same}")
+    return res
+
+
+def moe_serve_phase(torch, dev, dirs, shared):
+    """configs/serve_batched_mixtral_ep.json's keys without expert_parallel
+    (B=8, int8 KV, 3x4 tree, 8-step segments, max_length 4096) over
+    [moe-config]'s runtimes (built and loaded again where that phase did not
+    run). In bf16 a slot's rows in run() and in the single-slot engine go
+    through products of other row counts, and a last-bit difference before
+    the router can swap an expert (a jump in the logits, not a near tie):
+    the first MOE_SINGLE_CHECKED requests may part from the single-slot
+    engine only at a near tie of the logits or of the router on the rows
+    before the parting (router_margins). run() is held to the single-slot
+    engine exactly in fp32 (moe_batched_lossless)."""
+    from umbrella_tpu_torch.models.auto_model import AutoModelLM
+
+    t, d = shared.get("runtimes") or (build_moe_target(torch, dev, MOE_LAYERS),
+                                      AutoModelLM.from_pretrained(
+                                          dirs["mistral-7b-v0.3"]["dir"],
+                                          max_length=FAMILY_MAX_LEN, device=dev))
+    cfg = family_config("serve_batched_mixtral_ep.json", t, d, expert_parallel=None,
+                        eos_token_ids=[-100])
+    del t, d
+    res = family_serve_phase(torch, dev, "[moe-serve]", cfg, MIXTRAL_HF["vocab_size"],
+                             "attend_flash_batched_int8", router_ties=True,
+                             single_checked=MOE_SINGLE_CHECKED)
+    del cfg
+    shared.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["fp32"] = moe_batched_lossless(torch, dev)
+    return res
+
+
+def family_phases(torch, dev, phase, phases, prompt):
+    """The Gemma2 phases, then the MoE phases; each family's checkpoint
+    directories are written under build/ before its phases and deleted
+    after them."""
+    import shutil
+    import tempfile
+
+    from umbrella_tpu_torch.ops.kernels import build
+
+    phase("gemma-lossless", gemma_lossless_check, torch, dev, prompt)
+    moe_prompt = family_requests(0, 1, 0, MIXTRAL_HF["vocab_size"])[0]["input_ids"]
+    for family, names, models in (
+            ("gemma", GEMMA_PHASES[1:], [("gemma-2-9b", GEMMA_9B_HF, 51, 2),
+                                          ("gemma-2-2b", GEMMA_2B_HF, 52, 1)]),
+            ("moe", MOE_PHASES, [("mistral-7b-v0.3", MISTRAL_HF, 54, 2),
+                                  ("mixtral-8x7b", dict(MIXTRAL_HF,
+                                                        num_hidden_layers=MOE_CHECKPOINT_LAYERS),
+                                   53, 2)])):
+        if not set(names) & set(phases):
+            continue
+        os.makedirs(build.BUILD_DIR, exist_ok=True)
+        root = tempfile.mkdtemp(prefix=f"{family}-checkpoints-", dir=build.BUILD_DIR)
+        shared = {}
+        try:
+            dirs = write_family_dirs(torch, dev, root, models, f"[{family}-checkpoints]")
+            if family == "gemma":
+                phase("gemma-config", gemma_config_phase, torch, dev, dirs, prompt, shared)
+                phase("gemma-serve", gemma_serve_phase, torch, dev, dirs, shared)
+            else:
+                phase("moe-checkpoint", moe_checkpoint_phase, torch, dev, dirs)
+                phase("moe-config", moe_config_phase, torch, dev, dirs, moe_prompt, shared)
+                phase("moe-serve", moe_serve_phase, torch, dev, dirs, shared)
+        finally:
+            shared.clear()
+            shutil.rmtree(root, ignore_errors=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+GEMMA_PHASES = ("gemma-lossless", "gemma-config", "gemma-serve")
+MOE_PHASES = ("moe-checkpoint", "moe-config", "moe-serve")
+
+
 # ---------------------------------------------------------------- main
 
 KERNEL_META = {
@@ -4158,7 +5418,8 @@ LAUNCHES_FROM = {"attend_flash_int8": "lossless-int8", "attend_flash_batched": "
                  "w4a16_gate_up_silu": "kernels", "w4a16_matmul_layered": "pp-config"}
 # the phases of the dynamic engine and the offload tier: each kernel's launches a
 # step there (the dynamic main path's from its captured step)
-NEW_PATHS = ("dynamic", "offload-config")
+NEW_PATHS = ("dynamic", "offload-config", "gemma-config", "gemma-serve", "moe-config",
+             "moe-serve")
 # the per-shape timings of the offload configs' shapes ([kernels]): W4A16 at the
 # 70B layer shapes at S=256 and 257, attention at the 257-row verify and a 1B level
 NEW_SHAPES = ("70B wqkv S=25", "70B wo S=25", "70B gate_up S=25", "70B down S=25",
@@ -4178,10 +5439,25 @@ CHECKPOINT_PHASES = ("checkpoint", "code-config", "code-config-w4a8", "serve-con
 PHASES = ("kernels", "multi-card", "lossless", "lossless-int8", "lossless-w4a8",
           "batched-lossless", "pp-lossless", "dynamic-lossless", "offload-lossless", "main",
           "graph", "dynamic", "dynamic-pp", "serve", "serve-bf16",
-          "serve-stochastic") + CHECKPOINT_PHASES
+          "serve-stochastic") + CHECKPOINT_PHASES + GEMMA_PHASES + MOE_PHASES
 # phases that run only when named in --phases: `w4a16`, `w4a8` and
 # `attention` are subsets of `kernels`
 SUBSET_PHASES = ("w4a16", "w4a8", "attention")
+
+
+# each kernel's entries in [gemma-config]'s and [moe-config]'s kernel_shapes
+FAMILY_SHAPES = {"attend_flash": ("attend_flash window mask", "attend_flash full mask"),
+                 "attend_flash_batched": ("attend_flash_batched",),
+                 "attend_flash_batched_int8": ("attend_flash_batched_int8",),
+                 "embed_gather": ("embed_gather 256000x3584", "embed_gather 32000x4096",
+                                  "embed_gather 32768x4096")}
+
+
+def family_shapes(results, name):
+    """{"family_shapes": {"<phase> <shape>": timings}} of a kernel, or {}."""
+    shapes = {f"{p} {k}": results[p]["kernel_shapes"][k] for p in ("gemma-config", "moe-config")
+              for k in FAMILY_SHAPES.get(name, ()) if k in results[p]["kernel_shapes"]}
+    return {"family_shapes": shapes} if shapes else {}
 
 
 def run(torch, phases):
@@ -4272,6 +5548,7 @@ def run(torch, phases):
             phase("offload-config", offload_config_phase, torch, dev, ckpt, prompt.tolist())
         finally:
             shutil.rmtree(root, ignore_errors=True)
+    family_phases(torch, dev, phase, phases, prompt.tolist())
 
     if set(phases) != set(PHASES):
         log(f"[partial] phases {sorted(phases)} passed in {time.time() - t_all:.1f} s on {card}")
@@ -4298,7 +5575,8 @@ def run(torch, phases):
                                   for p in NEW_PATHS if results[p]["launches_per_step"][name]},
             **({"offload_config_shapes": {k: v for k, v in r["per_shape"].items()
                                           if k.startswith(NEW_SHAPES)}}
-               if "per_shape" in r else {})))
+               if "per_shape" in r else {}),
+            **family_shapes(results, name)))
     main, serve = results["main"], results["serve"]
     summary = {k: main[k] for k in ("tok_per_s", "decode_step_ms", "avg_accept_tokens",
                                     "ttft_ms_prefill128", "spec_vs_ar_common_prefix")}
@@ -4400,6 +5678,21 @@ def run(torch, phases):
                         profile=idle(g["profile"])),
         "eager": dict(decode_step_ms=g["eager"]["decode_step_ms"],
                       profile=idle(g["profile_eager"]))}
+    summary["gemma-lossless"] = results["gemma-lossless"]["identical_prefix"]
+    summary["moe-checkpoint"] = results["moe-checkpoint"]["logits_equal_in_memory"]
+    for name in ("gemma-config", "moe-config"):
+        r = results[name]
+        summary[name] = dict({k: r[k] for k in (
+            "tok_per_s", "decode_step_ms", "avg_accept_tokens", "ttft_ms_prefill128",
+            "peak_mem_gb", "pool_gb_by_device", "capture_ms")}, profile=idle(r["profile"]))
+    summary["gemma-config"].update(ttft_ms_prefill4200=results["gemma-config"][
+        "ttft_ms_prefill4200"], dynamic={k: results["gemma-config"]["dynamic"][k] for k in (
+            "tok_per_s", "decode_step_ms", "avg_accept_tokens", "stepwise_tok_per_s")})
+    summary["moe-config"]["target_layers"] = results["moe-config"]["target_layers"]
+    for name in ("gemma-serve", "moe-serve"):
+        summary[name] = {k: results[name][k] for k in (
+            "run_tok_per_s", "pipelined_tok_per_s", "avg_accept_tokens", "decode_step_ms",
+            "ttft_ms_p50", "peak_mem_gb")}
     summary["seconds"] = time.time() - t_all
     log(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -367,8 +367,11 @@ def test_from_pretrained_refusals(ckpts, tmp_path):
     dirs, _ = ckpts
     with open(tmp_path / "config.json", "w") as f:
         json.dump(dict(SMALL, model_type="gemma2"), f)
-    with pytest.raises(NotImplementedError, match="Gemma2 and MoE"):
+    # Gemma2 is ported: its loader runs (and finds no weights here); it has no offload form
+    with pytest.raises(FileNotFoundError):
         auto_model.AutoModelLM.from_pretrained(str(tmp_path), device=CPU)
+    with pytest.raises(ValueError, match="gemma2 has no offload loader"):
+        auto_model.AutoModelLM.from_pretrained(str(tmp_path), offload=True, device=CPU)
     assert auto_model.resolve_family("x", ModelConfig(model_type="mixtral")) == "moe"
     with pytest.raises(ValueError, match="MoE variant"):
         auto_model.resolve_family("x", ModelConfig(model_type="qwen2_moe", num_local_experts=4))

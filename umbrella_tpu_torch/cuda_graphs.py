@@ -47,13 +47,14 @@ device's current stream, or runs an eager segment's phases. A replay draws as
 many random numbers whether the step is live or a no-op; `rewind(n)` takes
 back the draws of n replays, so that a loop which ran n no-op replays past
 its stop leaves the random stream where a loop that stopped at once would.
-Capture and replays run under `torch.cuda.set_sync_debug_mode("error")`: a
-host read inside a step raises. A capture that fails raises; nothing falls
-back to eager steps.
+Capture and replays run under `no_host_sync`, a check confined to the
+thread that captures or replays: a host read inside a step raises. A
+capture that fails raises; nothing falls back to eager steps.
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -140,16 +141,57 @@ def run_phases(phases, ctx: Optional[dict] = None) -> dict:
     return ctx
 
 
+# the Tensor methods and torch functions that hand a tensor's values to the
+# host (or, for nonzero, size their output by them): a step must not call them
+_HOST_READS = frozenset(
+    [getattr(torch.Tensor, n) for n in ("item", "tolist", "numpy", "cpu", "nonzero", "__bool__",
+                                        "__int__", "__float__", "__index__", "__complex__")]
+    + [torch.nonzero])
+
+
+def _to_host(func, args, kwargs) -> bool:
+    """Whether a Tensor.to call is a blocking copy to the host."""
+    if func is not torch.Tensor.to or kwargs.get("non_blocking") \
+            or (len(args) > 2 and isinstance(args[2], bool) and args[2]):
+        return False
+    device = kwargs.get("device", args[1] if len(args) > 1 else None)
+    return isinstance(device, (str, torch.device)) and torch.device(device).type == "cpu"
+
+
+_checked = threading.local()
+
+
+class _NoHostRead(torch.overrides.TorchFunctionMode):
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in _HOST_READS or _to_host(func, args, kwargs):
+            raise RuntimeError(f"host read inside a captured or replayed step: "
+                               f"{getattr(func, '__name__', func)}")
+        return func(*args, **kwargs)
+
+
 @contextlib.contextmanager
 def no_host_sync():
-    """torch.cuda.set_sync_debug_mode("error") for the block (the previous
-    mode after it)."""
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
+    """Raise on a host read (Tensor.item, tolist, numpy, cpu, nonzero, a
+    blocking .to("cpu"), bool/int/float of a tensor) made by this thread
+    inside the block.
+
+    A torch function mode, which is thread-local: another thread's reads
+    are not checked (torch.cuda.set_sync_debug_mode would check every
+    thread's). A capture is checked by CUDA as well: it runs with
+    capture_error_mode="thread_local", under which a synchronizing call
+    from the capturing thread fails the capture."""
+    _checked.depth = host_reads_checked() + 1
     try:
-        yield
+        with _NoHostRead():
+            yield
     finally:
-        torch.cuda.set_sync_debug_mode(prev)
+        _checked.depth -= 1
+
+
+def host_reads_checked() -> int:
+    """How many no_host_sync blocks this thread is inside."""
+    return getattr(_checked, "depth", 0)
 
 
 class StepGraph:

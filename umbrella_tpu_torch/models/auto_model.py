@@ -1,15 +1,17 @@
-"""Model registry and runtime construction for the llama family.
+"""Model registry and runtime construction.
 
 Counterpart of `umbrella_tpu/models/auto_model.py`: ModelRuntime, loading a
 checkpoint directory (`AutoModelLM.from_pretrained`: HF fp or AutoAWQ
 safetensors / .bin), early-exit drafts and random runtimes. The family is
-resolved from the checkpoint's `model_type` as in the JAX package; Gemma2 and
-MoE resolve but are not ported (ROADMAP queue A, "Gemma2 and MoE").
-`offload=True` loads an OffloadModelRuntime (offload/streaming.py) layer by
+resolved from the checkpoint's `model_type` as in the JAX package: the llama
+families (llama, qwen2, mistral; models/llama.py), gemma2 (models/gemma.py)
+and moe (Mixtral, models/moe.py). `offload=True` loads an
+OffloadModelRuntime (offload/streaming.py, llama families only) layer by
 layer instead, its first `num_cache_layers` layers on the device.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -22,6 +24,7 @@ from .llama import StaticModelArgs, init_llama_params, llama_forward
 from .weights import load_llama_params
 
 LLAMA_FAMILIES = ("llama", "qwen2", "mistral")
+FAMILIES = LLAMA_FAMILIES + ("gemma2", "moe")
 
 # Qwen2.5 serving vocab (checkpoints pad the embedding past it)
 QWEN25_VOCAB = 151936
@@ -75,10 +78,9 @@ def resolve_family(model_name: str, cfg: Optional[ModelConfig] = None) -> str:
     return "llama"
 
 
-def _check_family(family: str) -> None:
-    if family not in LLAMA_FAMILIES:
-        raise NotImplementedError(
-            f"model family '{family}' is not ported yet (ROADMAP queue A, Gemma2 and MoE)")
+def _check_family(family: str, families=FAMILIES, what: str = "the port") -> None:
+    if family not in families:
+        raise NotImplementedError(f"model family '{family}' is not supported by {what}")
 
 
 class ModelRuntime:
@@ -103,6 +105,17 @@ class ModelRuntime:
         self.model_name = model_name
         self.device = resolve_device(device)
         self.args = StaticModelArgs.from_config(cfg, n_layers=n_layers)
+        if family == "gemma2":
+            from .gemma import GemmaStaticArgs, gemma2_forward
+
+            self.gemma_args = GemmaStaticArgs.from_config(cfg, n_layers=n_layers)
+            self._forward = gemma2_forward
+        elif family == "moe":
+            from .moe import moe_decode_forward
+
+            self._forward = functools.partial(moe_decode_forward, top_k=cfg.num_experts_per_tok)
+        else:
+            self._forward = llama_forward
 
     @property
     def stage_devices(self):
@@ -123,11 +136,11 @@ class ModelRuntime:
             from ..parallel.pipeline import pp_forward
 
             return pp_forward(self)
-        args = self.args
+        forward = self._forward
+        args = self.gemma_args if self.family == "gemma2" else self.args
 
         def fwd(params, kv, input_ids, position_ids, attn_mask, write_offset):
-            return llama_forward(params, args, kv, input_ids, position_ids, attn_mask,
-                                 write_offset)
+            return forward(params, args, kv, input_ids, position_ids, attn_mask, write_offset)
 
         return fwd
 
@@ -185,7 +198,12 @@ class AutoModelLM:
             # draft and target token ids align
             cfg.vocab_size = min(cfg.vocab_size, QWEN25_VOCAB)
         n_layers = exit_layer if (exit_layer and exit_layer > 0) else None
-        if cfg.quantization and cfg.quantization.get("method") == "awq":
+        awq = bool(cfg.quantization and cfg.quantization.get("method") == "awq")
+        if (awq or offload) and family not in LLAMA_FAMILIES:
+            # the JAX package's AWQ and offload loaders take llama keys only
+            raise ValueError(f"{family} has no {'AWQ' if awq else 'offload'} loader: "
+                             f"it takes the families {LLAMA_FAMILIES}")
+        if awq:
             from ..quantization.loader import load_awq_runtime
 
             return load_awq_runtime(model_name, cfg, max_length=max_length, dtype=dtype,
@@ -198,8 +216,18 @@ class AutoModelLM:
             return OffloadModelRuntime.load(model_name, cfg, max_length=max_length, dtype=dtype,
                                             family=family, n_layers=n_layers,
                                             num_cache_layers=num_cache_layers, device=device)
-        params = load_llama_params(model_name, cfg, max_length, dtype, n_layers=n_layers,
-                                   packed=packed, device=device)
+        if family == "moe":
+            from .moe import load_moe_params
+
+            params = load_moe_params(model_name, cfg, dtype, n_layers=n_layers, device=device)
+        elif family == "gemma2":
+            from .gemma import load_gemma_params
+
+            params = load_gemma_params(model_name, cfg, max_length, dtype, n_layers=n_layers,
+                                       device=device)
+        else:
+            params = load_llama_params(model_name, cfg, max_length, dtype, n_layers=n_layers,
+                                       packed=packed, device=device)
         return ModelRuntime(cfg, params, max_length, dtype=dtype, family=family,
                             n_layers=n_layers, model_name=model_name, device=device)
 

@@ -1,8 +1,9 @@
 """Batched (multi-slot) Llama forward and KV cache for continuous batching.
 
-Counterpart of `umbrella_tpu/models/batched.py`, Llama family only (the Gemma2
-and MoE batched forms are in ROADMAP queue A, "Gemma2 and MoE"). B request
-slots decode in one forward, each with its own committed length and KV window.
+Counterpart of `umbrella_tpu/models/batched.py`: the all-slots and single-slot
+forwards of the llama, Gemma2 and MoE families (the tensor-parallel Gemma2
+forms, the JAX package's `tp_axis`, are not ported). B request slots decode in
+one forward, each with its own committed length and KV window.
 
 KV layout [n_layers, B, kv_heads, L, head_dim] (int8 values with fp32 scales
 [n_layers, B, kv_heads, L] when quantized), as in the JAX package. The JAX
@@ -22,8 +23,11 @@ from ..ops.attention import attend_batched
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope
 from ..ops.select import embed_lookup
+from .gemma import (GemmaStaticArgs, embed_scaled, gemma2_block, gemma_logits, is_sliding,
+                    sliding_mask)
 from .kv_cache import _quantize_block, is_int8
 from .llama import StaticModelArgs, _attn_projections, _linear, _mlp_act, lm_head_logits
+from .moe import moe_block
 
 
 class BatchedKVCache(NamedTuple):
@@ -118,24 +122,79 @@ def gather_compact_batched(kv: BatchedKVCache, local_indices: torch.Tensor,
     return kv
 
 
-def _layer_block(args: StaticModelArgs, lw: dict, hidden: torch.Tensor, attend_fn):
-    """One decoder layer on hidden [N, H] (N = B * S rows); `attend_fn(q, k, v)`
+def _layer_block(args: StaticModelArgs, lw: dict, hidden: torch.Tensor, attend_fn,
+                 top_k: int = 0):
+    """One llama-family decoder layer on hidden [N, H] (N = B * S rows), or with
+    `top_k` > 0 one MoE layer (its MLP models/moe's); `attend_fn(q, k, v)`
     writes the layer's KV and returns attention [N, heads * D].
 
     As in the JAX package's batched forward, `awq_act="int8"` reaches only the
     QKV projection (through _attn_projections): wo, the MLP and down run W4A16
     (ROADMAP queue C)."""
-    residual = hidden
     x = rms_norm(hidden, lw["input_norm"], args.rms_eps)
-    q, k, v = _attn_projections(args, lw, x)
-    hidden = residual + _linear(attend_fn(q, k, v), lw["wo"])
-    residual = hidden
+    attn = _linear(attend_fn(*_attn_projections(args, lw, x)), lw["wo"])
+    if top_k:
+        return moe_block(args, lw, hidden, attn, top_k)
+    hidden = hidden + attn
     x = rms_norm(hidden, lw["post_norm"], args.rms_eps)
-    return residual + _linear(_mlp_act(lw, x), lw["down"])
+    return hidden + _linear(_mlp_act(lw, x), lw["down"])
 
 
 def _final_logits(params: dict, args: StaticModelArgs, hidden: torch.Tensor) -> torch.Tensor:
     return lm_head_logits(params, rms_norm(hidden, params["final_norm"], args.rms_eps))
+
+
+def _attend_all_slots(args, params: dict, kv: BatchedKVCache, i: int, position_ids, mask,
+                      write_offsets, kv_limits, scale=None, soft_cap: float = 0.0):
+    """attend_fn of layer i over every slot: rope on q/k [B * S, heads * D]
+    (per row, so the flattened rows rotate as the JAX package's vmap does),
+    the KV write at each slot's offset, then batched attention."""
+    B, S = position_ids.shape
+    H, KVH, D = args.num_heads, args.num_kv_heads, args.head_dim
+
+    def attend_fn(q, k, v):
+        q, k = apply_rope(q.reshape(B * S, H, D), k.reshape(B * S, KVH, D),
+                          params["rope_inv_freq"], params["rope_scale"], position_ids.reshape(-1))
+        update_layer_batched(kv, i, k.reshape(B, S, KVH, D), v.reshape(B, S, KVH, D),
+                             write_offsets)
+        out = attend_batched(q.reshape(B, S, H, D).contiguous(), kv.k, kv.v, mask, kv_limits, i,
+                             scale=scale, logits_soft_cap=soft_cap, k_scale=kv.k_scale,
+                             v_scale=kv.v_scale)
+        return out.reshape(B * S, H * D)
+
+    return attend_fn
+
+
+def _slot_limits(position_ids, slot: int, write_offset: int):
+    """int32 [1] kv limit and slot of a single-slot forward, filled on the
+    device (no host-to-device copy, so nothing waits on the stream)."""
+    dev, S = position_ids.device, position_ids.shape[0]
+    return (torch.full((1,), int(write_offset) + S, dtype=torch.int32, device=dev),
+            torch.full((1,), int(slot), dtype=torch.int32, device=dev))
+
+
+def _attend_one_slot(args, params: dict, kv: BatchedKVCache, i: int, position_ids, mask,
+                     slot: int, write_offset: int, limits, scale=None, soft_cap: float = 0.0):
+    """attend_fn of layer i for one slot's rows [S] (the prefill path);
+    `limits` is _slot_limits'."""
+    S = position_ids.shape[0]
+    H, KVH, D = args.num_heads, args.num_kv_heads, args.head_dim
+    kv_limits, slots = limits
+
+    def attend_fn(q, k, v):
+        q, k = apply_rope(q.reshape(S, H, D), k.reshape(S, KVH, D), params["rope_inv_freq"],
+                          params["rope_scale"], position_ids)
+        update_layer_slot(kv, i, k, v.reshape(S, KVH, D), slot, write_offset)
+        out = attend_batched(q[None].contiguous(), kv.k, kv.v, mask[None], kv_limits, i,
+                             slots=slots, scale=scale, logits_soft_cap=soft_cap,
+                             k_scale=kv.k_scale, v_scale=kv.v_scale)
+        return out.reshape(S, H * D)
+
+    return attend_fn
+
+
+def _layers(params: dict, i: int) -> dict:
+    return {k: v[i] for k, v in params["layers"].items()}
 
 
 def batched_llama_forward(params: dict, args: StaticModelArgs, kv: BatchedKVCache,
@@ -143,28 +202,16 @@ def batched_llama_forward(params: dict, args: StaticModelArgs, kv: BatchedKVCach
                           position_ids: torch.Tensor,  # [B, S]
                           attn_mask: torch.Tensor,  # [B, S, L] bool
                           write_offsets: torch.Tensor,  # [B] int32, on the device
-                          ) -> Tuple[torch.Tensor, BatchedKVCache]:
-    """All-slots forward; returns (fp32 logits [B, S, V], kv updated in place)."""
+                          top_k: int = 0) -> Tuple[torch.Tensor, BatchedKVCache]:
+    """All-slots forward; returns (fp32 logits [B, S, V], kv updated in place).
+    `top_k` > 0 makes it the MoE family's (batched_moe_forward)."""
     B, S = input_ids.shape
-    H, KVH, D = args.num_heads, args.num_kv_heads, args.head_dim
-    inv_freq, rope_scale = params["rope_inv_freq"], params["rope_scale"]
     kv_limits = (write_offsets + S).to(torch.int32)
-    pos = position_ids.reshape(-1)
     hidden = embed_lookup(params["embed"], input_ids.reshape(-1), params["final_norm"].dtype)
-
     for i in range(args.n_layers):
-        def attend_fn(q, k, v, i=i):
-            # rope is per row, so the flattened [B * S] rows rotate as vmap would
-            q, k = apply_rope(q.reshape(B * S, H, D), k.reshape(B * S, KVH, D),
-                              inv_freq, rope_scale, pos)
-            update_layer_batched(kv, i, k.reshape(B, S, KVH, D), v.reshape(B, S, KVH, D),
-                                 write_offsets)
-            out = attend_batched(q.reshape(B, S, H, D).contiguous(), kv.k, kv.v, attn_mask,
-                                 kv_limits, i, k_scale=kv.k_scale, v_scale=kv.v_scale)
-            return out.reshape(B * S, H * D)
-
-        lw = {k: v[i] for k, v in params["layers"].items()}
-        hidden = _layer_block(args, lw, hidden, attend_fn)
+        attend_fn = _attend_all_slots(args, params, kv, i, position_ids, attn_mask,
+                                      write_offsets, kv_limits)
+        hidden = _layer_block(args, _layers(params, i), hidden, attend_fn, top_k)
     return _final_logits(params, args, hidden).reshape(B, S, -1), kv
 
 
@@ -172,27 +219,91 @@ def slot_llama_forward(params: dict, args: StaticModelArgs, kv: BatchedKVCache,
                        input_ids: torch.Tensor,  # [S]
                        position_ids: torch.Tensor,  # [S]
                        attn_mask: torch.Tensor,  # [S, L] bool
-                       slot: int, write_offset: int) -> Tuple[torch.Tensor, BatchedKVCache]:
+                       slot: int, write_offset: int,
+                       top_k: int = 0) -> Tuple[torch.Tensor, BatchedKVCache]:
     """Single-sequence forward into cache row `slot` (the prefill path); returns
-    (fp32 logits [S, V], kv updated in place)."""
-    S = input_ids.shape[0]
-    H, KVH, D = args.num_heads, args.num_kv_heads, args.head_dim
-    inv_freq, rope_scale = params["rope_inv_freq"], params["rope_scale"]
-    dev = input_ids.device
-    # device-side fills: no host-to-device copy, so nothing waits on the stream
-    kv_limits = torch.full((1,), int(write_offset) + S, dtype=torch.int32, device=dev)
-    slots = torch.full((1,), int(slot), dtype=torch.int32, device=dev)
+    (fp32 logits [S, V], kv updated in place). `top_k` > 0 makes it the MoE
+    family's (slot_moe_forward)."""
+    limits = _slot_limits(position_ids, slot, write_offset)
     hidden = embed_lookup(params["embed"], input_ids, params["final_norm"].dtype)
-
     for i in range(args.n_layers):
-        def attend_fn(q, k, v, i=i):
-            q, k = apply_rope(q.reshape(S, H, D), k.reshape(S, KVH, D), inv_freq, rope_scale,
-                              position_ids)
-            update_layer_slot(kv, i, k, v.reshape(S, KVH, D), slot, write_offset)
-            out = attend_batched(q[None].contiguous(), kv.k, kv.v, attn_mask[None], kv_limits, i,
-                                 slots=slots, k_scale=kv.k_scale, v_scale=kv.v_scale)
-            return out.reshape(S, H * D)
-
-        lw = {k: v[i] for k, v in params["layers"].items()}
-        hidden = _layer_block(args, lw, hidden, attend_fn)
+        attend_fn = _attend_one_slot(args, params, kv, i, position_ids, attn_mask, slot,
+                                     write_offset, limits)
+        hidden = _layer_block(args, _layers(params, i), hidden, attend_fn, top_k)
     return _final_logits(params, args, hidden), kv
+
+
+def batched_moe_forward(params: dict, args: StaticModelArgs, kv: BatchedKVCache,
+                        input_ids, position_ids, attn_mask, write_offsets,
+                        top_k: int = 2) -> Tuple[torch.Tensor, BatchedKVCache]:
+    """All-slots MoE forward: batched_llama_forward's attention over the batched
+    cache and the dense-dispatch top-k MoE MLP (models/moe.py)."""
+    return batched_llama_forward(params, args, kv, input_ids, position_ids, attn_mask,
+                                 write_offsets, top_k=top_k)
+
+
+def slot_moe_forward(params: dict, args: StaticModelArgs, kv: BatchedKVCache,
+                     input_ids, position_ids, attn_mask, slot: int, write_offset: int,
+                     top_k: int = 2) -> Tuple[torch.Tensor, BatchedKVCache]:
+    """Single-slot MoE forward (the batched engine's prefill path)."""
+    return slot_llama_forward(params, args, kv, input_ids, position_ids, attn_mask, slot,
+                              write_offset, top_k=top_k)
+
+
+def batched_gemma2_forward(params: dict, args: GemmaStaticArgs, kv: BatchedKVCache,
+                           input_ids: torch.Tensor,  # [B, S]
+                           position_ids: torch.Tensor,  # [B, S]
+                           attn_mask: torch.Tensor,  # [B, S, L] bool
+                           write_offsets: torch.Tensor,  # [B] int32, on the device
+                           ) -> Tuple[torch.Tensor, BatchedKVCache]:
+    """All-slots Gemma2 forward (models/gemma.py's layer, each slot's sliding
+    window from its own positions); returns (fp32 logits [B, S, V], kv)."""
+    B, S = input_ids.shape
+    kv_limits = (write_offsets + S).to(torch.int32)
+    masks = (attn_mask, sliding_mask(attn_mask, position_ids, args.sliding_window))
+    hidden = embed_scaled(params, args, input_ids.reshape(-1))
+    for i in range(args.n_layers):
+        attend_fn = _attend_all_slots(args, params, kv, i, position_ids, masks[is_sliding(i)],
+                                      write_offsets, kv_limits, scale=args.attn_scale,
+                                      soft_cap=args.attn_softcap)
+        hidden = gemma2_block(args, _layers(params, i), hidden, attend_fn)
+    return gemma_logits(params, args, hidden).reshape(B, S, -1), kv
+
+
+def slot_gemma2_forward(params: dict, args: GemmaStaticArgs, kv: BatchedKVCache,
+                        input_ids: torch.Tensor,  # [S]
+                        position_ids: torch.Tensor,  # [S]
+                        attn_mask: torch.Tensor,  # [S, L] bool
+                        slot: int, write_offset: int) -> Tuple[torch.Tensor, BatchedKVCache]:
+    """Single-slot Gemma2 forward (the batched engine's prefill path)."""
+    limits = _slot_limits(position_ids, slot, write_offset)
+    masks = (attn_mask, sliding_mask(attn_mask, position_ids, args.sliding_window))
+    hidden = embed_scaled(params, args, input_ids)
+    for i in range(args.n_layers):
+        attend_fn = _attend_one_slot(args, params, kv, i, position_ids, masks[is_sliding(i)],
+                                     slot, write_offset, limits, scale=args.attn_scale,
+                                     soft_cap=args.attn_softcap)
+        hidden = gemma2_block(args, _layers(params, i), hidden, attend_fn)
+    return gemma_logits(params, args, hidden), kv
+
+
+def model_forwards(runtime):
+    """(batched_fwd, slot_fwd) of one runtime, by family:
+    batched_fwd(params, kv, ids, pos, mask, offsets) and
+    slot_fwd(params, kv, ids, pos, mask, slot, offset)."""
+    args, extra = runtime.args, {}
+    if runtime.family == "gemma2":
+        args, batched, slot = runtime.gemma_args, batched_gemma2_forward, slot_gemma2_forward
+    elif runtime.family == "moe":
+        batched, slot = batched_moe_forward, slot_moe_forward
+        extra = dict(top_k=runtime.cfg.num_experts_per_tok)
+    else:
+        batched, slot = batched_llama_forward, slot_llama_forward
+
+    def batched_fwd(params, kv, ids, pos, mask, offsets):
+        return batched(params, args, kv, ids, pos, mask, offsets, **extra)
+
+    def slot_fwd(params, kv, ids, pos, mask, slot_index, offset):
+        return slot(params, args, kv, ids, pos, mask, slot_index, offset, **extra)
+
+    return batched_fwd, slot_fwd

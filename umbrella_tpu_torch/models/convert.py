@@ -10,9 +10,12 @@ ml_dtypes extension type) are reinterpreted bit for bit as torch.bfloat16.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from ..config import ModelConfig
 from ..quantization.awq import AwqTensor
 from ..quantization.int4f import Int4FTensor
 from .batched import BatchedKVCache
@@ -61,9 +64,29 @@ def _convert(x, device, dtype):
 
 
 def params_from_numpy(params: dict, device="cpu", dtype=None) -> dict:
-    """The JAX package's llama param tree (numpy leaves) -> the port's tree with
-    the same keys. Scalars (rope_scale) become Python floats."""
+    """The JAX package's param tree (numpy leaves) -> the port's tree with the
+    same keys: the llama families', Gemma2's (four norms a layer, separate
+    q/k/v and gate/up) and MoE's (router and stacked experts). Scalars
+    (rope_scale) become Python floats."""
     return _convert(params, torch.device(device), dtype)
+
+
+def config_from(cfg) -> ModelConfig:
+    """The port's ModelConfig with every field that `cfg` (the JAX package's
+    ModelConfig, or any object with those attribute names) has: the Gemma2
+    soft caps, scalar and window and the MoE expert counts included."""
+    return ModelConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(ModelConfig)
+                          if hasattr(cfg, f.name)})
+
+
+def runtime_from_numpy(params: dict, cfg, max_length: int, family: str = "llama",
+                       dtype=torch.float32, n_layers=None, device="cpu"):
+    """A ModelRuntime of `family` over the JAX package's params (numpy leaves)
+    and config, on `device`."""
+    from .auto_model import ModelRuntime
+
+    return ModelRuntime(config_from(cfg), params_from_numpy(params, device), max_length,
+                        dtype=dtype, family=family, n_layers=n_layers, device=device)
 
 
 def offload_runtime_from_numpy(top: dict, host_layers, cfg, max_length: int,

@@ -1,0 +1,215 @@
+"""Mixture-of-experts (Mixtral-style) llama variant.
+
+Counterpart of `umbrella_tpu/models/moe.py`. Experts are stacked per layer:
+router [n, H, E], expert_gate / expert_up [n, E, H, I], expert_down
+[n, E, I, H]. Routing is top-k softmax gating with a dense one-hot combine, as
+in the JAX package: every expert computes every token and the combine weights
+zero the pairs that were not routed. Attention is the llama KV-cache path
+(llama.llama_attention: the flash kernel, rope, in-place cache writes).
+
+Numerics follow the JAX package: the router product is fp32; the top-k takes
+ties by the lower expert index (a stable descending sort; `torch.topk` on CUDA
+promises no order among equal values); the top-k weights are normalised by
+max(sum, 1e-9) and the one-hot combine is built in x's dtype; the expert
+products run in the params' dtype (in bf16 their outputs are bf16), not
+through llama._linear's fp32 upcast, which at Mixtral widths would copy every
+expert of a layer to fp32 on every forward.
+
+Not ported yet: expert parallelism (`moe_param_specs`, `shard_params_ep`,
+`shard_runtime_ep`; ROADMAP A.4) and training (`_moe_layer`,
+`moe_train_forward`, `make_moe_train_step`; ROADMAP A.5).
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..config import ModelConfig
+from ..ops.norms import rms_norm
+from ..ops.rope import rope_params
+from ..ops.select import embed_lookup
+from ..utils import resolve_device
+from .kv_cache import KVCache
+from .llama import StaticModelArgs, kv_limit_of, llama_attention, lm_head_logits
+
+
+def init_moe_llama_params(cfg: ModelConfig, generator: torch.Generator, n_experts: int,
+                          dtype=torch.float32, device="cpu") -> dict:
+    """Random params (Glorot-normal weights, unit norms), built on `device`.
+    Random numbers come from `generator`; they are not JAX's."""
+    n = cfg.num_hidden_layers
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    D = cfg.resolved_head_dim
+    Hq = cfg.num_attention_heads * D
+    KV = cfg.num_key_value_heads * D
+    E = n_experts
+
+    def init(*shape):
+        std = (2.0 / (shape[-2] + shape[-1])) ** 0.5
+        if len(shape) < 3:
+            return (torch.randn(shape, generator=generator, device=device) * std).to(dtype)
+        # one matrix at a time: an fp32 layer of Mixtral experts would be 1.9 GB
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for idx in itertools.product(*map(range, shape[:-2])):
+            out[idx] = torch.randn(shape[-2:], generator=generator, device=device) * std
+        return out
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    layers = {
+        "input_norm": ones(n, H), "post_norm": ones(n, H),
+        "wq": init(n, H, Hq), "wk": init(n, H, KV), "wv": init(n, H, KV), "wo": init(n, Hq, H),
+        "router": init(n, H, E),
+        "expert_gate": init(n, E, H, I), "expert_up": init(n, E, H, I),
+        "expert_down": init(n, E, I, H),
+    }
+    params = {"embed": init(V, H), "final_norm": ones(H), "layers": layers,
+              **rope_params(cfg, device=device)}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = init(H, V)
+    return params
+
+
+def top_k_lowest_index(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest entries of the last axis, equal values
+    taken in index order (`lax.top_k`'s order)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(lw: dict, x: torch.Tensor, top_k: int):
+    """Router probabilities [..., E] (fp32) and the dense combine weights
+    [..., E] in x.dtype (the normalised top-k weights, zero elsewhere)."""
+    router = lw["router"]
+    E = router.shape[-1]
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    top_vals, top_idx = top_k_lowest_index(probs, top_k)
+    top_vals = top_vals / torch.clamp(top_vals.sum(dim=-1, keepdim=True), min=1e-9)
+    onehot = (top_idx[..., None] == torch.arange(E, device=x.device)).to(x.dtype)
+    return probs, onehot, (onehot * top_vals[..., None].to(x.dtype)).sum(dim=-2)
+
+
+def experts(lw: dict, x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """sum_e weights[..., e] * down_e(silu(gate_e(x)) * up_e(x)) over every
+    expert, x [..., H] in the params' dtype -> [..., H]."""
+    shape = x.shape
+    xf = x.reshape(1, -1, shape[-1])
+    g = torch.matmul(xf, lw["expert_gate"])  # [E, N, I]
+    u = torch.matmul(xf, lw["expert_up"])
+    y = torch.matmul(F.silu(g) * u, lw["expert_down"])  # [E, N, H]
+    w = weights.reshape(-1, weights.shape[-1]).to(y.dtype)  # [N, E]
+    return torch.einsum("enh,ne->nh", y, w).reshape(shape)
+
+
+def moe_mlp(lw: dict, x: torch.Tensor, top_k: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense-dispatch top-k MoE over x [B, S, H]. Returns (out, aux_loss), the
+    aux loss Switch-style: E * sum_e (fraction routed to e * mean prob of e)."""
+    probs, onehot, weights = route(lw, x, top_k)
+    E = probs.shape[-1]
+    frac = onehot.sum(dim=2).float().mean(dim=(0, 1))
+    aux = E * (frac * probs.mean(dim=(0, 1))).sum()
+    return experts(lw, x, weights), aux
+
+
+def moe_block(args: StaticModelArgs, lw: dict, hidden: torch.Tensor, attend_out, top_k: int):
+    """The residual MoE half of a layer: hidden + attention, then + moe_mlp."""
+    hidden = hidden + attend_out
+    x = rms_norm(hidden, lw["post_norm"], args.rms_eps)
+    return hidden + experts(lw, x, route(lw, x, top_k)[2])
+
+
+def moe_decode_forward(params: dict, args: StaticModelArgs, kv: KVCache,
+                       input_ids: torch.Tensor,  # [S]
+                       position_ids: torch.Tensor,  # [S]
+                       attn_mask: torch.Tensor,  # [S, L] bool
+                       write_offset, top_k: int = 2) -> Tuple[torch.Tensor, KVCache]:
+    """The engines' forward for the MoE family: (fp32 logits [S, V], kv updated
+    in place). `write_offset` is a host int or a 0-d device tensor."""
+    inv_freq, rope_scale = params["rope_inv_freq"], params["rope_scale"]
+    kv_limit = kv_limit_of(write_offset, input_ids.shape[0], kv)
+    hidden = embed_lookup(params["embed"], input_ids, params["final_norm"].dtype)
+    for i in range(args.n_layers):
+        lw = {k: v[i] for k, v in params["layers"].items()}
+        x = rms_norm(hidden, lw["input_norm"], args.rms_eps)
+        attn_out, kv = llama_attention(args, lw, x, kv, i, position_ids, attn_mask,
+                                       write_offset, inv_freq, rope_scale, kv_limit)
+        hidden = moe_block(args, lw, hidden, attn_out, top_k)
+    hidden = rms_norm(hidden, params["final_norm"], args.rms_eps)
+    return lm_head_logits(params, hidden), kv
+
+
+def moe_params_from_hf_state_dict(sd, cfg: ModelConfig, dtype=torch.float32,
+                                  n_layers: Optional[int] = None, device="cpu") -> dict:
+    """The stacked MoE tree from HF Mixtral tensors: per-expert
+    `block_sparse_moe.experts.{e}.w{1,2,3}.weight` [out, in] stack to
+    [layer, E, in, out], the router `block_sparse_moe.gate.weight` [E, H] to
+    [layer, H, E]. Each tensor is cast on `device`."""
+    from .weights import fetch, stack_layers, trim_vocab_rows
+
+    n = n_layers if n_layers is not None else cfg.num_hidden_layers
+    E = cfg.num_local_experts
+    if not E:
+        raise ValueError("MoE checkpoint requires num_local_experts in config.json")
+    P = "model.layers.{}."
+
+    def get(name):
+        return fetch(sd, name, device, torch.float32).to(dtype)
+
+    def linear(name):
+        return stack_layers(n, lambda i: get((P + name).format(i)).T)
+
+    def vec(name):
+        return stack_layers(n, lambda i: get((P + name).format(i)))
+
+    def expert_stack(w):
+        return stack_layers(n, lambda i: stack_layers(
+            E, lambda e: get((P + f"block_sparse_moe.experts.{e}.{w}.weight").format(i)).T))
+
+    layers = {
+        "input_norm": vec("input_layernorm.weight"),
+        "post_norm": vec("post_attention_layernorm.weight"),
+        "wq": linear("self_attn.q_proj.weight"),
+        "wk": linear("self_attn.k_proj.weight"),
+        "wv": linear("self_attn.v_proj.weight"),
+        "wo": linear("self_attn.o_proj.weight"),
+        "router": linear("block_sparse_moe.gate.weight"),
+        "expert_gate": expert_stack("w1"),
+        "expert_down": expert_stack("w2"),
+        "expert_up": expert_stack("w3"),
+    }
+    params = {
+        "embed": trim_vocab_rows(get("model.embed_tokens.weight"), cfg.vocab_size).contiguous(),
+        "final_norm": get("model.norm.weight"),
+        "layers": layers,
+        **rope_params(cfg, device=device),
+    }
+    if not cfg.tie_word_embeddings and "lm_head.weight" in sd:
+        params["lm_head"] = trim_vocab_rows(get("lm_head.weight"), cfg.vocab_size).T.contiguous()
+    return params
+
+
+def load_moe_params(path: str, cfg: ModelConfig, dtype=torch.float32, n_layers=None,
+                    device="cpu") -> dict:
+    """HF Mixtral-format checkpoint directory -> the stacked MoE tree on `device`."""
+    from .weights import read_state_dict
+
+    with read_state_dict(path) as sd:
+        return moe_params_from_hf_state_dict(sd, cfg, dtype, n_layers=n_layers, device=device)
+
+
+def moe_runtime(cfg: ModelConfig, params: dict, max_length: int, dtype=torch.float32,
+                top_k: int = 2, device="cuda"):
+    """ModelRuntime of the MoE family over `params` (already on `device`),
+    routing `top_k` experts a token (the runtime's config says so)."""
+    from .auto_model import ModelRuntime
+
+    if top_k != cfg.num_experts_per_tok:
+        cfg = dataclasses.replace(cfg, num_experts_per_tok=top_k)
+    return ModelRuntime(cfg, params, max_length, dtype=dtype, family="moe",
+                        n_layers=params["layers"]["router"].shape[0],
+                        device=resolve_device(device))

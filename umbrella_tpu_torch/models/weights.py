@@ -14,6 +14,7 @@ checkpoint.
 """
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import mmap
@@ -97,6 +98,30 @@ def _load_state_dict(path: str):
     raise FileNotFoundError(f"no safetensors/bin checkpoint found under {path}")
 
 
+@contextlib.contextmanager
+def read_state_dict(path: str):
+    """_load_state_dict(path) for the block; its files are closed after it."""
+    sd = _load_state_dict(path)
+    try:
+        yield sd
+    finally:
+        if isinstance(sd, SafetensorsReader):
+            sd.close()
+
+
+def stack_layers(n: int, make) -> torch.Tensor:
+    """torch.stack([make(i) for i in range(n)]) written into one tensor as each
+    layer is made, so no list of n layers is held beside the stack."""
+    out = None
+    for i in range(n):
+        t = make(i)
+        if out is None:
+            out = torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+        out[i].copy_(t)
+        del t
+    return out
+
+
 def fetch(sd, name: str, device, dtype=None) -> torch.Tensor:
     """sd[name] on `device`, cast there to `dtype` when given (so no converted
     copy is made on the host). numpy arrays are accepted too."""
@@ -125,13 +150,9 @@ def load_llama_params(path: str, cfg: ModelConfig, max_length: int, dtype=torch.
     """The llama-family param tree from an HF (non-quantized) checkpoint
     directory (Llama/Mistral, Qwen2.5 attention biases). AWQ checkpoints go
     through quantization/loader.py."""
-    sd = _load_state_dict(path)
-    try:
+    with read_state_dict(path) as sd:
         return params_from_hf_state_dict(sd, cfg, max_length, dtype, n_layers=n_layers,
                                          packed=packed, device=device)
-    finally:
-        if isinstance(sd, SafetensorsReader):
-            sd.close()
 
 
 def params_from_hf_state_dict(sd, cfg: ModelConfig, max_length: int, dtype=torch.bfloat16,

@@ -38,7 +38,7 @@ from ..config import ModelConfig
 from ..cuda_graphs import Phase
 from ..models.kv_cache import KVCache, init_kv_cache
 from ..models.llama import StaticModelArgs, kv_limit_of, llama_layer, lm_head_logits
-from ..models.weights import SafetensorsReader, _load_state_dict, fetch, trim_vocab_rows
+from ..models.weights import fetch, read_state_dict, trim_vocab_rows
 from ..ops.norms import rms_norm
 from ..ops.rope import rope_params
 from ..ops.select import embed_lookup
@@ -143,9 +143,9 @@ class OffloadModelRuntime:
     def __init__(self, cfg: ModelConfig, top_params: dict, host_layers: List[dict],
                  max_length: int, dtype=torch.bfloat16, family: str = "llama",
                  num_cache_layers: int = 0, model_name: str = "", device="cuda"):
-        from ..models.auto_model import _check_family
+        from ..models.auto_model import LLAMA_FAMILIES, _check_family
 
-        _check_family(family)
+        _check_family(family, LLAMA_FAMILIES, "the offload tier")
         self.cfg, self.max_length, self.dtype = cfg, max_length, dtype
         self.family, self.model_name = family, model_name
         self.num_cache_layers = num_cache_layers
@@ -188,14 +188,10 @@ class OffloadModelRuntime:
              family: str = "llama", n_layers: Optional[int] = None, num_cache_layers: int = 0,
              device="cuda") -> "OffloadModelRuntime":
         """An HF fp checkpoint directory, layer by layer."""
-        sd = _load_state_dict(path)
-        try:
+        with read_state_dict(path) as sd:
             return cls.from_state_dict(sd, cfg, max_length, dtype, family=family,
                                        n_layers=n_layers, num_cache_layers=num_cache_layers,
                                        quantized=False, model_name=path, device=device)
-        finally:
-            if isinstance(sd, SafetensorsReader):
-                sd.close()
 
     @classmethod
     def from_state_dict(cls, sd, cfg: ModelConfig, max_length: int, dtype=torch.bfloat16,

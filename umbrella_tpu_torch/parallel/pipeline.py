@@ -98,6 +98,9 @@ def shard_runtime_pp(runtime, devices: Sequence):
     embedding, final norm and head move to devices[0], which becomes the
     runtime's device. Afterwards `forward` is the staged forward and `init_kv`
     gives a StagedKVCache."""
+    from ..models.auto_model import LLAMA_FAMILIES, _check_family
+
+    _check_family(runtime.family, LLAMA_FAMILIES, "pipeline staging")
     devices = [torch.device(d) for d in devices]
     if runtime.stage_devices is not None:
         raise ValueError(f"runtime is already staged over {runtime.stage_devices}")

@@ -13,7 +13,7 @@ from typing import Optional
 import torch
 
 from ..config import ModelConfig
-from ..models.weights import SafetensorsReader, _load_state_dict, fetch, trim_vocab_rows
+from ..models.weights import fetch, read_state_dict, trim_vocab_rows
 from ..ops.rope import rope_params
 from .awq import awq_from_hf_tensors, concat_awq, quantize_pack_device
 
@@ -88,8 +88,7 @@ def load_awq_runtime(path: str, cfg: ModelConfig, max_length: int, dtype=torch.b
     from ..utils import resolve_device
 
     device = resolve_device(device)
-    sd = _load_state_dict(path)
-    try:
+    with read_state_dict(path) as sd:
         if offload:
             from ..offload.streaming import OffloadModelRuntime
 
@@ -99,9 +98,6 @@ def load_awq_runtime(path: str, cfg: ModelConfig, max_length: int, dtype=torch.b
                 device=device)
         params = awq_params_from_hf_state_dict(sd, cfg, max_length, dtype, n_layers=n_layers,
                                                packed=packed, device=device)
-    finally:
-        if isinstance(sd, SafetensorsReader):
-            sd.close()
     return ModelRuntime(cfg, params, max_length, dtype=dtype, family=family,
                         n_layers=n_layers, model_name=path, device=device)
 

@@ -30,9 +30,10 @@ after every slot is done change no committed token or KV row. The serial
 active slots, which bounds those idle steps. `step()` reads back every step
 by contract and stays eager.
 
-Tensor and expert parallelism and the Gemma2/MoE batched forwards are not
-ported (ROADMAP queue A, "tensor and expert parallelism" and "Gemma2 and
-MoE"). The request scheduler in front of ContinuousBatcher is
+Each model's batched and single-slot forwards follow its family
+(models/batched.model_forwards: llama, Gemma2 or MoE). Tensor and expert
+parallelism are not ported (ROADMAP queue A, "tensor and expert
+parallelism"). The request scheduler in front of ContinuousBatcher is
 serving/scheduler.py.
 """
 from __future__ import annotations
@@ -50,12 +51,12 @@ import torch
 
 from ..cuda_graphs import Phase, StepGraph
 from ..models.auto_model import ModelRuntime
-from ..models.batched import (batched_llama_forward, gather_compact_batched, init_batched_kv,
-                              slot_llama_forward)
+from ..models.batched import gather_compact_batched, init_batched_kv, model_forwards
 from ..ops import sampling as S
 from ..ops.masks import (causal_mask_rows, causal_mask_rows_batched,
                          tree_level_mask_rows_batched, tree_mask_rows_batched)
-from ..speculation.engine_common import load_runtime, load_tokenizer, quantize_draft_runtime
+from ..speculation.engine_common import (clamp_draft_ids, load_runtime, load_tokenizer,
+                                         quantize_draft_runtime, target_vocab_cap)
 from ..speculation.spec_utils import next_bucket
 from ..speculation.tree import GrowMap
 from ..speculation.verify import accept_and_commit
@@ -177,6 +178,7 @@ class BatchedStaticEngine:
             raise ValueError("the batched engine requires resident (non-offload) models")
         self.draft_model = quantize_draft_runtime(self.draft_model, self.quantize_draft,
                                                   self.dtype)
+        self._vocab_cap = target_vocab_cap(self.draft_model, self.target_model)
         if self.tokenizer is None:
             self.tokenizer = load_tokenizer(self.target_model_name)
         if self.eos_token_ids is None:
@@ -194,6 +196,8 @@ class BatchedStaticEngine:
         self.kv_target = init_batched_kv(self.target_model.cfg, B, L, kv_dt,
                                          num_layers=self.target_model.args.n_layers, device=dev)
         self._gen = torch.Generator(device=dev).manual_seed(int(self.seed))
+        self._draft_fwd, self._draft_slot_fwd = model_forwards(self.draft_model)
+        self._target_fwd, self._target_slot_fwd = model_forwards(self.target_model)
 
         self._levels = []
         for lvl in range(gm.num_levels):
@@ -248,9 +252,8 @@ class BatchedStaticEngine:
     # ------------------------------------------------------------------ one step
 
     def _draft_forward(self, ids, pos, mask, offsets):
-        m = self.draft_model
-        return batched_llama_forward(m.params, m.args, self.kv_draft, ids, pos, mask,
-                                     offsets)[0]
+        return self._draft_fwd(self.draft_model.params, self.kv_draft, ids, pos, mask,
+                               offsets)[0]
 
     def _build_tree(self, nn: torch.Tensor) -> None:
         """Draft forwards level by level; writes each level's children into tokens."""
@@ -285,11 +288,11 @@ class BatchedStaticEngine:
         B, T, L = self.batch_size, self.tree_size, self.max_length
         cap = L - self.safe_buffer
         self._build_tree(nn)
-        ids = self._slice_rows(nn, T)
+        ids = clamp_draft_ids(self._slice_rows(nn, T), self._vocab_cap)
         pos = nn[:, None] + self._depth[None, :]
         mask = tree_mask_rows_batched(nn, self._bitmap, L)
-        m = self.target_model
-        logits, _ = batched_llama_forward(m.params, m.args, self.kv_target, ids, pos, mask, nn)
+        logits, _ = self._target_fwd(self.target_model.params, self.kv_target, ids, pos, mask,
+                                     nn)
         if use_pen:
             logits = S.apply_repetition_penalty(logits, self.tokens[:, :L], nn + 1, rv)
         sampled = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -400,10 +403,9 @@ class BatchedStaticEngine:
         ids = self.tokens[slot, start:start + bucket]
         pos = torch.arange(start, start + bucket, device=dev)
         mask = causal_mask_rows(start, bucket, L, device=dev)
-        d, t = self.draft_model, self.target_model
-        slot_llama_forward(d.params, d.args, self.kv_draft, ids, pos, mask, slot, start)
-        logits, _ = slot_llama_forward(t.params, t.args, self.kv_target, ids, pos, mask, slot,
-                                       start)
+        self._draft_slot_fwd(self.draft_model.params, self.kv_draft, ids, pos, mask, slot, start)
+        logits, _ = self._target_slot_fwd(self.target_model.params, self.kv_target, ids, pos,
+                                          mask, slot, start)
         if not emit:
             return None
         next_tok = torch.argmax(logits[n_valid - 1]).to(torch.int32)

@@ -118,6 +118,25 @@ def quantize_draft_runtime(draft: ModelRuntime, mode, dtype) -> ModelRuntime:
     return quantize_runtime(draft, dtype=dtype, quantize_lm_head=True)
 
 
+def target_vocab_cap(draft: ModelRuntime, target: ModelRuntime):
+    """The target's vocabulary size where the draft's is wider, else None.
+
+    Such a draft (Mistral-7B-v0.3, V = 32768, drafting for Mixtral-8x7B,
+    V = 32000) puts ids at or past the target's V in the tree the target
+    verifies. The engines clamp them to the target's last row before its
+    embedding (`clamp_draft_ids`), as the JAX package's lookup off the TPU
+    does (`lax.dynamic_slice`); the target samples below its V, so it never
+    accepts them. The embedding itself stays strict."""
+    V = target.cfg.vocab_size
+    return V if draft.cfg.vocab_size > V else None
+
+
+def clamp_draft_ids(ids: torch.Tensor, cap) -> torch.Tensor:
+    """Tree ids for the target's forward, clamped below `cap`
+    (target_vocab_cap's) where it is set."""
+    return ids if cap is None else ids.clamp(max=cap - 1)
+
+
 def load_tokenizer(path):
     """The tokenizer of a checkpoint directory that ships one (through
     transformers, imported only then), else None: generate() then returns
@@ -212,6 +231,7 @@ class SpecEngineBase(BaseEngine):
                                                   self.config.get("quantize_draft"), self.dtype)
         self.target_model = self._load_model(target, offload=bool(self.config.get("offload")))
         self._offload = isinstance(self.target_model, OffloadModelRuntime)
+        self._vocab_cap = target_vocab_cap(self.draft_model, self.target_model)
         if stage_devices is not None:
             from ..parallel.pipeline import shard_runtime_pp
 
@@ -396,7 +416,7 @@ class SpecEngineBase(BaseEngine):
     # ------------------------------------------------------------ the step
 
     def _target_logits(self, nn):
-        ids = read_window(self.tokens, nn, self.tree_size)
+        ids = clamp_draft_ids(read_window(self.tokens, nn, self.tree_size), self._vocab_cap)
         pos = nn + self._depth
         mask = tree_mask_rows(nn, self._bitmap, self.max_length)
         return self._target_forward(ids, pos, mask, nn)
@@ -442,7 +462,8 @@ class SpecEngineBase(BaseEngine):
         def draft():
             nn, cont = st["nn"], st["cont"]
             self._build(nn, cont)
-            return (nn, cont, read_window(self.tokens, nn, T), nn + self._depth,
+            ids = clamp_draft_ids(read_window(self.tokens, nn, T), self._vocab_cap)
+            return (nn, cont, ids, nn + self._depth,
                     tree_mask_rows(nn, self._bitmap, self.max_length))
 
         def commit(logits, nn, cont):
