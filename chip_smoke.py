@@ -14,7 +14,12 @@ lines tagged with its name:
                    configs' shapes: W4A16 at the four 70B layer shapes at
                    S=256 and 257 (the dynamic verify), attention at the 70B
                    257-row verify q [257,64,128] and a 1B draft level
-                   q [16,32,64].
+                   q [16,32,64]; and the 70B's tensor-parallel shard shapes
+                   (4 shards): W4A16 on shards cut from whole weights
+                   (column wq [8192,2048], wk [8192,256], gate [8192,7168],
+                   bf16 out; repacked row wo [2048,8192], down [7168,8192],
+                   fp32 out) at S=1, 24, 127, 300, rows bitwise across S,
+                   and attention q [127,16,128] over 2 kv heads.
   w4a16            (only when named in --phases; part of `kernels`) the W4A16
                    family alone: the plain mode at the four 8B layer shapes,
                    S=1, 24, 48, 127, 160, 224 and 300 (every token width of
@@ -74,6 +79,27 @@ lines tagged with its name:
                    tokens, and the AR decode's (fp32, bf16), or part from it
                    only at a near tie (int8 KV); the KV rows of the spec and
                    the AR decode are compared layer by layer as the witness.
+  tp-lossless      full Llama-3.3-70B width, a separate 2-layer draft at
+                   Llama-3.2-1B widths; the target sharded in 4 on this card
+                   (tensor_parallel 4, graphed, one segment a step): 4 dense
+                   fp32 layers, and 8 AWQ layers in the tensor-parallel
+                   layout in fp32 and in bf16. generate() equals the AR
+                   decode over the sharded target (layer 0's KV rows bit for
+                   bit). Dense fp32 equals the unsharded engine's tokens
+                   exactly. The W4A16 kernel splits K by each shard's N and
+                   K, so the AWQ cases are held exactly to a mirror, the
+                   unsharded forward over the shards' own products: equal
+                   tokens, the prompt's logits bit for bit, the shards
+                   reassembling the unsharded weights bit for bit, and two
+                   planted all_reduce faults parting the logits; where they
+                   part from the unsharded engine is reported. On four
+                   cards, one shard a card gives the one-card tokens, the
+                   port's kernels on every card.
+  tp-serve         the batched engine with tensor_parallel 4 (B=4, 3x4, fp32):
+                   8B width, 4 dense fp32 layers, and Gemma-2-9B width, 2
+                   layers (sums before the post norms): run() equals the
+                   unsharded batched engine's tokens; on four cards the
+                   one-card ones.
   dynamic-lossless full widths, 4 layers, early exit 2, fp32: the dynamic engine
                    (the default engine; the shipped offload configs' 16 x 16
                    tree of 24 beams, graphed) and an offload target's
@@ -159,7 +185,7 @@ lines tagged with its name:
                    stochastic ones complete; tok/s, TPOT, accept, time to the
                    first frame.
   pp-config        configs/chat_config_70b_awq_pp4.json as shipped: a random
-                   AWQ Llama-3.3-70B at full widths and 40 of its 80 layers
+                   AWQ Llama-3.3-70B at full widths and 32 of its 80 layers
                    (PP_CONFIG_LAYERS; the cut keeps the script inside its
                    time limit) staged in 4
                    stages (one per card on a host with 4, else all on this
@@ -172,15 +198,26 @@ lines tagged with its name:
                    and each loop's decode profiled alone ([pp-profile],
                    [pp-profile-stepwise]; host ops a decode step, graphed
                    under a tenth of stepwise).
+  tp-config        configs/chat_config_70b_awq_pod.json as shipped
+                   (tensor_parallel 4, static 24x6, 0.6 / 0.9 / 1.05,
+                   max_length 8192): a random AWQ Llama-3.3-70B at full
+                   widths and PP_CONFIG_LAYERS of its 80 layers sharded in 4
+                   (on this card, or one a card on a host with 4), the 8B
+                   AutoAWQ directory as draft: TTFT, a sampled request
+                   graphed and stepwise (equal tokens), a greedy one, both
+                   guarded against degenerate decodes; [tp-profile] (host
+                   ops, busy ms and idle share a step), peak and pool GB,
+                   segments a step; an eager forward at the verify width
+                   timed bare and inside the host-read check (its cost).
   offload-checkpoint the 8B AutoAWQ directory loaded with offload: true and
                    num_cache_layers half its layers (4 of 8): logits equal
                    the resident load's bit for bit.
   offload-config   configs/greedy_config_v5e.json and chat_config_v5e_16gb.json
                    as shipped (the dynamic engine over a random AWQ
-                   Llama-3.3-70B at full widths and 32 of its 80 layers
+                   Llama-3.3-70B at full widths and 24 of its 80 layers
                    (OFFLOAD_CONFIG_LAYERS), 16 on the card and the
                    rest streamed from pinned host memory, depth cut further
-                   where MemAvailable cannot hold 16 streamed layers; the 1B draft
+                   where MemAvailable cannot hold 8 streamed layers; the 1B draft
                    directory above): one request each on the graphed step
                    (TTFT, step ms, tok/s, accept), greedy again all eager
                    (the same tokens), streamed_forward_traced at the 257-row
@@ -199,7 +236,7 @@ lines tagged with its name:
                    23.7 GB, deleted after the Gemma phases) through
                    configs/chat_config_8b_v5e.json's keys (static 5x6, 0.6 /
                    0.9 / 1.05, max_length 8192, template gemma2-it): a sampled
-                   128-token request and a greedy one on a 4,200-token prompt
+                   64-token request and a greedy one on a 4,200-token prompt
                    (past the 4,096-slot window), each graphed and stepwise
                    from one generator state (the stepwise loop's 8 tokens
                    equal); TTFT; [gemma-profile] (the greedy decode alone,
@@ -226,22 +263,25 @@ lines tagged with its name:
                    directories (20.8 GB, deleted after the MoE phases): the
                    Mixtral directory's logits equal the same tensors built in
                    memory, bit for bit; the Mistral one loads as a draft.
-  moe-config       configs/chat_config_mixtral_ep.json's keys without
-                   expert_parallel (static 24x6, 0.6 / 0.9 / 1.05): a random
-                   bf16 MoE target at Mixtral widths and 16 of its 32 layers
-                   (12 if the card runs short), the Mistral directory as the
-                   draft (V = 32768 against 32000): a sampled 128-token
+  moe-config       configs/chat_config_mixtral_ep.json as shipped
+                   (expert_parallel 4, static 24x6, 0.6 / 0.9 / 1.05): a
+                   random bf16 MoE target at Mixtral widths expert-sharded in
+                   4, on this card at 16 of its 32 layers (12 if the card
+                   runs short), one shard a card at all 32 on a host with
+                   4 cards, the Mistral directory as the
+                   draft (V = 32768 against 32000): a sampled 64-token
                    request graphed and stepwise (8 tokens equal); TTFT;
                    [moe-profile]; attend_flash, attend_flash_batched_int8 and
                    embed_gather at this family's shapes.
-  moe-serve        configs/serve_batched_mixtral_ep.json's keys without
-                   expert_parallel (B=8, int8 KV, 3x4, 8-step segments) over
-                   the same models: greedy requests through run() and the
+  moe-serve        configs/serve_batched_mixtral_ep.json as shipped
+                   (expert_parallel 4, B=8, int8 KV, 3x4, 8-step segments)
+                   over the same models: greedy requests through run() and the
                    pipelined batcher, one profiled segment; run() equals the
                    single-slot engine or parts from it at a near tie of the
                    logits or of the router on the rows before the parting
                    (router_margins); then fp32 at Mixtral widths (2 layers,
-                   int8 KV): run() equals the single-slot engine.
+                   int8 KV): run() equals the single-slot engine, and with
+                   expert_parallel 4 both equal the unsharded engines.
   report           one JSON line of kernels, the card's name and power limit,
                    and the final {"ok": true, ...} line.
 The static, dynamic and batched engines decode through CUDA graphs in every
@@ -257,13 +297,16 @@ kernel's. `--phases a,b` runs a subset (no report).
 
 Weights are random (seeded). The script needs CUDA and the repository's
 umbrella_tpu_torch package beside it; without either it exits with code 2.
-The whole script takes about nineteen minutes on one H100 (1,142.4 s of
-command time on an H100 80GB HBM3 at 700 W with a 16-layer 8B checkpoint;
-the six Gemma2 and MoE phases take about 6 minutes alone), the kernels'
-build (20-30 s) included; `--phases w4a16` about a minute,
-`--phases w4a8` about 45 s, `--phases attention` about a minute.
+The whole script takes about nineteen minutes on one H100 (1,153.7 s of
+command time on an H100 80GB HBM3 at 700 W with the tensor-parallel phases,
+before [pp-config]'s and [offload-config]'s 70B and the family requests
+were cut; the six Gemma2 and MoE phases take about 6 minutes alone, the
+three tensor-parallel ones about a minute), the kernels' build (20-30 s)
+included; `--phases w4a16` about a minute, `--phases w4a8` about 45 s,
+`--phases attention` about a minute.
 """
 import bisect
+import contextlib
 import gc
 import json
 import os
@@ -500,6 +543,12 @@ def kernel_checks(torch, dev):
 
     report.update(w4a8_checks(torch, dev, gen, randn, err))
     report.update(w4a16_checks(torch, dev, gen, randn, err))
+    tp = tp_kernel_checks(torch, dev, gen, randn, err)
+    w = report["w4a16_matmul"]
+    w["per_shape"].update(tp["w4a16"])
+    w["max_abs_err"] = max(w["max_abs_err"], tp["w4a16_max_abs_err"])
+    w["max_rel_err"] = max(w["max_rel_err"], tp["w4a16_max_rel_err"])
+    report["attend_flash"]["per_shape"].update(tp["attention"])
     return report
 
 
@@ -1838,9 +1887,11 @@ def keep_target_kv(eng):
     cache in place)."""
     kept, reset = {}, eng.reset
 
+    from umbrella_tpu_torch.models.kv_cache import KVCache, kv_parts
+
     def copy(kv):
-        if hasattr(kv, "stages"):
-            return type(kv)(tuple(copy(s) for s in kv.stages))
+        if not isinstance(kv, KVCache):  # a staged or sharded model's caches
+            return type(kv)(tuple(copy(s) for s in kv_parts(kv)))
         return type(kv)(*(None if t is None else t.clone() for t in kv))
 
     def keep_then_reset():
@@ -1853,14 +1904,16 @@ def keep_target_kv(eng):
 
 def kv_rows(torch, kv, n):
     """(k, v, k_scale, v_scale) at slots [0, n) of every layer of a KV cache
-    (a staged cache's stages concatenated over layers, on stage 0's device);
-    the scales are None unless the cache is int8."""
-    from umbrella_tpu_torch.models.kv_cache import StagedKVCache
+    (a staged cache's stages concatenated over layers, a sharded cache's
+    shards over kv heads, on the first one's device); the scales are None
+    unless the cache is int8."""
+    from umbrella_tpu_torch.models.kv_cache import ShardedKVCache, kv_parts
 
-    stages = kv.stages if isinstance(kv, StagedKVCache) else (kv,)
-    d0 = stages[0].k.device
-    return tuple(None if stages[0][f] is None else
-                 torch.cat([s[f][:, :, :n].to(d0) for s in stages]) for f in range(4))
+    parts = kv_parts(kv)
+    axis = 1 if isinstance(kv, ShardedKVCache) else 0
+    d0 = parts[0].k.device
+    return tuple(None if parts[0][f] is None else
+                 torch.cat([s[f][:, :, :n].to(d0) for s in parts], dim=axis) for f in range(4))
 
 
 def kv_witness(torch, spec, ar, ref=None):
@@ -3496,10 +3549,11 @@ def api_chat_phase(torch, dev, ckpt, prompt):
 
 
 PP_CONFIG_NEW_TOKENS = 64
-# the depth of [pp-config]'s 70B (half the published 80) and of
-# [offload-config]'s (16 cached + 16 streamed), so that the
-# whole script, with the Gemma2 and MoE phases, stays inside its time limit
-PP_CONFIG_LAYERS, OFFLOAD_CONFIG_LAYERS = 40, 32
+# the depth of [pp-config]'s and [tp-config]'s 70B (32 of the published 80)
+# and of [offload-config]'s (16 cached + 8 streamed), so that the whole
+# script, with the Gemma2, MoE and tensor-parallel phases, stays inside its
+# time limit
+PP_CONFIG_LAYERS, OFFLOAD_CONFIG_LAYERS = 32, 24
 # the decode-only profiles of [pp-config]: tokens of the graphed and of the stepwise loop
 PP_PROFILE_TOKENS, PP_PROFILE_STEPWISE_TOKENS = 8, 3
 
@@ -3640,6 +3694,670 @@ def pp_config_phase(torch, dev, ckpt, prompt):
     del eng
     torch.cuda.empty_cache()
     return res
+
+
+# ---------------------------------------------------------------- tensor parallelism
+
+TP_SHARDS = 4  # chat_config_70b_awq_pod.json's tensor_parallel
+TP_LOSSLESS_LAYERS, TP_DENSE_LAYERS = 8, 4
+TP_CONFIG_NEW_TOKENS = 64
+TP_SERVE_TOKENS = 32
+# the port's __global__ kernels (TRACED_KERNELS' names): those a sharded
+# forward runs on each shard's card
+PORT_KERNEL_NAMES = ("w4a16_kernel", "flash_tc_kernel", "flash_attend_kernel", "gather_rows")
+
+
+def tp_target(torch, dev, cfg, dtype, seed, max_length, damp_from=None):
+    """A random AWQ llama at `cfg`'s widths in the tensor-parallel layout
+    (q/k/v and gate/up quantized apart), its dense head untied, built on
+    `dev`; wo/down scales x0.05 from layer `damp_from` on."""
+    from umbrella_tpu_torch.models.auto_model import ModelRuntime, random_awq_runtime
+
+    params = random_awq_runtime(cfg, max_length, dtype=dtype, seed=seed, packed=False,
+                                device=dev).params
+    if damp_from is not None:
+        params = dict(params, layers=damp_tail(params["layers"], damp_from))
+    return ModelRuntime(cfg, params, max_length, dtype=dtype, device=dev)
+
+
+def tp_copy(torch, rt, devices):
+    """A runtime over `rt`'s weights sharded by shard_runtime over `devices`
+    (rt itself unsharded)."""
+    from umbrella_tpu_torch.models.auto_model import ModelRuntime
+    from umbrella_tpu_torch.parallel.mesh import shard_runtime
+
+    copy = ModelRuntime(rt.cfg, dict(rt.params), rt.max_length, dtype=rt.dtype,
+                        family=rt.family, n_layers=rt.args.n_layers, device=rt.device)
+    return shard_runtime(copy, devices)
+
+
+def across_cards(torch):
+    """TP_SHARDS distinct cards, or None on a host with fewer."""
+    if torch.cuda.device_count() < TP_SHARDS:
+        return None
+    return [torch.device("cuda", i) for i in range(TP_SHARDS)]
+
+
+def kernels_by_card(torch, fn):
+    """fn() under torch.profiler: each card's device kernels in the trace,
+    in all and the port's own (PORT_KERNEL_NAMES). The profiler may drop a
+    prefix of the records: a card with none kept reads 0."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for c in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(c)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        for c in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(c)
+    cards = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            card = cards.setdefault(str(e.device_index), dict(kernels=0, port=0))
+            card["kernels"] += 1
+            card["port"] += any(p in e.name for p in PORT_KERNEL_NAMES)
+    return cards
+
+
+def check_every_card(cards, devices, key, tag):
+    """Every card of `devices` ran kernels (`key`: "port" or "kernels")."""
+    check(all(cards.get(str(d.index), {}).get(key, 0) > 0 for d in devices),
+          f"{tag} not every card ran {key}: {cards}")
+
+
+def small_draft(torch, dev, dtype, max_length):
+    """A random dense draft at Llama-3.2-1B's widths and 2 layers, independent
+    of the target."""
+    from umbrella_tpu_torch.config import ModelConfig
+    from umbrella_tpu_torch.models.auto_model import random_runtime
+
+    cfg = ModelConfig(**dict(CFG_1B, num_hidden_layers=2, max_position_embeddings=max_length))
+    return random_runtime(cfg, max_length, dtype=dtype, seed=7, device=dev)
+
+
+def tp_dense_target(torch, dev, cfg, seed, max_length):
+    """A random fp32 dense llama at `cfg`'s widths, q/k/v and gate/up apart
+    (no W4 weight: every product stays in fp32)."""
+    from umbrella_tpu_torch.models.auto_model import ModelRuntime
+    from umbrella_tpu_torch.models.llama import init_llama_params
+
+    params = init_llama_params(cfg, torch.Generator(device=dev).manual_seed(seed), max_length,
+                               torch.float32, packed=False, device=dev)
+    return ModelRuntime(cfg, params, max_length, dtype=torch.float32, device=dev)
+
+
+def tp_mirror(torch, sharded):
+    """A runtime that computes the unsharded forward over a tensor-parallel
+    runtime's own shard weights, on its card: one KV cache over every kv
+    head, each attention over every head, the residual and norms as
+    unsharded, and each product as the shards compute it -- a column
+    entry's shard products side by side, a row entry's K-block partials in
+    fp32 added in shard order and rounded once, an untied head's vocab
+    shards side by side. Written here, apart from parallel/mesh.py and
+    parallel/collectives.py, so that a fault in the sharded forward's KV,
+    attention, broadcasts or collectives parts its logits from the mirror's;
+    the W4A16 kernel splits K by the shard's N and K, so only a forward
+    built from the same products can be held to the sharded one bit for
+    bit."""
+    from umbrella_tpu_torch.models.auto_model import ModelRuntime
+    from umbrella_tpu_torch.models.llama import (_linear, cache_attend_fn, kv_limit_of,
+                                                 lm_head_logits)
+    from umbrella_tpu_torch.ops.norms import rms_norm
+    from umbrella_tpu_torch.ops.select import embed_lookup
+    from umbrella_tpu_torch.quantization.awq import AwqTensor, awq_matmul
+
+    shards = sharded.params["tp_shards"]
+    args = sharded.args
+    a8 = args.awq_act_int8
+
+    def cols(x, lws, key, bias=None):
+        return torch.cat([_linear(x, lw[key], lw.get(bias) if bias else None, act_int8=a8)
+                          for lw in lws], dim=-1)
+
+    def rows(x, lws, key):
+        total = None
+        for b, lw in zip(x.chunk(len(lws), dim=-1), lws):
+            b, w = b.contiguous(), lw[key]
+            part = (awq_matmul(b, w, out_dtype=torch.float32, act_int8=a8)
+                    if isinstance(w, AwqTensor) else b.float() @ w.float())
+            total = part if total is None else total + part
+        return total.to(x.dtype)
+
+    def fwd(params, kv, input_ids, position_ids, attn_mask, write_offset):
+        limit = kv_limit_of(write_offset, input_ids.shape[0], kv)
+        hidden = embed_lookup(params["embed"], input_ids, params["final_norm"].dtype)
+        for i in range(args.n_layers):
+            lw0 = {k: v[i] for k, v in params["layers"].items()}
+            lws = [{k: v[i] for k, v in sh.layers.items()} for sh in shards]
+            attend = cache_attend_fn(args, kv, i, position_ids, attn_mask, write_offset,
+                                     params["rope_inv_freq"], params["rope_scale"], limit)
+            x = rms_norm(hidden, lw0["input_norm"], args.rms_eps)
+            out = attend(cols(x, lws, "wq", "bq"), cols(x, lws, "wk", "bk"),
+                         cols(x, lws, "wv", "bv"))
+            hidden = hidden + rows(out, lws, "wo")
+            x = rms_norm(hidden, lw0["post_norm"], args.rms_eps)
+            hidden = hidden + rows(torch.nn.functional.silu(cols(x, lws, "gate"))
+                                   * cols(x, lws, "up"), lws, "down")
+        x = rms_norm(hidden, params["final_norm"], args.rms_eps)
+        if shards[0].lm_head is None:
+            return lm_head_logits(params, x), kv
+        return torch.cat([lm_head_logits({"lm_head": sh.lm_head}, x) for sh in shards],
+                         dim=-1), kv
+
+    class Mirror(ModelRuntime):
+        @property
+        def forward(self):
+            return fwd
+
+    params = {k: v for k, v in sharded.params.items() if k != "tp_shards"}
+    return Mirror(sharded.cfg, params, sharded.max_length, dtype=sharded.dtype,
+                  n_layers=args.n_layers, device=sharded.device)
+
+
+def tp_layout_equal(torch, sharded, whole):
+    """Whether the shards reassemble the unsharded weights bit for bit: each
+    column entry's shards (w8, scales, zeros; or the dense columns) side by
+    side, each row entry's shards dequantized (the repacked bytes) one
+    above the other, the head's vocab shards side by side; every layer."""
+    from umbrella_tpu_torch.quantization.awq import AwqTensor, dequantize
+
+    shards, layers = sharded.params["tp_shards"], whole.params["layers"]
+    same = True
+    for k, v in layers.items():
+        if k not in shards[0].layers:
+            continue
+        for i in range(len(v) if isinstance(v, tuple) else v.shape[0]):
+            pieces = [sh.layers[k][i] for sh in shards]
+            if not isinstance(v[i], AwqTensor):
+                same &= torch.equal(torch.cat(pieces, dim=0 if k in ("wo", "down") else -1),
+                                    v[i])
+            elif k in ("wo", "down"):
+                same &= torch.equal(torch.cat([dequantize(q, torch.float32) for q in pieces]),
+                                    dequantize(v[i], torch.float32))
+            else:
+                same &= all(torch.equal(torch.cat([q[f] for q in pieces], dim=-1), v[i][f])
+                            for f in range(len(v[i])))
+    head = whole.params.get("lm_head")
+    if head is not None:
+        same &= torch.equal(torch.cat([sh.lm_head for sh in shards], dim=-1), head)
+    return bool(same)
+
+
+def planted_all_reduce(torch, fault):
+    """A faulty all_reduce for the controls: "bf16_per_add" rounds the
+    running sum to bf16 after each add, "dropped_partial" leaves out the
+    last shard's partial."""
+    def all_reduce(partials, device, dtype):
+        if fault == "dropped_partial":
+            partials = partials[:-1]
+        total = partials[0].to(device).float()
+        for p in partials[1:]:
+            total = total + p.to(device).float()
+            if fault == "bf16_per_add":
+                total = total.to(torch.bfloat16).float()
+        return total.to(dtype)
+
+    return all_reduce
+
+
+def tp_logits_against_mirror(torch, sharded, mirror, ids):
+    """`ids` through the sharded forward and the mirror's, eagerly, each on a
+    fresh cache: whether their fp32 logits are the same bits, and the same
+    with each planted all_reduce fault in the sharded forward (controls:
+    each must part from the mirror), with the largest difference."""
+    import umbrella_tpu_torch.parallel.mesh as mesh
+    from umbrella_tpu_torch.ops.masks import causal_mask_rows
+
+    dev, S = mirror.device, len(ids)
+    args = (torch.tensor(ids, device=dev), torch.arange(S, device=dev),
+            causal_mask_rows(0, S, MAX_LEN, device=dev), 0)
+    want = mirror.forward(mirror.params, mirror.init_kv(), *args)[0]
+
+    def against(label):
+        got = sharded.forward(sharded.params, sharded.init_kv(), *args)[0]
+        return label, dict(equal=torch.equal(got, want),
+                           max_abs_diff=float((got - want).abs().max()))
+
+    out = dict([against("sharded")])
+    real = mesh.all_reduce
+    try:
+        for fault in ("bf16_per_add", "dropped_partial"):
+            mesh.all_reduce = planted_all_reduce(torch, fault)
+            out.update([against(fault)])
+    finally:
+        mesh.all_reduce = real
+    out["max_abs_logit"] = float(want.abs().max())
+    return out
+
+
+def tp_lossless_check(torch, dev, prompt):
+    """Full Llama-3.3-70B width, a separate small draft (small_draft), the
+    target sharded by shard_runtime over TP_SHARDS shards on this card and
+    run through tensor_parallel on the graphed loop (one segment a step).
+    Three cases: TP_DENSE_LAYERS dense fp32 layers, and TP_LOSSLESS_LAYERS
+    random AWQ layers in the tensor-parallel layout in fp32 and in bf16.
+    In each, generate() of LOSSLESS_NEW_TOKENS tokens must equal the AR
+    decode over the same sharded target exactly (the same forward; the
+    witness: layer 0's KV rows of the two decodes bit for bit the same,
+    where the W4A16 kernel computes them: cuBLAS's dense fp32 products are
+    not row-invariant).
+    Against the unsharded model: the dense fp32 case must give the
+    unsharded engine's and AR decode's tokens exactly (every product stays
+    in fp32; only the summation order differs). The W4A16 kernel splits K by
+    its weight's N and K and rounds its input to bf16, so an AWQ shard's
+    products are not the unsharded entry's last bits, and the later layers
+    carry a last-bit difference on as bf16 steps: the AWQ cases are held,
+    in fp32 and bf16 alike, to tp_mirror -- the unsharded forward over the
+    same products -- whose engine's tokens the sharded engine must give
+    exactly and whose logits on the prompt the sharded forward must give
+    bit for bit; the shards must reassemble the unsharded weights bit for
+    bit (tp_layout_equal); and two planted all_reduce faults (a sum rounded
+    to bf16 after each add, a dropped partial) must part the logits from
+    the mirror's. Where the AWQ decode parts from the unsharded engine's,
+    the place and the unsharded AR's logit gap there are reported.
+    On a host with TP_SHARDS cards the same weights sharded one a card must
+    give the one-card tokens exactly (the collectives sum in one order
+    wherever the shards are) and run the port's kernels on every card."""
+    from umbrella_tpu_torch.config import ModelConfig
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    tag = "[tp-lossless]"
+    P, N, res = len(prompt), LOSSLESS_NEW_TOKENS, {}
+    for case, dtype, layers in (("fp32-dense", torch.float32, TP_DENSE_LAYERS),
+                                ("fp32", torch.float32, TP_LOSSLESS_LAYERS),
+                                ("bf16", torch.bfloat16, TP_LOSSLESS_LAYERS)):
+        target = draft = one = None
+        torch.cuda.empty_cache()
+        cfg = ModelConfig(**dict(CFG_70B, num_hidden_layers=layers,
+                                 max_position_embeddings=MAX_LEN))
+        dense = case == "fp32-dense"
+        target = (tp_dense_target(torch, dev, cfg, 3, MAX_LEN) if dense
+                  else tp_target(torch, dev, cfg, dtype, 3, MAX_LEN))
+        draft = small_draft(torch, dev, dtype, MAX_LEN)
+        one = tp_copy(torch, target, [dev] * TP_SHARDS)
+        eng = make_engine(torch, dev, one, draft, dtype, tensor_parallel=TP_SHARDS)
+        kept = keep_target_kv(eng)
+        reset_launch_counts()
+        out = eng.generate(input_ids=prompt, max_new_tokens=N)
+        counts = launch_counts()
+        graphs = check_graphed(eng, f"{tag} {case}")
+        segments = eng._decode_graphs[(True, eng.topk, False)].segments
+        del eng
+        # keep_target_kv's patch ties the engine in a cycle: free its graphs
+        # now, not by a collection inside a later capture (which fails it)
+        gc.collect()
+        toks = out["generated_tokens"]
+        unsharded = make_engine(torch, dev, target, draft, dtype).generate(
+            input_ids=prompt, max_new_tokens=N)["generated_tokens"]
+        ar, _, _, _, ar_kv = greedy_ar_decode(torch, one, prompt, len(toks), keep_kv=True)
+        ar_u, gaps, runner_ups, scales = greedy_ar_decode(torch, target, prompt, len(toks))
+        same_ar, same_u = first_difference(toks, ar), first_difference(toks, unsharded)
+        j = first_difference(toks, ar_u)
+        n = P + min(same_ar, len(ar) - 1, len(toks) - 1)
+        witness = kv_witness(torch, kv_rows(torch, kept["kv"], n), kv_rows(torch, ar_kv, n))
+        del kept, ar_kv
+        r = dict(case=case, layers=layers, tokens=len(toks), identical_to_sharded_ar=same_ar,
+                 identical_to_unsharded=same_u, identical_to_unsharded_ar=j,
+                 avg_accept_tokens=out["avg_accept_tokens"], kv_witness=witness,
+                 segments=segments, launches=counts, graphs=graphs,
+                 step_ms=out["time_per_output_token"] * len(toks) / request_steps(out))
+        parted = j < min(len(toks), N)
+        if parted:
+            r["unsharded_ar_at_first_difference"] = dict(
+                gap=gaps[j], ar_max_abs_logit=scales[j], near_tie=NEAR_TIE * scales[j],
+                tp_token=toks[j], ar_top1=ar_u[j], ar_top2=runner_ups[j])
+        if not dense:
+            mirror = tp_mirror(torch, one)
+            r["mirror"] = dict(
+                identical=first_difference(toks, make_engine(torch, dev, mirror, draft, dtype)
+                                           .generate(input_ids=prompt, max_new_tokens=N)
+                                           ["generated_tokens"]),
+                layout_equal=tp_layout_equal(torch, one, target),
+                logits=tp_logits_against_mirror(torch, one, mirror, prompt))
+            del mirror
+        cards = across_cards(torch)
+        if cards is not None:
+            across = tp_copy(torch, target, cards)
+            eng4 = make_engine(torch, dev, across, draft, dtype, tensor_parallel=TP_SHARDS)
+            r["four_cards"] = dict(by_card=kernels_by_card(torch, lambda: eng4.generate(
+                input_ids=prompt, max_new_tokens=8)))
+            out4 = eng4.generate(input_ids=prompt, max_new_tokens=N)
+            g4 = eng4._decode_graphs[(True, eng4.topk, False)]
+            r["four_cards"].update(
+                identical_to_one_card=first_difference(out4["generated_tokens"], toks),
+                segments=g4.segments, plan=[(str(d), e, list(p)) for d, e, p, _ in g4.plan],
+                step_ms=out4["time_per_output_token"] * len(out4["generated_tokens"])
+                / request_steps(out4))
+            del eng4, across
+        log(f"{tag} {json.dumps(r)}")
+        check(len(toks) >= N, f"{tag} {case}: too few tokens")
+        check(same_ar >= N, f"{tag} {case}: spec {toks} vs AR over the sharded target {ar}")
+        # cuBLAS's fp32 products are not row-invariant; the W4A16 kernel's are
+        check(witness["layer0_equal"] or dense, f"{tag} {case}: layer 0's KV "
+              "rows differ between the spec and the AR decode over the sharded target")
+        check(segments == 1, f"{tag} {case}: {segments} segments a step on one card")
+        if dense:
+            check(same_u >= N and not parted,
+                  f"{tag} {case}: sharded {toks} vs unsharded {unsharded} / AR {ar_u}")
+        else:
+            mr = r["mirror"]
+            check(mr["layout_equal"], f"{tag} {case}: the shards do not reassemble the "
+                  "unsharded weights")
+            check(mr["logits"]["sharded"]["equal"], f"{tag} {case}: the sharded forward's "
+                  f"logits are not the mirror's: {mr['logits']}")
+            check(mr["identical"] >= N, f"{tag} {case}: sharded {toks} parts from the mirror "
+                  f"at {mr['identical']}")
+            check(not any(mr["logits"][f]["equal"] for f in ("bf16_per_add", "dropped_partial")),
+                  f"{tag} {case}: a planted all_reduce fault kept the mirror's logits: "
+                  f"{mr['logits']}")
+        if cards is not None:
+            check(r["four_cards"]["identical_to_one_card"] >= N,
+                  f"{tag} {case}: four cards part from one card: {r['four_cards']}")
+            check_every_card(r["four_cards"]["by_card"], cards, "port", f"{tag} {case}")
+        for name in ("attend_flash", "embed_gather") + (() if dense else ("w4a16_matmul",)):
+            check(counts[name] > 0, f"{tag} {case}: kernel {name} was never launched")
+        res[case] = r
+    return res
+
+
+def build_70b_tp(torch, dev, devices, max_length):
+    """A random AWQ Llama-3.3-70B at full widths and PP_CONFIG_LAYERS of its 80
+    layers in the tensor-parallel layout (g128, bf16, dense untied head,
+    tail wo/down scales x0.05 from layer 3 on), built on `dev` and sharded
+    by shard_runtime over `devices` (row entries repacked and every entry
+    cut a layer at a time, each per-layer tensor released as it is cut)."""
+    from umbrella_tpu_torch.config import ModelConfig
+    from umbrella_tpu_torch.parallel.mesh import shard_runtime
+
+    cfg = ModelConfig(**dict(CFG_70B, num_hidden_layers=PP_CONFIG_LAYERS))
+    return shard_runtime(tp_target(torch, dev, cfg, torch.bfloat16, 4, max_length, damp_from=3),
+                         devices)
+
+
+def host_check_cost(torch, rt, rows, rounds=3):
+    """What the host-read check costs an eager forward: wall ms of `rt`'s
+    forward over `rows` rows from slot 0 on a fresh cache, every card
+    synchronized before and after, run bare and inside
+    cuda_graphs.no_host_sync (a torch function mode, which takes every torch
+    call made inside it), in turn after one warm-up each; the least of
+    `rounds` each, and the check's share of the checked time. A graphed
+    step runs its eager segments (a forward across cards) bare."""
+    from umbrella_tpu_torch.cuda_graphs import no_host_sync
+    from umbrella_tpu_torch.ops.masks import causal_mask_rows
+
+    dev, kv = rt.device, rt.init_kv()
+    args = (torch.arange(rows, device=dev), torch.arange(rows, device=dev),
+            causal_mask_rows(0, rows, rt.max_length, device=dev), 0)
+
+    def timed(checked):
+        for c in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(c)
+        t0 = time.perf_counter()
+        with no_host_sync() if checked else contextlib.nullcontext():
+            rt.forward(rt.params, kv, *args)
+        for c in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(c)
+        return 1000 * (time.perf_counter() - t0)
+
+    ms = {False: [], True: []}
+    for checked in (False, True) + (False, True, True, False) * rounds:
+        ms[checked].append(timed(checked))
+    del kv
+    bare, checked = min(ms[False][1:]), min(ms[True][1:])
+    return dict(rows=rows, bare_ms=bare, checked_ms=checked, check_share=1 - bare / checked)
+
+
+def tp_config_phase(torch, dev, ckpt, prompt):
+    """configs/chat_config_70b_awq_pod.json as shipped (tensor_parallel 4,
+    static 24x6, temperature 0.6, top-p 0.9, repetition penalty 1.05,
+    max_length 8192) through AutoEngine -> initialize -> generate(). `model` is
+    build_70b_tp's sharded random 70B (4 shards: on cuda:0..3 where there
+    are 4 cards, else all on this card); `draft_model` the synthetic
+    Meta-Llama-3.1-8B-Instruct-AWQ-INT4 directory written above (the
+    config's own draft), whole on this card. TTFT of a PROMPT_LEN prompt; a
+    sampled request of TP_CONFIG_NEW_TOKENS graphed and its first tokens
+    stepwise from the same generator state (equal), and a greedy one; both
+    guarded against degenerate decodes; the greedy decode profiled alone
+    ([tp-profile]: busy ms and idle share a step, host ops a step); peak and
+    pool GB, segments a step, kernels launched; on four cards, the port's
+    kernels on every card."""
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.speculation.auto_engine import AutoEngine
+
+    tag = "[tp-config]"
+    cards = range(torch.cuda.device_count())
+    torch.cuda.synchronize()
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    base = sum(torch.cuda.memory_allocated(c) for c in cards)
+    devices = stage_devices(torch, dev)
+    cfg = shipped_config("chat_config_70b_awq_pod.json", ckpt)
+    t0 = time.time()
+    target = build_70b_tp(torch, dev, devices, cfg["max_length"])
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    cfg.update(model=target, draft_model=ckpt["dirs"]["target"])
+    del target
+    t0 = time.time()
+    eng = AutoEngine.from_config(device=dev, **cfg)
+    eng.initialize()
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    resident_gb = (sum(torch.cuda.memory_allocated(c) for c in cards) - base) / 2**30
+    t = eng.target_model
+    check(eng.tensor_parallel == TP_SHARDS and t.shard_devices == tuple(devices)
+          and eng.draft_model.shard_devices is None and not cfg["offload"]
+          and (eng.temperature, eng.topp, eng.repetition_penalty) == (0.6, 0.9, 1.05)
+          and eng.tree_size == shipped_tree("sequoia_tree-24x6.json").size,
+          f"{tag} the engine did not take the config as shipped")
+    check(eng._can_decode_fused(), f"{tag} the sharded engine does not take the "
+          "device-resident loop")
+    warm_up(eng, prompt)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.time()
+    check(eng._prefill(prompt), f"{tag} prefill refused")
+    torch.cuda.synchronize()
+    ttft_ms = 1000 * (time.time() - t1)
+    prefill_counts = launch_counts()
+    eng.reset()
+    res = dict(shard_devices=[str(d) for d in devices], distinct_cards=len(set(devices)),
+               target_layers=t.args.n_layers, draft_layers=eng.draft_model.args.n_layers,
+               build_and_shard_s=build_s, init_s=init_s, resident_gb=resident_gb,
+               ttft_ms_prefill128=ttft_ms, prefill_launches=prefill_counts)
+    res["sampled"] = graphed_and_stepwise(
+        torch, eng, f"{tag} sampled", input_ids=prompt, max_new_tokens=TP_CONFIG_NEW_TOKENS,
+        temperature=0.6, topp=0.9, repetition_penalty=1.05)
+    sampled = res["sampled"].pop("tokens")
+    reset_launch_counts()
+    out = eng.generate(input_ids=prompt, max_new_tokens=TP_CONFIG_NEW_TOKENS, temperature=0.0)
+    counts = launch_counts()
+    greedy = out["generated_tokens"]
+    steps = request_steps(out)
+    res["greedy"] = dict(tokens=len(greedy), steps=steps,
+                         tok_per_s=1000.0 / out["time_per_output_token"],
+                         decode_step_ms=out["time_per_output_token"] * len(greedy) / steps,
+                         avg_accept_tokens=out["avg_accept_tokens"],
+                         degenerate_guard=check_not_degenerate(
+                             f"{tag} greedy", [(prompt, greedy)], out["avg_accept_tokens"],
+                             eng.max_step_advance))
+    check(all(0 <= x < CFG_70B["vocab_size"] for x in sampled + greedy),
+          f"{tag} token out of range")
+    for name in ("embed_gather", "attend_flash", "w4a16_matmul"):
+        check(counts[name] > 0, f"{tag} kernel {name} was never launched")
+    check_tc_route(counts, tag)
+    res["host_check"] = host_check_cost(torch, t, eng.tree_size)
+    graph = eng._decode_graphs[(True, eng.topk, abs(eng.repetition_penalty - 1.0) > 0.01)]
+    res["profile"] = decode_profile(torch, eng, prompt, "[tp-profile]",
+                                    lambda e: e._decode_fused(PP_PROFILE_TOKENS))
+    if res["distinct_cards"] > 1:
+        res["by_card"] = kernels_by_card(torch, lambda: eng.generate(
+            input_ids=prompt, max_new_tokens=8, temperature=0.0))
+        check_every_card(res["by_card"], devices, "port", tag)
+    stats = graph_stats(eng)
+    g = res["sampled"]["graphed"]
+    res.update(tok_per_s=g["tok_per_s"], decode_step_ms=g["decode_step_ms"],
+               avg_accept_tokens=g["avg_accept_tokens"], launches=counts,
+               # the captured step's; across cards the eager forward's are not in it
+               launches_per_step=graph.launches if res["distinct_cards"] == 1 else
+               {k: n / steps for k, n in counts.items()}, segments=graph.segments,
+               plan=[(str(d), e, list(p)) for d, e, p, _ in graph.plan],
+               capture_ms=stats["capture_ms"], pool_gb_by_device=stats["pool_gb_by_device"],
+               peak_mem_gb=(sum(torch.cuda.max_memory_allocated(c) for c in cards) - base)
+               / 2**30)
+    log(f"{tag} {json.dumps(res)}")
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_serve_phase(torch, dev):
+    """The batched engine with tensor_parallel 4 (B=4, 3x4 tree, fp32): at 8B
+    width over 4 random dense fp32 layers (every product in fp32, so only
+    the summation order differs; the W4A16 kernel would round its input to
+    bf16, [tp-lossless]), the draft its first 2 layers, run() of 6 requests
+    of staggered prompt lengths gives the unsharded batched engine's tokens
+    exactly; then a Gemma-2-9B-width runtime of 2 layers (its row partials
+    summed before the post norms) the same way. On a host with TP_SHARDS
+    cards the shards one a card give the one-card tokens, with the port's
+    kernels on every card."""
+    from umbrella_tpu_torch.config import ModelConfig
+    from umbrella_tpu_torch.models.auto_model import early_exit_runtime
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    tag = "[tp-serve]"
+    res = {}
+    cards = across_cards(torch)
+    llama = tp_dense_target(torch, dev, ModelConfig(**dict(CFG_8B, num_hidden_layers=4)), 5,
+                            MAX_LEN)
+    gemma = family_runtime(torch, dev, dict(GEMMA_9B_HF, num_hidden_layers=2), 63, torch.float32,
+                           MAX_LEN, damp_from=1)
+    for name, target, vocab, attn in (("llama", llama, CFG_8B["vocab_size"],
+                                       "attend_flash_batched"),
+                                      ("gemma2", gemma, GEMMA_9B_HF["vocab_size"],
+                                       "attend_flash_batched")):
+        draft = early_exit_runtime(target, target.args.n_layers // 2)
+        reqs = [dict(r, input_ids=r["input_ids"][:PROMPT_LEN - PROMPT_LEN // 8 * i])
+                for i, r in enumerate(family_requests(9, 6, TP_SERVE_TOKENS, vocab))]
+
+        def run(rt, **kw):
+            eng = batched_engine(torch, dev, rt, draft, 4, (3, 4), None, torch.float32, **kw)
+            reset_launch_counts()
+            outs = [o["generated_tokens"] for o in eng.run([dict(r) for r in reqs])]
+            return eng, outs, launch_counts()
+
+        eng, want, _ = run(target)
+        del eng
+        eng, got, counts = run(tp_copy(torch, target, [dev] * TP_SHARDS),
+                               tensor_parallel=TP_SHARDS)
+        r = dict(identical_prefix=[first_difference(a, b) for a, b in zip(got, want)],
+                 graphs=check_graphed(eng, f"{tag} {name}"), launches=counts)
+        del eng
+        if cards is not None:
+            eng4, got4, _ = run(tp_copy(torch, target, cards), tensor_parallel=TP_SHARDS)
+            r["four_cards"] = dict(
+                identical_to_one_card=[first_difference(a, b) for a, b in zip(got4, got)],
+                by_card=kernels_by_card(torch, lambda: eng4.run([dict(q, max_new_tokens=8)
+                                                                 for q in reqs[:4]])))
+            del eng4
+        log(f"{tag} {name} {json.dumps(r)}")
+        check(got == want, f"{tag} {name}: sharded run() {r['identical_prefix']} vs unsharded")
+        check(all(len(o) >= TP_SERVE_TOKENS for o in got), f"{tag} {name}: too few tokens")
+        for k in (attn, "embed_gather"):
+            check(counts[k] > 0, f"{tag} {name}: kernel {k} was never launched")
+        if cards is not None:
+            check(min(r["four_cards"]["identical_to_one_card"]) >= TP_SERVE_TOKENS,
+                  f"{tag} {name}: four cards part from one card: {r['four_cards']}")
+            check_every_card(r["four_cards"]["by_card"], cards, "port", f"{tag} {name}")
+        res[name] = r
+    return res
+
+
+# the 70B's entries (whole K, whole N, row-parallel) whose shard of TP_SHARDS
+# the tensor-parallel forward runs: wv's shard is wk's shape, up's gate's
+TP_W4A16_SHAPES = {"wq": (8192, 8192, False), "wk": (8192, 1024, False),
+                   "gate": (8192, 28672, False), "wo": (8192, 8192, True),
+                   "down": (28672, 8192, True)}
+TP_ROWS = (1, 24, 127, 300)
+
+
+def tp_kernel_checks(torch, dev, gen, randn, err):
+    """The kernels at the 70B's tensor-parallel shard shapes (TP_SHARDS
+    shards; [tp-config]'s path). w4a16_matmul on shard 1 of each entry, cut
+    from the whole quantized weight as shard_runtime cuts it (a row entry
+    repacked first; the shard dequantizes to its block of the whole
+    weight's rows or columns, bit for bit): the column shards wq [8192,2048],
+    wk [8192,256] and gate [8192,7168] with bf16 out, the row shards wo
+    [2048,8192] and down [7168,8192] with fp32 out (the partials that
+    all_reduce sums); against the plain version (2**-7 / 1e-4 of max|plain|)
+    at S=1, 24, 127 and 300, every S's rows bit for bit S=300's, timed at
+    S=127 beside the bf16 matmul on the pre-dequantized shard and the bound.
+    attend_flash at a shard's 70B verify: q [127,16,128] over 2 kv heads of
+    an 8192-slot cache (24x6 tree at kv_limit 428), and rows of S=1, 24, 127
+    bit for bit those of S=512 (causal)."""
+    from umbrella_tpu_torch.ops.kernels.tree_attention import attend_flash
+    from umbrella_tpu_torch.ops.kernels.w4a16 import (_dequant_halves_bf16, _plan, w4a16_matmul,
+                                                      w4a16_matmul_ref)
+    from umbrella_tpu_torch.ops.masks import causal_mask_rows, tree_mask_rows
+    from umbrella_tpu_torch.parallel.mesh import _column, _rows
+    from umbrella_tpu_torch.quantization.awq import (AwqTensor, quantize_pack_device,
+                                                     repack_row_shards)
+    from umbrella_tpu_torch.sequoia import growmap_from_spec
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes, e_max, e_rel = {}, 0.0, 0.0
+    for name, (K, N, row) in TP_W4A16_SHAPES.items():
+        q = quantize_pack_device(torch.randn((K, N), generator=gen, device=dev) * 0.02, 128, bf16)
+        whole = _dequant_halves_bf16(q)
+        if row:
+            piece = _rows(repack_row_shards(q, TP_SHARDS), TP_SHARDS, 1)
+        else:
+            piece = _column(q, TP_SHARDS, 1)
+        piece = AwqTensor(*(t.contiguous() for t in piece))
+        k, n = piece.k, piece.n
+        w_deq = _dequant_halves_bf16(piece)
+        check(torch.equal(w_deq, whole[k:2 * k] if row else whole[:, n:2 * n]),
+              f"w4a16 TP shard {name}: the shard is not its block of the whole weight")
+        del q, whole
+        od, tol = (f32, 1e-4) if row else (bf16, 2 ** -7)
+        x_all = randn(TP_ROWS[-1], k)
+        y_all = w4a16_matmul(x_all, piece, out_dtype=od)
+        for S in TP_ROWS:
+            x = x_all[:S].contiguous()
+            got = w4a16_matmul(x, piece, out_dtype=od)
+            e, m = err(got, w4a16_matmul_ref(x, piece, out_dtype=od))
+            check(e <= tol * m, f"w4a16 TP shard {name} S={S}: err {e} vs max {m}")
+            check(torch.equal(got, y_all[:S]), f"w4a16 TP shard {name}: rows of S={S} differ "
+                  f"from S={TP_ROWS[-1]}'s")
+            e_max, e_rel = max(e_max, e), max(e_rel, e / m)
+        x = x_all[:127].contiguous()
+        by, bb = w4a16_bound(k, n, 127, n * (2 if od == f32 else 1), k // 128)
+        key = f"70B TP4 {name} [{k},{n}] S=127"
+        shapes[key] = dict(out=str(od).split(".")[-1], splits=_plan(127, k, n, 1, 128)["splits"],
+                           ms=cuda_ms(torch, lambda: w4a16_matmul(x, piece, out_dtype=od)),
+                           plain_ms=cuda_ms(torch, lambda: w4a16_matmul_ref(x, piece,
+                                                                            out_dtype=od),
+                                            iters=5),
+                           library_ms=cuda_ms(torch, lambda: torch.matmul(x, w_deq)),
+                           bound_ms=by, bound_by=bb)
+        log(f"[kernels] w4a16_matmul {key} {shapes[key]}")
+        del piece, w_deq, x_all, y_all
+    torch.cuda.empty_cache()
+    gm = growmap_from_spec(24, 6, acc=ACC_24x6)
+    nn, nH, KVH = 301, CFG_70B["num_attention_heads"] // TP_SHARDS, \
+        CFG_70B["num_key_value_heads"] // TP_SHARDS
+    attn = attention_at(torch, dev, randn, err, "70B TP4 verify", nH, KVH, 128, 8192,
+                        tree_mask_rows(nn, torch.as_tensor(gm.bitmap, device=dev), 8192),
+                        nn + gm.size)
+    kc, vc, q = randn(1, KVH, 8192, 128), randn(1, KVH, 8192, 128), randn(512, nH, 128)
+    mask = causal_mask_rows(nn, 512, 8192, device=dev)
+    full = attend_flash(q, kc, vc, mask, nn + 512, 0)
+    for S in (1, 24, 127):
+        check(torch.equal(attend_flash(q[:S].contiguous(), kc, vc, mask[:S], nn + 512, 0),
+                          full[:S]), f"attend_flash TP shard: rows of S={S} differ from S=512's")
+    attn["rows_equal_across_S"] = True
+    return dict(w4a16=shapes, w4a16_max_abs_err=e_max, w4a16_max_rel_err=e_rel,
+                attention={"70B TP4 verify q [127,16,128]": attn})
 
 
 # ---------------------------------------------------------------- the dynamic engine and offload
@@ -4261,9 +4979,9 @@ MISTRAL_HF = dict(
     bos_token_id=1, eos_token_id=2, torch_dtype="bfloat16")
 FAMILY_MAX_LEN = 8192  # the single-slot configs' max_length
 LONG_PROMPT_LEN = 4200  # past Gemma-2's 4,096-slot window
-FAMILY_NEW_TOKENS = 128
-# the random pairs accept ~1 token a step, so every token is a step: the
-# counts below keep the six phases inside the script's time limit
+FAMILY_NEW_TOKENS = 64
+# the random pairs accept ~1 token a step, so every token is a step: these
+# counts keep the six phases inside the script's time limit
 FAMILY_STEPWISE_TOKENS = 8  # the stepwise loop's share of a graphed request, compared
 FAMILY_DYN_TOKENS, FAMILY_DYN_STEPWISE_TOKENS = 8, 4
 FAMILY_SERVE_REQUESTS, FAMILY_SERVE_TOKENS, FAMILY_SINGLE_CHECKED = 12, 32, 3
@@ -5173,50 +5891,95 @@ def moe_checkpoint_phase(torch, dev, dirs):
     return res
 
 
-def build_moe_target(torch, dev, n_layers):
+def build_moe_target(torch, dev, n_layers, devices):
     """A random bf16 MoE runtime at Mixtral-8x7B's widths, n_layers deep,
-    built on the card from init_moe_llama_params, its embedding scaled to
-    MOE_EMBED_STD: drawn Glorot (std 0.0074 at 32000 x 4096) the input token
-    is lost against the layers' outputs (RMS ~1.3 each), and the greedy
-    decode collapses onto a few repeated tokens (on the card, 61% of tokens
-    repeated the one before and 14% were distinct; at std 1, 34% and 36%)."""
+    expert-sharded over `devices` (shard_runtime_ep: the configs'
+    expert_parallel 4), its embedding scaled to MOE_EMBED_STD: drawn Glorot
+    (std 0.0074 at 32000 x 4096) the input token is lost against the layers'
+    outputs (RMS ~1.3 each), and the greedy decode collapses onto a few
+    repeated tokens (on the card, 61% of tokens repeated the one before and
+    14% were distinct; at std 1, 34% and 36%). On one card: built from
+    init_moe_llama_params and sharded in place (the shards are views).
+    Across cards: each shard's experts drawn on its own card (32 layers'
+    would not fit on one), the rest on `dev`, Glorot-normal as
+    init_moe_llama_params draws them."""
+    import itertools
+
     from umbrella_tpu_torch.config import ModelConfig
-    from umbrella_tpu_torch.models.moe import init_moe_llama_params, moe_runtime
+    from umbrella_tpu_torch.models.moe import (ExpertShard, ShardedExperts,
+                                               init_moe_llama_params, moe_runtime,
+                                               shard_runtime_ep)
+    from umbrella_tpu_torch.ops.rope import rope_params
 
     cfg = ModelConfig.from_dict(dict(MIXTRAL_HF, num_hidden_layers=n_layers))
-    params = init_moe_llama_params(cfg, torch.Generator(device=dev).manual_seed(41),
-                                   cfg.num_local_experts, torch.bfloat16, device=dev)
-    params["embed"] *= MOE_EMBED_STD * ((cfg.vocab_size + cfg.hidden_size) / 2) ** 0.5
+    E, H, I, V = (cfg.num_local_experts, cfg.hidden_size, cfg.intermediate_size,
+                  cfg.vocab_size)
+    embed_scale = MOE_EMBED_STD * ((V + H) / 2) ** 0.5
+    if len(set(devices)) == 1:
+        params = init_moe_llama_params(cfg, torch.Generator(device=dev).manual_seed(41), E,
+                                       torch.bfloat16, device=dev)
+        params["embed"] *= embed_scale
+        return shard_runtime_ep(moe_runtime(cfg, params, FAMILY_MAX_LEN, dtype=torch.bfloat16,
+                                            top_k=cfg.num_experts_per_tok, device=dev), devices)
+
+    def glorot(gen, device, *shape):
+        std = (2.0 / (shape[-2] + shape[-1])) ** 0.5
+        out = torch.empty(shape, dtype=torch.bfloat16, device=device)
+        for idx in itertools.product(*map(range, shape[:-2])):
+            out[idx] = torch.randn(shape[-2:], generator=gen, device=device) * std
+        return out
+
+    n, D = n_layers, cfg.resolved_head_dim
+    Hq, KV = cfg.num_attention_heads * D, cfg.num_key_value_heads * D
+    gen = torch.Generator(device=dev).manual_seed(41)
+    ones = torch.ones((n, H), dtype=torch.bfloat16, device=dev)
+    layers = dict(input_norm=ones, post_norm=ones.clone(), wq=glorot(gen, dev, n, H, Hq),
+                  wk=glorot(gen, dev, n, H, KV), wv=glorot(gen, dev, n, H, KV),
+                  wo=glorot(gen, dev, n, Hq, H), router=glorot(gen, dev, n, H, E))
+    per = E // len(devices)
+    shards = []
+    for s, d in enumerate(devices):
+        g = torch.Generator(device=d).manual_seed(42 + s)
+        shards.append(ExpertShard(d, glorot(g, d, n, per, H, I), glorot(g, d, n, per, H, I),
+                                  glorot(g, d, n, per, I, H)))
+    layers["expert_shards"] = ShardedExperts(shards)
+    params = dict(embed=glorot(gen, dev, V, H) * embed_scale,
+                  final_norm=torch.ones((H,), dtype=torch.bfloat16, device=dev), layers=layers,
+                  lm_head=glorot(gen, dev, H, V), **rope_params(cfg, device=dev))
     return moe_runtime(cfg, params, FAMILY_MAX_LEN, dtype=torch.bfloat16,
                        top_k=cfg.num_experts_per_tok, device=dev)
 
 
 def moe_config_phase(torch, dev, dirs, prompt, shared):
-    """configs/chat_config_mixtral_ep.json's keys without expert_parallel (the
-    static engine, 24x6 tree, 0.6 / 0.9 / 1.05): the target a random MoE
-    runtime at Mixtral-8x7B's widths and MOE_LAYERS of its 32 layers (all 32
-    need expert parallelism over four cards; MOE_LAYERS_CUT where the card
-    runs out of memory or the peak passes PEAK_LIMIT_BYTES), the draft the
-    Mistral-7B-v0.3 directory (its 32768-token vocabulary wider than the
-    target's 32000). A stochastic request graphed and stepwise from one
-    generator state (graphed_and_stepwise: equal tokens); TTFT, the kernels at this family's
-    shapes and a [moe-profile] window (greedy)."""
+    """configs/chat_config_mixtral_ep.json as shipped (the static engine,
+    expert_parallel 4, 24x6 tree, 0.6 / 0.9 / 1.05): the target a random MoE
+    runtime at Mixtral-8x7B's widths expert-sharded in 4 (build_moe_target):
+    on one card all four shards on it, at MOE_LAYERS of its 32 layers
+    (MOE_LAYERS_CUT where the card runs out of memory or the peak passes
+    PEAK_LIMIT_BYTES); on a host with four cards one shard a card, at all
+    32. The draft the Mistral-7B-v0.3 directory (its 32768-token vocabulary
+    wider than the target's 32000). A stochastic request graphed and
+    stepwise from one generator state (graphed_and_stepwise: equal tokens);
+    TTFT, the kernels at this family's shapes and a [moe-profile] window
+    (greedy); on four cards, device kernels on every card."""
     from umbrella_tpu_torch.speculation.auto_engine import AutoEngine
     from umbrella_tpu_torch.speculation.static_engine import StaticEngine
 
     tag = "[moe-config]"
     vocab = MIXTRAL_HF["vocab_size"]
+    devices = stage_devices(torch, dev)
+    across = len(set(devices)) > 1
     res, eng = {}, None
-    for layers in (MOE_LAYERS, MOE_LAYERS_CUT):
-        torch.cuda.reset_peak_memory_stats(dev)
+    for layers in ((MIXTRAL_HF["num_hidden_layers"],) if across else (MOE_LAYERS, MOE_LAYERS_CUT)):
+        for c in set(devices):
+            torch.cuda.reset_peak_memory_stats(c)
         try:
             t0 = time.time()
-            target = build_moe_target(torch, dev, layers)
+            target = build_moe_target(torch, dev, layers, devices)
             torch.cuda.synchronize()
             res["build_s"] = time.time() - t0
             cfg = family_config("chat_config_mixtral_ep.json", target,
-                                dirs["mistral-7b-v0.3"]["dir"], expert_parallel=None,
-                                max_length=FAMILY_MAX_LEN)
+                                dirs["mistral-7b-v0.3"]["dir"], max_length=FAMILY_MAX_LEN)
             del target
             t0 = time.time()
             eng = AutoEngine.from_config(device=dev, **cfg)
@@ -5228,7 +5991,7 @@ def moe_config_phase(torch, dev, dirs, prompt, shared):
         except torch.cuda.OutOfMemoryError as e:
             log(f"{tag} {layers} layers: out of memory ({str(e).splitlines()[0]})")
             eng = target = peak = None
-        if peak is not None and (peak <= PEAK_LIMIT_BYTES or layers == MOE_LAYERS_CUT):
+        if peak is not None and (peak <= PEAK_LIMIT_BYTES or layers != MOE_LAYERS):
             break
         log(f"{tag} {layers} layers: peak {peak and peak / 1e9} GB; cut to {MOE_LAYERS_CUT}")
         eng = target = None
@@ -5237,11 +6000,15 @@ def moe_config_phase(torch, dev, dirs, prompt, shared):
     check(eng is not None, f"{tag} no depth fits the card")
     t, d = eng.target_model, eng.draft_model
     check(isinstance(eng, StaticEngine) and t.family == "moe" and d.family == "mistral"
+          and eng.expert_parallel == 4 and t.shard_devices == tuple(devices)
+          and d.shard_devices is None
           and (eng.temperature, eng.topp, eng.repetition_penalty) == (0.6, 0.9, 1.05)
           and eng.tree_size == shipped_tree("sequoia_tree-24x6.json").size,
           f"{tag} the engine did not take the config as shipped")
-    res.update(target_layers=t.args.n_layers, depth_cut=t.args.n_layers != MOE_LAYERS,
-               resident_gb=torch.cuda.memory_allocated(dev) / 2**30)
+    res.update(target_layers=t.args.n_layers, shard_devices=[str(x) for x in devices],
+               depth_cut=t.args.n_layers != (MIXTRAL_HF["num_hidden_layers"] if across
+                                             else MOE_LAYERS),
+               resident_gb=sum(torch.cuda.memory_allocated(c) for c in set(devices)) / 2**30)
     res["stochastic"] = graphed_and_stepwise(
         torch, eng, f"{tag} stochastic", input_ids=prompt, max_new_tokens=FAMILY_NEW_TOKENS,
         temperature=0.6, topp=0.9, repetition_penalty=1.05)
@@ -5251,8 +6018,15 @@ def moe_config_phase(torch, dev, dirs, prompt, shared):
     for k in ("embed_gather", "attend_flash"):
         check(counts[k] > 0, f"{tag}: kernel {k} was never launched")
     check_tc_route(counts, tag)
-    res.update(single_engine_report(torch, dev, eng, prompt, tag,
-                                    ("embed_gather", "attend_flash")))
+    if across:  # the eager forward's kernels are not in the captured step
+        res["by_card"] = kernels_by_card(torch, lambda: eng.generate(
+            input_ids=prompt, max_new_tokens=8, temperature=0.0))
+        check_every_card(res["by_card"], devices, "kernels", tag)
+        res["peak_mem_gb_by_card"] = {str(c): torch.cuda.max_memory_allocated(c) / 2**30
+                                      for c in devices}
+    else:
+        res.update(single_engine_report(torch, dev, eng, prompt, tag,
+                                        ("embed_gather", "attend_flash")))
     g = res["stochastic"]["graphed"]
     res.update(tok_per_s=g["tok_per_s"], decode_step_ms=g["decode_step_ms"],
                avg_accept_tokens=g["avg_accept_tokens"], launches=g["launches"])
@@ -5276,8 +6050,11 @@ def moe_batched_lossless(torch, dev):
     w2 damped x0.05), the draft the first layer (early exit), int8 KV, B=4,
     3x4 tree: BatchedStaticEngine.run() gives each of 5 requests of staggered
     prompt lengths the single-slot engine's tokens (BATCHED_LOSSLESS_TOKENS
-    or more)."""
+    or more). Then expert_parallel 4 over the same weights (the target
+    expert-sharded over stage_devices, the MoE draft sharded by the engine):
+    run() and the single-slot engine give the unsharded engines' tokens."""
     from umbrella_tpu_torch.models.auto_model import early_exit_runtime
+    from umbrella_tpu_torch.models.moe import moe_runtime, shard_runtime_ep
     from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
     tag = "[moe-serve] fp32"
@@ -5295,23 +6072,50 @@ def moe_batched_lossless(torch, dev):
     check(counts["attend_flash_batched_int8"] > 0, f"{tag} attention never launched")
     del eng
     single = make_engine(torch, dev, target, draft, torch.float32, kv_dtype="int8", tree=(3, 4))
-    same = [first_difference(o["generated_tokens"], single.generate(
-        input_ids=r["input_ids"], max_new_tokens=BATCHED_LOSSLESS_TOKENS)["generated_tokens"])
-        for r, o in zip(reqs, outs)]
-    del single, target, draft
+    singles = [single.generate(input_ids=r["input_ids"], max_new_tokens=BATCHED_LOSSLESS_TOKENS)[
+        "generated_tokens"] for r in reqs]
+    same = [first_difference(o["generated_tokens"], w) for o, w in zip(outs, singles)]
+    del single
+    devices = stage_devices(torch, dev)
+    ep_target = shard_runtime_ep(moe_runtime(target.cfg, target.params, MAX_LEN,
+                                             dtype=torch.float32, top_k=target.cfg.
+                                             num_experts_per_tok, device=dev), devices)
+    ep_draft = early_exit_runtime(target, 1)
+    eng = batched_engine(torch, dev, ep_target, ep_draft, 4, (3, 4), "int8", torch.float32,
+                         expert_parallel=4)
+    check(eng.draft_model.shard_devices == tuple(devices), f"{tag} the MoE draft is not sharded")
+    ep_outs = eng.run(reqs)
+    ep = dict(run_identical_prefix=[first_difference(e["generated_tokens"], o["generated_tokens"])
+                                    for e, o in zip(ep_outs, outs)],
+              graphs=graph_stats(eng))
+    if len(set(devices)) > 1:
+        ep["by_card"] = kernels_by_card(torch, lambda: eng.run([dict(r, max_new_tokens=4)
+                                                                for r in reqs[:4]]))
+        check_every_card(ep["by_card"], devices, "kernels", tag)
+    del eng
+    single = make_engine(torch, dev, ep_target, ep_draft, torch.float32, kv_dtype="int8",
+                         tree=(3, 4), expert_parallel=4)
+    ep["single_identical_prefix"] = [first_difference(single.generate(
+        input_ids=r["input_ids"], max_new_tokens=BATCHED_LOSSLESS_TOKENS)["generated_tokens"], w)
+        for r, w in zip(reqs[:2], singles)]
+    del single, target, draft, ep_target, ep_draft
     res = dict(identical_prefix=same, prompt_lens=[len(r["input_ids"]) for r in reqs],
-               avg_accept_tokens=[o["avg_accept_tokens"] for o in outs], graphs=graphs)
+               avg_accept_tokens=[o["avg_accept_tokens"] for o in outs], graphs=graphs,
+               expert_parallel=ep)
     log(f"{tag} {json.dumps(res)}")
     check(min(same) >= BATCHED_LOSSLESS_TOKENS,
           f"{tag} batched and single-slot tokens differ: {same}")
+    check(min(ep["run_identical_prefix"] + ep["single_identical_prefix"])
+          >= BATCHED_LOSSLESS_TOKENS, f"{tag} expert_parallel 4 parts from the unsharded "
+          f"engines: {ep}")
     return res
 
 
 def moe_serve_phase(torch, dev, dirs, shared):
-    """configs/serve_batched_mixtral_ep.json's keys without expert_parallel
-    (B=8, int8 KV, 3x4 tree, 8-step segments, max_length 4096) over
-    [moe-config]'s runtimes (built and loaded again where that phase did not
-    run). In bf16 a slot's rows in run() and in the single-slot engine go
+    """configs/serve_batched_mixtral_ep.json as shipped (expert_parallel 4,
+    B=8, int8 KV, 3x4 tree, 8-step segments, max_length 4096) over
+    [moe-config]'s expert-sharded runtimes (built and loaded again where
+    that phase did not run). In bf16 a slot's rows in run() and in the single-slot engine go
     through products of other row counts, and a last-bit difference before
     the router can swap an expert (a jump in the logits, not a near tie):
     the first MOE_SINGLE_CHECKED requests may part from the single-slot
@@ -5320,12 +6124,13 @@ def moe_serve_phase(torch, dev, dirs, shared):
     engine exactly in fp32 (moe_batched_lossless)."""
     from umbrella_tpu_torch.models.auto_model import AutoModelLM
 
-    t, d = shared.get("runtimes") or (build_moe_target(torch, dev, MOE_LAYERS),
-                                      AutoModelLM.from_pretrained(
-                                          dirs["mistral-7b-v0.3"]["dir"],
-                                          max_length=FAMILY_MAX_LEN, device=dev))
-    cfg = family_config("serve_batched_mixtral_ep.json", t, d, expert_parallel=None,
-                        eos_token_ids=[-100])
+    devices = stage_devices(torch, dev)
+    t, d = shared.get("runtimes") or (build_moe_target(
+        torch, dev, MIXTRAL_HF["num_hidden_layers"] if len(set(devices)) > 1 else MOE_LAYERS,
+        devices), AutoModelLM.from_pretrained(dirs["mistral-7b-v0.3"]["dir"],
+                                              max_length=FAMILY_MAX_LEN, device=dev))
+    check(t.shard_devices == tuple(devices), "[moe-serve] the target is not expert-sharded")
+    cfg = family_config("serve_batched_mixtral_ep.json", t, d, eos_token_ids=[-100])
     del t, d
     res = family_serve_phase(torch, dev, "[moe-serve]", cfg, MIXTRAL_HF["vocab_size"],
                              "attend_flash_batched_int8", router_ties=True,
@@ -5419,7 +6224,7 @@ LAUNCHES_FROM = {"attend_flash_int8": "lossless-int8", "attend_flash_batched": "
 # the phases of the dynamic engine and the offload tier: each kernel's launches a
 # step there (the dynamic main path's from its captured step)
 NEW_PATHS = ("dynamic", "offload-config", "gemma-config", "gemma-serve", "moe-config",
-             "moe-serve")
+             "moe-serve", "tp-config")
 # the per-shape timings of the offload configs' shapes ([kernels]): W4A16 at the
 # 70B layer shapes at S=256 and 257, attention at the 257-row verify and a 1B level
 NEW_SHAPES = ("70B wqkv S=25", "70B wo S=25", "70B gate_up S=25", "70B down S=25",
@@ -5434,10 +6239,11 @@ TRACED_IN = {"main": "[profile] graphed: a 64-token generate()",
              "pp-config": "[pp-profile]: 8 tokens of the graphed decode loop (prefill "
                           "outside the window)"}
 CHECKPOINT_PHASES = ("checkpoint", "code-config", "code-config-w4a8", "serve-config",
-                     "api-serve", "api-chat", "pp-config", "offload-checkpoint",
+                     "api-serve", "api-chat", "pp-config", "tp-config", "offload-checkpoint",
                      "offload-config")
 PHASES = ("kernels", "multi-card", "lossless", "lossless-int8", "lossless-w4a8",
-          "batched-lossless", "pp-lossless", "dynamic-lossless", "offload-lossless", "main",
+          "batched-lossless", "pp-lossless", "tp-lossless", "tp-serve", "dynamic-lossless",
+          "offload-lossless", "main",
           "graph", "dynamic", "dynamic-pp", "serve", "serve-bf16",
           "serve-stochastic") + CHECKPOINT_PHASES + GEMMA_PHASES + MOE_PHASES
 # phases that run only when named in --phases: `w4a16`, `w4a8` and
@@ -5501,6 +6307,8 @@ def run(torch, phases):
     phase("lossless-w4a8", lossless_check, torch, dev, prompt.tolist(), None, "int8")
     phase("batched-lossless", batched_lossless_check, torch, dev)
     phase("pp-lossless", pp_lossless_check, torch, dev, prompt.tolist())
+    phase("tp-lossless", tp_lossless_check, torch, dev, prompt.tolist())
+    phase("tp-serve", tp_serve_phase, torch, dev)
     phase("dynamic-lossless", dynamic_lossless_check, torch, dev, prompt.tolist())
     phase("offload-lossless", offload_lossless_check, torch, dev, prompt.tolist())
 
@@ -5544,6 +6352,7 @@ def run(torch, phases):
             shared = None
             phase("api-chat", api_chat_phase, torch, dev, ckpt, prompt.tolist())
             phase("pp-config", pp_config_phase, torch, dev, ckpt, prompt.tolist())
+            phase("tp-config", tp_config_phase, torch, dev, ckpt, prompt.tolist())
             phase("offload-checkpoint", offload_checkpoint_phase, torch, dev, ckpt)
             phase("offload-config", offload_config_phase, torch, dev, ckpt, prompt.tolist())
         finally:
@@ -5574,7 +6383,8 @@ def run(torch, phases):
             launches_per_step_in={p: results[p]["launches_per_step"][name]
                                   for p in NEW_PATHS if results[p]["launches_per_step"][name]},
             **({"offload_config_shapes": {k: v for k, v in r["per_shape"].items()
-                                          if k.startswith(NEW_SHAPES)}}
+                                          if k.startswith(NEW_SHAPES)},
+                "tp_shard_shapes": {k: v for k, v in r["per_shape"].items() if "TP4" in k}}
                if "per_shape" in r else {}),
             **family_shapes(results, name)))
     main, serve = results["main"], results["serve"]
@@ -5689,6 +6499,17 @@ def run(torch, phases):
         "ttft_ms_prefill4200"], dynamic={k: results["gemma-config"]["dynamic"][k] for k in (
             "tok_per_s", "decode_step_ms", "avg_accept_tokens", "stepwise_tok_per_s")})
     summary["moe-config"]["target_layers"] = results["moe-config"]["target_layers"]
+    summary["tp-lossless"] = {case: dict({k: r[k] for k in (
+        "identical_to_sharded_ar", "identical_to_unsharded", "identical_to_unsharded_ar",
+        "segments")}, **({"identical_to_mirror": r["mirror"]["identical"]} if "mirror" in r
+                         else {})) for case, r in results["tp-lossless"].items()}
+    tpc = results["tp-config"]
+    summary["tp-config"] = dict({k: tpc[k] for k in (
+        "tok_per_s", "decode_step_ms", "avg_accept_tokens", "ttft_ms_prefill128", "peak_mem_gb",
+        "resident_gb", "capture_ms", "pool_gb_by_device", "segments", "target_layers")},
+        stepwise=tpc["sampled"]["stepwise"]["decode_step_ms"], greedy=tpc["greedy"],
+        profile=idle(tpc["profile"]))
+    summary["tp-serve"] = {k: r["identical_prefix"] for k, r in results["tp-serve"].items()}
     for name in ("gemma-serve", "moe-serve"):
         summary[name] = {k: results[name][k] for k in (
             "run_tok_per_s", "pipelined_tok_per_s", "avg_accept_tokens", "decode_step_ms",

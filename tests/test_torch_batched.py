@@ -694,10 +694,11 @@ def test_start_refuses_while_previous_loop_alive(port_models):
 
 
 def test_batched_static_allowlist_and_refusals(port_models):
-    """The batched_static key allowlist is the JAX package's; keys the port
-    does not carry raise and name their ROADMAP item; quantize_draft is taken,
-    and num_cache_layers is accepted and unused (resident models), as in the
-    JAX package."""
+    """The batched_static key allowlist is the JAX package's; the parallel
+    keys refuse what the JAX package refuses (two at once, pipeline
+    staging, offload, a packed target for tensor_parallel, a dense one for
+    expert_parallel); quantize_draft is taken, and num_cache_layers is
+    accepted and unused (resident models), as in the JAX package."""
     assert auto_engine._ENGINE_CONFIG_KEYS["batched_static"] == \
         jax_auto_engine._ENGINE_CONFIG_KEYS["batched_static"]
     target, draft = port_models
@@ -709,10 +710,15 @@ def test_batched_static_allowlist_and_refusals(port_models):
         auto_engine.AutoEngine.from_config(**base, stop_distance=8)
     with pytest.raises(ValueError, match="not consumed"):
         auto_engine.AutoEngine.from_config(**base, batch_sise=2)
-    with pytest.raises(NotImplementedError, match="tensor and expert parallelism"):
-        auto_engine.AutoEngine.from_config(**base, tensor_parallel=2)
-    with pytest.raises(NotImplementedError, match="tensor and expert parallelism"):
-        auto_engine.AutoEngine.from_config(**base, expert_parallel=2)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        auto_engine.AutoEngine.from_config(**base, tensor_parallel=2, expert_parallel=2)
+    # tensor and expert parallelism are carried (tests/test_torch_tp.py,
+    # test_torch_ep.py): a packed target cannot be tensor-sharded, a dense one
+    # has no experts
+    for key, match in (("tensor_parallel", "packed"), ("expert_parallel", "requires an MoE")):
+        eng = auto_engine.AutoEngine.from_config(**base, **{key: 2})
+        with pytest.raises(ValueError, match=match):
+            eng.initialize()
     with pytest.raises(ValueError, match="pipeline_parallel"):
         auto_engine.AutoEngine.from_config(**base, pipeline_parallel=2)
     with pytest.raises(ValueError, match="resident"):

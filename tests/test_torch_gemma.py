@@ -344,7 +344,8 @@ def test_quantize_draft_refused_for_a_gemma2_draft(runtimes):
 def test_offload_pipeline_and_expert_parallel_refused(runtimes, hf_dir):
     """Gemma2 has no offload variant and no pipeline-staged forward (the JAX
     package asserts against both: offload/streaming.py:120,
-    parallel/pipeline.py:183), and expert parallelism is not ported."""
+    parallel/pipeline.py:183), and expert parallelism takes MoE models only
+    (serving/batched_engine.py:150 there)."""
     from umbrella_tpu_torch.offload.streaming import OffloadModelRuntime
     from umbrella_tpu_torch.parallel.pipeline import shard_runtime_pp
 
@@ -362,9 +363,10 @@ def test_offload_pipeline_and_expert_parallel_refused(runtimes, hf_dir):
     with pytest.raises(NotImplementedError, match="pipeline staging"):
         eng.initialize()
     for engine in ("static", "batched_static"):
-        with pytest.raises(NotImplementedError, match="expert_parallel"):
-            AutoEngine.from_config(device=CPU, engine=engine, model=target, draft_model=draft,
-                                   expert_parallel=2, growmap=growmap_from_spec(*TREE))
+        eng = AutoEngine.from_config(device=CPU, engine=engine, model=target, draft_model=draft,
+                                     expert_parallel=2, growmap=growmap_from_spec(*TREE))
+        with pytest.raises(ValueError, match="expert_parallel requires an MoE"):
+            eng.initialize()
 
 
 def test_int8_cache_rows_of_a_gemma_prefill_match_jax(runtimes):

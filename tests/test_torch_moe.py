@@ -373,8 +373,8 @@ def test_embed_lookup_is_strict():
 def test_refusals(runtimes, hf_mixtral):
     """quantize_draft for an MoE draft (as the JAX package refuses it,
     speculation/engine_common.py:129-130), offload (the JAX offload loaders
-    take llama keys only), pipeline staging and expert_parallel > 1 (not
-    ported, ROADMAP A.4) are refused up front."""
+    take llama keys only), pipeline staging and an expert_parallel that does
+    not divide the experts are refused."""
     from umbrella_tpu_torch.parallel.pipeline import shard_runtime_pp
 
     target, draft = runtimes[1]
@@ -386,9 +386,10 @@ def test_refusals(runtimes, hf_mixtral):
                                      quantize_draft=True, **extra)
         with pytest.raises(ValueError, match="quantize_draft is not supported for moe"):
             eng.initialize()
-        with pytest.raises(NotImplementedError, match="expert_parallel"):
-            AutoEngine.from_config(device=CPU, engine=engine, model=target, draft_model=draft,
-                                   expert_parallel=4, **extra)
+        eng = AutoEngine.from_config(device=CPU, engine=engine, model=target, draft_model=draft,
+                                     expert_parallel=3, **extra)
+        with pytest.raises(ValueError, match="num_local_experts=4 must be divisible"):
+            eng.initialize()
     with pytest.raises(ValueError, match="moe has no offload loader"):
         auto_model.AutoModelLM.from_pretrained(hf_mixtral[1], offload=True, num_cache_layers=1,
                                                max_length=MAX_LEN, device=CPU)

@@ -355,8 +355,9 @@ def test_parallel_and_offload_exclusivity():
         AutoEngine.from_config(pipeline_parallel=2, tensor_parallel=2, **base)
     with pytest.raises(ValueError, match="offload"):
         AutoEngine.from_config(pipeline_parallel=2, offload=True, **base)
-    with pytest.raises(NotImplementedError, match="tensor and expert parallelism"):
-        AutoEngine.from_config(tensor_parallel=2, **base)
+    eng = AutoEngine.from_config(tensor_parallel=2, **base)
+    with pytest.raises(ValueError, match="packed"):  # tensor parallelism: tests/test_torch_tp.py
+        eng.initialize()
     jrt = _jax_runtime("dense", 2)
     for kw in (dict(pipeline_parallel=2, tensor_parallel=2),
                dict(pipeline_parallel=2, offload=True)):
@@ -374,7 +375,7 @@ def test_pipeline_needs_a_card_per_stage_unless_staged(monkeypatch):
     rt = _port_runtime("dense", 2)
     eng = StaticEngine(rt, rt, growmap=growmap_from_spec(3, 4), device="cuda:0",
                        pipeline_parallel=4, max_length=MAX_LEN)
-    with pytest.raises(RuntimeError, match="needs 4 CUDA devices from cuda:0, have 1"):
+    with pytest.raises(ValueError, match="needs 4 CUDA devices from cuda:0, have 1"):
         eng.initialize()
     staged = shard_runtime_pp(_port_runtime("dense", 2), [CPU] * 4)
     stages = staged.params["stages"]

@@ -483,8 +483,9 @@ def test_engine_rejects_what_this_slice_does_not_port():
     cfg = ModelConfig(**dict(SMALL, num_hidden_layers=1))
     rt = auto_model.random_runtime(cfg, MAX_LEN, device=CPU)
     base = dict(device=CPU, model=rt, draft_model=rt, growmap=growmap_from_spec(3, 4))
-    with pytest.raises(NotImplementedError, match="tensor and expert parallelism"):
-        AutoEngine.from_config(engine="static", tensor_parallel=2, **base)
+    eng = AutoEngine.from_config(engine="static", tensor_parallel=2, **base)
+    with pytest.raises(ValueError, match="packed"):  # tensor parallelism takes packed=False
+        eng.initialize()
     # the dynamic engine is ported: it takes no growmap
     with pytest.raises(ValueError, match="not consumed"):
         AutoEngine.from_config(engine="dynamic", **base)

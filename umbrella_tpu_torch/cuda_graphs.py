@@ -47,9 +47,12 @@ device's current stream, or runs an eager segment's phases. A replay draws as
 many random numbers whether the step is live or a no-op; `rewind(n)` takes
 back the draws of n replays, so that a loop which ran n no-op replays past
 its stop leaves the random stream where a loop that stopped at once would.
-Capture and replays run under `no_host_sync`, a check confined to the
-thread that captures or replays: a host read inside a step raises. A
-capture that fails raises; nothing falls back to eager steps.
+Captures, hop copies and graph replays run under `no_host_sync`, a check
+confined to the thread that captures or replays: a host read there raises.
+An eager segment's phases run outside it: the check is a torch function
+mode, which takes every torch call made inside it, and a forward across
+cards makes tens of thousands a step. A capture that fails raises; nothing
+falls back to eager steps.
 """
 from __future__ import annotations
 
@@ -302,20 +305,21 @@ class StepGraph:
 
     def replay(self, n: int) -> None:
         """Run the step n times: each segment's hops copied in, then its graph
-        replayed on its device's current stream (an eager segment run).
-        Nothing waits for the device."""
+        replayed on its device's current stream (an eager segment run, outside
+        no_host_sync). Nothing waits for the device."""
         ctx = self._ctx
-        with no_host_sync():
-            for _ in range(n):
-                for i, (graph, bufs) in enumerate(zip(self._graphs, self._buffers)):
+        for _ in range(n):
+            for i, (graph, bufs) in enumerate(zip(self._graphs, self._buffers)):
+                if graph is None:
+                    with torch.cuda.device(self.plan[i][0]):
+                        run_segment(self._eager[i], ctx, bufs)
+                    continue
+                with no_host_sync():
                     for k, buf in bufs.items():
                         buf.copy_(ctx[k], non_blocking=True)
                     with torch.cuda.device(self.plan[i][0]):
-                        if graph is None:
-                            run_segment(self._eager[i], ctx, bufs)
-                        else:
-                            graph.replay()
-                    ctx.update(self._outputs[i])
+                        graph.replay()
+                ctx.update(self._outputs[i])
         kernels.add_launches(self._deltas, n)
         self.replays += n
 

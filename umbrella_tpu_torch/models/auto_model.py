@@ -90,8 +90,11 @@ class ModelRuntime:
     (fp32 logits, kv) and updates the KV cache the caller owns in place. The
     params must already live on `device` (see models/convert.py or the random
     constructors below). A runtime staged by parallel.pipeline.shard_runtime_pp
-    holds its layer blocks in params["stages"]; its forward and init_kv follow
-    the stages."""
+    holds its layer blocks in params["stages"], one sharded by
+    parallel.mesh.shard_runtime its tensor-parallel shards in
+    params["tp_shards"]; their forward and init_kv follow the stages or the
+    shards. An expert-parallel runtime (models/moe.shard_runtime_ep) keeps its
+    forward and cache: its layers' experts run on their shards."""
 
     def __init__(self, cfg: ModelConfig, params: dict, max_length: int,
                  dtype=torch.bfloat16, family: str = "llama", n_layers: Optional[int] = None,
@@ -124,6 +127,21 @@ class ModelRuntime:
         return None if stages is None else tuple(s.device for s in stages)
 
     @property
+    def shard_devices(self):
+        """The device of each tensor- or expert-parallel shard, or None for a
+        runtime that is not sharded."""
+        shards = self.params.get("tp_shards")
+        if shards is None:
+            shards = getattr(self.params.get("layers", {}).get("expert_shards"), "shards", None)
+        return None if shards is None else tuple(s.device for s in shards)
+
+    @property
+    def spans_cards(self) -> bool:
+        """Whether the forward runs on a device besides the runtime's own (its
+        shards or stages on other cards)."""
+        return any(d != self.device for d in (self.shard_devices or self.stage_devices or ()))
+
+    @property
     def supports_fused_phases(self) -> bool:
         """Whether the engines may run this model inside the device-resident
         decode loop (CUDA graphs on the card): true for every resident
@@ -136,6 +154,10 @@ class ModelRuntime:
             from ..parallel.pipeline import pp_forward
 
             return pp_forward(self)
+        if "tp_shards" in self.params:
+            from ..parallel.mesh import tp_forward
+
+            return tp_forward(self)
         forward = self._forward
         args = self.gemma_args if self.family == "gemma2" else self.args
 
@@ -147,8 +169,9 @@ class ModelRuntime:
     def forward_phases(self, kv) -> list:
         """The forward over `kv` (written in place) as phases of a step
         (cuda_graphs.Phase): the step values ids, pos, mask and nn (the write
-        offset) -> logits. One phase on the runtime's device, or a staged
-        runtime's embedding, stages and head (parallel.pipeline.pp_phases)."""
+        offset) -> logits. One phase on the runtime's device (eager where a
+        sharded runtime's shards span cards), or a staged runtime's
+        embedding, stages and head (parallel.pipeline.pp_phases)."""
         if self.stage_devices is not None:
             from ..parallel.pipeline import pp_phases
 
@@ -158,13 +181,18 @@ class ModelRuntime:
         def forward(ids, pos, mask, nn):
             return fwd(self.params, kv, ids, pos, mask, nn)[0]
 
-        return [Phase("forward", self.device, forward, ("ids", "pos", "mask", "nn"), ("logits",))]
+        return [Phase("forward", self.device, forward, ("ids", "pos", "mask", "nn"), ("logits",),
+                      eager=self.spans_cards)]
 
     def init_kv(self, kv_dtype=None) -> KVCache:
         if self.stage_devices is not None:
             from ..parallel.pipeline import init_staged_kv
 
             return init_staged_kv(self, kv_dtype)
+        if "tp_shards" in self.params:
+            from ..parallel.mesh import init_sharded_kv
+
+            return init_sharded_kv(self, kv_dtype)
         return init_kv_cache(self.cfg, self.max_length, dtype=kv_dtype or self.dtype,
                              num_layers=self.args.n_layers, device=self.device)
 
@@ -253,8 +281,10 @@ def random_runtime(cfg: ModelConfig, max_length: int = 128, dtype=torch.float32,
 
 def random_awq_runtime(cfg: ModelConfig, max_length: int = 128, dtype=torch.bfloat16,
                        seed: int = 0, group_size: int = 128, n_layers: Optional[int] = None,
-                       quantize_lm_head: bool = False, device="cuda") -> ModelRuntime:
-    """Random W4-quantized model at any shape, built on `device`.
+                       quantize_lm_head: bool = False, packed: bool = True,
+                       device="cuda") -> ModelRuntime:
+    """Random W4-quantized model at any shape, built on `device`; packed=False
+    quantizes q/k/v and gate/up apart (the tensor-parallel layout).
 
     Each AwqTensor AWQ-quantizes an N(0, 0.02) matrix generated in 8192-column
     chunks (the fp32 8B head would be 2.1 GB whole), so scales and zeros have a
@@ -284,11 +314,19 @@ def random_awq_runtime(cfg: ModelConfig, max_length: int = 128, dtype=torch.bflo
     layers = {
         "input_norm": torch.ones((n, H), dtype=dtype, device=device),
         "post_norm": torch.ones((n, H), dtype=dtype, device=device),
-        "wqkv": tuple(q_one(H, Hq + 2 * KV) for _ in range(n)),
-        "wo": tuple(q_one(Hq, H) for _ in range(n)),
-        "gate_up": tuple(q_one(H, 2 * I) for _ in range(n)),
-        "down": tuple(q_one(I, H) for _ in range(n)),
     }
+    if packed:
+        layers["wqkv"] = tuple(q_one(H, Hq + 2 * KV) for _ in range(n))
+    else:
+        for k, n_out in (("wq", Hq), ("wk", KV), ("wv", KV)):
+            layers[k] = tuple(q_one(H, n_out) for _ in range(n))
+    layers["wo"] = tuple(q_one(Hq, H) for _ in range(n))
+    if packed:
+        layers["gate_up"] = tuple(q_one(H, 2 * I) for _ in range(n))
+    else:
+        layers["gate"] = tuple(q_one(H, I) for _ in range(n))
+        layers["up"] = tuple(q_one(H, I) for _ in range(n))
+    layers["down"] = tuple(q_one(I, H) for _ in range(n))
     params = {
         "embed": dense((V, H)),
         "final_norm": torch.ones((H,), dtype=dtype, device=device),

@@ -1,9 +1,11 @@
 """Batched (multi-slot) Llama forward and KV cache for continuous batching.
 
 Counterpart of `umbrella_tpu/models/batched.py`: the all-slots and single-slot
-forwards of the llama, Gemma2 and MoE families (the tensor-parallel Gemma2
-forms, the JAX package's `tp_axis`, are not ported). B request slots decode in
-one forward, each with its own committed length and KV window.
+forwards of the llama, Gemma2 and MoE families (`model_forwards`; a
+tensor-parallel runtime's are parallel/mesh.tp_batched_forwards, the JAX
+package's `tp_axis` forms, over a ShardedKVCache of one BatchedKVCache a
+shard). B request slots decode in one forward, each with its own committed
+length and KV window.
 
 KV layout [n_layers, B, kv_heads, L, head_dim] (int8 values with fp32 scales
 [n_layers, B, kv_heads, L] when quantized), as in the JAX package. The JAX
@@ -25,8 +27,8 @@ from ..ops.rope import apply_rope
 from ..ops.select import embed_lookup
 from .gemma import (GemmaStaticArgs, embed_scaled, gemma2_block, gemma_logits, is_sliding,
                     sliding_mask)
-from .kv_cache import _quantize_block, is_int8
-from .llama import StaticModelArgs, _attn_projections, _linear, _mlp_act, lm_head_logits
+from .kv_cache import ShardedKVCache, _quantize_block, is_int8
+from .llama import StaticModelArgs, _attn_projections, _linear, llama_block, lm_head_logits
 from .moe import moe_block
 
 
@@ -57,6 +59,17 @@ def init_batched_kv(cfg: ModelConfig, batch: int, max_length: int, dtype=torch.b
             v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device))
     return BatchedKVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                           v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def init_runtime_batched_kv(runtime, batch: int, max_length: int, dtype):
+    """The batched cache of a runtime: one BatchedKVCache on its device, or
+    a tensor-parallel runtime's ShardedKVCache (parallel/mesh.py)."""
+    if "tp_shards" in runtime.params:
+        from ..parallel.mesh import init_sharded_batched_kv
+
+        return init_sharded_batched_kv(runtime, batch, max_length, dtype)
+    return init_batched_kv(runtime.cfg, batch, max_length, dtype,
+                           num_layers=runtime.args.n_layers, device=runtime.device)
 
 
 def _window_cols(offsets: torch.Tensor, width: int, length: int) -> torch.Tensor:
@@ -107,7 +120,14 @@ def gather_compact_batched(kv: BatchedKVCache, local_indices: torch.Tensor,
     """Per-slot KV compaction (see kv_cache.gather_compact), all layers and slots
     at once: slot b's accepted tree slots local_indices[b, :accept_lens[b]] move
     down to its linear prefix at offsets[b]; the rest of its window is zeroed.
-    int8 scales move with their rows."""
+    int8 scales move with their rows. A ShardedKVCache is compacted shard by
+    shard, the inputs copied to each shard's device."""
+    if isinstance(kv, ShardedKVCache):
+        for cache in kv.shards:
+            dev = cache.k.device
+            gather_compact_batched(cache, local_indices.to(dev), offsets.to(dev),
+                                   accept_lens.to(dev))
+        return kv
     B, T = local_indices.shape
     cols = _window_cols(offsets, T, kv.k.shape[3])
     src = cols[:, :1] + local_indices.long()
@@ -131,13 +151,11 @@ def _layer_block(args: StaticModelArgs, lw: dict, hidden: torch.Tensor, attend_f
     As in the JAX package's batched forward, `awq_act="int8"` reaches only the
     QKV projection (through _attn_projections): wo, the MLP and down run W4A16
     (ROADMAP queue C)."""
+    if not top_k:
+        return llama_block(args, lw, hidden, attend_fn)
     x = rms_norm(hidden, lw["input_norm"], args.rms_eps)
     attn = _linear(attend_fn(*_attn_projections(args, lw, x)), lw["wo"])
-    if top_k:
-        return moe_block(args, lw, hidden, attn, top_k)
-    hidden = hidden + attn
-    x = rms_norm(hidden, lw["post_norm"], args.rms_eps)
-    return hidden + _linear(_mlp_act(lw, x), lw["down"])
+    return moe_block(args, lw, hidden, attn, top_k)
 
 
 def _final_logits(params: dict, args: StaticModelArgs, hidden: torch.Tensor) -> torch.Tensor:
@@ -290,7 +308,13 @@ def slot_gemma2_forward(params: dict, args: GemmaStaticArgs, kv: BatchedKVCache,
 def model_forwards(runtime):
     """(batched_fwd, slot_fwd) of one runtime, by family:
     batched_fwd(params, kv, ids, pos, mask, offsets) and
-    slot_fwd(params, kv, ids, pos, mask, slot, offset)."""
+    slot_fwd(params, kv, ids, pos, mask, slot, offset). A tensor-parallel
+    runtime's are parallel/mesh.tp_batched_forwards; an expert-parallel
+    runtime takes the MoE forms as they are."""
+    if "tp_shards" in runtime.params:
+        from ..parallel.mesh import tp_batched_forwards
+
+        return tp_batched_forwards(runtime)
     args, extra = runtime.args, {}
     if runtime.family == "gemma2":
         args, batched, slot = runtime.gemma_args, batched_gemma2_forward, slot_gemma2_forward

@@ -12,7 +12,8 @@ The sliding window is expressed in slot space, as in the JAX package: a row
 at position p may read cache slot c when c > p - window (committed slot ==
 position; tree offsets are below the window). Linear weights are stacked
 [n_layers, in, out] tensors; the dense products go through llama._linear.
-The tensor-parallel form (the JAX package's `tp_axis`) is not ported.
+The tensor-parallel form (the JAX package's `tp_axis`, batched engine only)
+is parallel/mesh.tp_batched_forwards.
 """
 from __future__ import annotations
 
@@ -22,12 +23,11 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
-from ..ops.attention import attend
 from ..ops.norms import gemma_rms_norm
-from ..ops.rope import apply_rope, rope_params
+from ..ops.rope import rope_params
 from ..ops.select import embed_lookup
-from .kv_cache import KVCache, update_layer
-from .llama import _linear, kv_limit_of
+from .kv_cache import KVCache
+from .llama import _linear, cache_attend_fn, kv_limit_of, row_product
 
 
 class GemmaStaticArgs(NamedTuple):
@@ -78,16 +78,21 @@ def embed_scaled(params: dict, args: GemmaStaticArgs, input_ids: torch.Tensor) -
     return hidden * torch.tensor(args.hidden_size ** 0.5, dtype=hidden.dtype)
 
 
-def gemma2_block(args: GemmaStaticArgs, lw: dict, hidden: torch.Tensor, attend_fn) -> torch.Tensor:
+def gemma2_block(args: GemmaStaticArgs, lw: dict, hidden: torch.Tensor, attend_fn,
+                 row=None) -> torch.Tensor:
     """One decoder layer on hidden [N, H]; `attend_fn(q, k, v)` (each [N, heads
-    * D]) writes the layer's KV and returns attention [N, heads * D]."""
+    * D]) writes the layer's KV and returns attention [N, heads * D]; `row`
+    computes the two row products (default llama.row_product's), each summed
+    before its post norm."""
     eps = args.rms_eps
+    row = row or row_product(lw, attend_fn)
     x = gemma_rms_norm(hidden, lw["input_norm"], eps)
-    out = attend_fn(_linear(x, lw["wq"]), _linear(x, lw["wk"]), _linear(x, lw["wv"]))
-    hidden = hidden + gemma_rms_norm(_linear(out, lw["wo"]), lw["post_attn_norm"], eps)
+    attn = row(x, lambda lw, x, attend: attend(_linear(x, lw["wq"]), _linear(x, lw["wk"]),
+                                               _linear(x, lw["wv"])), "wo")
+    hidden = hidden + gemma_rms_norm(attn, lw["post_attn_norm"], eps)
     x = gemma_rms_norm(hidden, lw["pre_ff_norm"], eps)
-    gate = F.gelu(_linear(x, lw["gate"]), approximate="tanh")
-    mlp = _linear(gate * _linear(x, lw["up"]), lw["down"])
+    mlp = row(x, lambda lw, x, attend: F.gelu(_linear(x, lw["gate"]), approximate="tanh")
+              * _linear(x, lw["up"]), "down")
     return hidden + gemma_rms_norm(mlp, lw["post_ff_norm"], eps)
 
 
@@ -111,22 +116,13 @@ def gemma2_forward(params: dict, args: GemmaStaticArgs, kv: KVCache,
                    write_offset) -> Tuple[torch.Tensor, KVCache]:
     """Full forward; returns (fp32 logits [S, V], kv updated in place).
     `write_offset` is a host int or a 0-d device tensor (no host read)."""
-    S = input_ids.shape[0]
-    H, KVH, D = args.num_heads, args.num_kv_heads, args.head_dim
-    inv_freq, rope_scale = params["rope_inv_freq"], params["rope_scale"]
-    kv_limit = kv_limit_of(write_offset, S, kv)
+    kv_limit = kv_limit_of(write_offset, input_ids.shape[0], kv)
     masks = (attn_mask, sliding_mask(attn_mask, position_ids, args.sliding_window))
     hidden = embed_scaled(params, args, input_ids)
     for i in range(args.n_layers):
-        def attend_fn(q, k, v, i=i):
-            q, k = apply_rope(q.reshape(S, H, D), k.reshape(S, KVH, D), inv_freq, rope_scale,
-                              position_ids)
-            update_layer(kv, i, k, v.reshape(S, KVH, D), write_offset)
-            out = attend(q.contiguous(), kv.k, kv.v, masks[is_sliding(i)], kv_limit=kv_limit,
-                         scale=args.attn_scale, logits_soft_cap=args.attn_softcap,
-                         layer_idx=i, k_scale=kv.k_scale, v_scale=kv.v_scale)
-            return out.reshape(S, H * D)
-
+        attend_fn = cache_attend_fn(args, kv, i, position_ids, masks[is_sliding(i)],
+                                    write_offset, params["rope_inv_freq"], params["rope_scale"],
+                                    kv_limit, scale=args.attn_scale, soft_cap=args.attn_softcap)
         lw = {k: v[i] for k, v in params["layers"].items()}
         hidden = gemma2_block(args, lw, hidden, attend_fn)
     return gemma_logits(params, args, hidden), kv

@@ -20,7 +20,10 @@ A staged (pipeline-parallel) model keeps one KVCache per stage, over that
 stage's layers and on its device (`StagedKVCache`); the stage's layers call
 `update_layer` on their own cache with their local layer index, and
 `gather_compact` compacts every stage (as phases, one a stage on its device:
-`compact_phases`, which the engines' graphed step captures).
+`compact_phases`, which the engines' graphed step captures). A
+tensor-parallel model keeps one cache per shard the same way
+(`ShardedKVCache`: every layer, the shard's kv heads, on the shard's
+device; parallel/mesh.py), and its caches are compacted the same way.
 """
 from __future__ import annotations
 
@@ -47,6 +50,23 @@ class KVCache(NamedTuple):
 class StagedKVCache(NamedTuple):
     """The KV caches of a staged model, one KVCache per stage (in stage order)."""
     stages: Tuple[KVCache, ...]
+
+
+class ShardedKVCache(NamedTuple):
+    """The KV caches of a tensor-parallel model, one a shard (in shard order):
+    each holds every layer over the shard's kv heads (KVCache, or the batched
+    engine's BatchedKVCache), on the shard's device."""
+    shards: tuple
+
+
+def kv_parts(kv) -> tuple:
+    """The caches that make up `kv`: a staged model's stages, a sharded
+    model's shards, or the cache itself."""
+    if isinstance(kv, StagedKVCache):
+        return kv.stages
+    if isinstance(kv, ShardedKVCache):
+        return kv.shards
+    return (kv,)
 
 
 def is_int8(dtype) -> bool:
@@ -99,15 +119,15 @@ def update_layer(kv: KVCache, layer_idx: int, k_new: torch.Tensor, v_new: torch.
 def compact_phases(kv) -> list:
     """gather_compact as phases (cuda_graphs.Phase) over the step values path
     (the accepted tree-local slots), nn (the offset) and alen (the accept
-    length): one phase a cache, a StagedKVCache's stages each on its device."""
+    length): one phase a cache, a StagedKVCache's stages and a
+    ShardedKVCache's shards each on its device."""
     def compact(cache):
         def run(path, nn, alen):
             gather_compact(cache, path, nn, alen)
         return run
 
-    caches = kv.stages if isinstance(kv, StagedKVCache) else (kv,)
     return [Phase(f"compact{s}", cache.k.device, compact(cache), ("path", "nn", "alen"))
-            for s, cache in enumerate(caches)]
+            for s, cache in enumerate(kv_parts(kv))]
 
 
 def gather_compact(kv, local_indices: torch.Tensor, offset, accept_len):
@@ -116,10 +136,10 @@ def gather_compact(kv, local_indices: torch.Tensor, offset, accept_len):
     `local_indices` [tree_size] are tree-local slot ids; entries at or past
     `accept_len` (an int or a 0-d tensor) are ignored and their destination
     slots are zeroed, as in the JAX package. `offset` is a host int or a 0-d
-    device tensor. int8 scales move with their rows. A StagedKVCache is
-    compacted stage by stage (compact_phases), the indices, offset and accept
-    length copied to each stage's device (no host read)."""
-    if isinstance(kv, StagedKVCache):
+    device tensor. int8 scales move with their rows. A StagedKVCache or a
+    ShardedKVCache is compacted cache by cache (compact_phases), the indices,
+    offset and accept length copied to each cache's device (no host read)."""
+    if isinstance(kv, (StagedKVCache, ShardedKVCache)):
         run_phases(compact_phases(kv), dict(path=local_indices, nn=offset, alen=accept_len))
         return kv
     T = local_indices.shape[0]

@@ -131,6 +131,29 @@ def kv_limit_of(write_offset, S: int, kv: KVCache) -> torch.Tensor:
     return limit_tensor(start + S, kv.k.device)
 
 
+def cache_attend_fn(args, kv: KVCache, layer_idx: int, position_ids: torch.Tensor,
+                    attn_mask: torch.Tensor, write_offset, inv_freq: torch.Tensor, rope_scale,
+                    kv_limit: torch.Tensor, scale: Optional[float] = None,
+                    soft_cap: float = 0.0):
+    """attend_fn(q, k, v) of one layer over a single sequence's rows (each
+    [S, heads * D], args' head counts): rope on q and k, the layer's KV
+    write at `write_offset` (a host int or a 0-d device tensor), then
+    attention bounded by `kv_limit` (kv_limit_of); returns [S, heads * D]."""
+    S = position_ids.shape[0]
+    H, KVH, D = args.num_heads, args.num_kv_heads, args.head_dim
+
+    def attend_fn(q, k, v):
+        q, k = apply_rope(q.reshape(S, H, D), k.reshape(S, KVH, D), inv_freq, rope_scale,
+                          position_ids)
+        update_layer(kv, layer_idx, k, v.reshape(S, KVH, D), write_offset)
+        out = attend(q.contiguous(), kv.k, kv.v, attn_mask, kv_limit=kv_limit, scale=scale,
+                     logits_soft_cap=soft_cap, layer_idx=layer_idx, k_scale=kv.k_scale,
+                     v_scale=kv.v_scale)
+        return out.reshape(S, H * D)
+
+    return attend_fn
+
+
 def llama_attention(args: StaticModelArgs, lw: dict, hidden: torch.Tensor, kv: KVCache,
                     layer_idx: int, position_ids: torch.Tensor, attn_mask: torch.Tensor,
                     write_offset, inv_freq: torch.Tensor, rope_scale,
@@ -138,35 +161,48 @@ def llama_attention(args: StaticModelArgs, lw: dict, hidden: torch.Tensor, kv: K
     """`write_offset` is a host int or a 0-d device tensor; `kv_limit`
     (kv_limit_of, computed here unless the forward passes its own) bounds the
     slots the flash kernel reads."""
-    S = hidden.shape[0]
-    D = args.head_dim
-    q, k, v = _attn_projections(args, lw, hidden)
-    q = q.reshape(S, args.num_heads, D)
-    k = k.reshape(S, args.num_kv_heads, D)
-    v = v.reshape(S, args.num_kv_heads, D)
-    q, k = apply_rope(q, k, inv_freq, rope_scale, position_ids)
-    kv = update_layer(kv, layer_idx, k, v, write_offset)
     if kv_limit is None:
-        kv_limit = kv_limit_of(write_offset, S, kv)
-    out = attend(q.contiguous(), kv.k, kv.v, attn_mask, kv_limit=kv_limit,
-                 layer_idx=layer_idx, k_scale=kv.k_scale, v_scale=kv.v_scale)
-    return _linear(out.reshape(S, args.num_heads * D), lw["wo"], act_int8=args.awq_act_int8), kv
+        kv_limit = kv_limit_of(write_offset, hidden.shape[0], kv)
+    attend_fn = cache_attend_fn(args, kv, layer_idx, position_ids, attn_mask, write_offset,
+                                inv_freq, rope_scale, kv_limit)
+    out = attend_fn(*_attn_projections(args, lw, hidden))
+    return _linear(out, lw["wo"], act_int8=args.awq_act_int8), kv
+
+
+def row_product(lw: dict, attend_fn, act_int8: bool = False):
+    """The layer bodies' default `row(x, inner, key)`: inner(lw, x, attend_fn)
+    @ lw[key], a row product (wo, down) with what precedes it in the layer,
+    over this layer's weights. The tensor-parallel forward passes its own
+    (parallel/mesh.py): each shard runs `inner` over its weights and its
+    attention, and the partials are summed."""
+    def row(x, inner, key):
+        return _linear(inner(lw, x, attend_fn), lw[key], act_int8=act_int8)
+
+    return row
+
+
+def llama_block(args: StaticModelArgs, lw: dict, hidden: torch.Tensor, attend_fn,
+                act_int8: bool = False, row=None) -> torch.Tensor:
+    """One llama-family decoder layer on hidden [N, H]; `attend_fn(q, k, v)`
+    (each [N, heads * D]) writes the layer's KV and returns attention [N,
+    heads * D]. `act_int8` reaches wo, the MLP and down (q/k/v follow args);
+    `row` computes the two row products (default row_product's)."""
+    row = row or row_product(lw, attend_fn, act_int8)
+    x = rms_norm(hidden, lw["input_norm"], args.rms_eps)
+    hidden = hidden + row(x, lambda lw, x, attend: attend(*_attn_projections(args, lw, x)), "wo")
+    x = rms_norm(hidden, lw["post_norm"], args.rms_eps)
+    return hidden + row(x, lambda lw, x, attend: _mlp_act(lw, x, act_int8), "down")
 
 
 def llama_layer(args: StaticModelArgs, lw: dict, hidden: torch.Tensor, kv: KVCache,
                 layer_idx: int, position_ids, attn_mask, write_offset, inv_freq,
                 rope_scale, kv_limit: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, KVCache]:
-    residual = hidden
-    hidden = rms_norm(hidden, lw["input_norm"], args.rms_eps)
-    attn_out, kv = llama_attention(args, lw, hidden, kv, layer_idx, position_ids, attn_mask,
-                                   write_offset, inv_freq, rope_scale, kv_limit)
-    hidden = residual + attn_out
-    residual = hidden
-    hidden = rms_norm(hidden, lw["post_norm"], args.rms_eps)
-    act = _mlp_act(lw, hidden, act_int8=args.awq_act_int8)
-    hidden = _linear(act, lw["down"], act_int8=args.awq_act_int8)
-    return residual + hidden, kv
+    if kv_limit is None:
+        kv_limit = kv_limit_of(write_offset, hidden.shape[0], kv)
+    attend_fn = cache_attend_fn(args, kv, layer_idx, position_ids, attn_mask, write_offset,
+                                inv_freq, rope_scale, kv_limit)
+    return llama_block(args, lw, hidden, attend_fn, args.awq_act_int8), kv
 
 
 def llama_forward(params: dict, args: StaticModelArgs, kv: KVCache,

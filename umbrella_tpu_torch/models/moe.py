@@ -15,15 +15,25 @@ products run in the params' dtype (in bf16 their outputs are bf16), not
 through llama._linear's fp32 upcast, which at Mixtral widths would copy every
 expert of a layer to fp32 on every forward.
 
-Not ported yet: expert parallelism (`moe_param_specs`, `shard_params_ep`,
-`shard_runtime_ep`; ROADMAP A.4) and training (`_moe_layer`,
-`moe_train_forward`, `make_moe_train_step`; ROADMAP A.5).
+Expert parallelism (`shard_runtime_ep`, the JAX package's `moe_param_specs`
+/ `shard_params_ep` / `shard_runtime_ep`): each shard device holds E / m
+experts of expert_gate / up / down, under the layer key "expert_shards"
+(ShardedExperts). The JAX package partitions its per-expert einsums with
+GSPMD and inserts one psum for the combine; here `experts` runs each
+shard's experts over every token on its device (dense dispatch, as
+unsharded) and combines them with parallel/collectives.all_reduce. The
+attention, the router, the norms and the KV cache stay on the first shard's
+device, which is the runtime's (GSPMD computes them replicated: the same
+values). Every forward of the family takes a sharded runtime as it is.
+
+Not ported yet: training (`_moe_layer`, `moe_train_forward`,
+`make_moe_train_step`; ROADMAP A.5).
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,7 +42,7 @@ from ..config import ModelConfig
 from ..ops.norms import rms_norm
 from ..ops.rope import rope_params
 from ..ops.select import embed_lookup
-from ..utils import resolve_device
+from ..utils import device_scope, resolve_device
 from .kv_cache import KVCache
 from .llama import StaticModelArgs, kv_limit_of, llama_attention, lm_head_logits
 
@@ -94,10 +104,63 @@ def route(lw: dict, x: torch.Tensor, top_k: int):
     return probs, onehot, (onehot * top_vals[..., None].to(x.dtype)).sum(dim=-2)
 
 
+class ExpertShard(NamedTuple):
+    """One expert-parallel shard's experts, on `device`: a block of E / m
+    consecutive experts ([n, E / m, H, I] gate and up, [n, E / m, I, H] down;
+    one layer's when indexed)."""
+    device: torch.device
+    gate: torch.Tensor
+    up: torch.Tensor
+    down: torch.Tensor
+
+
+class ShardedExperts:
+    """A layer block's experts split over shard devices, in expert order
+    (the layer key "expert_shards" of an expert-parallel runtime). Indexing
+    by a layer, or a slice of layers, indexes every shard's stacks, so the
+    forwards' `{k: v[i] for k, v in layers.items()}` gives a layer its
+    experts on every shard."""
+
+    def __init__(self, shards: Sequence[ExpertShard]):
+        self.shards = tuple(shards)
+
+    def __getitem__(self, i) -> "ShardedExperts":
+        return ShardedExperts(ExpertShard(s.device, s.gate[i], s.up[i], s.down[i])
+                              for s in self.shards)
+
+    @property
+    def devices(self) -> tuple:
+        return tuple(s.device for s in self.shards)
+
+    def combine(self, x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+        """`experts` of one layer over its shards: each shard's experts over
+        every row of x [N, H] and their weighted sum in fp32 ([N, E] weights,
+        the shard's block of columns), on the shard's device; the partials
+        summed on x's device in shard order and rounded once to x.dtype."""
+        from ..parallel.collectives import all_reduce, broadcast
+
+        parts, first = [], 0
+        for sh, xs, ws in zip(self.shards, broadcast(x, self.devices),
+                              broadcast(weights, self.devices)):
+            n = sh.gate.shape[0]
+            with device_scope(sh.device):
+                g = torch.matmul(xs[None], sh.gate)  # [E / m, N, H]
+                y = torch.matmul(F.silu(g) * torch.matmul(xs[None], sh.up), sh.down)
+                parts.append(torch.einsum("enh,ne->nh", y.float(),
+                                          ws[:, first:first + n].float()))
+            first += n
+        return all_reduce(parts, x.device, x.dtype)
+
+
 def experts(lw: dict, x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """sum_e weights[..., e] * down_e(silu(gate_e(x)) * up_e(x)) over every
-    expert, x [..., H] in the params' dtype -> [..., H]."""
+    expert, x [..., H] in the params' dtype -> [..., H]. An expert-parallel
+    layer's experts run on their shards (ShardedExperts.combine)."""
     shape = x.shape
+    sharded = lw.get("expert_shards")
+    if sharded is not None:
+        return sharded.combine(x.reshape(-1, shape[-1]),
+                               weights.reshape(-1, weights.shape[-1])).reshape(shape)
     xf = x.reshape(1, -1, shape[-1])
     g = torch.matmul(xf, lw["expert_gate"])  # [E, N, I]
     u = torch.matmul(xf, lw["expert_up"])
@@ -200,6 +263,36 @@ def load_moe_params(path: str, cfg: ModelConfig, dtype=torch.float32, n_layers=N
 
     with read_state_dict(path) as sd:
         return moe_params_from_hf_state_dict(sd, cfg, dtype, n_layers=n_layers, device=device)
+
+
+def shard_runtime_ep(runtime, devices: Sequence):
+    """Expert-shard an MoE runtime in place over `devices`, one shard per
+    entry (a device may repeat); returns the runtime. Shard s holds experts
+    [s * E / m, (s + 1) * E / m) of every layer on devices[s] (a view where
+    that is the runtime's own device); everything else moves to devices[0],
+    which becomes the runtime's device."""
+    devices = [torch.device(d) for d in devices]
+    if runtime.family != "moe":
+        raise ValueError("expert_parallel requires an MoE (mixtral-family) runtime; got family "
+                         f"'{runtime.family}'")
+    if runtime.shard_devices is not None:
+        raise ValueError(f"runtime is already sharded over {runtime.shard_devices}")
+    layers = dict(runtime.params["layers"])
+    E, m = layers["expert_gate"].shape[1], len(devices)
+    if E % m:
+        raise ValueError(f"num_local_experts={E} must be divisible by expert_parallel={m}")
+    stacks = [layers.pop(k) for k in ("expert_gate", "expert_up", "expert_down")]
+    per = E // m
+    shards = [ExpertShard(d, *(t[:, s * per:(s + 1) * per].to(d) for t in stacks))
+              for s, d in enumerate(devices)]
+    del stacks
+    params = {k: (v.to(devices[0]) if isinstance(v, torch.Tensor) else v)
+              for k, v in runtime.params.items() if k != "layers"}
+    params["layers"] = {k: v.to(devices[0]) for k, v in layers.items()}
+    params["layers"]["expert_shards"] = ShardedExperts(shards)
+    runtime.params = params
+    runtime.device = devices[0]
+    return runtime
 
 
 def moe_runtime(cfg: ModelConfig, params: dict, max_length: int, dtype=torch.float32,

@@ -190,6 +190,26 @@ def quantize_pack_device(w: torch.Tensor, group_size: int = 128,
     return AwqTensor(w8=w8, scales=scales.to(dtype), zeros=zeros.to(dtype))
 
 
+def repack_row_shards(q: AwqTensor, m: int) -> AwqTensor:
+    """Re-pack the split-halves bytes for a row-parallel (K axis) split over m
+    shards: afterwards the m contiguous row blocks of w8 are each the
+    split-halves pack of their own K/m logical rows, so that w8's block s,
+    with the group rows of block s of scales and zeros, is a self-contained
+    AwqTensor of K block s (parallel/mesh.py cuts it so). The whole repacked
+    tensor means nothing unsplit. Bit for bit the JAX package's
+    `repack_row_shards`, on the tensor's own device."""
+    if m == 1:
+        return q
+    K, N = q.k, q.n
+    if K % (2 * m):
+        raise ValueError(f"K={K} must be divisible by 2 x the shard count ({2 * m})")
+    w8 = q.w8.view(torch.uint8)
+    blocks = torch.cat([w8 & 0xF, w8 >> 4], dim=-2).reshape(m, K // m, N)
+    half = K // (2 * m)
+    repacked = blocks[:, :half] | (blocks[:, half:] << 4)
+    return q._replace(w8=repacked.reshape(K // 2, N).view(torch.int8))
+
+
 def dequantize(q: AwqTensor, dtype=torch.bfloat16) -> torch.Tensor:
     """Full dequant to [K, N]: (nibble - z) * s with the nibbles in `dtype` (the
     JAX package's promotion rules: a wider scales dtype wins)."""

@@ -31,10 +31,15 @@ active slots, which bounds those idle steps. `step()` reads back every step
 by contract and stays eager.
 
 Each model's batched and single-slot forwards follow its family
-(models/batched.model_forwards: llama, Gemma2 or MoE). Tensor and expert
-parallelism are not ported (ROADMAP queue A, "tensor and expert
-parallelism"). The request scheduler in front of ContinuousBatcher is
-serving/scheduler.py.
+(models/batched.model_forwards: llama, Gemma2 or MoE). `tensor_parallel: N`
+shards the target (loaded packed=False) and its batched cache on kv heads
+(parallel/mesh.py), the llama families' and Gemma2's; `expert_parallel: N`
+shards an MoE target's experts, and an MoE draft's (models/moe.py); the two
+are mutually exclusive, and a dense draft stays whole on the engine's device
+(engine_common.split_devices / shard_models). Where a model's shards span
+cards the segment step runs eagerly (its forward crosses cards twice a
+layer); on one card it is captured as on an unsharded model. The request
+scheduler in front of ContinuousBatcher is serving/scheduler.py.
 """
 from __future__ import annotations
 
@@ -51,12 +56,13 @@ import torch
 
 from ..cuda_graphs import Phase, StepGraph
 from ..models.auto_model import ModelRuntime
-from ..models.batched import gather_compact_batched, init_batched_kv, model_forwards
+from ..models.batched import gather_compact_batched, init_runtime_batched_kv, model_forwards
 from ..ops import sampling as S
 from ..ops.masks import (causal_mask_rows, causal_mask_rows_batched,
                          tree_level_mask_rows_batched, tree_mask_rows_batched)
 from ..speculation.engine_common import (clamp_draft_ids, load_runtime, load_tokenizer,
-                                         quantize_draft_runtime, target_vocab_cap)
+                                         quantize_draft_runtime, shard_models, split_devices,
+                                         target_vocab_cap)
 from ..speculation.spec_utils import next_bucket
 from ..speculation.tree import GrowMap
 from ..speculation.verify import accept_and_commit
@@ -65,12 +71,6 @@ from ..utils import device_scope, resolve_device, setup_logger
 logger = setup_logger()
 
 PREFILL_BUCKETS = (32, 64, 128, 256, 512)
-
-_NOT_PORTED = {
-    "tensor_parallel": "ROADMAP queue A, tensor and expert parallelism",
-    "expert_parallel": "ROADMAP queue A, tensor and expert parallelism",
-}
-
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """numpy -> a tensor of its own on `device`. On CUDA the copy goes through
@@ -149,16 +149,18 @@ class BatchedStaticEngine:
             raise ValueError("BatchedStaticEngine does not support pipeline_parallel")
         if kwargs.pop("offload", False):
             raise ValueError("BatchedStaticEngine requires resident models (no offload)")
-        for key, item in _NOT_PORTED.items():
-            value = kwargs.pop(key, None)
-            if value and not (key.endswith("_parallel") and int(value) <= 1):
-                raise NotImplementedError(f"'{key}' is not ported yet ({item})")
+        self.tensor_parallel = int(kwargs.pop("tensor_parallel", 0) or 0)
+        self.expert_parallel = int(kwargs.pop("expert_parallel", 0) or 0)
+        if self.tensor_parallel > 1 and self.expert_parallel > 1:
+            raise ValueError("tensor_parallel and expert_parallel are mutually exclusive for the "
+                             "batched engine")
         self.config = kwargs
 
     # ------------------------------------------------------------------ setup
 
-    def _load(self, spec) -> ModelRuntime:
-        return load_runtime(spec, self.max_length, self.dtype, self.device, self.config)
+    def _load(self, spec, packed: bool = True) -> ModelRuntime:
+        return load_runtime(spec, self.max_length, self.dtype, self.device, self.config,
+                            packed=packed)
 
     def initialize(self):
         if self.growmap_obj is not None:
@@ -172,12 +174,19 @@ class BatchedStaticEngine:
         # the stop margin must cover a whole tree write
         self.safe_buffer = max(self.safe_buffer, self.tree_size + 1)
 
+        split = dict(tensor=self.tensor_parallel, expert=self.expert_parallel)
+        devices = split_devices(self.target_model_name, self.device, **split)
         self.draft_model = self._load(self.draft_model_name)
-        self.target_model = self._load(self.target_model_name)
+        self.target_model = self._load(self.target_model_name,
+                                       packed=self.tensor_parallel <= 1)
         if not all(isinstance(m, ModelRuntime) for m in (self.draft_model, self.target_model)):
             raise ValueError("the batched engine requires resident (non-offload) models")
+        if self.tensor_parallel > 1 and "moe" in (self.draft_model.family,
+                                                  self.target_model.family):
+            raise ValueError("batched MoE shards experts (expert_parallel), not tensors")
         self.draft_model = quantize_draft_runtime(self.draft_model, self.quantize_draft,
                                                   self.dtype)
+        shard_models(self.target_model, self.draft_model, devices, **split)
         self._vocab_cap = target_vocab_cap(self.draft_model, self.target_model)
         if self.tokenizer is None:
             self.tokenizer = load_tokenizer(self.target_model_name)
@@ -191,10 +200,8 @@ class BatchedStaticEngine:
         self.num_nodes = np.zeros(B, np.int64)
         self.active = np.zeros(B, bool)
         kv_dt = self.kv_dtype or self.dtype
-        self.kv_draft = init_batched_kv(self.draft_model.cfg, B, L, kv_dt,
-                                        num_layers=self.draft_model.args.n_layers, device=dev)
-        self.kv_target = init_batched_kv(self.target_model.cfg, B, L, kv_dt,
-                                         num_layers=self.target_model.args.n_layers, device=dev)
+        self.kv_draft = init_runtime_batched_kv(self.draft_model, B, L, kv_dt)
+        self.kv_target = init_runtime_batched_kv(self.target_model, B, L, kv_dt)
         self._gen = torch.Generator(device=dev).manual_seed(int(self.seed))
         self._draft_fwd, self._draft_slot_fwd = model_forwards(self.draft_model)
         self._target_fwd, self._target_slot_fwd = model_forwards(self.target_model)
@@ -356,7 +363,8 @@ class BatchedStaticEngine:
         key = (use_pen, all_greedy)
         if key not in self._segment_graphs:
             step = Phase("segment_step", self.device,
-                         lambda: self._segment_step(use_pen, all_greedy))
+                         lambda: self._segment_step(use_pen, all_greedy),
+                         eager=self.target_model.spans_cards or self.draft_model.spans_cards)
             self._segment_graphs[key] = StepGraph.capture(
                 [step], self._graph_pools, generators=(self._gen,), idle=self._all_inactive)
         self._segment_graphs[key].replay(n_steps)

@@ -28,11 +28,16 @@ from a torch.Generator seeded with `seed` on the engine's device (the JAX
 package's `_key`), with the repetition penalty when it is set. The first token
 after a prefill is the target's argmax either way, as in the JAX package.
 
-`pipeline_parallel: N` stages the target over N devices (parallel/pipeline.py):
-cuda:i .. cuda:i+N-1 from the engine's cuda:i, one card a stage, and raises
-when there are fewer; on the CPU every stage is the CPU. A target the caller
-staged already (shard_runtime_pp, which may put several stages on one card)
-keeps its stages. The draft stays whole on the engine's device.
+`pipeline_parallel: N` stages the target over N devices (parallel/pipeline.py),
+`tensor_parallel: N` shards it Megatron-style (parallel/mesh.py; the target
+loaded with packed=False) and `expert_parallel: N` shards an MoE target's
+experts (models/moe.shard_runtime_ep; an MoE draft's too): over cuda:i ..
+cuda:i+N-1 from the engine's cuda:i, one card a stage or shard, raising a
+ValueError when there are fewer; on the CPU every stage or shard is the CPU.
+A target the caller staged or sharded already (which may put several on one
+card) keeps its stages or shards. The three are mutually exclusive. A dense
+draft stays whole on the engine's device (the JAX package's replicated
+draft).
 
 `offload: true` loads the target as an OffloadModelRuntime (offload/
 streaming.py: the first `num_cache_layers` layers on the device, the rest
@@ -62,7 +67,7 @@ import torch
 
 from ..cuda_graphs import Phase, StepGraph, run_phases
 from ..models.auto_model import AutoModelLM, ModelRuntime
-from ..models.kv_cache import compact_phases, gather_compact
+from ..models.kv_cache import compact_phases, gather_compact, kv_parts
 from ..offload.streaming import OffloadModelRuntime
 from ..ops.masks import causal_mask_rows, read_window, tree_mask_rows
 from ..utils import TextColors, resolve_device, setup_logger
@@ -74,12 +79,6 @@ logger = setup_logger()
 
 PREFILL_BUCKETS = (32, 64, 128, 256, 512)
 PREFILL_CHUNK = 512
-
-_NOT_PORTED = {
-    "tensor_parallel": "ROADMAP queue A, tensor and expert parallelism",
-    "expert_parallel": "ROADMAP queue A, tensor and expert parallelism",
-}
-
 
 def load_runtime(spec, max_length: int, dtype, device: torch.device, config: dict,
                  packed: bool = True, offload: bool = False):
@@ -94,6 +93,65 @@ def load_runtime(spec, max_length: int, dtype, device: torch.device, config: dic
     if spec.device != device:
         raise ValueError(f"model on {spec.device}, engine on {device}")
     return spec
+
+
+def split_devices(target, device: torch.device, pipeline: int = 0, tensor: int = 0,
+                  expert: int = 0):
+    """The devices to stage or shard `target` over (a checkpoint path or a
+    runtime) for the engine's parallel keys: one card each from the engine's
+    card on, a ValueError if there are fewer (nothing puts every shard on one
+    card unasked), or the CPU n times. None where there is nothing to do or
+    the runtime is staged or sharded already (its count must match)."""
+    n = max(pipeline, tensor, expert)
+    if n <= 1:
+        return None
+    key = "pipeline_parallel" if pipeline > 1 else \
+        "tensor_parallel" if tensor > 1 else "expert_parallel"
+    if isinstance(target, ModelRuntime):
+        have = target.stage_devices if pipeline > 1 else target.shard_devices
+        if have is not None:
+            if len(have) != n:
+                parts = "staged in {} stages" if pipeline > 1 else "sharded in {} shards"
+                raise ValueError(f"target is {parts.format(len(have))}, {key}={n}")
+            return None
+    if device.type != "cuda":
+        return [device] * n
+    first, count = device.index, torch.cuda.device_count()
+    if first + n > count:
+        raise ValueError(
+            f"{key}={n} needs {n} CUDA devices from {device}, have {count}; to put several "
+            "shards or stages on one card, shard or stage the target yourself "
+            "(parallel.mesh.shard_runtime, models.moe.shard_runtime_ep, "
+            "parallel.pipeline.shard_runtime_pp)")
+    return [torch.device("cuda", first + i) for i in range(n)]
+
+
+def shard_models(target, draft, devices, pipeline: int = 0, tensor: int = 0,
+                 expert: int = 0) -> None:
+    """Stage or shard the loaded target in place over `devices`
+    (split_devices'; None keeps it as the caller staged or sharded it). For
+    expert_parallel, an MoE draft is expert-sharded too, over the target's
+    shard devices; a dense draft stays whole."""
+    if expert > 1 and target.family != "moe":
+        raise ValueError("expert_parallel requires an MoE (mixtral-family) target; got family "
+                         f"'{target.family}'")
+    if devices is not None:
+        if pipeline > 1:
+            from ..parallel.pipeline import shard_runtime_pp
+
+            shard_runtime_pp(target, devices)
+        elif tensor > 1:
+            from ..parallel.mesh import shard_runtime
+
+            shard_runtime(target, devices)
+        else:
+            from ..models.moe import shard_runtime_ep
+
+            shard_runtime_ep(target, devices)
+    if expert > 1 and draft.family == "moe" and draft.shard_devices is None:
+        from ..models.moe import shard_runtime_ep
+
+        shard_runtime_ep(draft, target.shard_devices)
 
 
 def quantize_draft_runtime(draft: ModelRuntime, mode, dtype) -> ModelRuntime:
@@ -181,61 +239,39 @@ class SpecEngineBase(BaseEngine):
         self.kv_dtype = kwargs.pop("kv_dtype", None)  # None => model dtype
         # kept for config parity; the exact top-k serves every recall (ops/sampling)
         self.draft_topk_recall = float(kwargs.pop("draft_topk_recall", 0.99))
-        # pipeline_parallel: N stages the TARGET's layer blocks over N devices
+        # pipeline_parallel: N stages the TARGET's layer blocks over N devices;
+        # tensor_parallel: N shards its tensors; expert_parallel: N its experts
         self.pipeline_parallel = int(kwargs.pop("pipeline_parallel", 0) or 0)
-        parallel = [int(kwargs.get(k, 0) or 0) for k in ("tensor_parallel", "expert_parallel")]
-        if sum(int(n > 1) for n in parallel + [self.pipeline_parallel]) > 1:
+        self.tensor_parallel = int(kwargs.pop("tensor_parallel", 0) or 0)
+        self.expert_parallel = int(kwargs.pop("expert_parallel", 0) or 0)
+        parallel = [self.tensor_parallel, self.pipeline_parallel, self.expert_parallel]
+        if sum(int(n > 1) for n in parallel) > 1:
             raise ValueError("tensor_parallel / pipeline_parallel / expert_parallel are "
                              "mutually exclusive")
-        if kwargs.get("offload") and max(parallel + [self.pipeline_parallel]) > 1:
+        if kwargs.get("offload") and max(parallel) > 1:
             raise ValueError("tensor_parallel / pipeline_parallel / expert_parallel and "
                              "offload are mutually exclusive: they shard or stage resident "
                              "weights, offload streams them from host memory")
-        for key, item in _NOT_PORTED.items():
-            value = kwargs.get(key)
-            if value and not (key.endswith("_parallel") and int(value) <= 1):
-                raise NotImplementedError(f"'{key}' is not ported yet ({item})")
         self.config = kwargs
 
     # ------------------------------------------------------------ model setup
 
-    def _load_model(self, spec, offload: bool = False) -> ModelRuntime:
+    def _load_model(self, spec, offload: bool = False, packed: bool = True) -> ModelRuntime:
         return load_runtime(spec, self.max_length, self.dtype, self.device, self.config,
-                            offload=offload)
-
-    def _pipeline_devices(self):
-        """The stage devices for `pipeline_parallel` over an unstaged target: one
-        card per stage from the engine's card on (raises if there are fewer), or
-        the CPU for every stage."""
-        pp = self.pipeline_parallel
-        if self.device.type != "cuda":
-            return [self.device] * pp
-        first, count = self.device.index, torch.cuda.device_count()
-        if first + pp > count:
-            raise RuntimeError(
-                f"pipeline_parallel={pp} needs {pp} CUDA devices from {self.device}, have "
-                f"{count}; to put several stages on one card, stage the target yourself "
-                "(parallel.pipeline.shard_runtime_pp)")
-        return [torch.device("cuda", first + i) for i in range(pp)]
+                            packed=packed, offload=offload)
 
     def _init_models_and_state(self):
         target = self.target_model_name
-        staged = isinstance(target, ModelRuntime) and target.stage_devices is not None
-        if staged and self.pipeline_parallel > 1 \
-                and len(target.stage_devices) != self.pipeline_parallel:
-            raise ValueError(f"target is staged in {len(target.stage_devices)} stages, "
-                             f"pipeline_parallel={self.pipeline_parallel}")
-        stage_devices = self._pipeline_devices() \
-            if self.pipeline_parallel > 1 and not staged else None
+        split = dict(pipeline=self.pipeline_parallel, tensor=self.tensor_parallel,
+                     expert=self.expert_parallel)
+        devices = split_devices(target, self.device, **split)
         self.draft_model = quantize_draft_runtime(self._load_model(self.draft_model_name),
                                                   self.config.get("quantize_draft"), self.dtype)
-        self.target_model = self._load_model(target, offload=bool(self.config.get("offload")))
+        self.target_model = self._load_model(target, offload=bool(self.config.get("offload")),
+                                             packed=self.tensor_parallel <= 1)
         self._offload = isinstance(self.target_model, OffloadModelRuntime)
         self._vocab_cap = target_vocab_cap(self.draft_model, self.target_model)
-        if stage_devices is not None:
-            from ..parallel.pipeline import shard_runtime_pp
-
-            shard_runtime_pp(self.target_model, stage_devices)
+        shard_models(self.target_model, self.draft_model, devices, **split)
         if self.tokenizer is None:
             self.tokenizer = load_tokenizer(self.target_model_name)
         if self.eos_token_ids is None:
@@ -394,7 +430,7 @@ class SpecEngineBase(BaseEngine):
         self.tokens_host[:] = 0
         self.tokens.zero_()
         for kv in (self.kv_draft, self.kv_target):
-            for cache in getattr(kv, "stages", (kv,)):
+            for cache in kv_parts(kv):
                 for buf in cache:
                     if buf is not None:
                         buf.zero_()
@@ -481,7 +517,8 @@ class SpecEngineBase(BaseEngine):
             st["cont"].copy_(cont_out)
             return torch.cat([alen.reshape(1), cont_out.reshape(1).to(torch.int32), block])
 
-        return ([Phase("draft", dev, draft, (), ("nn", "cont", "ids", "pos", "mask"))]
+        return ([Phase("draft", dev, draft, (), ("nn", "cont", "ids", "pos", "mask"),
+                       eager=self.draft_model.spans_cards)]
                 + self.target_model.forward_phases(self.kv_target)
                 + [Phase("commit", dev, commit, ("logits", "nn", "cont"),
                          ("alen", "eos", "block", "path"))]
