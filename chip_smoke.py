@@ -113,6 +113,37 @@ lines tagged with its name:
                    257-row dynamic verify, twice in a row; the dynamic engine
                    over it commits the resident engine's tokens, its step
                    graphed and again all eager.
+  train            draft/config.json at full width (174M params), bf16,
+                   packed, B 8 x seq 1024, lr 3e-4, 30 steps through
+                   training/train_draft's functions on a seeded stream that
+                   repeats a 61-token phrase: the loss must fall by 1 nat or
+                   more (first step against the mean of the last five) and
+                   each step launch embed_gather once; first, one step
+                   through the lookup kernel against the same step through
+                   the plain lookup (bf16 and fp32): the forward bit for
+                   bit, every other gradient within 2^-7 x its max, the
+                   embedding's gradient non-zero, in fp32 within 1e-3 x its
+                   max, in bf16 its fp32 sum cast once (that sum within 1e-3
+                   x max of an fp64 sum; the plain lookup's bf16 backward
+                   rounds at each repeat of a row, reported); ms a step,
+                   tok/s, peak GB, the forward and backward's ms with bf16
+                   products and with fp32 norm sums (what the fp32 upcast
+                   and the fp64 sums cost); then the trained params (fp32)
+                   served by the static engine (24x6, an early-exit draft of
+                   2 layers): 64 greedy tokens equal the AR decode's, and
+                   how many follow the phrase.
+  train-dp         the same step in fp32 with dp 2 (two replicas on this
+                   card, one a card on a host with two or more) against dp 1,
+                   three steps: losses within 1e-5, params within 1e-3 x the
+                   second update's rate but for 1e-4 of them at most.
+  pp-train         draft width, fp32, 4 stages (one a card on four cards,
+                   else all on this card), 4 microbatches: the loss and
+                   every gradient against the unstaged step's (1e-5, 1e-4 x
+                   max); ms a step staged and unstaged.
+  moe-train        Mixtral-8x7B widths, 2 of its 32 layers, bf16, B 2 x seq
+                   256, 3 steps: finite losses and aux loss, ms a step; one
+                   fp32 step at 1 layer (experts narrowed to 1024) through
+                   the lookup kernel against the plain lookup.
   main             the 8B AWQ target (32 layers, damped tail, Int4F shared
                    prefix of 3 layers + lm_head) with its early-exit draft, a
                    Sequoia 24x6 tree, through AutoEngine.from_config ->
@@ -137,7 +168,7 @@ lines tagged with its name:
                    stepwise tokens equal from one seed; tok/s, step ms,
                    accept, a profiled request (host ops a step, idle share,
                    traced launches a step = the captured step's).
-  dynamic-pp       the dynamic engine (16 x 16 x 24, greedy, 32 tokens) over
+  dynamic-pp       the dynamic engine (16 x 16 x 24, greedy, 24 tokens) over
                    an 8B AWQ target staged in 4 stages (pipeline_parallel 4)
                    with the 1B draft: graphed, stepwise and the unstaged
                    target's decode give the same tokens.
@@ -168,7 +199,7 @@ lines tagged with its name:
   api-serve        the same config served through APIServer on port 0 with its
                    "scheduler": {} key (make_scheduler's 40 workers in front
                    of a ContinuousBatcher over [serve-config]'s engine): 64
-                   client threads send one request each (128 prompt and 128
+                   client threads send one request each (128 prompt and 96
                    new tokens, priorities 1/10/20; 16 stream, 16 greedy),
                    then get_metrics; the same requests through run() and the
                    direct batcher (the batcher and the server twice, in
@@ -297,13 +328,13 @@ kernel's. `--phases a,b` runs a subset (no report).
 
 Weights are random (seeded). The script needs CUDA and the repository's
 umbrella_tpu_torch package beside it; without either it exits with code 2.
-The whole script takes about nineteen minutes on one H100 (1,153.7 s of
-command time on an H100 80GB HBM3 at 700 W with the tensor-parallel phases,
-before [pp-config]'s and [offload-config]'s 70B and the family requests
-were cut; the six Gemma2 and MoE phases take about 6 minutes alone, the
-three tensor-parallel ones about a minute), the kernels' build (20-30 s)
-included; `--phases w4a16` about a minute, `--phases w4a8` about 45 s,
-`--phases attention` about a minute.
+The whole script takes about eighteen minutes on one H100 (1,056.7 s of
+command time on an H100 80GB HBM3 at 700 W with the training phases, after
+the request API's and the dynamic engine's token counts were cut; the six
+Gemma2 and MoE phases take about 6 minutes alone, the three tensor-parallel
+ones about a minute, the four training ones about 15 s), the kernels' build
+(20-30 s) included; `--phases w4a16` about a minute, `--phases w4a8` about
+45 s, `--phases attention` about a minute.
 """
 import bisect
 import contextlib
@@ -536,8 +567,10 @@ def kernel_checks(torch, dev):
         plain_ms=cuda_ms(torch, lambda: embed_gather_ref(embed, ids)),
         library_ms=cuda_ms(torch, lambda: F.embedding(ids, embed)),
         bound_ms=by, bound_by="bytes", launch_floor_ms=launch_floor_ms(torch, dev, 127))
-    log(f"[kernels] embed_gather {report['embed_gather']}")
     del embed
+    report["embed_gather"]["training_shape"] = embed_gather_training_shape(torch, dev, gen, randn,
+                                                                          err)
+    log(f"[kernels] embed_gather {report['embed_gather']}")
 
     report.update(attention_checks(torch, dev, gen, randn, err))
 
@@ -550,6 +583,46 @@ def kernel_checks(torch, dev):
     w["max_rel_err"] = max(w["max_rel_err"], tp["w4a16_max_rel_err"])
     report["attend_flash"]["per_shape"].update(tp["attention"])
     return report
+
+
+def embed_gather_training_shape(torch, dev, gen, randn, err):
+    """embed_gather at [train]'s lookup (draft/config.json's [32768, 1280]
+    bf16 table, B 8 x seq 1024 = 8,192 ids): exact, timed beside its bound,
+    the plain version and F.embedding; and the backward
+    (embed_gather_backward, plain torch) beside its bound and
+    aten.embedding_dense_backward, for random ids and for ids of [train]'s
+    periodic stream (TRAIN_PERIOD distinct rows, each repeated ~134 times)."""
+    import torch.nn.functional as F
+
+    from umbrella_tpu_torch.ops.kernels.embed_gather import (embed_gather,
+                                                             embed_gather_backward,
+                                                             embed_gather_ref)
+
+    V, H, S = 32768, 1280, TRAIN_BATCH * TRAIN_SEQ
+    table = randn(V, H, scale=0.02)
+    ids = torch.randint(0, V, (S,), generator=gen, device=dev, dtype=torch.int32)
+    e, _ = err(embed_gather(table, ids), embed_gather_ref(table, ids))
+    check(e == 0.0, f"embed_gather training shape: max abs err {e} (must be exact)")
+    upstream = randn(S, H)
+    periodic = torch.from_numpy(period_stream(V, S)).to(dev)
+    by, _ = bound(2 * S * H * 2 + S * 4, 0, "bf16")
+    # the backward reads the upstream gradient and the ids, writes the [V, H] table
+    # gradient once; S * H adds
+    bb, bb_by = bound(S * H * 2 + S * 4 + V * H * 2, S * H, "bf16")
+    res = dict(shape=f"[{V},{H}] bf16, S={S}", tolerance="exact", max_abs_err=e,
+               ms=cuda_ms(torch, lambda: embed_gather(table, ids)),
+               plain_ms=cuda_ms(torch, lambda: embed_gather_ref(table, ids)),
+               library_ms=cuda_ms(torch, lambda: F.embedding(ids, table)),
+               bound_ms=by, bound_by="bytes",
+               backward_ms=cuda_ms(torch, lambda: embed_gather_backward(upstream, ids, V,
+                                                                        torch.bfloat16)),
+               backward_ms_periodic_ids=cuda_ms(torch, lambda: embed_gather_backward(
+                   upstream, periodic, V, torch.bfloat16)),
+               backward_bound_ms=bb, backward_bound_by=bb_by,
+               backward_library_ms=library_ms(
+                   torch, lambda: torch.ops.aten.embedding_dense_backward(upstream, ids.long(), V,
+                                                                          -1, False)))
+    return res
 
 
 def empty_kernel(torch, dev, S, n=1):
@@ -3171,7 +3244,7 @@ class WordTokenizer:
 
 
 API_SERVE_REQUESTS = 64
-API_NEW_TOKENS = 128
+API_NEW_TOKENS = 96  # cut from 128 to keep the script inside its time limit
 API_PRIORITIES = (1, 10, 20)
 
 
@@ -4364,7 +4437,7 @@ def tp_kernel_checks(torch, dev, gen, randn, err):
 
 # configs/greedy_config_v5e.json's (and chat_config_v5e_16gb.json's) tree: 257 nodes
 DYN_TREE = dict(width=16, num_beams=24, depth=16)
-DYN_NEW_TOKENS = 32
+DYN_NEW_TOKENS = 24  # cut from 32 to keep the script inside its time limit
 # meta-llama/Llama-3.2-1B-Instruct's config.json: the offload configs' draft
 CFG_1B = {k: v for k, v in DRAFT_HF_CONFIG.items()
           if k not in ("architectures", "hidden_act", "torch_dtype", "bos_token_id")}
@@ -6186,6 +6259,485 @@ GEMMA_PHASES = ("gemma-lossless", "gemma-config", "gemma-serve")
 MOE_PHASES = ("moe-checkpoint", "moe-config", "moe-serve")
 
 
+# ---------------------------------------------------------------- phases: training
+
+TRAIN_CONFIG = "draft/config.json"  # the shipped draft's config, beside this script
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 1024, 30, 3e-4
+TRAIN_PERIOD = 61  # the synthetic stream repeats a random phrase of this many tokens
+TRAIN_EXIT = 2  # the early-exit draft of the trained model in [train]'s serving check
+TRAIN_NEW_TOKENS = 64
+PP_TRAIN_MICRO = 4
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 2, 2, 256, 3
+MOE_NARROW_I = 1024  # [moe-train]'s fp32 kernel-vs-plain check: experts narrowed to this
+
+
+def sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def reset_peak(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peak_gb(torch, dev):
+    """Peak device memory since reset_peak, GB (None off the card)."""
+    return torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
+
+
+def train_cfg(**over):
+    """draft/config.json as the port's ModelConfig (fields overridden by `over`)."""
+    from umbrella_tpu_torch.config import ModelConfig
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), TRAIN_CONFIG)) as f:
+        return ModelConfig.from_dict(dict(json.load(f), **over))
+
+
+def period_stream(vocab, n_tokens, seed=15):
+    """n_tokens of a stream that repeats one random TRAIN_PERIOD-token phrase:
+    what a working trainer learns in a few steps (each next token follows
+    from the one before once the phrase is learnt)."""
+    import numpy as np
+
+    phrase = np.random.default_rng(seed).integers(0, vocab, TRAIN_PERIOD)
+    return np.tile(phrase, n_tokens // TRAIN_PERIOD + 1)[:n_tokens].astype(np.int32)
+
+
+def train_batches(torch, dev, windows, n, seed):
+    """n batches of TRAIN_BATCH random windows (train_draft's sampling)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(windows[rng.integers(0, len(windows), TRAIN_BATCH)]).to(dev)
+            for _ in range(n)]
+
+
+@contextlib.contextmanager
+def patched(attrs):
+    """Set (module, name, value) attributes for the block, then restore them."""
+    saved = [(m, n, getattr(m, n)) for m, n, _ in attrs]
+    for m, n, v in attrs:
+        setattr(m, n, v)
+    try:
+        yield
+    finally:
+        for m, n, v in saved:
+            setattr(m, n, v)
+
+
+def plain_lookup(torch):
+    """The training forwards' lookup as the plain version (embed[ids] and its
+    autograd) instead of the kernel, for the kernel-vs-plain checks; the port
+    itself has no such switch."""
+    from umbrella_tpu_torch.ops.kernels.embed_gather import embed_gather_ref
+    from umbrella_tpu_torch.training import draft_trainer
+
+    return patched([(draft_trainer, "embed_lookup", lambda embed, ids, dtype=None:
+                     embed_gather_ref(embed, ids).to(dtype or embed.dtype))])
+
+
+def named_leaves(params, prefix=""):
+    """(path, tensor) of every leaf of a param tree, in param_leaves' order."""
+    if isinstance(params, dict):
+        for k, v in params.items():
+            yield from named_leaves(v, f"{prefix}/{k}")
+    elif isinstance(params, (tuple, list)):
+        for i, v in enumerate(params):
+            yield from named_leaves(v, f"{prefix}/{i}")
+    elif hasattr(params, "dim"):
+        yield prefix, params
+
+
+def step_with_lookup_out(torch, fn, params):
+    """fn() -> (loss, *outputs) once, with the embedding lookup's output
+    captured: (outputs, grads of every leaf by path, the lookup's ids and
+    the loss's gradient at the lookup's output)."""
+    from umbrella_tpu_torch.training import draft_trainer
+
+    real, seen = draft_trainer.embed_lookup, {}
+
+    def spy(embed, ids, dtype=None):
+        seen["ids"], seen["out"] = ids, real(embed, ids, dtype)
+        return seen["out"]
+
+    with patched([(draft_trainer, "embed_lookup", spy)]):
+        out = fn()
+    names, leaves = zip(*named_leaves(params))
+    grads = torch.autograd.grad(out[0], list(leaves) + [seen["out"]])
+    return out, dict(zip(names, grads[:-1])), seen["ids"], grads[-1], seen["out"]
+
+
+def kernel_vs_plain(torch, dev, tag, fn, params, embed_tol, other_tol):
+    """One step through the lookup kernel against the same step through the
+    plain lookup: fn()'s outputs (the loss, the logits, ...) bit for bit, the
+    embedding's gradient non-zero and within embed_tol x its max (None:
+    reported only), every other gradient within other_tol x its max. On the card the kernel path
+    launches the kernel, returns a tensor with a grad_fn, and the plain path
+    launches nothing. Returns the report and the kernel path's capture."""
+    from umbrella_tpu_torch.ops.kernels import launch_counts
+
+    n0 = launch_counts()["embed_gather"]
+    k_out, k_grads, ids, upstream, looked_up = step_with_lookup_out(torch, fn, params)
+    n1 = launch_counts()["embed_gather"]
+    with plain_lookup(torch):
+        p_out, p_grads, _, _, _ = step_with_lookup_out(torch, fn, params)
+    n2 = launch_counts()["embed_gather"]
+    if dev.type == "cuda":
+        check(n1 > n0 and n2 == n1, f"{tag} kernel path launched {n1 - n0} embed_gather, "
+              f"the plain path {n2 - n1}")
+    check(looked_up.grad_fn is not None, f"{tag} the kernel's lookup has no grad_fn")
+    same = [bool(torch.equal(a, b)) for a, b in zip(k_out, p_out)]
+    check(all(same), f"{tag} forward outputs differ between kernel and plain lookup: {same}")
+    errs = {}
+    for name, g in k_grads.items():
+        scale = float(p_grads[name].float().abs().max())
+        errs[name] = float((g.float() - p_grads[name].float()).abs().max()) / max(scale, 1e-30)
+        tol = embed_tol if name == "/embed" else other_tol
+        check(tol is None or errs[name] <= tol,
+              f"{tag} gradient {name}: {errs[name]} x max (tolerance {tol})")
+    check(float(k_grads["/embed"].abs().max()) > 0, f"{tag} the embedding's gradient is zero")
+    return dict(forward_bitwise=True, loss=float(k_out[0].detach()),
+                embed_grad_rel_err=errs["/embed"],
+                max_other_grad_rel_err=max(v for k, v in errs.items() if k != "/embed"),
+                launches_kernel_path=n1 - n0), (k_grads, ids, upstream)
+
+
+def timed_steps(torch, dev, step, state, batches):
+    """Run the train steps over two or more batches; ms a step over all but
+    the first (which pays first-call costs), the losses read after the last
+    step."""
+    losses = []
+    for i, b in enumerate(batches):
+        if i == 1:
+            sync(torch, dev)
+            t0 = time.time()
+        state, loss = step(state, b)
+        losses.append(loss)
+    sync(torch, dev)
+    return state, [float(x) for x in losses], (time.time() - t0) * 1e3 / (len(batches) - 1)
+
+
+def fwd_bwd_ms(torch, dev, fn, leaves, n=3):
+    """ms of fn()'s loss and its gradient at every leaf (no update), mean of n
+    after one warm-up."""
+    for i in range(n + 1):
+        if i == 1:
+            sync(torch, dev)
+            t0 = time.time()
+        torch.autograd.grad(fn(), leaves)
+    sync(torch, dev)
+    return (time.time() - t0) * 1e3 / n
+
+
+def upcast_costs(torch, dev, fn, leaves):
+    """What the fp32 upcast in llama._linear and the fp64 norm sums cost a
+    train step's forward and backward: its ms as it is, with every dense
+    product a bf16 matmul (fp32 accumulation inside cuBLAS), and with the
+    norms' sums in fp32 (both patched here for the measurement only)."""
+    from umbrella_tpu_torch.models import llama
+    from umbrella_tpu_torch.training import draft_trainer
+
+    def bf16_linear(x, w, b=None, act_int8=False):
+        y = x @ w.to(x.dtype)
+        return y if b is None else y + b.to(x.dtype)
+
+    def fp32_norm(x, w, eps):
+        x32 = x.float()
+        return (x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps) * w.float()
+                ).to(x.dtype)
+
+    res = {"as_is_ms": fwd_bwd_ms(torch, dev, fn, leaves)}
+    with patched([(llama, "_linear", bf16_linear), (draft_trainer, "_linear", bf16_linear)]):
+        res["bf16_products_ms"] = fwd_bwd_ms(torch, dev, fn, leaves)
+    with patched([(draft_trainer, "rms_norm", fp32_norm)]):
+        res["fp32_norm_sums_ms"] = fwd_bwd_ms(torch, dev, fn, leaves)
+    res["upcast_share"] = 1 - res["bf16_products_ms"] / res["as_is_ms"]
+    res["fp64_norm_share"] = 1 - res["fp32_norm_sums_ms"] / res["as_is_ms"]
+    return res
+
+
+def train_phase(torch, dev):
+    """[train]: draft/config.json at full width, bf16, packed, B 8 x seq 1024,
+    lr 3e-4, TRAIN_STEPS steps through train_draft's functions on a periodic
+    token stream; the kernel-vs-plain lookup step; then the trained params
+    served by the static engine against the AR decode."""
+    import numpy as np
+
+    from umbrella_tpu_torch.models.auto_model import ModelRuntime, early_exit_runtime
+    from umbrella_tpu_torch.models.convert import serving_params
+    from umbrella_tpu_torch.models.llama import StaticModelArgs
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.ops.kernels.embed_gather import embed_gather_backward
+    from umbrella_tpu_torch.training import train_draft
+    from umbrella_tpu_torch.training.draft_trainer import (lm_loss, map_params, param_leaves,
+                                                           train_forward)
+
+    tag = "[train]"
+    cfg = train_cfg()
+    args = StaticModelArgs.from_config(cfg)
+    stream = period_stream(cfg.vocab_size, 64 * TRAIN_SEQ)
+    windows = train_draft.windows_of(stream, TRAIN_SEQ)
+    t0 = time.time()
+    params = train_draft.init_train_params(cfg, TRAIN_SEQ, dev, torch.bfloat16, packed=True,
+                                           seed=0)
+    sync(torch, dev)
+    init_s = time.time() - t0
+    n_params = sum(t.numel() for t in param_leaves(params))
+    batches = train_batches(torch, dev, windows, TRAIN_STEPS, seed=0)
+    ids = batches[0]
+
+    def fn(p=params):
+        logits = train_forward(p, args, ids)
+        return lm_loss(logits, ids), logits
+
+    # the kernel path against the plain lookup, bf16: the embedding's gradient
+    # is checked before its one cast (the plain lookup's bf16 backward rounds
+    # at every repeat of a row); then the same step in fp32
+    bf16, (k_grads, k_ids, upstream) = kernel_vs_plain(torch, dev, tag + " bf16", fn, params,
+                                                       None, 2 ** -7)
+    summed = embed_gather_backward(upstream, k_ids, cfg.vocab_size, torch.float32)
+    check(torch.equal(summed.to(torch.bfloat16), k_grads["/embed"]),
+          f"{tag} the embedding's gradient is not its fp32 sum cast once")
+    exact = torch.zeros(summed.shape, dtype=torch.float64, device=dev).index_add_(
+        0, k_ids.long(), upstream.double())
+    bf16["embed_fp32_sum_rel_err"] = float((summed.double() - exact).abs().max() /
+                                           exact.abs().max())
+    check(bf16["embed_fp32_sum_rel_err"] <= 1e-3, f"{tag} embed gradient sum: "
+          f"{bf16['embed_fp32_sum_rel_err']} x max from the fp64 sum")
+    del k_grads, summed, exact, upstream
+    p32 = map_params(lambda t: t.detach().float().requires_grad_(), params)
+    fp32, _ = kernel_vs_plain(torch, dev, tag + " fp32", lambda: fn(p32), p32, 1e-3, 2 ** -7)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    state, step = train_draft.make_trainer(cfg, params, TRAIN_LR, TRAIN_STEPS, [dev])
+    reset_peak(torch, dev)
+    reset_launch_counts()
+    state, losses, ms = timed_steps(torch, dev, step, state, batches)
+    counts = launch_counts()
+    peak = peak_gb(torch, dev)
+    check(all(np.isfinite(losses)), f"{tag} non-finite loss: {losses}")
+    drop = losses[0] - float(np.mean(losses[-5:]))
+    check(drop >= 1.0, f"{tag} the loss fell {drop} nats (at least 1): {losses}")
+    check(dev.type != "cuda" or counts["embed_gather"] == TRAIN_STEPS,
+          f"{tag} embed_gather launched "
+          f"{counts['embed_gather']} times in {TRAIN_STEPS} steps (one lookup a step)")
+    costs = upcast_costs(torch, dev, lambda: lm_loss(train_forward(params, args, ids), ids),
+                         list(param_leaves(params)))
+
+    # the trained params served: the static engine's greedy decode against the AR decode
+    served = map_params(lambda t: t.float(), serving_params(state.params))
+    del state, step
+    target = ModelRuntime(cfg, served, MAX_LEN, dtype=torch.float32, device=dev)
+    draft = early_exit_runtime(target, exit_layer=TRAIN_EXIT)
+    eng = make_engine(torch, dev, target, draft, torch.float32)
+    start = 7
+    prompt = stream[start:start + PROMPT_LEN].tolist()
+    out = eng.generate(input_ids=prompt, max_new_tokens=TRAIN_NEW_TOKENS)
+    graphs = check_graphed(eng, tag) if dev.type == "cuda" else None
+    toks = out["generated_tokens"]
+    ar, gaps, _, _ = greedy_ar_decode(torch, target, prompt, len(toks))
+    same = first_difference(toks, ar)
+    follows = sum(int(t == stream[start + PROMPT_LEN + i])
+                  for i, t in enumerate(toks[:TRAIN_NEW_TOKENS]))
+    res = dict(params_m=n_params / 1e6, config=TRAIN_CONFIG, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               steps=TRAIN_STEPS, lr=TRAIN_LR, period=TRAIN_PERIOD, losses=losses,
+               loss_drop=drop, step_ms=ms, tok_per_s=TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+               peak_mem_gb=peak, kernel_vs_plain_bf16=bf16, kernel_vs_plain_fp32=fp32,
+               fwd_bwd_costs=costs, launches=counts,
+               launches_per_step={k: n / TRAIN_STEPS for k, n in counts.items()},
+               serve=dict(tokens=len(toks), identical_to_ar=same, follow_the_period=follows,
+                          avg_accept_tokens=out["avg_accept_tokens"], min_ar_gap=min(gaps),
+                          graphs=graphs),
+               init_s=init_s)
+    log(f"{tag} {json.dumps(res)}")
+    check(same >= TRAIN_NEW_TOKENS, f"{tag} spec and AR decode of the trained model differ at "
+          f"token {same}: {toks} vs {ar}")
+    del eng, draft, target, served
+    return res
+
+
+def train_dp_phase(torch, dev):
+    """[train-dp]: [train]'s step in fp32 with dp 2 (two replicas on this
+    card, or one a card on a host with two or more) against dp 1: two steps
+    from the same params on the same batches; losses within fp32 reordering,
+    params after the second step (the first update is at rate 0) within
+    1e-3 of that update's rate but for at most 1e-4 of the elements (a
+    gradient at fp32's noise may take Adam's step of either sign)."""
+    import numpy as np
+
+    from umbrella_tpu_torch.models.convert import trainable_params
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.training import train_draft
+    from umbrella_tpu_torch.training.draft_trainer import make_optimizer, param_leaves
+
+    tag = "[train-dp]"
+    cfg = train_cfg()
+    n_cards = torch.cuda.device_count()
+    devices = ([torch.device("cuda", i) for i in range(2)] if n_cards >= 2 else [dev, dev])
+    windows = train_draft.windows_of(period_stream(cfg.vocab_size, 64 * TRAIN_SEQ), TRAIN_SEQ)
+    batches = train_batches(torch, dev, windows, 3, seed=1)
+    base = train_draft.init_train_params(cfg, TRAIN_SEQ, dev, torch.float32, packed=True,
+                                         seed=0)
+    runs = {}
+    for dp in (1, 2):
+        params = trainable_params(base)
+        state, step = train_draft.make_trainer(cfg, params, TRAIN_LR, TRAIN_STEPS,
+                                               devices[:dp])
+        reset_launch_counts()
+        state, losses, ms = timed_steps(torch, dev, step, state, batches)
+        runs[dp] = dict(losses=losses, step_ms=ms, params=params,
+                        launches=launch_counts()["embed_gather"])
+        del state, step
+    lr1 = make_optimizer(lr=TRAIN_LR, total_steps=TRAIN_STEPS).schedule(1)
+    worst, off, n = 0.0, 0, 0
+    for a, b in zip(param_leaves(runs[1]["params"]), param_leaves(runs[2]["params"])):
+        d = (a.detach() - b.detach()).abs()
+        worst = max(worst, float(d.max()))
+        off += int((d > 1e-3 * lr1).sum())
+        n += d.numel()
+    loss_rel = max(abs(x - y) / abs(x) for x, y in zip(runs[1]["losses"], runs[2]["losses"]))
+    res = dict(devices=[str(d) for d in devices], dtype="fp32", losses_dp1=runs[1]["losses"],
+               losses_dp2=runs[2]["losses"], max_loss_rel_diff=loss_rel,
+               max_param_diff=worst, params_off_by_over_a_thousandth_of_the_rate=off, params=n,
+               step_ms_dp1=runs[1]["step_ms"], step_ms_dp2=runs[2]["step_ms"],
+               embed_gather_launches_dp2=runs[2]["launches"])
+    log(f"{tag} {json.dumps(res)}")
+    check(all(np.isfinite(runs[2]["losses"])), f"{tag} non-finite loss")
+    check(loss_rel <= 1e-5, f"{tag} dp 2 losses differ from dp 1's by {loss_rel} (relative)")
+    check(worst <= 2 * 1.5 * TRAIN_LR and off <= 1e-4 * n,
+          f"{tag} params after dp 2 differ from dp 1's: max {worst}, {off} of {n} off by more "
+          f"than 1e-3 x the rate {lr1}")
+    check(dev.type != "cuda" or runs[2]["launches"] == 2 * len(batches),
+          f"{tag} embed_gather launched "
+          f"{runs[2]['launches']} times (one a replica a step)")
+    return res
+
+
+def pp_train_phase(torch, dev):
+    """[pp-train]: draft width in fp32 over PP_STAGES stages (one a card on a
+    host with four, else all on this card), n_micro PP_TRAIN_MICRO: the loss
+    and every gradient of one step against the unstaged step's; then ms a
+    step of the staged and the unstaged train steps."""
+    from umbrella_tpu_torch.models.llama import StaticModelArgs
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.parallel.pipeline import (make_pp_forward, make_pp_train_step,
+                                                      shard_params_pp, unstage_params)
+    from umbrella_tpu_torch.training import train_draft
+    from umbrella_tpu_torch.training.draft_trainer import (causal_lm_loss, init_train_state,
+                                                           lm_loss, make_optimizer,
+                                                           make_train_step, map_params,
+                                                           param_leaves)
+
+    tag = "[pp-train]"
+    cfg = train_cfg()
+    args = StaticModelArgs.from_config(cfg)
+    devices = stage_devices(torch, dev)
+    windows = train_draft.windows_of(period_stream(cfg.vocab_size, 64 * TRAIN_SEQ), TRAIN_SEQ)
+    batches = train_batches(torch, dev, windows, 3, seed=2)
+    params = train_draft.init_train_params(cfg, TRAIN_SEQ, dev, torch.float32, packed=True,
+                                           seed=0)
+    staged = shard_params_pp(params, devices)
+    ids = batches[0]
+    reset_launch_counts()
+    loss = lm_loss(make_pp_forward(args, devices, PP_TRAIN_MICRO)(staged, ids), ids)
+    loss.backward()
+    launches = launch_counts()["embed_gather"]
+    ref = causal_lm_loss(params, args, ids)
+    ref.backward()
+    loss, ref = float(loss.detach()), float(ref.detach())
+    loss_rel = abs(loss - ref) / abs(ref)
+    got = dict(named_leaves(unstage_params(staged, lambda t: t.grad)))
+    errs = {}
+    for name, w in named_leaves(map_params(lambda t: t.grad, params)):
+        errs[name] = float((got[name] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+    for t in list(param_leaves(staged)) + list(param_leaves(params)):
+        t.grad = None
+    timing = {}
+    for name, p, make in (
+            ("staged", staged, lambda: make_pp_train_step(args, None, devices, PP_TRAIN_MICRO)),
+            ("unstaged", params, lambda: make_train_step(args, None))):
+        state = init_train_state(p, make_optimizer(lr=TRAIN_LR, total_steps=TRAIN_STEPS))
+        state, losses, ms = timed_steps(torch, dev, make(), state, batches)
+        timing[name] = dict(step_ms=ms, losses=losses)
+        del state
+    res = dict(stages=[str(d) for d in devices], n_micro=PP_TRAIN_MICRO, dtype="fp32",
+               loss=loss, loss_rel_diff=loss_rel, max_grad_rel_err=max(errs.values()),
+               grad_rel_err=errs, embed_gather_launches=launches, **timing)
+    log(f"{tag} {json.dumps(res)}")
+    check(loss_rel <= 1e-5, f"{tag} staged loss differs by {loss_rel} (relative)")
+    bad = {k: v for k, v in errs.items() if v > 1e-4}
+    check(not bad, f"{tag} gradients off the unstaged step's by more than 1e-4 x max: {bad}")
+    check(dev.type != "cuda" or launches == 1,
+          f"{tag} embed_gather launched {launches} times in one forward")
+    return res
+
+
+def moe_train_phase(torch, dev):
+    """[moe-train]: Mixtral-8x7B widths, MOE_TRAIN_LAYERS of its 32 layers,
+    bf16, B 2 x seq 256, MOE_TRAIN_STEPS steps: finite losses and aux loss,
+    ms a step; then one fp32 step at 1 layer with experts narrowed to
+    MOE_NARROW_I held against the plain lookup."""
+    import numpy as np
+
+    from umbrella_tpu_torch.config import ModelConfig
+    from umbrella_tpu_torch.models.convert import trainable_params
+    from umbrella_tpu_torch.models.llama import StaticModelArgs
+    from umbrella_tpu_torch.models.moe import (init_moe_llama_params, make_moe_train_step,
+                                               moe_train_forward)
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.training.draft_trainer import (init_train_state, lm_loss,
+                                                           make_optimizer)
+
+    tag = "[moe-train]"
+    E = MIXTRAL_HF["num_local_experts"]
+    cfg = ModelConfig.from_dict(dict(MIXTRAL_HF, num_hidden_layers=MOE_TRAIN_LAYERS))
+    args = StaticModelArgs.from_config(cfg)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    params = trainable_params(init_moe_llama_params(cfg, gen, E, dtype=torch.bfloat16,
+                                                    device=dev))
+    ids = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (MOE_TRAIN_BATCH, MOE_TRAIN_SEQ)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        _, aux = moe_train_forward(params, args, ids)
+    aux = float(aux)
+    state = init_train_state(params, make_optimizer(lr=TRAIN_LR, total_steps=MOE_TRAIN_STEPS))
+    reset_peak(torch, dev)
+    reset_launch_counts()
+    state, losses, ms = timed_steps(torch, dev, make_moe_train_step(args, None), state,
+                                    [ids] * MOE_TRAIN_STEPS)
+    launches = launch_counts()["embed_gather"]
+    peak = peak_gb(torch, dev)
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg1 = ModelConfig.from_dict(dict(MIXTRAL_HF, num_hidden_layers=1,
+                                      intermediate_size=MOE_NARROW_I))
+    args1 = StaticModelArgs.from_config(cfg1)
+    p1 = trainable_params(init_moe_llama_params(cfg1, gen, E, dtype=torch.float32, device=dev))
+
+    def fn():
+        logits, a = moe_train_forward(p1, args1, ids)
+        return lm_loss(logits, ids) + 0.01 * a, logits, a
+
+    fp32, _ = kernel_vs_plain(torch, dev, tag + " fp32", fn, p1, 1e-5, 1e-5)
+    res = dict(layers=MOE_TRAIN_LAYERS, experts=E, batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ,
+               losses=losses, aux_at_init=aux, step_ms=ms, peak_mem_gb=peak,
+               embed_gather_launches=launches, kernel_vs_plain_fp32=fp32)
+    log(f"{tag} {json.dumps(res)}")
+    check(all(np.isfinite(losses)) and np.isfinite(aux) and aux > 0,
+          f"{tag} losses {losses}, aux {aux}")
+    check(dev.type != "cuda" or launches == MOE_TRAIN_STEPS,
+          f"{tag} embed_gather launched {launches} times")
+    return res
+
+
+TRAIN_PHASES = ("train", "train-dp", "pp-train", "moe-train")
+
+
 # ---------------------------------------------------------------- main
 
 KERNEL_META = {
@@ -6243,7 +6795,7 @@ CHECKPOINT_PHASES = ("checkpoint", "code-config", "code-config-w4a8", "serve-con
                      "offload-config")
 PHASES = ("kernels", "multi-card", "lossless", "lossless-int8", "lossless-w4a8",
           "batched-lossless", "pp-lossless", "tp-lossless", "tp-serve", "dynamic-lossless",
-          "offload-lossless", "main",
+          "offload-lossless") + TRAIN_PHASES + ("main",
           "graph", "dynamic", "dynamic-pp", "serve", "serve-bf16",
           "serve-stochastic") + CHECKPOINT_PHASES + GEMMA_PHASES + MOE_PHASES
 # phases that run only when named in --phases: `w4a16`, `w4a8` and
@@ -6311,6 +6863,10 @@ def run(torch, phases):
     phase("tp-serve", tp_serve_phase, torch, dev)
     phase("dynamic-lossless", dynamic_lossless_check, torch, dev, prompt.tolist())
     phase("offload-lossless", offload_lossless_check, torch, dev, prompt.tolist())
+    phase("train", train_phase, torch, dev)
+    phase("train-dp", train_dp_phase, torch, dev)
+    phase("pp-train", pp_train_phase, torch, dev)
+    phase("moe-train", moe_train_phase, torch, dev)
 
     if {"main", "graph", "dynamic", "dynamic-pp", "serve", "serve-bf16",
             "serve-stochastic"} & set(phases):
@@ -6386,7 +6942,10 @@ def run(torch, phases):
                                           if k.startswith(NEW_SHAPES)},
                 "tp_shard_shapes": {k: v for k, v in r["per_shape"].items() if "TP4" in k}}
                if "per_shape" in r else {}),
-            **family_shapes(results, name)))
+            **family_shapes(results, name),
+            **({"training": dict(r["training_shape"], launches=results["train"]["launches"][name],
+                                 launches_per_step=results["train"]["launches_per_step"][name],
+                                 launches_from="train")} if "training_shape" in r else {})))
     main, serve = results["main"], results["serve"]
     summary = {k: main[k] for k in ("tok_per_s", "decode_step_ms", "avg_accept_tokens",
                                     "ttft_ms_prefill128", "spec_vs_ar_common_prefix")}
@@ -6514,6 +7073,19 @@ def run(torch, phases):
         summary[name] = {k: results[name][k] for k in (
             "run_tok_per_s", "pipelined_tok_per_s", "avg_accept_tokens", "decode_step_ms",
             "ttft_ms_p50", "peak_mem_gb")}
+    tr = results["train"]
+    summary["train"] = dict({k: tr[k] for k in (
+        "params_m", "step_ms", "tok_per_s", "peak_mem_gb", "loss_drop", "fwd_bwd_costs")},
+        first_loss=tr["losses"][0], last_loss=tr["losses"][-1],
+        spec_identical_to_ar=tr["serve"]["identical_to_ar"],
+        follow_the_period=tr["serve"]["follow_the_period"])
+    summary["train-dp"] = {k: results["train-dp"][k] for k in (
+        "max_loss_rel_diff", "max_param_diff", "step_ms_dp1", "step_ms_dp2")}
+    summary["pp-train"] = dict(max_grad_rel_err=results["pp-train"]["max_grad_rel_err"],
+                               staged_step_ms=results["pp-train"]["staged"]["step_ms"],
+                               unstaged_step_ms=results["pp-train"]["unstaged"]["step_ms"])
+    summary["moe-train"] = {k: results["moe-train"][k] for k in (
+        "losses", "aux_at_init", "step_ms", "peak_mem_gb")}
     summary["seconds"] = time.time() - t_all
     log(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": kernels}), flush=True)

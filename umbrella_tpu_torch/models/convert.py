@@ -71,6 +71,40 @@ def params_from_numpy(params: dict, device="cpu", dtype=None) -> dict:
     return _convert(params, torch.device(device), dtype)
 
 
+def trainable_params(params: dict, device=None) -> dict:
+    """A port param tree (a fresh one from an init, or params_from_numpy's)
+    as train params: every floating tensor a leaf that requires grad (copied
+    to `device` when one is given), and `rope_scale` a trainable 0-d fp32
+    tensor on the tree's device. The JAX package's train step
+    differentiates its whole params pytree, rope leaves included (ROADMAP C)."""
+    dev = torch.device(device) if device is not None else params["embed"].device
+
+    def leaf(v):
+        if isinstance(v, dict):
+            return {k: leaf(x) for k, x in v.items()}
+        if not isinstance(v, torch.Tensor):
+            v = torch.tensor(float(v), dtype=torch.float32)
+        return v.detach().to(dev).clone().requires_grad_(v.is_floating_point())
+
+    return leaf(params)
+
+
+def train_params_from_numpy(params: dict, device="cpu", dtype=None) -> dict:
+    """The JAX package's train params (numpy leaves, e.g. init_llama_params'
+    or a TrainState's params) -> the port's trainable leaves on `device`."""
+    return trainable_params(params_from_numpy(params, device, dtype))
+
+
+def serving_params(params: dict) -> dict:
+    """Train params as the engines take them: detached tensors (the engines
+    run no autograd) and `rope_scale` a Python float again."""
+    out = {k: (serving_params(v) if isinstance(v, dict) else v.detach())
+           for k, v in params.items()}
+    if "rope_scale" in out:
+        out["rope_scale"] = float(out["rope_scale"])
+    return out
+
+
 def config_from(cfg) -> ModelConfig:
     """The port's ModelConfig with every field that `cfg` (the JAX package's
     ModelConfig, or any object with those attribute names) has: the Gemma2

@@ -26,8 +26,12 @@ attention, the router, the norms and the KV cache stay on the first shard's
 device, which is the runtime's (GSPMD computes them replicated: the same
 values). Every forward of the family takes a sharded runtime as it is.
 
-Not ported yet: training (`_moe_layer`, `moe_train_forward`,
-`make_moe_train_step`; ROADMAP A.5).
+Training (`_moe_layer`, `moe_train_forward`, `make_moe_train_step`): the
+training path's dense attention (training/draft_trainer.py) and the same
+routing; the gradient reaches the router through the softmax and the
+normalised top-k weights, not through the one-hot (nor the aux loss's
+routed fractions), as in the JAX package. Expert-sharded training waits for
+ROADMAP A.5's next step.
 """
 from __future__ import annotations
 
@@ -42,6 +46,8 @@ from ..config import ModelConfig
 from ..ops.norms import rms_norm
 from ..ops.rope import rope_params
 from ..ops.select import embed_lookup
+from ..training.draft_trainer import (_batched_attention, causal_mask, embed_batch, head_logits,
+                                      lm_loss, optimizer_update)
 from ..utils import device_scope, resolve_device
 from .kv_cache import KVCache
 from .llama import StaticModelArgs, kv_limit_of, llama_attention, lm_head_logits
@@ -306,3 +312,45 @@ def moe_runtime(cfg: ModelConfig, params: dict, max_length: int, dtype=torch.flo
     return ModelRuntime(cfg, params, max_length, dtype=dtype, family="moe",
                         n_layers=params["layers"]["router"].shape[0],
                         device=resolve_device(device))
+
+
+def _moe_layer(args: StaticModelArgs, lw: dict, hidden, inv_freq, rope_scale, positions, mask,
+               top_k: int):
+    """One MoE layer over [B, S, H] without a KV cache: (hidden, aux loss)."""
+    hidden = _batched_attention(args, lw, hidden, inv_freq, rope_scale, positions, mask)
+    mlp, aux = moe_mlp(lw, rms_norm(hidden, lw["post_norm"], args.rms_eps), top_k=top_k)
+    return hidden + mlp, aux
+
+
+def moe_train_forward(params: dict, args: StaticModelArgs, input_ids: torch.Tensor,
+                      top_k: int = 2):
+    """Causal forward over [B, S] -> (fp32 logits [B, S, V], the aux loss
+    summed over layers / n_layers)."""
+    S = input_ids.shape[1]
+    hidden = embed_batch(params, input_ids)
+    positions = torch.arange(S, device=hidden.device)
+    mask = causal_mask(S, hidden.device)
+    layers = params["layers"]
+    n = layers["input_norm"].shape[0]
+    aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n):
+        lw = {k: v[i] for k, v in layers.items()}
+        hidden, a = _moe_layer(args, lw, hidden, params["rope_inv_freq"], params["rope_scale"],
+                               positions, mask, top_k)
+        aux = aux + a
+    return head_logits(params, args, hidden), aux / n
+
+
+def make_moe_train_step(args: StaticModelArgs, optimizer, top_k: int = 2,
+                        aux_weight: float = 0.01):
+    """train_step(state, input_ids) -> (state, loss): the mean next-token NLL
+    plus aux_weight x the aux loss, one AdamW update in place."""
+    del optimizer  # the state carries the built optimizer
+
+    def train_step(state, input_ids):
+        logits, aux = moe_train_forward(state.params, args, input_ids, top_k=top_k)
+        loss = lm_loss(logits, input_ids) + aux_weight * aux
+        loss.backward()
+        return optimizer_update(state, loss)
+
+    return train_step

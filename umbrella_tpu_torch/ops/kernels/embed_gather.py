@@ -1,6 +1,15 @@
 """Embedding row gather: CUDA kernel `csrc/embed_gather.cu` and its plain version.
 
 Replaces `umbrella_tpu/ops/pallas/embed_gather.py::embed_gather`.
+
+`embed_gather_trainable` is the same gather under autograd (the training
+forwards' lookup): its forward is the kernel, its backward scatter-adds the
+output's gradient into a [V, H] fp32 buffer (repeated ids summed) and casts
+it once to the table's dtype. The JAX package has no backward kernel (its
+gradient of the lookup is XLA's transpose), so the backward is plain torch:
+`index_put_(accumulate=True)`, which sums a row's repeats in the order of
+their positions, so a step's gradient is the same bits every run (CUDA's
+`index_add_` adds them with atomics, in whatever order they land).
 """
 from __future__ import annotations
 
@@ -50,3 +59,34 @@ def embed_gather(embed: torch.Tensor, input_ids: torch.Tensor) -> torch.Tensor:
 
 
 embed_gather.launches = 0
+
+
+def embed_gather_backward(grad_out: torch.Tensor, input_ids: torch.Tensor, V: int,
+                          dtype) -> torch.Tensor:
+    """The table's gradient of embed[input_ids]: grad_out [S, H] added into a
+    zero [V, H] fp32 buffer at the rows input_ids (repeats summed in position
+    order), cast once to `dtype`."""
+    grad = torch.zeros((V, grad_out.shape[-1]), dtype=torch.float32, device=grad_out.device)
+    grad.index_put_((input_ids.long(),), grad_out.float(), accumulate=True)
+    return grad.to(dtype)
+
+
+class _EmbedGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, embed, input_ids):
+        ctx.save_for_backward(input_ids)
+        ctx.V, ctx.dtype = embed.shape[0], embed.dtype
+        return embed_gather(embed, input_ids)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (input_ids,) = ctx.saved_tensors
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        return embed_gather_backward(grad_out, input_ids, ctx.V, ctx.dtype), None
+
+
+def embed_gather_trainable(embed: torch.Tensor, input_ids: torch.Tensor) -> torch.Tensor:
+    """embed_gather with a gradient for `embed`: the kernel forward on a CUDA
+    table (the plain version on a CPU one), the scatter-add backward."""
+    return _EmbedGather.apply(embed, input_ids)

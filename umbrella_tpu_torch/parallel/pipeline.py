@@ -27,8 +27,17 @@ Not copied from the JAX package: the scratch KV tail past max_length and the
 diversion of KV writes on "garbage ticks" (`pipeline.py:126-138, 194-199, 231,
 240` there). SPMD runs every tick on every device, so JAX must park the writes
 of stages that are not on their real tick; a sequential stage loop runs each
-stage once per forward and writes only real rows. The training half
-(`make_pp_forward`, `make_pp_train_step`) waits for the training slice.
+stage once per forward and writes only real rows.
+
+The training half (`pp_layer_specs`, `shard_params_pp`, `make_pp_forward`,
+`make_pp_train_step`) is GPipe over the same stage devices: the batch is cut
+into M microbatches, and at tick t stage s runs microbatch t - s (M + S - 1
+ticks), as the JAX package's `lax.scan` over ticks does. The host enqueues a
+tick's stages one after another; CUDA launches return at once, so stages on
+different cards run at the same time, and the hidden state hops to the next
+stage's card as a peer copy. Autograd runs the backward across the cards
+itself (JAX differentiates through its `ppermute`s). The embedding, the final
+norm and the head are leaves on stage 0's device, as in the inference half.
 """
 from __future__ import annotations
 
@@ -44,6 +53,8 @@ from ..models.llama import (kv_limit_of, llama_layer, lm_head_logits, split_scan
 from ..ops.norms import rms_norm
 from ..ops.select import embed_lookup
 from ..quantization.awq import AwqTensor
+from ..training.draft_trainer import (TrainState, _batched_layer, causal_mask, embed_batch,
+                                      head_logits, lm_loss, optimizer_update)
 
 
 class Stage(NamedTuple):
@@ -192,3 +203,104 @@ def pp_forward(runtime):
         return run_phases(pp_phases(runtime.args, params, kv), values)["logits"], kv
 
     return fwd
+
+
+# ---------------------------------------------------------------- training
+
+
+def pp_layer_specs(params: dict, n_stages: int) -> dict:
+    """Where each train param goes over n_stages stages: each layer stack in
+    contiguous blocks, [first, end) of its layers a stage (stage_ranges, the
+    JAX package's P('pipe') on the layer axis); every other entry None (on
+    stage 0's device, which the JAX package replicates)."""
+    n = params["layers"]["input_norm"].shape[0]
+    specs = {k: None for k in params if k != "layers"}
+    specs["layers"] = {k: stage_ranges(n, n_stages) for k in params["layers"]}
+    return specs
+
+
+def shard_params_pp(params: dict, devices: Sequence) -> dict:
+    """Train params (leaf tensors) -> staged train params, new leaves that
+    require grad where the inputs did: the entries outside the layers on
+    devices[0], and under "stages" one layer dict a stage, its block of every
+    stack on devices[s] (a device may repeat)."""
+    devices = [torch.device(d) for d in devices]
+    specs = pp_layer_specs(params, len(devices))
+
+    def leaf(t, dev):
+        return t.detach().to(dev).clone().requires_grad_(t.requires_grad)
+
+    staged = {k: leaf(v, devices[0]) for k, v in params.items() if k != "layers"}
+    staged["stages"] = tuple(
+        {k: leaf(v[specs["layers"][k][s][0]:specs["layers"][k][s][1]], dev)
+         for k, v in params["layers"].items()}
+        for s, dev in enumerate(devices))
+    return staged
+
+
+def unstage_params(staged: dict, fn=lambda t: t.detach()) -> dict:
+    """The unstaged tree of `fn` of each staged leaf (default: the values;
+    `lambda t: t.grad` gives the gradients) on stage 0's device, each layer
+    stack whole again."""
+    dev0 = staged["embed"].device
+    out = {k: fn(v) for k, v in staged.items() if k != "stages"}
+    out["layers"] = {k: torch.cat([fn(st[k]).to(dev0) for st in staged["stages"]])
+                     for k in staged["stages"][0]}
+    return out
+
+
+def make_pp_forward(args, devices: Sequence, n_micro: int):
+    """forward(staged params, input_ids [B, S]) -> fp32 logits [B, S, V]: the
+    batch cut into n_micro microbatches (B % n_micro == 0) run through the
+    stages in GPipe tick order; `devices` are the stages' (shard_params_pp's)."""
+    devices = [torch.device(d) for d in devices]
+    n_stages = len(devices)
+
+    def forward(params, input_ids):
+        B, S = input_ids.shape
+        if B % n_micro:
+            raise ValueError(f"n_micro={n_micro} must divide batch size {B}")
+        stages = params["stages"]
+        if len(stages) != n_stages:
+            raise ValueError(f"params have {len(stages)} stages, the forward {n_stages}")
+        micro = embed_batch(params, input_ids).split(B // n_micro)
+        # what each stage's layers read, on its device
+        inputs = [(params["rope_inv_freq"].to(d), params["rope_scale"].to(d),
+                   torch.arange(S, device=d), causal_mask(S, d)) for d in devices]
+        inbox, outs = [None] * n_stages, [None] * n_micro
+        for t in range(n_micro + n_stages - 1):
+            # last stage first, so that each stage takes its input from the
+            # previous tick before the stage below overwrites it
+            for s in reversed(range(n_stages)):
+                m = t - s
+                if not 0 <= m < n_micro:
+                    continue
+                x = (micro[m] if s == 0 else inbox[s]).to(devices[s])
+                with _current_device(devices[s]):
+                    for i in range(stages[s]["input_norm"].shape[0]):
+                        lw = {k: v[i] for k, v in stages[s].items()}
+                        x = _batched_layer(args, lw, x, *inputs[s])
+                if s == n_stages - 1:
+                    outs[m] = x
+                else:
+                    inbox[s + 1] = x
+        hidden = torch.cat(outs).to(params["embed"].device)
+        return head_logits(params, args, hidden)
+
+    return forward
+
+
+def make_pp_train_step(args, optimizer, devices: Sequence, n_micro: int):
+    """train_step(state over staged params, input_ids) -> (state, loss): the
+    mean next-token NLL through make_pp_forward, its gradient on every stage,
+    one AdamW update of every leaf in place (dp-free, as in JAX)."""
+    del optimizer  # the state carries the built optimizer
+    forward = make_pp_forward(args, devices, n_micro)
+
+    def train_step(state: TrainState, input_ids):
+        ids = input_ids.to(state.params["embed"].device)
+        loss = lm_loss(forward(state.params, ids), ids)
+        loss.backward()
+        return optimizer_update(state, loss)
+
+    return train_step
