@@ -144,6 +144,41 @@ lines tagged with its name:
                    256, 3 steps: finite losses and aux loss, ms a step; one
                    fp32 step at 1 layer (experts narrowed to 1024) through
                    the lookup kernel against the plain lookup.
+  tp-train         draft/config.json at full width and depth over 4 shards
+                   (on this card, or one a card on four), B 8 x seq 1024:
+                   fp32, one step's loss and every gradient against the
+                   unsharded step's (1e-5, 1e-4 x max); SP equal to TP bit
+                   for bit (the step's loss and gradients, and 3 steps'
+                   losses and params); 3 steps of TP, SP and the (data 2,
+                   model 2) grid against 3 unsharded steps (losses 1e-5,
+                   params as [train-dp]); bf16 ms a step sharded and
+                   unsharded, peak GB a card, embed_gather once a step; the
+                   TP-trained params, gathered, served (fp32, static engine,
+                   early-exit draft of 2 layers, 32 tokens): spec == AR.
+  ep-train         Mixtral-8x7B widths, 2 of its 32 layers, bf16, experts
+                   sharded in 4 (this card, or one a card), B 2 x seq 256, 3
+                   steps: finite losses, ms a step, peak GB a card,
+                   embed_gather once a step; one fp32 step at 1 layer
+                   (experts narrowed to 1024) sharded against unsharded: the
+                   loss within 1e-5, every gradient within 1e-4 x max.
+  multihost        umbrella_tpu_torch/examples/multihost_demo.launch spawns
+                   two worker processes: both on this card (gloo), or two
+                   cards each on a host with four (NCCL); the backend is
+                   printed. Each trains the (data 2, model 2) grid at
+                   draft/config.json's width (fp32, B 4 x 256, 3 steps, the
+                   gradient sum across the processes), then decodes with a
+                   static engine with tensor_parallel 4 across them (2
+                   shards each) over a random AWQ Llama-3.3-70B at full width
+                   and 8 layers (bf16, from one seed) with a 2-layer draft at
+                   Llama-3.2-1B widths, 24 tokens, and the batched engine
+                   (B=2, four requests in priority order). Losses identical
+                   on both and equal to the one-process grid's; greedy tokens
+                   identical on both and the one-process tensor_parallel 4
+                   engine's, the prompt's logits bit for bit; batched tokens
+                   identical on both. Spawn-to-ready s, ms a decode step,
+                   gathers a forward and launches a step by process.
+                   Every training phase fails on autograd's warning of a
+                   gradient made on another card's stream (pp-train too).
   main             the 8B AWQ target (32 layers, damped tail, Int4F shared
                    prefix of 3 layers + lm_head) with its early-exit draft, a
                    Sequoia 24x6 tree, through AutoEngine.from_config ->
@@ -168,7 +203,7 @@ lines tagged with its name:
                    stepwise tokens equal from one seed; tok/s, step ms,
                    accept, a profiled request (host ops a step, idle share,
                    traced launches a step = the captured step's).
-  dynamic-pp       the dynamic engine (16 x 16 x 24, greedy, 24 tokens) over
+  dynamic-pp       the dynamic engine (16 x 16 x 24, greedy, 12 tokens) over
                    an 8B AWQ target staged in 4 stages (pipeline_parallel 4)
                    with the 1B draft: graphed, stepwise and the unstaged
                    target's decode give the same tokens.
@@ -191,7 +226,7 @@ lines tagged with its name:
                    memory); the target's logits must equal the in-memory
                    conversion's bit for bit.
   code-config      configs/code_config_8b_awq_v5e.json as shipped (model,
-                   draft_model and growmap_path rewritten; 128 new tokens):
+                   draft_model and growmap_path rewritten; 64 new tokens):
                    greedy 24x6, W4 draft and head from quantize_draft.
   code-config-w4a8 the same on the awq_act "int8" target (w4a8_matmul).
   serve-config     configs/serve_batched_8b_awq_int8kv_v5e.json as shipped:
@@ -199,7 +234,7 @@ lines tagged with its name:
   api-serve        the same config served through APIServer on port 0 with its
                    "scheduler": {} key (make_scheduler's 40 workers in front
                    of a ContinuousBatcher over [serve-config]'s engine): 64
-                   client threads send one request each (128 prompt and 96
+                   client threads send one request each (128 prompt and 40
                    new tokens, priorities 1/10/20; 16 stream, 16 greedy),
                    then get_metrics; the same requests through run() and the
                    direct batcher (the batcher and the server twice, in
@@ -267,7 +302,7 @@ lines tagged with its name:
                    23.7 GB, deleted after the Gemma phases) through
                    configs/chat_config_8b_v5e.json's keys (static 5x6, 0.6 /
                    0.9 / 1.05, max_length 8192, template gemma2-it): a sampled
-                   64-token request and a greedy one on a 4,200-token prompt
+                   24-token request and a greedy one on a 4,200-token prompt
                    (past the 4,096-slot window), each graphed and stepwise
                    from one generator state (the stepwise loop's 8 tokens
                    equal); TTFT; [gemma-profile] (the greedy decode alone,
@@ -300,7 +335,7 @@ lines tagged with its name:
                    4, on this card at 16 of its 32 layers (12 if the card
                    runs short), one shard a card at all 32 on a host with
                    4 cards, the Mistral directory as the
-                   draft (V = 32768 against 32000): a sampled 64-token
+                   draft (V = 32768 against 32000): a sampled 24-token
                    request graphed and stepwise (8 tokens equal); TTFT;
                    [moe-profile]; attend_flash, attend_flash_batched_int8 and
                    embed_gather at this family's shapes.
@@ -328,13 +363,13 @@ kernel's. `--phases a,b` runs a subset (no report).
 
 Weights are random (seeded). The script needs CUDA and the repository's
 umbrella_tpu_torch package beside it; without either it exits with code 2.
-The whole script takes about eighteen minutes on one H100 (1,056.7 s of
-command time on an H100 80GB HBM3 at 700 W with the training phases, after
-the request API's and the dynamic engine's token counts were cut; the six
-Gemma2 and MoE phases take about 6 minutes alone, the three tensor-parallel
-ones about a minute, the four training ones about 15 s), the kernels' build
-(20-30 s) included; `--phases w4a16` about a minute, `--phases w4a8` about
-45 s, `--phases attention` about a minute.
+The whole script is kept well under its 1,200 s limit on one H100, the
+kernels' build (20-30 s) included, so that a slower host stays inside the
+limit: 942 s on an H100 80GB HBM3 at 700 W with this docstring's token
+counts, while torch built its FunctionEvents for every profiled window,
+which read_trace now skips (PERF.md gives the later runs); `--phases
+w4a16` about a minute, `--phases w4a8` about 45 s, `--phases attention`
+about a minute.
 """
 import bisect
 import contextlib
@@ -349,10 +384,10 @@ import traceback
 import weakref
 
 PROMPT_LEN = 128
-MAIN_NEW_TOKENS = 128
+MAIN_NEW_TOKENS = 64  # cut from 128 to keep the script inside its time limit
 LOSSLESS_NEW_TOKENS = 64
 BATCHED_LOSSLESS_TOKENS = 48
-SERVE_NEW_TOKENS = 160
+SERVE_NEW_TOKENS = 80  # cut from 160 to keep the script inside its time limit
 STOCHASTIC_NEW_TOKENS = 64
 SEGMENT_STEPS = 8
 MAX_LEN = 2048
@@ -2443,6 +2478,64 @@ PROFILE_ATTEMPTS = 3  # windows run where the profiler dropped records (profile_
 PAD_KERNEL = "empty_rows"
 
 
+# names torch's profiler drops from its events (torch.autograd.profiler_util._filter_name)
+TRACE_DROPPED = {"[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+                 "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+                 "aten::is_leaf", "aten::output_nr", "aten::_version"}
+_trace_checked = []
+
+
+def read_trace(prof, torch):
+    """A profiler window's records, read from its kineto result directly:
+    {"device": [(kernel or copy name, start us, end us, async)], "host_ops":
+    PyTorch ops called from Python (aten:: ops inside no other op on their
+    thread), "pad_records": records of the pad kernel}. torch's own reading
+    (prof.events(), one FunctionEvent a record and their tree) costs ~60 us a
+    record on the host: 20-30 s for a window of a stepwise or eager loop. The
+    same fields come out: the process's first window is also read torch's
+    way, and the two must agree."""
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    result = prof.profiler.kineto_results
+    t0 = result.trace_start_ns()
+    names, device, host, pad, async_ops = {}, [], [], 0, 0
+    for e in result.events():
+        raw = e.name()
+        if raw in TRACE_DROPPED or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        name = names.get(raw)
+        if name is None:
+            name = names[raw] = torch._C._demangle(raw) if len(raw) > 1 else raw
+        pad += PAD_KERNEL in name
+        is_async = e.is_async() or e.start_thread_id() != e.end_thread_id()
+        if e.device_type() == cuda:
+            device.append((name, (e.start_ns() - t0) / 1000, (e.end_ns() - t0) / 1000, is_async))
+        elif e.device_type() == cpu and not is_async:
+            host.append((e.start_thread_id(), e.start_ns(), -e.end_ns(), len(host), name))
+        else:
+            async_ops += name.startswith("aten::")
+    # an op is nested where an earlier op on its thread spans it (EventList's tree)
+    host_ops, stack, thread = async_ops, [], None
+    for th, start, neg_end, _, name in sorted(host):
+        if th != thread:
+            stack, thread = [], th
+        while stack and (start >= stack[-1] or -neg_end > stack[-1]):
+            stack.pop()
+        host_ops += not stack and name.startswith("aten::")
+        stack.append(-neg_end)
+    out = dict(device=device, host_ops=host_ops, pad_records=pad)
+    if not _trace_checked:
+        events = prof.events()
+        want = sorted((e.name, e.time_range.start, e.time_range.end, e.is_async)
+                      for e in events if e.device_type == cuda)
+        want_ops = sum(1 for e in events if e.device_type != cuda and e.cpu_parent is None
+                       and e.name.startswith("aten::"))
+        check(sorted(device) == want and host_ops == want_ops,
+              f"the trace read from kineto ({len(device)} device records, {host_ops} host "
+              f"ops) is not torch's ({len(want)}, {want_ops})")
+        _trace_checked.append(True)
+    return out
+
+
 def profile_window(torch, tag, fn, count_steps, attempts=None):
     """fn() once under torch.profiler: device time by kernel name (summed over
     launches), device busy and wall time, host ops and kernels per step
@@ -2480,21 +2573,17 @@ def profile_window(torch, tag, fn, count_steps, attempts=None):
             torch.cuda.synchronize()
             wall_ms = 1000 * (time.time() - t0)
         counted = {k: v - before[k] for k, v in launch_counts().items()}
+        trace = read_trace(prof, torch)
         by_name, kernel_counts = {}, {}
-        averages = prof.key_averages()
-        pad_traced = sum(e.count for e in averages if PAD_KERNEL in e.key)
-        for e in averages:
+        pad_traced = trace["pad_records"]
+        for name, start, end, is_async in trace["device"]:
             # kernels only: CPU ops repeat the device time of the kernels they launch,
             # and host-to-device copies run on the copy engines (h2d_overlap below)
-            if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA \
-                    or PAD_KERNEL in e.key or e.key.startswith("Memcpy HtoD"):
+            if PAD_KERNEL in name or name.startswith("Memcpy HtoD"):
                 continue
-            kernel_counts[e.key] = kernel_counts.get(e.key, 0) + e.count
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0)
-            if us > 0:
-                by_name[e.key] = by_name.get(e.key, 0.0) + us / 1000.0
+            kernel_counts[name] = kernel_counts.get(name, 0) + 1
+            if not is_async and end > start:
+                by_name[name] = by_name.get(name, 0.0) + (end - start) / 1000.0
         if not by_name:
             log(f"{tag} the profiler recorded no device time: not measured")
             return None, out
@@ -2507,12 +2596,8 @@ def profile_window(torch, tag, fn, count_steps, attempts=None):
                                f"{PAD_ROUNDS * PAD_LAUNCHES})", kernel_counts, counted)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    events = prof.events()
-    cuda = torch.autograd.DeviceType.CUDA
-    # PyTorch ops called from Python (not ops nested inside other ops), and kernels
-    host_ops = sum(1 for e in events if e.device_type != cuda and e.cpu_parent is None
-                   and e.name.startswith("aten::"))
-    kernels = sum(1 for e in events if e.device_type == cuda and PAD_KERNEL not in e.name)
+    host_ops = trace["host_ops"]
+    kernels = sum(1 for name, *_ in trace["device"] if PAD_KERNEL not in name)
     steps = count_steps(out)
     # the W4A16 family's kernels (w4a16_kernel and w4a16_sum_partials); the
     # int8 W4 family's (w4a8_kernel, w4a8_sum_partials, quantize_rows); the
@@ -2527,7 +2612,7 @@ def profile_window(torch, tag, fn, count_steps, attempts=None):
                device_idle_share=1.0 - busy / wall_ms, host_ops_per_step=host_ops / steps,
                device_kernels_per_step=kernels / steps, launches_traced=launches,
                top_kernels_ms={k[:90]: v for k, v in top}, pad_traced=pad_traced,
-               lost_in_earlier_windows=lost, **h2d_overlap(prof, torch))
+               lost_in_earlier_windows=lost, **h2d_overlap(trace["device"]))
     log(f"{tag} {json.dumps(res)}")
     return res, out
 
@@ -2829,7 +2914,8 @@ DRAFT_HF_CONFIG = dict(
                       original_max_position_embeddings=8192, rope_type="llama3"),
     tie_word_embeddings=True, bos_token_id=128000, eos_token_id=LLAMA3_EOS,
     hidden_act="silu", torch_dtype="bfloat16")
-CONFIG_NEW_TOKENS = 128
+CONFIG_NEW_TOKENS = 64  # cut from 128 to keep the script inside its time limit
+CONFIG_TRACE_TOKENS = 16  # the traced request's; cut from 32 (the trace's records cost host time)
 # the 8B checkpoint directory's depth, a quarter of the published 32 (its
 # phases, [code-config] to [api-chat] and [pp-config]'s draft, then fit the
 # script's time limit beside the Gemma2 and MoE phases)
@@ -3153,7 +3239,7 @@ def code_config_phase(torch, dev, ckpt, prompt, tag, target):
 
     def request():  # the replays before each profiled window (the last one counts)
         before["replays"] = graph.replays
-        return eng.generate(input_ids=prompt, max_new_tokens=32)
+        return eng.generate(input_ids=prompt, max_new_tokens=CONFIG_TRACE_TOKENS)
 
     trace, _ = profile_window(torch, f"{tag[:-1]}-trace]", request, request_steps)
     check(trace is not None, f"{tag} the kernels' launches were not traced")
@@ -3244,7 +3330,7 @@ class WordTokenizer:
 
 
 API_SERVE_REQUESTS = 64
-API_NEW_TOKENS = 96  # cut from 128 to keep the script inside its time limit
+API_NEW_TOKENS = 40  # cut from 128, then 96, 80, to keep the script inside its time limit
 API_PRIORITIES = (1, 10, 20)
 
 
@@ -3621,7 +3707,7 @@ def api_chat_phase(torch, dev, ckpt, prompt):
     return res
 
 
-PP_CONFIG_NEW_TOKENS = 64
+PP_CONFIG_NEW_TOKENS = 32  # cut from 64 to keep the script inside its time limit
 # the depth of [pp-config]'s and [tp-config]'s 70B (32 of the published 80)
 # and of [offload-config]'s (16 cached + 8 streamed), so that the whole
 # script, with the Gemma2, MoE and tensor-parallel phases, stays inside its
@@ -3773,7 +3859,7 @@ def pp_config_phase(torch, dev, ckpt, prompt):
 
 TP_SHARDS = 4  # chat_config_70b_awq_pod.json's tensor_parallel
 TP_LOSSLESS_LAYERS, TP_DENSE_LAYERS = 8, 4
-TP_CONFIG_NEW_TOKENS = 64
+TP_CONFIG_NEW_TOKENS = 32  # cut from 64 to keep the script inside its time limit
 TP_SERVE_TOKENS = 32
 # the port's __global__ kernels (TRACED_KERNELS' names): those a sharded
 # forward runs on each shard's card
@@ -3960,7 +4046,9 @@ def planted_all_reduce(torch, fault):
     """A faulty all_reduce for the controls: "bf16_per_add" rounds the
     running sum to bf16 after each add, "dropped_partial" leaves out the
     last shard's partial."""
-    def all_reduce(partials, device, dtype):
+    def all_reduce(partials, device, dtype, span=None):
+        if span is not None:
+            partials = span.gather(partials, device)
         if fault == "dropped_partial":
             partials = partials[:-1]
         total = partials[0].to(device).float()
@@ -4437,7 +4525,7 @@ def tp_kernel_checks(torch, dev, gen, randn, err):
 
 # configs/greedy_config_v5e.json's (and chat_config_v5e_16gb.json's) tree: 257 nodes
 DYN_TREE = dict(width=16, num_beams=24, depth=16)
-DYN_NEW_TOKENS = 24  # cut from 32 to keep the script inside its time limit
+DYN_NEW_TOKENS = 12  # cut from 32, then 24, to keep the script inside its time limit
 # meta-llama/Llama-3.2-1B-Instruct's config.json: the offload configs' draft
 CFG_1B = {k: v for k, v in DRAFT_HF_CONFIG.items()
           if k not in ("architectures", "hidden_act", "torch_dtype", "bos_token_id")}
@@ -4816,19 +4904,16 @@ def build_offload_70b(torch, dev, max_length, cached):
     return off, info
 
 
-def h2d_overlap(prof, torch):
-    """From a profiler trace: the host-to-device copies' total ms and the ms of
-    them that overlap a kernel (any kernel but the pad), and their count."""
-    cuda = torch.autograd.DeviceType.CUDA
+def h2d_overlap(device_records):
+    """From a profiler trace's device records (read_trace): the host-to-device
+    copies' total ms and the ms of them that overlap a kernel (any kernel but
+    the pad), and their count."""
     h2d, kern = [], []
-    for e in prof.events():
-        if e.device_type != cuda:
-            continue
-        span = (e.time_range.start, e.time_range.end)
-        if e.name.startswith("Memcpy HtoD"):
-            h2d.append(span)
-        elif not e.name.startswith(("Memcpy", "Memset")) and PAD_KERNEL not in e.name:
-            kern.append(span)
+    for name, start, end, _ in device_records:
+        if name.startswith("Memcpy HtoD"):
+            h2d.append((start, end))
+        elif not name.startswith(("Memcpy", "Memset")) and PAD_KERNEL not in name:
+            kern.append((start, end))
     union = []
     for s, t in sorted(kern):
         if union and s <= union[-1][1]:
@@ -5052,12 +5137,12 @@ MISTRAL_HF = dict(
     bos_token_id=1, eos_token_id=2, torch_dtype="bfloat16")
 FAMILY_MAX_LEN = 8192  # the single-slot configs' max_length
 LONG_PROMPT_LEN = 4200  # past Gemma-2's 4,096-slot window
-FAMILY_NEW_TOKENS = 64
+FAMILY_NEW_TOKENS = 24  # cut from 64, then 48, to keep the script inside its time limit
 # the random pairs accept ~1 token a step, so every token is a step: these
 # counts keep the six phases inside the script's time limit
 FAMILY_STEPWISE_TOKENS = 8  # the stepwise loop's share of a graphed request, compared
 FAMILY_DYN_TOKENS, FAMILY_DYN_STEPWISE_TOKENS = 8, 4
-FAMILY_SERVE_REQUESTS, FAMILY_SERVE_TOKENS, FAMILY_SINGLE_CHECKED = 12, 32, 3
+FAMILY_SERVE_REQUESTS, FAMILY_SERVE_TOKENS, FAMILY_SINGLE_CHECKED = 12, 16, 3
 # steps in a profiled window: at 16,000-22,500 kernels a step, an 8-step
 # window (130,000-180,000 kernel records) lost records in some runs
 FAMILY_PROFILE_TOKENS = FAMILY_PROFILE_STEPS = 3
@@ -6571,7 +6656,7 @@ def train_dp_phase(torch, dev):
     from umbrella_tpu_torch.models.convert import trainable_params
     from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from umbrella_tpu_torch.training import train_draft
-    from umbrella_tpu_torch.training.draft_trainer import make_optimizer, param_leaves
+    from umbrella_tpu_torch.training.draft_trainer import make_optimizer
 
     tag = "[train-dp]"
     cfg = train_cfg()
@@ -6592,12 +6677,8 @@ def train_dp_phase(torch, dev):
                         launches=launch_counts()["embed_gather"])
         del state, step
     lr1 = make_optimizer(lr=TRAIN_LR, total_steps=TRAIN_STEPS).schedule(1)
-    worst, off, n = 0.0, 0, 0
-    for a, b in zip(param_leaves(runs[1]["params"]), param_leaves(runs[2]["params"])):
-        d = (a.detach() - b.detach()).abs()
-        worst = max(worst, float(d.max()))
-        off += int((d > 1e-3 * lr1).sum())
-        n += d.numel()
+    worst, off, n = params_off(torch, dict(named_leaves(runs[2]["params"])),
+                               dict(named_leaves(runs[1]["params"])), lr1)
     loss_rel = max(abs(x - y) / abs(x) for x, y in zip(runs[1]["losses"], runs[2]["losses"]))
     res = dict(devices=[str(d) for d in devices], dtype="fp32", losses_dp1=runs[1]["losses"],
                losses_dp2=runs[2]["losses"], max_loss_rel_diff=loss_rel,
@@ -6642,17 +6723,17 @@ def pp_train_phase(torch, dev):
     staged = shard_params_pp(params, devices)
     ids = batches[0]
     reset_launch_counts()
-    loss = lm_loss(make_pp_forward(args, devices, PP_TRAIN_MICRO)(staged, ids), ids)
-    loss.backward()
+    warned = []
+    with no_stream_mismatch(tag, warned):
+        loss = lm_loss(make_pp_forward(args, devices, PP_TRAIN_MICRO)(staged, ids), ids)
+        loss.backward()
     launches = launch_counts()["embed_gather"]
     ref = causal_lm_loss(params, args, ids)
     ref.backward()
     loss, ref = float(loss.detach()), float(ref.detach())
     loss_rel = abs(loss - ref) / abs(ref)
-    got = dict(named_leaves(unstage_params(staged, lambda t: t.grad)))
-    errs = {}
-    for name, w in named_leaves(map_params(lambda t: t.grad, params)):
-        errs[name] = float((got[name] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+    errs = rel_errs(dict(named_leaves(unstage_params(staged, lambda t: t.grad))),
+                    dict(named_leaves(map_params(lambda t: t.grad, params))))
     for t in list(param_leaves(staged)) + list(param_leaves(params)):
         t.grad = None
     timing = {}
@@ -6660,12 +6741,14 @@ def pp_train_phase(torch, dev):
             ("staged", staged, lambda: make_pp_train_step(args, None, devices, PP_TRAIN_MICRO)),
             ("unstaged", params, lambda: make_train_step(args, None))):
         state = init_train_state(p, make_optimizer(lr=TRAIN_LR, total_steps=TRAIN_STEPS))
-        state, losses, ms = timed_steps(torch, dev, make(), state, batches)
+        with no_stream_mismatch(tag, warned):
+            state, losses, ms = timed_steps(torch, dev, make(), state, batches)
         timing[name] = dict(step_ms=ms, losses=losses)
         del state
     res = dict(stages=[str(d) for d in devices], n_micro=PP_TRAIN_MICRO, dtype="fp32",
                loss=loss, loss_rel_diff=loss_rel, max_grad_rel_err=max(errs.values()),
-               grad_rel_err=errs, embed_gather_launches=launches, **timing)
+               grad_rel_err=errs, embed_gather_launches=launches, warnings_seen=sum(warned),
+               **timing)
     log(f"{tag} {json.dumps(res)}")
     check(loss_rel <= 1e-5, f"{tag} staged loss differs by {loss_rel} (relative)")
     bad = {k: v for k, v in errs.items() if v > 1e-4}
@@ -6735,7 +6818,411 @@ def moe_train_phase(torch, dev):
     return res
 
 
-TRAIN_PHASES = ("train", "train-dp", "pp-train", "moe-train")
+STREAM_WARNING = "AccumulateGrad node's stream"
+TP_TRAIN_STEPS = 3
+TP_TRAIN_NEW_TOKENS = 32
+MULTIHOST_TRAIN_BATCH = (4, 256)
+MULTIHOST_NEW_TOKENS = 24
+MULTIHOST_MAX_LEN = 256
+MULTIHOST_TIMEOUT = 360  # seconds for both workers, spawn to exit
+
+
+@contextlib.contextmanager
+def no_stream_mismatch(tag, seen_out=None):
+    """Record the block's warnings; fail on autograd's "AccumulateGrad
+    node's stream does not match" (a leaf handed a gradient made on another
+    card's stream). `seen_out` (a list) gets how many warnings were seen."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        yield
+    bad = [str(w.message)[:160] for w in seen if STREAM_WARNING in str(w.message)]
+    if seen_out is not None:
+        seen_out.append(len(seen))
+    check(not bad, f"{tag} autograd warned of a stream mismatch: {bad}")
+
+
+def tp_devices(torch, dev):
+    """TP_SHARDS shard devices: one a card on a host with that many, else
+    every shard on `dev`."""
+    return across_cards(torch) or [dev] * TP_SHARDS
+
+
+def rel_errs(got: dict, want: dict) -> dict:
+    """max |got - want| / max |want| of each leaf (by path)."""
+    return {k: float((got[k].float() - w.float()).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for k, w in want.items()}
+
+
+def params_off(torch, got: dict, want: dict, rate: float):
+    """(largest difference, elements off by more than 1e-3 x rate, elements)
+    of two param trees by path ([train-dp]'s rule)."""
+    worst, off, n = 0.0, 0, 0
+    for k, w in want.items():
+        d = (got[k].detach().float() - w.detach().float()).abs()
+        worst = max(worst, float(d.max()))
+        off += int((d > 1e-3 * rate).sum())
+        n += d.numel()
+    return worst, off, n
+
+
+def card_peaks(torch, devices):
+    """Peak GB since the last reset of each distinct card."""
+    return {str(d): torch.cuda.max_memory_allocated(d) / 2**30 for d in dict.fromkeys(devices)
+            if d.type == "cuda"}
+
+
+def multihost_launches(res, name):
+    """{"multihost_launches_per_step": {process: launches a decode step}} of a
+    kernel in [multihost]'s workers' static decode, or {}."""
+    got = {p["process"]: p["launches_per_step"][name] for p in res["processes"]
+           if p["launches_per_step"].get(name)}
+    return {"multihost_launches_per_step": got} if got else {}
+
+
+def tp_train_phase(torch, dev):
+    """[tp-train]: draft/config.json at full width and depth over TP_SHARDS
+    shards (on this card, or one a card on four): in fp32, one step's loss and
+    every gradient against the unsharded step's (1e-5, 1e-4 x max), SP equal
+    to TP bit for bit (the loss, every gradient, three steps' losses and
+    params), three steps of TP, SP and the (data 2, model 2) grid against
+    three unsharded steps (losses 1e-5, params by [train-dp]'s rule); in bf16,
+    ms a step sharded and unsharded, peak GB a card, embed_gather once a
+    step; the TP-trained params, gathered, served (fp32, static engine, an
+    early-exit draft): spec == AR. On four cards no step warns of a gradient
+    on another card's stream."""
+    import numpy as np
+
+    from umbrella_tpu_torch.models.auto_model import ModelRuntime, early_exit_runtime
+    from umbrella_tpu_torch.models.convert import serving_params, trainable_params
+    from umbrella_tpu_torch.models.llama import StaticModelArgs
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.parallel.mesh import gather_train_params, shard_train_params
+    from umbrella_tpu_torch.training import train_draft
+    from umbrella_tpu_torch.training.data_parallel import make_dp_train_step
+    from umbrella_tpu_torch.training.draft_trainer import (causal_lm_loss, init_train_state,
+                                                           make_optimizer, make_train_step,
+                                                           map_params)
+
+    tag = "[tp-train]"
+    cfg = train_cfg()
+    args = StaticModelArgs.from_config(cfg)
+    devices = tp_devices(torch, dev)
+    grid = [devices[:2], devices[2:]] if devices[1] != devices[0] else [[dev] * 2] * 2
+    stream = period_stream(cfg.vocab_size, 64 * TRAIN_SEQ)
+    windows = train_draft.windows_of(stream, TRAIN_SEQ)
+    batches = train_batches(torch, dev, windows, TP_TRAIN_STEPS, seed=4)
+    base = train_draft.init_train_params(cfg, TRAIN_SEQ, dev, torch.float32, packed=False,
+                                         seed=0)
+    ids = batches[0]
+    warned = []
+
+    def whole(params):
+        return gather_train_params(params) if "tp_shards" in params else \
+            map_params(lambda t: t.detach(), params)
+
+    def one_step(params, sp=False):
+        loss = causal_lm_loss(params, args, ids, sequence_parallel=sp)
+        loss.backward()
+        grads = (gather_train_params(params, lambda t: t.grad) if "tp_shards" in params
+                 else map_params(lambda t: t.grad, params))
+        return loss.detach(), dict(named_leaves(grads))
+
+    ref_loss, ref_grads = one_step(trainable_params(base))
+    with no_stream_mismatch(tag, warned):
+        tp_loss, tp_grads = one_step(shard_train_params(base, devices))
+        sp_loss, sp_grads = one_step(shard_train_params(base, devices), sp=True)
+    grad_errs = rel_errs(tp_grads, ref_grads)
+    loss_rel = abs(float(tp_loss) - float(ref_loss)) / abs(float(ref_loss))
+    sp_same = bool(torch.equal(tp_loss, sp_loss)) and all(
+        torch.equal(g, sp_grads[k]) for k, g in tp_grads.items())
+    del ref_grads, tp_grads, sp_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for name, make in (
+            ("unsharded", lambda: (trainable_params(base), make_train_step(args, None))),
+            ("tp", lambda: (shard_train_params(base, devices), make_train_step(args, None))),
+            ("sp", lambda: (shard_train_params(base, devices),
+                            make_train_step(args, None, sequence_parallel=True))),
+            ("grid", lambda: (shard_train_params(base, grid[0]),
+                              make_dp_train_step(args, None, grid)))):
+        params, step = make()
+        state = init_train_state(params, make_optimizer(lr=TRAIN_LR, total_steps=TRAIN_STEPS))
+        with no_stream_mismatch(tag, warned):
+            state, losses, ms = timed_steps(torch, dev, step, state, batches)
+        tree = whole(state.params)
+        runs[name] = dict(losses=losses, step_ms=ms, params=dict(named_leaves(tree)),
+                          tree=tree if name == "tp" else None)
+        del state, step, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    lr1 = make_optimizer(lr=TRAIN_LR, total_steps=TRAIN_STEPS).schedule(1)
+    want = runs["unsharded"]
+    steps_res = {}
+    for name in ("tp", "sp", "grid"):
+        r = runs[name]
+        worst, off, n = params_off(torch, r["params"], want["params"], lr1)
+        steps_res[name] = dict(losses=r["losses"], step_ms=r["step_ms"], max_param_diff=worst,
+                               params_off=off, params=n, max_loss_rel_diff=max(
+                                   abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                                       want["losses"])))
+    sp_steps_same = runs["sp"]["losses"] == runs["tp"]["losses"] and all(
+        torch.equal(t, runs["sp"]["params"][k]) for k, t in runs["tp"]["params"].items())
+    trained = runs["tp"]["tree"]
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16: ms a step sharded and not, peak GB a card, the lookup once a step
+    timing = {}
+    for name in ("unsharded", "tp"):
+        p16 = train_draft.init_train_params(cfg, TRAIN_SEQ, dev, torch.bfloat16, packed=False,
+                                            seed=0)
+        if name == "tp":
+            p16 = shard_train_params(p16, devices)
+        state = init_train_state(p16, make_optimizer(lr=TRAIN_LR, total_steps=TRAIN_STEPS))
+        for d in dict.fromkeys(devices):
+            reset_peak(torch, d)
+        reset_launch_counts()
+        with no_stream_mismatch(tag, warned):
+            state, losses, ms = timed_steps(torch, dev, make_train_step(args, None), state,
+                                            batches)
+        timing[name] = dict(step_ms=ms, tok_per_s=TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+                            losses=losses, peak_gb_by_card=card_peaks(torch, devices),
+                            embed_gather=launch_counts()["embed_gather"])
+        del state, p16
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = timing["tp"]["embed_gather"]
+
+    # the TP-trained params, gathered, served: spec == AR
+    target = ModelRuntime(cfg, serving_params(trained), MAX_LEN, dtype=torch.float32, device=dev)
+    draft = early_exit_runtime(target, exit_layer=TRAIN_EXIT)
+    eng = make_engine(torch, dev, target, draft, torch.float32)
+    start = 11
+    prompt = stream[start:start + PROMPT_LEN].tolist()
+    out = eng.generate(input_ids=prompt, max_new_tokens=TP_TRAIN_NEW_TOKENS)
+    if dev.type == "cuda":
+        check_graphed(eng, tag)
+    toks = out["generated_tokens"]
+    ar, _, _, _ = greedy_ar_decode(torch, target, prompt, len(toks))
+    same = first_difference(toks, ar)
+    del eng, draft, target, trained
+    res = dict(devices=[str(d) for d in devices], grid=[[str(d) for d in r] for r in grid],
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TP_TRAIN_STEPS,
+               one_step=dict(loss=float(ref_loss), tp_loss_rel_diff=loss_rel,
+                             max_grad_rel_err=max(grad_errs.values()), grad_rel_err=grad_errs,
+                             sp_bitwise_tp=sp_same),
+               three_steps=dict(steps_res, unsharded_losses=want["losses"],
+                                unsharded_step_ms=want["step_ms"],
+                                sp_bitwise_tp=sp_steps_same),
+               bf16=timing, embed_gather_launches=launches,
+               launches_per_step={"embed_gather": launches / TP_TRAIN_STEPS},
+               warnings_seen=sum(warned),
+               serve=dict(tokens=len(toks), identical_to_ar=same,
+                          avg_accept_tokens=out["avg_accept_tokens"]))
+    log(f"{tag} {json.dumps(res)}")
+    check(loss_rel <= 1e-5, f"{tag} TP loss {float(tp_loss)} vs {float(ref_loss)}")
+    bad = {k: v for k, v in grad_errs.items() if v > 1e-4}
+    check(not bad, f"{tag} TP gradients off the unsharded step's by more than 1e-4 x max: {bad}")
+    check(sp_same and sp_steps_same, f"{tag} SP is not TP bit for bit")
+    for name, r in steps_res.items():
+        check(all(np.isfinite(r["losses"])) and r["max_loss_rel_diff"] <= 1e-5,
+              f"{tag} {name} losses {r['losses']} vs {want['losses']}")
+        check(r["max_param_diff"] <= 2 * 1.5 * TRAIN_LR and r["params_off"] <= 1e-4 * r["params"],
+              f"{tag} {name} params after {TP_TRAIN_STEPS} steps: {r}")
+    check(dev.type != "cuda" or launches == TP_TRAIN_STEPS,
+          f"{tag} embed_gather launched {launches} times in "
+          f"{TP_TRAIN_STEPS} steps (one lookup a step)")
+    check(same >= TP_TRAIN_NEW_TOKENS, f"{tag} the TP-trained draft: spec {toks} vs AR {ar}")
+    return res
+
+
+def ep_train_phase(torch, dev):
+    """[ep-train]: Mixtral-8x7B widths, MOE_TRAIN_LAYERS of its 32 layers,
+    bf16, experts sharded in TP_SHARDS (on this card, or one a card on four),
+    B 2 x 256, MOE_TRAIN_STEPS steps: finite losses, ms a step, peak GB a card,
+    embed_gather once a step; then one fp32 step at 1 layer (experts narrowed
+    to MOE_NARROW_I) expert-sharded against unsharded: the loss within 1e-5,
+    every gradient within 1e-4 x max."""
+    import numpy as np
+
+    from umbrella_tpu_torch.config import ModelConfig
+    from umbrella_tpu_torch.models.convert import trainable_params
+    from umbrella_tpu_torch.models.llama import StaticModelArgs
+    from umbrella_tpu_torch.models.moe import (gather_params_ep, init_moe_llama_params,
+                                               make_moe_train_step, moe_train_forward,
+                                               shard_params_ep)
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.training.draft_trainer import (init_train_state, lm_loss,
+                                                           make_optimizer, map_params)
+
+    tag = "[ep-train]"
+    E = MIXTRAL_HF["num_local_experts"]
+    devices = tp_devices(torch, dev)
+    cfg = ModelConfig.from_dict(dict(MIXTRAL_HF, num_hidden_layers=MOE_TRAIN_LAYERS))
+    args = StaticModelArgs.from_config(cfg)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    params = shard_params_ep(trainable_params(init_moe_llama_params(
+        cfg, gen, E, dtype=torch.bfloat16, device=dev)), devices)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ids = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (MOE_TRAIN_BATCH, MOE_TRAIN_SEQ)).astype(np.int32)).to(dev)
+    state = init_train_state(params, make_optimizer(lr=TRAIN_LR, total_steps=MOE_TRAIN_STEPS))
+    for d in dict.fromkeys(devices):
+        reset_peak(torch, d)
+    reset_launch_counts()
+    warned = []
+    with no_stream_mismatch(tag, warned):
+        state, losses, ms = timed_steps(torch, dev, make_moe_train_step(args, None), state,
+                                        [ids] * MOE_TRAIN_STEPS)
+    launches = launch_counts()["embed_gather"]
+    peaks = card_peaks(torch, devices)
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg1 = ModelConfig.from_dict(dict(MIXTRAL_HF, num_hidden_layers=1,
+                                      intermediate_size=MOE_NARROW_I))
+    args1 = StaticModelArgs.from_config(cfg1)
+    base = init_moe_llama_params(cfg1, gen, E, dtype=torch.float32, device=dev)
+    out = {}
+    for name in ("unsharded", "ep"):
+        p = trainable_params(base)
+        if name == "ep":
+            p = shard_params_ep(p, devices)
+        with no_stream_mismatch(tag, warned):
+            logits, aux = moe_train_forward(p, args1, ids)
+            loss = lm_loss(logits, ids) + 0.01 * aux
+            loss.backward()
+        grads = gather_params_ep(p, lambda t: t.grad) if name == "ep" else \
+            map_params(lambda t: t.grad, p)
+        out[name] = (float(loss.detach()), dict(named_leaves(grads)))
+        del p, logits, aux, loss
+    loss_rel = abs(out["ep"][0] - out["unsharded"][0]) / abs(out["unsharded"][0])
+    errs = rel_errs(out["ep"][1], out["unsharded"][1])
+    res = dict(devices=[str(d) for d in devices], layers=MOE_TRAIN_LAYERS, experts=E,
+               batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ, losses=losses, step_ms=ms,
+               peak_gb_by_card=peaks, embed_gather_launches=launches,
+               launches_per_step={"embed_gather": launches / MOE_TRAIN_STEPS},
+               fp32_one_layer=dict(loss=out["unsharded"][0], loss_rel_diff=loss_rel,
+                                   max_grad_rel_err=max(errs.values()), grad_rel_err=errs),
+               warnings_seen=sum(warned))
+    log(f"{tag} {json.dumps(res)}")
+    check(all(np.isfinite(losses)), f"{tag} losses {losses}")
+    check(dev.type != "cuda" or launches == MOE_TRAIN_STEPS,
+          f"{tag} embed_gather launched {launches} times")
+    check(loss_rel <= 1e-5, f"{tag} EP loss {out['ep'][0]} vs {out['unsharded'][0]}")
+    bad = {k: v for k, v in errs.items() if v > 1e-4}
+    check(not bad, f"{tag} EP gradients off the unsharded step's by more than 1e-4 x max: {bad}")
+    return res
+
+
+def multihost_phase(torch, dev):
+    """[multihost]: the port's launcher (examples/multihost_demo.launch)
+    spawns two workers (examples/multihost_worker.py): two cards each on a
+    host with four (NCCL), both on this card otherwise (gloo). Each trains
+    the (data 2, model 2) grid at draft/config.json's width (fp32, B 4 x 256,
+    3 steps; the data axis across the processes), then runs a static engine
+    with tensor_parallel 4 across the processes (2 shards each) over a random
+    AWQ Llama-3.3-70B at full width and TP_LOSSLESS_LAYERS layers (bf16, from
+    one seed, as [tp-lossless]) with a 2-layer draft at Llama-3.2-1B widths,
+    and the batched engine (B=2) over the same models. Losses identical on
+    both and the one-process grid's; greedy tokens identical on both and the
+    one-process tensor_parallel 4 engine's, the prompt's logits bit for bit;
+    batched tokens identical on both."""
+    import tempfile
+
+    from umbrella_tpu_torch.examples import multihost_worker as worker
+    from umbrella_tpu_torch.examples.multihost_demo import launch
+    from umbrella_tpu_torch.ops.kernels import build
+
+    tag = "[multihost]"
+    per = (["cuda:0,cuda:1", "cuda:2,cuda:3"] if torch.cuda.device_count() >= 4
+           else [f"{dev},{dev}"] * 2)
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="multihost-", dir=build.BUILD_DIR)
+    tcfg = dict(CFG_70B, num_hidden_layers=TP_LOSSLESS_LAYERS)
+    dcfg = dict(CFG_1B, num_hidden_layers=2)
+    paths = {}
+    for name, c in (("target", tcfg), ("draft", dcfg)):
+        paths[name] = os.path.join(root, f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(c, f)
+    train_config = os.path.join(os.path.dirname(os.path.abspath(__file__)), TRAIN_CONFIG)
+    batch = ",".join(map(str, MULTIHOST_TRAIN_BATCH))
+    t0 = time.time()
+    r0, r1 = launch(["--train-config", train_config, "--train-batch", batch,
+                     "--random-target", paths["target"], "--random-draft", paths["draft"],
+                     "--dtype", "bfloat16", "--tensor-parallel", str(TP_SHARDS),
+                     "--max-length", str(MULTIHOST_MAX_LEN),
+                     "--new-tokens", str(MULTIHOST_NEW_TOKENS)], per, root,
+                    timeout=MULTIHOST_TIMEOUT,
+                    # both workers are on this host: NCCL's bootstrap on the loopback
+                    env=dict(os.environ, NCCL_SOCKET_IFNAME="lo"))
+    wall = time.time() - t0
+    for r in (r0, r1):
+        log(f"{tag} process {r['process_id']}: backend {r['backend']} on {r['devices']}")
+
+    # one process: the same grid, and the same engines over the same weights
+    rows = [[torch.device(d) for d in p.split(",")] for p in per]
+    grid_one = worker.train_grid(train_cfg(), rows, None, MULTIHOST_TRAIN_BATCH, 3)
+    losses = grid_one["losses"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    target, draft = worker.random_models(tcfg, dcfg, [d for r in rows for d in r], None,
+                                         torch.bfloat16, MULTIHOST_MAX_LEN)
+    one = worker.static_decode(target, draft, TP_SHARDS, dev, torch.bfloat16, MULTIHOST_MAX_LEN,
+                               MULTIHOST_NEW_TOKENS)
+    batched = worker.batched_decode(target, draft, TP_SHARDS, dev, torch.bfloat16,
+                                    MULTIHOST_MAX_LEN)
+    del target, draft
+    logits_equal = [bool(torch.equal(torch.load(os.path.join(root, f"worker{i}.json.logits.pt")),
+                                     one["logits"])) for i in (0, 1)]
+    per_proc = [dict(process=r["process_id"], backend=r["backend"], devices=r["devices"],
+                     spawn_to_ready_s=r["spawn_to_ready_s"], train_s=r["train_s"],
+                     train_step_ms=r["train_step_ms"],
+                     decode_step_ms=r["static"]["step_ms"], steps=r["static"]["steps"],
+                     gathers_per_forward=r["static"]["gathers_per_forward"],
+                     gathers_per_step=r["static"]["gathers_in_generate"] / r["static"]["steps"],
+                     launches_per_step={k: n / r["static"]["steps"]
+                                        for k, n in r["static"]["launches"].items()})
+                for r in (r0, r1)]
+    res = dict(layout=per, wall_s=wall, processes=per_proc, losses=r0["losses"],
+               one_process_losses=losses, one_process_train_step_ms=grid_one["step_ms"],
+               tokens=len(r0["committed"]),
+               identical_across_processes=r0["committed"] == r1["committed"],
+               identical_to_one_process=first_difference(r0["committed"], one["tokens"]),
+               prompt_logits_bitwise=logits_equal,
+               one_process_decode_step_ms=one["step_ms"],
+               batched_identical_across_processes=r0["batched"] == r1["batched"],
+               batched_identical_to_one_process=r0["batched"] == batched)
+    log(f"{tag} {json.dumps(res)}")
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    check(r0["backend"] == ("nccl" if len(set(per)) > 1 else "gloo"),
+          f"{tag} backend {r0['backend']} for the layout {per}")
+    check(r0["losses"] == r1["losses"] == losses,
+          f"{tag} losses {r0['losses']} / {r1['losses']} vs one process {losses}")
+    check(res["identical_across_processes"] and
+          res["identical_to_one_process"] >= len(one["tokens"]) == len(r0["committed"]),
+          f"{tag} tokens {r0['committed']} / {r1['committed']} vs one process {one['tokens']}")
+    check(all(logits_equal), f"{tag} the prompt's logits are not the one-process bits")
+    check(res["batched_identical_across_processes"] and all(len(t) > 0 for t in r0["batched"]),
+          f"{tag} batched tokens {r0['batched']} / {r1['batched']}")
+    for p in per_proc if dev.type == "cuda" else ():
+        for name in ("attend_flash", "w4a16_matmul", "embed_gather"):
+            check(p["launches_per_step"].get(name, 0) > 0,
+                  f"{tag} process {p['process']} never launched {name}")
+    return res
+
+
+TRAIN_PHASES = ("train", "train-dp", "pp-train", "moe-train", "tp-train", "ep-train", "multihost")
 
 
 # ---------------------------------------------------------------- main
@@ -6867,6 +7354,9 @@ def run(torch, phases):
     phase("train-dp", train_dp_phase, torch, dev)
     phase("pp-train", pp_train_phase, torch, dev)
     phase("moe-train", moe_train_phase, torch, dev)
+    phase("tp-train", tp_train_phase, torch, dev)
+    phase("ep-train", ep_train_phase, torch, dev)
+    phase("multihost", multihost_phase, torch, dev)
 
     if {"main", "graph", "dynamic", "dynamic-pp", "serve", "serve-bf16",
             "serve-stochastic"} & set(phases):
@@ -6945,7 +7435,11 @@ def run(torch, phases):
             **family_shapes(results, name),
             **({"training": dict(r["training_shape"], launches=results["train"]["launches"][name],
                                  launches_per_step=results["train"]["launches_per_step"][name],
-                                 launches_from="train")} if "training_shape" in r else {})))
+                                 launches_from="train",
+                                 launches_per_step_in={p: results[p]["launches_per_step"][name]
+                                                       for p in ("tp-train", "ep-train")})}
+               if "training_shape" in r else {}),
+            **multihost_launches(results["multihost"], name)))
     main, serve = results["main"], results["serve"]
     summary = {k: main[k] for k in ("tok_per_s", "decode_step_ms", "avg_accept_tokens",
                                     "ttft_ms_prefill128", "spec_vs_ar_common_prefix")}
@@ -7086,6 +7580,25 @@ def run(torch, phases):
                                unstaged_step_ms=results["pp-train"]["unstaged"]["step_ms"])
     summary["moe-train"] = {k: results["moe-train"][k] for k in (
         "losses", "aux_at_init", "step_ms", "peak_mem_gb")}
+    tpt = results["tp-train"]
+    summary["tp-train"] = dict(
+        max_grad_rel_err=tpt["one_step"]["max_grad_rel_err"],
+        sp_bitwise_tp=tpt["one_step"]["sp_bitwise_tp"] and tpt["three_steps"]["sp_bitwise_tp"],
+        fp32_step_ms={k: tpt["three_steps"][k]["step_ms"] for k in ("tp", "sp", "grid")},
+        fp32_unsharded_step_ms=tpt["three_steps"]["unsharded_step_ms"],
+        bf16={k: {m: v[m] for m in ("step_ms", "tok_per_s", "peak_gb_by_card")}
+              for k, v in tpt["bf16"].items()},
+        served_identical_to_ar=tpt["serve"]["identical_to_ar"])
+    summary["ep-train"] = {k: results["ep-train"][k] for k in (
+        "losses", "step_ms", "peak_gb_by_card")}
+    summary["ep-train"]["fp32_max_grad_rel_err"] = \
+        results["ep-train"]["fp32_one_layer"]["max_grad_rel_err"]
+    mh = results["multihost"]
+    summary["multihost"] = dict(
+        {k: mh[k] for k in ("layout", "wall_s", "identical_to_one_process",
+                            "prompt_logits_bitwise", "one_process_decode_step_ms")},
+        processes=[{k: p[k] for k in ("backend", "spawn_to_ready_s", "decode_step_ms",
+                                      "gathers_per_step")} for p in mh["processes"]])
     summary["seconds"] = time.time() - t_all
     log(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -54,9 +54,11 @@ def test_trains_from_npy_and_keeps_two_checkpoints(tmp_path, capsys, dp):
 
 
 def test_refuses_tensor_parallel(tmp_path):
+    """A model axis that does not divide the heads is refused (--tp 2 trains:
+    tests/test_torch_tp_train.py)."""
     cfg, data = _files(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        train_draft.main(_argv(cfg, data, str(tmp_path), "--steps", "2", "--tp", "2"))
+    with pytest.raises(ValueError, match="divisible"):
+        train_draft.main(_argv(cfg, data, str(tmp_path), "--steps", "2", "--tp", "3"))
 
 
 @pytest.mark.parametrize("data", ["DKYoon/SlimPajama-6B", "no/such/file.txt"])
@@ -73,3 +75,5 @@ def test_defaults_match_the_jax_script():
                       1, 0)
     assert train_draft.train_devices("cpu", 0) == [torch.device("cpu")]
     assert train_draft.train_devices("cpu", 2) == [torch.device("cpu")] * 2
+    assert train_draft.train_devices("cpu", 0, tp=2) == [[torch.device("cpu")] * 2]
+    assert train_draft.train_devices("cpu", 3, tp=2) == [[torch.device("cpu")] * 2] * 3

@@ -138,8 +138,10 @@ class ModelRuntime:
     @property
     def spans_cards(self) -> bool:
         """Whether the forward runs on a device besides the runtime's own (its
-        shards or stages on other cards)."""
-        return any(d != self.device for d in (self.shard_devices or self.stage_devices or ()))
+        shards or stages on other cards) or in other processes too (a
+        tensor-parallel axis over a process group)."""
+        return "tp_span" in self.params or any(
+            d != self.device for d in (self.shard_devices or self.stage_devices or ()))
 
     @property
     def supports_fused_phases(self) -> bool:

@@ -30,8 +30,19 @@ Training (`_moe_layer`, `moe_train_forward`, `make_moe_train_step`): the
 training path's dense attention (training/draft_trainer.py) and the same
 routing; the gradient reaches the router through the softmax and the
 normalised top-k weights, not through the one-hot (nor the aux loss's
-routed fractions), as in the JAX package. Expert-sharded training waits for
-ROADMAP A.5's next step.
+routed fractions), as in the JAX package. Expert-parallel training
+(`shard_params_ep` over a train tree, the JAX package's `shard_params_ep`):
+each ExpertShard's stacks are leaves that require grad on its device
+(`param_leaves` and `map_params` walk ShardedExperts' shards), and
+`combine` runs back through parallel/collectives.replicate and all_reduce,
+so a shard's gradients are made on its own card and the shared input's are
+summed in shard order. A data axis (`moe_grid_forward`, and
+`make_moe_train_step(devices=rows)`; the JAX package's (data, expert) mesh
+with the batch sharded on 'data'): the batch's rows are split over replicas,
+each on its row of devices (EP-sharded over it, or whole on one device); the
+logits are gathered on the first row, and the aux loss is the whole batch's,
+each layer's routing sums added over the replicas in order before its
+product (a mean of per-replica aux losses would not be it).
 """
 from __future__ import annotations
 
@@ -47,7 +58,8 @@ from ..ops.norms import rms_norm
 from ..ops.rope import rope_params
 from ..ops.select import embed_lookup
 from ..training.draft_trainer import (_batched_attention, causal_mask, embed_batch, head_logits,
-                                      lm_loss, optimizer_update)
+                                      lm_loss, map_params, new_leaf, optimizer_update,
+                                      param_leaves)
 from ..utils import device_scope, resolve_device
 from .kv_cache import KVCache
 from .llama import StaticModelArgs, kv_limit_of, llama_attention, lm_head_logits
@@ -143,11 +155,12 @@ class ShardedExperts:
         every row of x [N, H] and their weighted sum in fp32 ([N, E] weights,
         the shard's block of columns), on the shard's device; the partials
         summed on x's device in shard order and rounded once to x.dtype."""
-        from ..parallel.collectives import all_reduce, broadcast
+        from ..parallel.collectives import all_reduce, broadcast, replicate
 
+        # under autograd, copies whose gradients add up in shard order
+        copy = replicate if torch.is_grad_enabled() else broadcast
         parts, first = [], 0
-        for sh, xs, ws in zip(self.shards, broadcast(x, self.devices),
-                              broadcast(weights, self.devices)):
+        for sh, xs, ws in zip(self.shards, copy(x, self.devices), copy(weights, self.devices)):
             n = sh.gate.shape[0]
             with device_scope(sh.device):
                 g = torch.matmul(xs[None], sh.gate)  # [E / m, N, H]
@@ -175,14 +188,32 @@ def experts(lw: dict, x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return torch.einsum("enh,ne->nh", y, w).reshape(shape)
 
 
+def _routing_sums(probs: torch.Tensor, onehot: torch.Tensor) -> tuple:
+    """(how many of the rows' top-k picks went to each expert, each expert's
+    router probability summed over the rows): two fp32 [E]."""
+    E = probs.shape[-1]
+    return (onehot.sum(dim=-2).float().reshape(-1, E).sum(dim=0),
+            probs.reshape(-1, E).sum(dim=0))
+
+
+def _aux_of(sums, n_rows: int) -> torch.Tensor:
+    """The Switch-style aux loss of one layer from its routing sums over
+    n_rows rows: E * sum_e (fraction routed to e * mean prob of e)."""
+    routed, prob = sums
+    return routed.shape[0] * ((routed / n_rows) * (prob / n_rows)).sum()
+
+
+def _moe_mlp_sums(lw: dict, x: torch.Tensor, top_k: int):
+    """(dense-dispatch top-k MoE of x [..., H], the routing sums)."""
+    probs, onehot, weights = route(lw, x, top_k)
+    return experts(lw, x, weights), _routing_sums(probs, onehot)
+
+
 def moe_mlp(lw: dict, x: torch.Tensor, top_k: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense-dispatch top-k MoE over x [B, S, H]. Returns (out, aux_loss), the
     aux loss Switch-style: E * sum_e (fraction routed to e * mean prob of e)."""
-    probs, onehot, weights = route(lw, x, top_k)
-    E = probs.shape[-1]
-    frac = onehot.sum(dim=2).float().mean(dim=(0, 1))
-    aux = E * (frac * probs.mean(dim=(0, 1))).sum()
-    return experts(lw, x, weights), aux
+    out, sums = _moe_mlp_sums(lw, x, top_k)
+    return out, _aux_of(sums, x.shape[0] * x.shape[1])
 
 
 def moe_block(args: StaticModelArgs, lw: dict, hidden: torch.Tensor, attend_out, top_k: int):
@@ -316,41 +347,130 @@ def moe_runtime(cfg: ModelConfig, params: dict, max_length: int, dtype=torch.flo
 
 def _moe_layer(args: StaticModelArgs, lw: dict, hidden, inv_freq, rope_scale, positions, mask,
                top_k: int):
-    """One MoE layer over [B, S, H] without a KV cache: (hidden, aux loss)."""
+    """One MoE layer over [B, S, H] without a KV cache: (hidden, the routing
+    sums)."""
     hidden = _batched_attention(args, lw, hidden, inv_freq, rope_scale, positions, mask)
-    mlp, aux = moe_mlp(lw, rms_norm(hidden, lw["post_norm"], args.rms_eps), top_k=top_k)
-    return hidden + mlp, aux
+    mlp, sums = _moe_mlp_sums(lw, rms_norm(hidden, lw["post_norm"], args.rms_eps), top_k)
+    return hidden + mlp, sums
+
+
+def _moe_forward_sums(params: dict, args: StaticModelArgs, input_ids: torch.Tensor, top_k: int):
+    """(fp32 logits [B, S, V], each layer's routing sums)."""
+    S = input_ids.shape[1]
+    hidden = embed_batch(params, input_ids)
+    positions = torch.arange(S, device=hidden.device)
+    mask = causal_mask(S, hidden.device)
+    layers = params["layers"]
+    sums = []
+    for i in range(layers["input_norm"].shape[0]):
+        lw = {k: v[i] for k, v in layers.items()}
+        hidden, layer_sums = _moe_layer(args, lw, hidden, params["rope_inv_freq"],
+                                        params["rope_scale"], positions, mask, top_k)
+        sums.append(layer_sums)
+    return head_logits(params, args, hidden), sums
+
+
+def _aux_loss(sums: list, n_rows: int, device) -> torch.Tensor:
+    """The layers' aux losses summed in layer order, / n_layers."""
+    aux = torch.zeros((), dtype=torch.float32, device=device)
+    for layer_sums in sums:
+        aux = aux + _aux_of(layer_sums, n_rows)
+    return aux / len(sums)
 
 
 def moe_train_forward(params: dict, args: StaticModelArgs, input_ids: torch.Tensor,
                       top_k: int = 2):
     """Causal forward over [B, S] -> (fp32 logits [B, S, V], the aux loss
     summed over layers / n_layers)."""
-    S = input_ids.shape[1]
-    hidden = embed_batch(params, input_ids)
-    positions = torch.arange(S, device=hidden.device)
-    mask = causal_mask(S, hidden.device)
+    logits, sums = _moe_forward_sums(params, args, input_ids, top_k)
+    return logits, _aux_loss(sums, input_ids.numel(), logits.device)
+
+
+def moe_grid_forward(replicas: Sequence[dict], args: StaticModelArgs, input_ids: torch.Tensor,
+                     top_k: int = 2):
+    """moe_train_forward with a data axis: input_ids' rows split evenly over
+    `replicas` (train trees, each on its own devices), each running its
+    rows. Returns (the logits [B, S, V] on the first replica's device, the
+    aux loss of the whole batch: each layer's routing sums added over the
+    replicas in order, in fp32)."""
+    from ..parallel.collectives import all_reduce
+
+    dp = len(replicas)
+    if input_ids.shape[0] % dp:
+        raise ValueError(f"batch {input_ids.shape[0]} must split evenly over dp={dp} replicas")
+    outs = [_moe_forward_sums(p, args, ids.to(p["embed"].device), top_k)
+            for p, ids in zip(replicas, input_ids.chunk(dp))]
+    dev0 = outs[0][0].device
+    logits = torch.cat([o[0].to(dev0) for o in outs])
+    sums = [tuple(all_reduce([o[1][i][j] for o in outs], dev0, torch.float32) for j in (0, 1))
+            for i in range(len(outs[0][1]))]
+    return logits, _aux_loss(sums, input_ids.numel(), dev0)
+
+
+def shard_params_ep(params: dict, devices: Sequence) -> dict:
+    """A train tree (init_moe_llama_params', leaves that may require grad)
+    expert-sharded over `devices`, one shard an entry (a device may repeat;
+    the JAX package's P('expert') on the expert axis): new leaves, shard s's
+    block of E / m experts of every layer on devices[s] under the layer key
+    "expert_shards", everything else on devices[0]."""
+    devices = [torch.device(d) for d in devices]
     layers = params["layers"]
-    n = layers["input_norm"].shape[0]
-    aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for i in range(n):
-        lw = {k: v[i] for k, v in layers.items()}
-        hidden, a = _moe_layer(args, lw, hidden, params["rope_inv_freq"], params["rope_scale"],
-                               positions, mask, top_k)
-        aux = aux + a
-    return head_logits(params, args, hidden), aux / n
+    E, m = layers["expert_gate"].shape[1], len(devices)
+    if E % m:
+        raise ValueError(f"{E} experts must be divisible by the expert axis {m}")
+    per = E // m
+    keys = ("expert_gate", "expert_up", "expert_down")
+    out = {k: map_params(lambda t: new_leaf(t, devices[0]), v)
+           for k, v in params.items() if k != "layers"}
+    out["layers"] = {k: new_leaf(v, devices[0]) for k, v in layers.items() if k not in keys}
+    out["layers"]["expert_shards"] = ShardedExperts(
+        ExpertShard(d, *(new_leaf(layers[k][:, s * per:(s + 1) * per], d) for k in keys))
+        for s, d in enumerate(devices))
+    return out
+
+
+def gather_params_ep(params: dict, fn=lambda t: t.detach()) -> dict:
+    """The unsharded tree of `fn` of each leaf of a shard_params_ep tree (the
+    values; `lambda t: t.grad` gives the gradients) on the first shard's
+    device: the inverse of shard_params_ep."""
+    layers = dict(params["layers"])
+    shards = layers.pop("expert_shards").shards
+    dev0 = params["embed"].device
+    out = map_params(fn, {k: v for k, v in params.items() if k != "layers"})
+    out["layers"] = map_params(fn, layers)
+    for k, field in (("expert_gate", "gate"), ("expert_up", "up"), ("expert_down", "down")):
+        out["layers"][k] = torch.cat([fn(getattr(sh, field)).to(dev0) for sh in shards], dim=1)
+    return out
 
 
 def make_moe_train_step(args: StaticModelArgs, optimizer, top_k: int = 2,
-                        aux_weight: float = 0.01):
+                        aux_weight: float = 0.01, devices: Optional[Sequence] = None):
     """train_step(state, input_ids) -> (state, loss): the mean next-token NLL
-    plus aux_weight x the aux loss, one AdamW update in place."""
+    plus aux_weight x the aux loss, one AdamW update in place. With
+    `devices` (rows: a device, or the devices of an expert-sharded replica;
+    `state.params` on the first) the batch is split over one replica a row
+    (moe_grid_forward), each leaf's gradients summed onto the first row's in
+    replica order in fp32, and the new params copied back to the others."""
     del optimizer  # the state carries the built optimizer
+    from ..training.data_parallel import _row, place_params, update_from_replicas
+
+    rows = None if devices is None else [_row(r) for r in devices]
+    replicas = []
 
     def train_step(state, input_ids):
-        logits, aux = moe_train_forward(state.params, args, input_ids, top_k=top_k)
-        loss = lm_loss(logits, input_ids) + aux_weight * aux
-        loss.backward()
-        return optimizer_update(state, loss)
+        if rows is None:
+            logits, aux = moe_train_forward(state.params, args, input_ids, top_k=top_k)
+            loss = lm_loss(logits, input_ids) + aux_weight * aux
+            loss.backward()
+            return optimizer_update(state, loss)
+        if not replicas:
+            replicas.extend(place_params(state.params, row) for row in rows[1:])
+        trees = [state.params] + replicas
+        logits, aux = moe_grid_forward(trees, args, input_ids, top_k)
+        loss = lm_loss(logits, input_ids.to(logits.device)) + aux_weight * aux
+        n = len(list(param_leaves(state.params)))
+        grads = torch.autograd.grad(loss, [p for t in trees for p in param_leaves(t)])
+        return update_from_replicas(state, [grads[r * n:(r + 1) * n] for r in range(len(trees))],
+                                    replicas, loss.detach())
 
     return train_step

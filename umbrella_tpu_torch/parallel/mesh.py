@@ -40,7 +40,20 @@ The engines run the forward as one phase of their step (ModelRuntime.
 forward_phases): captured in the step's CUDA graph where every shard is on
 the runtime's card, run eagerly between the step's graphs where the shards
 span cards (a layer crosses cards twice, which would cut a step into
-hundreds of graphs).
+hundreds of graphs) or processes.
+
+Across processes (`shard_runtime(..., span=distributed.span())`, the JAX
+package's `make_mesh(model=tp)` over the global device list): the model axis
+is m = len(devices) x span.size shards, and process p holds shards
+[p * len(devices), (p + 1) * len(devices)) on its own devices. Each process
+runs the replicated parts (embedding, norms, head's gather, and its engine's
+draft, tree and sampling) itself; the collectives gather every process's
+partials over the group and add them in global shard order, so the logits
+are the one-process forward's bits on every process.
+
+Training (`shard_train_params`, `gather_train_params`): the dense, unpacked
+train tree in the same layout, every shard entry a leaf that requires grad
+on its device; training/draft_trainer.train_forward runs it.
 """
 from __future__ import annotations
 
@@ -149,9 +162,11 @@ def _replicate(x, device):
     return x
 
 
-def shard_runtime(runtime, devices: Sequence):
+def shard_runtime(runtime, devices: Sequence, span=None):
     """Shard a llama-family or Gemma2 ModelRuntime in place over `devices`, one
-    shard per entry (a device may repeat); returns the runtime.
+    shard per entry (a device may repeat); returns the runtime. With a `span`
+    (distributed.ProcessSpan) the shards are this process's block of
+    len(devices) x span.size, and params["tp_span"] holds the span.
 
     Sharding refuses what the layout cannot split (see _check_shardable). AWQ entries
     are cut one layer at a time (row entries repacked first) and each
@@ -161,7 +176,8 @@ def shard_runtime(runtime, devices: Sequence):
     replicated entries, `forward` is the sharded forward and `init_kv` gives a
     ShardedKVCache."""
     devices = [torch.device(d) for d in devices]
-    m = len(devices)
+    first = 0 if span is None else span.rank * len(devices)
+    m = len(devices) * (1 if span is None else span.size)
     _check_shardable(runtime, m)
     params = dict(runtime.params)
     runtime.params = params
@@ -171,7 +187,7 @@ def shard_runtime(runtime, devices: Sequence):
         v = layers.pop(k)
         if not _awq_layers(v):
             for s, dev in enumerate(devices):
-                pieces[s][k] = _piece(k, v, m, s, dev)
+                pieces[s][k] = _piece(k, v, m, first + s, dev)
             continue
         # one layer at a time, each released as it is cut (a list, so no
         # loop variable keeps a tensor alive)
@@ -181,19 +197,83 @@ def shard_runtime(runtime, devices: Sequence):
             q = repack_row_shards(pending[i], m) if k in ROW_KEYS else pending[i]
             pending[i] = None
             for s, dev in enumerate(devices):
-                cut[s].append(_piece(k, q, m, s, dev))
+                cut[s].append(_piece(k, q, m, first + s, dev))
             del q
-        for s in range(m):
+        for s in range(len(devices)):
             pieces[s][k] = tuple(cut[s])
     head = params.pop("lm_head", None)
-    heads = [None if head is None else _piece("lm_head", head, m, s, dev)
+    heads = [None if head is None else _piece("lm_head", head, m, first + s, dev)
              for s, dev in enumerate(devices)]
     del head
     shards = tuple(TPShard(dev, pieces[s], heads[s], params["rope_inv_freq"].to(dev))
                    for s, dev in enumerate(devices))
     runtime.params = dict(_replicate(dict(params, layers=layers), devices[0]), tp_shards=shards)
+    if span is not None:
+        runtime.params["tp_span"] = span
     runtime.device = devices[0]
     return runtime
+
+
+def tp_degree(params: dict) -> int:
+    """The model axis's shard count: this process's shards x the processes
+    the axis spans."""
+    span = params.get("tp_span")
+    return len(params["tp_shards"]) * (1 if span is None else span.size)
+
+
+def shard_train_params(params: dict, devices: Sequence) -> dict:
+    """The dense, unpacked train tree (init_llama_params(packed=False), the
+    JAX package's `shard_params` over a model axis) split over `devices`:
+    new leaves, each requiring grad where its source did. The embedding, the
+    norms and the rope entries stay whole on devices[0]; under "tp_shards",
+    shard s holds its column, row and bias blocks of every layer (and of an
+    untied lm_head) on devices[s]."""
+    devices = [torch.device(d) for d in devices]
+    m = len(devices)
+    layers = params["layers"]
+    if "wqkv" in layers or "gate_up" in layers:
+        raise ValueError("packed (wqkv/gate_up) params cannot be tensor-sharded: column shards "
+                         "would straddle section boundaries; initialise with packed=False")
+
+    from ..training.draft_trainer import new_leaf
+
+    def cut(key, v, s):
+        n_out = v.shape[1] if key in ROW_KEYS else v.shape[-1]
+        if n_out % m:
+            raise ValueError(f"{key}: {n_out} must be divisible by the model axis {m}")
+        return new_leaf(_rows(v, m, s) if key in ROW_KEYS else _column(v, m, s), devices[s])
+
+    sharded_keys = [k for k in layers if k in COL_KEYS + ROW_KEYS + BIAS_KEYS]
+    out = {k: new_leaf(v, devices[0]) if isinstance(v, torch.Tensor) else v
+           for k, v in params.items() if k not in ("layers", "lm_head")}
+    out["layers"] = {k: new_leaf(v, devices[0]) for k, v in layers.items()
+                     if k not in sharded_keys}
+    shards = []
+    for s in range(m):
+        shard = {"layers": {k: cut(k, layers[k], s) for k in sharded_keys}}
+        if "lm_head" in params:
+            shard["lm_head"] = cut("lm_head", params["lm_head"], s)
+        shards.append(shard)
+    out["tp_shards"] = tuple(shards)
+    return out
+
+
+def gather_train_params(sharded: dict, fn=lambda t: t.detach()) -> dict:
+    """The unsharded tree of `fn` of each leaf of a shard_train_params tree
+    (default: the values; `lambda t: t.grad` gives the gradients), on the
+    replicated entries' device: the inverse of shard_train_params."""
+    dev0 = sharded["embed"].device
+    shards = sharded["tp_shards"]
+    out = {k: (fn(v) if isinstance(v, torch.Tensor) else v)
+           for k, v in sharded.items() if k not in ("layers", "tp_shards")}
+    layers = {k: fn(v) for k, v in sharded["layers"].items()}
+    for k in shards[0]["layers"]:
+        layers[k] = torch.cat([fn(sh["layers"][k]).to(dev0) for sh in shards],
+                              dim=1 if k in ROW_KEYS else -1)
+    out["layers"] = layers
+    if "lm_head" in shards[0]:
+        out["lm_head"] = torch.cat([fn(sh["lm_head"]).to(dev0) for sh in shards], dim=-1)
+    return out
 
 
 def local_args(args, m: int):
@@ -211,7 +291,7 @@ def _local_config(cfg, m: int):
 def init_sharded_kv(runtime, kv_dtype=None) -> ShardedKVCache:
     """One KVCache a shard, over every layer and the shard's kv heads, on its device."""
     shards = runtime.params["tp_shards"]
-    cfg = _local_config(runtime.cfg, len(shards))
+    cfg = _local_config(runtime.cfg, tp_degree(runtime.params))
     return ShardedKVCache(tuple(
         init_kv_cache(cfg, runtime.max_length, dtype=kv_dtype or runtime.dtype,
                       num_layers=runtime.args.n_layers, device=sh.device) for sh in shards))
@@ -224,7 +304,7 @@ def init_sharded_batched_kv(runtime, batch: int, max_length: int, dtype) -> Shar
     from ..models.batched import init_batched_kv
 
     shards = runtime.params["tp_shards"]
-    cfg = _local_config(runtime.cfg, len(shards))
+    cfg = _local_config(runtime.cfg, tp_degree(runtime.params))
     return ShardedKVCache(tuple(
         init_batched_kv(cfg, batch, max_length, dtype, num_layers=runtime.args.n_layers,
                         device=sh.device) for sh in shards))
@@ -241,7 +321,7 @@ def _partial(x: torch.Tensor, w, act_int8: bool = False) -> torch.Tensor:
     return x.float() @ w.float()
 
 
-def _tp_row(shards, lws: list, attend_fns: list, act_int8: bool):
+def _tp_row(shards, lws: list, attend_fns: list, act_int8: bool, span=None):
     """The layer bodies' `row(x, inner, key)` over the shards: each shard
     runs inner(lw_s, x, attend_s) -- its column products and, for wo, its
     attention -- and its row product lw_s[key] into an fp32 partial, on its
@@ -253,7 +333,7 @@ def _tp_row(shards, lws: list, attend_fns: list, act_int8: bool):
         for sh, lw, attend, xs in zip(shards, lws, attend_fns, broadcast(x, devices)):
             with device_scope(sh.device):
                 parts.append(_partial(inner(lw, xs, attend), lw[key], act_int8))
-        return all_reduce(parts, x.device, x.dtype)
+        return all_reduce(parts, x.device, x.dtype, span)
 
     return row
 
@@ -267,7 +347,7 @@ def _tp_layers(gemma: bool, params: dict, largs, hidden, attend_fns_of, act_int8
     for i in range(largs.n_layers):
         lw0 = {k: v[i] for k, v in params["layers"].items()}
         lws = [{k: v[i] for k, v in sh.layers.items()} for sh in shards]
-        row = _tp_row(shards, lws, attend_fns_of(i), act_int8)
+        row = _tp_row(shards, lws, attend_fns_of(i), act_int8, params.get("tp_span"))
         hidden = (gemma2_block(largs, lw0, hidden, None, row=row) if gemma
                   else llama_block(largs, lw0, hidden, None, act_int8, row=row))
     return hidden
@@ -284,7 +364,7 @@ def tp_logits(params: dict, hidden: torch.Tensor) -> torch.Tensor:
     for sh, x in zip(shards, broadcast(hidden, [sh.device for sh in shards])):
         with device_scope(sh.device):
             parts.append(lm_head_logits({"lm_head": sh.lm_head}, x))
-    return all_gather(parts, hidden.device)
+    return all_gather(parts, hidden.device, params.get("tp_span"))
 
 
 def _tp_head(gemma: bool, params: dict, args, hidden: torch.Tensor) -> torch.Tensor:
@@ -315,7 +395,7 @@ def tp_forward(runtime):
             "covers gemma2; use engine 'batched_static' with tensor_parallel for a TP gemma2 "
             "deployment)")
     args = runtime.args
-    largs = local_args(args, len(runtime.params["tp_shards"]))
+    largs = local_args(args, tp_degree(runtime.params))
 
     def fwd(params, kv, input_ids, position_ids, attn_mask, write_offset):
         S = input_ids.shape[0]
@@ -345,7 +425,7 @@ def tp_batched_forwards(runtime):
 
     gemma = runtime.family == "gemma2"
     args = runtime.gemma_args if gemma else runtime.args
-    largs = local_args(args, len(runtime.params["tp_shards"]))
+    largs = local_args(args, tp_degree(runtime.params))
     attn_kw = dict(scale=args.attn_scale, soft_cap=args.attn_softcap) if gemma else {}
 
     def masks_of(mask, pos):

@@ -36,7 +36,9 @@ ticks), as the JAX package's `lax.scan` over ticks does. The host enqueues a
 tick's stages one after another; CUDA launches return at once, so stages on
 different cards run at the same time, and the hidden state hops to the next
 stage's card as a peer copy. Autograd runs the backward across the cards
-itself (JAX differentiates through its `ppermute`s). The embedding, the final
+itself (JAX differentiates through its `ppermute`s); the trained rope leaves
+reach the stages through collectives.replicate, whose backward sums their
+gradients in stage order on stage 0's card. The embedding, the final
 norm and the head are leaves on stage 0's device, as in the inference half.
 """
 from __future__ import annotations
@@ -53,8 +55,9 @@ from ..models.llama import (kv_limit_of, llama_layer, lm_head_logits, split_scan
 from ..ops.norms import rms_norm
 from ..ops.select import embed_lookup
 from ..quantization.awq import AwqTensor
+from .collectives import replicate
 from ..training.draft_trainer import (TrainState, _batched_layer, causal_mask, embed_batch,
-                                      head_logits, lm_loss, optimizer_update)
+                                      head_logits, lm_loss, new_leaf, optimizer_update)
 
 
 class Stage(NamedTuple):
@@ -227,12 +230,9 @@ def shard_params_pp(params: dict, devices: Sequence) -> dict:
     devices = [torch.device(d) for d in devices]
     specs = pp_layer_specs(params, len(devices))
 
-    def leaf(t, dev):
-        return t.detach().to(dev).clone().requires_grad_(t.requires_grad)
-
-    staged = {k: leaf(v, devices[0]) for k, v in params.items() if k != "layers"}
+    staged = {k: new_leaf(v, devices[0]) for k, v in params.items() if k != "layers"}
     staged["stages"] = tuple(
-        {k: leaf(v[specs["layers"][k][s][0]:specs["layers"][k][s][1]], dev)
+        {k: new_leaf(v[specs["layers"][k][s][0]:specs["layers"][k][s][1]], dev)
          for k, v in params["layers"].items()}
         for s, dev in enumerate(devices))
     return staged
@@ -264,9 +264,16 @@ def make_pp_forward(args, devices: Sequence, n_micro: int):
         if len(stages) != n_stages:
             raise ValueError(f"params have {len(stages)} stages, the forward {n_stages}")
         micro = embed_batch(params, input_ids).split(B // n_micro)
-        # what each stage's layers read, on its device
-        inputs = [(params["rope_inv_freq"].to(d), params["rope_scale"].to(d),
-                   torch.arange(S, device=d), causal_mask(S, d)) for d in devices]
+        # what each stage's layers read, on its device; the trained rope leaves
+        # through replicate, so that their gradients come home summed in stage
+        # order on stage 0's stream (a copy's own backward would hand a leaf
+        # on cuda:0 a gradient made on another card's stream)
+        scale = params["rope_scale"]
+        inputs = list(zip(replicate(params["rope_inv_freq"], devices),
+                          replicate(scale, devices) if isinstance(scale, torch.Tensor)
+                          else [scale] * n_stages,
+                          [torch.arange(S, device=d) for d in devices],
+                          [causal_mask(S, d) for d in devices]))
         inbox, outs = [None] * n_stages, [None] * n_micro
         for t in range(n_micro + n_stages - 1):
             # last stage first, so that each stage takes its input from the

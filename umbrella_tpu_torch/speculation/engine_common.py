@@ -34,6 +34,11 @@ loaded with packed=False) and `expert_parallel: N` shards an MoE target's
 experts (models/moe.shard_runtime_ep; an MoE draft's too): over cuda:i ..
 cuda:i+N-1 from the engine's cuda:i, one card a stage or shard, raising a
 ValueError when there are fewer; on the CPU every stage or shard is the CPU.
+Under a process group (parallel/distributed.py), `tensor_parallel: N` spans
+the processes: each holds N / P shards and runs everything else itself, as
+the JAX package's engines do under `make_mesh(model=tp)` over the global
+device list; the target's forward then runs eagerly between the step's
+graphs, its collectives over the group.
 A target the caller staged or sharded already (which may put several on one
 card) keeps its stages or shards. The three are mutually exclusive. A dense
 draft stays whole on the engine's device (the JAX package's replicated
@@ -69,6 +74,8 @@ from ..cuda_graphs import Phase, StepGraph, run_phases
 from ..models.auto_model import AutoModelLM, ModelRuntime
 from ..models.kv_cache import compact_phases, gather_compact, kv_parts
 from ..offload.streaming import OffloadModelRuntime
+from ..parallel import distributed
+from ..parallel.mesh import shard_runtime, tp_degree
 from ..ops.masks import causal_mask_rows, read_window, tree_mask_rows
 from ..utils import TextColors, resolve_device, setup_logger
 from .base import BaseEngine
@@ -101,19 +108,35 @@ def split_devices(target, device: torch.device, pipeline: int = 0, tensor: int =
     runtime) for the engine's parallel keys: one card each from the engine's
     card on, a ValueError if there are fewer (nothing puts every shard on one
     card unasked), or the CPU n times. None where there is nothing to do or
-    the runtime is staged or sharded already (its count must match)."""
+    the runtime is staged or sharded already (its count must match).
+
+    Under a process group of P processes (parallel/distributed.initialize),
+    `tensor_parallel: N` spans the processes: this process takes N / P
+    shards. Stages and expert shards stay in one process, as the JAX
+    package's pipeline stays on one host: those keys raise there."""
     n = max(pipeline, tensor, expert)
     if n <= 1:
         return None
     key = "pipeline_parallel" if pipeline > 1 else \
         "tensor_parallel" if tensor > 1 else "expert_parallel"
+    span = distributed.span()
+    if span is not None:
+        if tensor <= 1:
+            raise ValueError(f"{key}={n} with {span.size} processes: stages and expert shards "
+                             "live in one process; span processes with tensor_parallel (and "
+                             "the data axis of training)")
+        if n % span.size:
+            raise ValueError(f"tensor_parallel={n} must split evenly over {span.size} processes")
     if isinstance(target, ModelRuntime):
         have = target.stage_devices if pipeline > 1 else target.shard_devices
         if have is not None:
-            if len(have) != n:
+            count = tp_degree(target.params) if "tp_shards" in target.params else len(have)
+            if count != n:
                 parts = "staged in {} stages" if pipeline > 1 else "sharded in {} shards"
-                raise ValueError(f"target is {parts.format(len(have))}, {key}={n}")
+                raise ValueError(f"target is {parts.format(count)}, {key}={n}")
             return None
+    if span is not None:
+        n //= span.size
     if device.type != "cuda":
         return [device] * n
     first, count = device.index, torch.cuda.device_count()
@@ -141,9 +164,7 @@ def shard_models(target, draft, devices, pipeline: int = 0, tensor: int = 0,
 
             shard_runtime_pp(target, devices)
         elif tensor > 1:
-            from ..parallel.mesh import shard_runtime
-
-            shard_runtime(target, devices)
+            shard_runtime(target, devices, span=distributed.span())
         else:
             from ..models.moe import shard_runtime_ep
 

@@ -7,6 +7,24 @@ layer takes [B, S, H] as it is (the port's projections, norms and rope
 broadcast over a leading batch axis) and a Python loop indexes the stacks.
 Attention is dense (two einsums, the scores in fp32), as in the JAX package.
 
+Tensor- and sequence-parallel training (`train_forward` over a tree from
+parallel/mesh.shard_train_params, the JAX package's params sharded over a
+'model' mesh axis): each shard runs its column products and its local heads'
+attention on its own device; each row product (wo, down) is an fp32 partial
+that parallel/collectives sums in shard order on the first shard's device,
+where the norms and the residual stream stay; an untied head is
+vocab-sharded and its logits gathered. `sequence_parallel=True` is the
+Megatron SP layout on top: after each row product a reduce-scatter leaves
+S / m rows of each sequence on each shard's device, the norms and the
+residual run on those rows, and an all-gather brings whole sequences back
+before the column products. Its sums are the tensor-parallel forward's, in
+the same order, and `rms_norm` is row-invariant, so in fp32 both give the
+same loss and gradients bit for bit; for that the norm weights' gradients
+are summed over every row at once (`_ExpandRows`), as the tensor-parallel
+norm sums them, not as per-shard partial sums. Autograd runs back through
+the collectives (their backward passes are deterministic: four cards give
+one card's bits).
+
 Params are the tree of `llama.init_llama_params` with every floating leaf a
 tensor that requires grad (`models/convert.trainable_params`): the JAX
 package's `make_train_step` differentiates its whole params pytree, so
@@ -32,11 +50,15 @@ from ..models.llama import StaticModelArgs, _attn_projections, _linear, _mlp_gat
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope
 from ..ops.select import embed_lookup
+from ..parallel.collectives import (all_gather, all_gather_seq, all_reduce, reduce_scatter,
+                                    replicate, split_seq)
+from ..utils import device_scope
 
 
 def param_leaves(params) -> Iterator[torch.Tensor]:
-    """Every tensor of a param tree (dicts, tuples, lists), in a fixed order:
-    dict insertion order, depth first."""
+    """Every tensor of a param tree (dicts, tuples, lists, and a block of
+    shards such as models/moe.ShardedExperts, through its `shards`), in a
+    fixed order: dict insertion order, depth first."""
     if isinstance(params, torch.Tensor):
         yield params
     elif isinstance(params, dict):
@@ -45,17 +67,31 @@ def param_leaves(params) -> Iterator[torch.Tensor]:
     elif isinstance(params, (tuple, list)):
         for v in params:
             yield from param_leaves(v)
+    elif hasattr(params, "shards"):
+        yield from param_leaves(params.shards)
 
 
 def map_params(fn, params):
-    """The tree with `fn` applied to each tensor (other values as they are)."""
+    """The tree with `fn` applied to each tensor (other values, a shard's
+    device among them, as they are)."""
     if isinstance(params, torch.Tensor):
         return fn(params)
     if isinstance(params, dict):
         return {k: map_params(fn, v) for k, v in params.items()}
+    if isinstance(params, tuple) and hasattr(params, "_fields"):  # a NamedTuple
+        return type(params)(*(map_params(fn, v) for v in params))
     if isinstance(params, (tuple, list)):
         return type(params)(map_params(fn, v) for v in params)
+    if hasattr(params, "shards"):
+        return type(params)(map_params(fn, params.shards))
     return params
+
+
+def new_leaf(t: torch.Tensor, device) -> torch.Tensor:
+    """A new leaf: t's values in fresh contiguous memory on `device`,
+    requiring grad where t does."""
+    return t.detach().to(device).clone(memory_format=torch.contiguous_format).requires_grad_(
+        t.requires_grad)
 
 
 def causal_mask(S: int, device) -> torch.Tensor:
@@ -63,13 +99,12 @@ def causal_mask(S: int, device) -> torch.Tensor:
     return torch.ones((S, S), dtype=torch.bool, device=device).tril()
 
 
-def _batched_attention(args: StaticModelArgs, lw: dict, hidden, inv_freq, rope_scale,
-                       positions, mask):
-    """The attention half of a layer over [B, S, H] without a KV cache:
-    hidden + wo(softmax(q k^T / sqrt(D)) v), the scores in fp32."""
-    B, S, _ = hidden.shape
+def _attention_heads(args: StaticModelArgs, lw: dict, x, inv_freq, rope_scale, positions,
+                     mask):
+    """softmax(q k^T / sqrt(D)) v of the normed x [B, S, H] over args' heads,
+    the scores in fp32: [B, S, num_heads * D], before wo."""
+    B, S, _ = x.shape
     D, KVH = args.head_dim, args.num_kv_heads
-    x = rms_norm(hidden, lw["input_norm"], args.rms_eps)
     q, k, v = _attn_projections(args, lw, x)
     q, k = apply_rope(q.reshape(B, S, args.num_heads, D), k.reshape(B, S, KVH, D),
                       inv_freq, rope_scale, positions)
@@ -78,8 +113,16 @@ def _batched_attention(args: StaticModelArgs, lw: dict, hidden, inv_freq, rope_s
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) / (D ** 0.5)
     scores = torch.where(mask, scores, torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", probs, v).reshape(B, S, args.num_heads * D)
-    return hidden + _linear(out, lw["wo"])
+    return torch.einsum("bkgst,btkd->bskgd", probs, v).reshape(B, S, args.num_heads * D)
+
+
+def _batched_attention(args: StaticModelArgs, lw: dict, hidden, inv_freq, rope_scale,
+                       positions, mask):
+    """The attention half of a layer over [B, S, H] without a KV cache:
+    hidden + wo(softmax(q k^T / sqrt(D)) v)."""
+    x = rms_norm(hidden, lw["input_norm"], args.rms_eps)
+    return hidden + _linear(_attention_heads(args, lw, x, inv_freq, rope_scale, positions, mask),
+                            lw["wo"])
 
 
 def _batched_layer(args: StaticModelArgs, lw: dict, hidden, inv_freq, rope_scale, positions,
@@ -107,15 +150,110 @@ def head_logits(params: dict, args: StaticModelArgs, hidden: torch.Tensor) -> to
     return hidden.float() @ head.float()
 
 
+class _ExpandRows(torch.autograd.Function):
+    """A norm weight w [H] as a [B, S / m, H] view on each sequence chunk's
+    device; backward: the chunks' gradients joined on w's device and summed
+    over every row at once (`sum_to_size`, the reduction autograd makes for
+    the tensor-parallel norm's broadcast weight), not per chunk."""
+
+    @staticmethod
+    def forward(ctx, w, shapes, devices):
+        ctx.device, ctx.size = w.device, w.shape
+        return tuple((w if d == w.device else w.to(d)).expand(shape)
+                     for shape, d in zip(shapes, devices))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        full = torch.cat([g.to(ctx.device) for g in grads], dim=1)
+        return full.sum_to_size(ctx.size), None, None
+
+
+def _shard_device(shard: dict) -> torch.device:
+    return next(iter(shard["layers"].values())).device
+
+
+def _per_device(devices, make) -> list:
+    """make(d) for each device, made once a distinct device."""
+    made = {}
+    for d in devices:
+        if d not in made:
+            made[d] = make(d)
+    return [made[d] for d in devices]
+
+
+def _tp_train_forward(params: dict, args: StaticModelArgs, input_ids: torch.Tensor,
+                      sequence_parallel: bool) -> torch.Tensor:
+    """train_forward over parallel/mesh.shard_train_params' tree (see the
+    module docstring)."""
+    shards = params["tp_shards"]
+    m = len(shards)
+    if args.num_heads % m or args.num_kv_heads % m:
+        raise ValueError(f"{args.num_heads} heads and {args.num_kv_heads} kv heads must be "
+                         f"divisible by the model axis {m}")
+    largs = args._replace(num_heads=args.num_heads // m, num_kv_heads=args.num_kv_heads // m)
+    devices = [_shard_device(sh) for sh in shards]
+    S, eps = input_ids.shape[1], args.rms_eps
+    hidden = embed_batch(params, input_ids)
+    dev0, dtype = hidden.device, hidden.dtype
+    positions = _per_device(devices, lambda d: torch.arange(S, device=d))
+    masks = _per_device(devices, lambda d: causal_mask(S, d))
+    inv_freqs = replicate(params["rope_inv_freq"], devices)
+    scale = params["rope_scale"]
+    scales = replicate(scale, devices) if isinstance(scale, torch.Tensor) else [scale] * m
+
+    def attention(s, lw, x):
+        heads = _attention_heads(largs, lw, x, inv_freqs[s], scales[s], positions[s], masks[s])
+        return heads.float() @ lw["wo"].float()
+
+    def mlp(s, lw, x):
+        gate, up = _mlp_gate_up(lw, x)
+        return (F.silu(gate) * up).float() @ lw["down"].float()
+
+    def partials(part, lws, xs):
+        out = []
+        for s, (lw, x) in enumerate(zip(lws, xs)):
+            with device_scope(devices[s]):
+                out.append(part(s, lw, x))
+        return out
+
+    layers = params["layers"]
+    rows = split_seq(hidden, devices) if sequence_parallel else None
+    for i in range(layers["input_norm"].shape[0]):
+        lws = [{k: v[i] for k, v in sh["layers"].items()} for sh in shards]
+        for norm, part in (("input_norm", attention), ("post_norm", mlp)):
+            w = layers[norm][i]
+            if sequence_parallel:
+                ws = _ExpandRows.apply(w.float(), tuple(r.shape for r in rows), tuple(devices))
+                xs = all_gather_seq([rms_norm(r, wc, eps) for r, wc in zip(rows, ws)], devices)
+                sums = reduce_scatter(partials(part, lws, xs), devices, dtype)
+                rows = [r + a for r, a in zip(rows, sums)]
+            else:
+                xs = replicate(rms_norm(hidden, w, eps), devices)
+                hidden = hidden + all_reduce(partials(part, lws, xs), dev0, dtype)
+    if sequence_parallel:
+        hidden = torch.cat([r.to(dev0) for r in rows], dim=1)
+    if "lm_head" not in shards[0]:
+        return head_logits(params, args, hidden)
+    xs = replicate(rms_norm(hidden, params["final_norm"], eps), devices)
+    parts = []
+    for s, (sh, x) in enumerate(zip(shards, xs)):
+        with device_scope(devices[s]):
+            parts.append(x.float() @ sh["lm_head"].float())
+    return all_gather(parts, dev0)
+
+
 def train_forward(params: dict, args: StaticModelArgs, input_ids: torch.Tensor,
                   sequence_parallel: bool = False) -> torch.Tensor:
-    """Causal forward over [B, S] -> fp32 logits [B, S, V] (no cache).
+    """Causal forward over [B, S] -> fp32 logits [B, S, V] (no cache), on
+    the embedding's device.
 
-    `sequence_parallel` splits the sequence over the JAX package's 'model'
-    mesh axis between attention blocks; without a model axis (the only
-    layout here: ROADMAP A.5 queues TP/SP training) that constraint is the
-    identity, as GSPMD makes it, so both values give the same logits."""
-    del sequence_parallel
+    Over a tensor-parallel tree (parallel/mesh.shard_train_params), the
+    model axis's forward; `sequence_parallel` splits the sequence over that
+    axis between the row and the column products. Without a model axis that
+    split is the identity, as GSPMD makes it, so both values give the same
+    logits."""
+    if "tp_shards" in params:
+        return _tp_train_forward(params, args, input_ids, sequence_parallel)
     S = input_ids.shape[1]
     hidden = embed_batch(params, input_ids)
     positions = torch.arange(S, device=hidden.device)

@@ -1,21 +1,25 @@
 """Draft-model training script, counterpart of `draft/train_draft.py`.
 
     python -m umbrella_tpu_torch.training.train_draft --data tokens.npy \\
-        [--config draft/config.json] [--device cuda|cpu] [--dp N]
+        [--config draft/config.json] [--device cuda|cpu] [--tp M] [--dp N]
 
 The same flags and defaults as the JAX package's script: a llama-family
 draft (`--config`) initialised at random in bf16, packed (`wqkv`,
-`gate_up`) since `--tp` is 1, trained with AdamW under the warmup-cosine
-schedule on random windows of `--seq_len` tokens, a checkpoint every
-`--save_steps` steps and at the end (the newest 2 kept), and a loss and
-K tok/s line every 50 steps. `--dp` replicas (default: one a card) split each
-batch (training/data_parallel.py).
+`gate_up`) where `--tp` is 1 and unpacked otherwise, trained with AdamW
+under the warmup-cosine schedule on random windows of `--seq_len` tokens, a
+checkpoint every `--save_steps` steps and at the end (the newest 2 kept),
+and a loss and K tok/s line every 50 steps. The devices are the JAX
+script's `make_mesh(model=tp, data=dp)`: `--dp` replicas (default: the
+cards // tp, at least one) split each batch (training/data_parallel.py),
+each sharded over `--tp` cards (parallel/mesh.shard_train_params; one
+replica's shards on consecutive cards, wrapping round where the cards run
+out). A checkpoint holds the params whole (mesh.gather_train_params), so a
+draft trained with `--tp` loads into the engines as any other.
 
 Data is local: a `.npy` token file, or a text file tokenized with
 `--tokenizer` from the local Hugging Face cache. The JAX script can stream a
 dataset from the Hub (`--max_tokens` caps that stream; the flag is kept and
-has nothing to cap here); any other `--data` raises. `--tp` above 1 raises:
-tensor-parallel training is ROADMAP A.5's next step.
+has nothing to cap here); any other `--data` raises.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch
 from ..config import ModelConfig
 from ..models.convert import trainable_params
 from ..models.llama import StaticModelArgs, init_llama_params
+from ..parallel.mesh import gather_train_params, shard_train_params
 from .data_parallel import make_dp_train_step
 from .draft_trainer import TrainState, init_train_state, make_optimizer, make_train_step, map_params
 
@@ -57,21 +62,23 @@ def windows_of(tokens: np.ndarray, seq_len: int) -> np.ndarray:
 
 
 def train_devices(device: str, dp: int = 0, tp: int = 1) -> list:
-    """The replicas' devices: `dp` of them (0: one a card, or one CPU), one
-    a card in turn on `device`'s type (so a card may hold several)."""
-    if tp != 1:
-        raise NotImplementedError(
-            f"--tp {tp}: tensor- and sequence-parallel training over a model axis is not "
-            "ported yet (ROADMAP A.5: TP/SP/EP training with multi-host comes next)")
+    """The replicas' devices: `dp` of them (0: cards // tp, at least one),
+    each one device where tp is 1, else a row of tp devices (a replica's
+    shards); the cards of `device`'s type taken in turn, so a card may hold
+    several; on the CPU every one is the CPU."""
+    if tp < 1:
+        raise ValueError(f"--tp {tp} must be at least 1")
     dev = torch.device(device)
     n = torch.cuda.device_count() if dev.type == "cuda" else 1
     if n == 0:
         raise RuntimeError(f"device {device} requested but CUDA is not available; pass "
                            "--device cpu to train on the CPU")
-    dp = dp or n
-    if dev.type == "cuda":
-        return [torch.device("cuda", i % n) for i in range(dp)]
-    return [dev] * dp
+    dp = dp or max(n // tp, 1)
+    flat = ([torch.device("cuda", i % n) for i in range(dp * tp)] if dev.type == "cuda"
+            else [dev] * (dp * tp))
+    if tp == 1:
+        return flat
+    return [flat[r * tp:(r + 1) * tp] for r in range(dp)]
 
 
 def init_train_params(cfg: ModelConfig, seq_len: int, device, dtype=torch.bfloat16,
@@ -84,8 +91,9 @@ def init_train_params(cfg: ModelConfig, seq_len: int, device, dtype=torch.bfloat
 
 
 def make_trainer(cfg: ModelConfig, params: dict, lr: float, steps: int, devices: Sequence):
-    """(TrainState, train_step) over `params` (on devices[0]): one replica's
-    step, or the data-parallel step over `devices`."""
+    """(TrainState, train_step) over `params` (on devices[0]; sharded over it
+    where it is a row): one replica's step, or the data-parallel step over
+    `devices` (train_devices')."""
     args = StaticModelArgs.from_config(cfg)
     optimizer = make_optimizer(lr=lr, total_steps=steps)
     step = (make_train_step(args, optimizer) if len(devices) == 1
@@ -94,12 +102,13 @@ def make_trainer(cfg: ModelConfig, params: dict, lr: float, steps: int, devices:
 
 
 def save_checkpoint(path: str, state: TrainState, step: int, keep: int = 2) -> str:
-    """torch.save the params (on the CPU), the optimizer's and the schedule's
-    state and the step as ckpt_{step}.pt; keep the newest `keep`."""
+    """torch.save the params (whole, on the CPU), the optimizer's and the
+    schedule's state and the step as ckpt_{step}.pt; keep the newest `keep`."""
     os.makedirs(path, exist_ok=True)
     fname = os.path.join(path, f"ckpt_{step}.pt")
     opt, sched = state.opt_state
-    torch.save({"params": map_params(lambda t: t.detach().cpu(), state.params),
+    params = gather_train_params(state.params) if "tp_shards" in state.params else state.params
+    torch.save({"params": map_params(lambda t: t.detach().cpu(), params),
                 "optimizer": opt.state_dict(), "scheduler": sched.state_dict(),
                 "step": state.step}, fname)
     ckpts = sorted((f for f in os.listdir(path) if f.startswith("ckpt_")),
@@ -138,14 +147,17 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     n_windows = len(windows)
     print(f"{len(tokens)/1e6:.1f}M tokens -> {n_windows} windows of {args.seq_len}")
 
-    params = init_train_params(cfg, args.seq_len, devices[0], packed=(args.tp == 1))
+    first = devices[0] if args.tp == 1 else devices[0][0]
+    params = init_train_params(cfg, args.seq_len, first, packed=(args.tp == 1))
+    if args.tp > 1:
+        params = shard_train_params(params, devices[0])
     state, train_step = make_trainer(cfg, params, args.lr, args.steps, devices)
     rng = np.random.default_rng(0)
     losses = []
     t0 = time.time()
     for step in range(1, args.steps + 1):
         idx = rng.integers(0, n_windows, args.batch_size)
-        batch = torch.from_numpy(windows[idx]).to(devices[0])
+        batch = torch.from_numpy(windows[idx]).to(first)
         state, loss = train_step(state, batch)
         losses.append(loss)  # read at the prints and the end, not every step
         if step % 50 == 0:
