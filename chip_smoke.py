@@ -348,6 +348,46 @@ lines tagged with its name:
                    (router_margins); then fp32 at Mixtral widths (2 layers,
                    int8 KV): run() equals the single-slot engine, and with
                    expert_parallel 4 both equal the unsharded engines.
+  spec-bench       configs/chat_config_8b_v5e.json as shipped (static 5x6,
+                   0.6 / 0.9 / top-k 32 / 1.05) over its own pair: a bf16
+                   meta-llama/Llama-3.1-8B-Instruct directory (untied head, 8
+                   of its 32 layers, written under build/ only for this phase
+                   and the next bf16 one) and the Llama-3.2-1B directory, with
+                   WordTokenizer: examples/spec_generate once, then
+                   examples/spec_bench over umbrella_tpu_torch/data/
+                   question.jsonl (3 questions, 6 turns, 32 new tokens each):
+                   per-category and total tok/s, TPOT and accept; decodes
+                   guarded (check_not_degenerate); embed_gather and the
+                   tensor-core attend_flash launched, no W4 kernel.
+  spec-bench-code  configs/code_config_8b_awq_v5e.json over the 8B AutoAWQ
+                   directory (W4 draft from quantize_draft) through
+                   examples/spec_bench_python's five default prompts (32 new
+                   tokens each; all kept, WordTokenizer gives 20+ tokens).
+  serve-config-bf16 configs/serve_batched_8b_v5e.json as shipped (batched, B=8,
+                   3x4, 0.6 / 0.9 / 32, its "scheduler": {} key) over the
+                   bf16 pair: 16 requests of 24 new tokens through
+                   make_scheduler in front of a ContinuousBatcher.
+  generate         examples/generate.autoregressive_decode on the 1B directory
+                   (all 16 layers): 64 greedy tokens on its captured step,
+                   equal to the plain stepwise AR decode, TPOT; 16 sampled
+                   tokens start with the prefill's argmax (the JAX example's
+                   quirk); then examples/bench.bench_step on the 1B (prefix
+                   512, 32 tokens, one CUDA graph) and on the 8B AutoAWQ
+                   directory with offload (4 layers resident, 4 streamed).
+  construct-sequoia examples/construct_sequoia.measure_acceptance: the 1B
+                   draft against the 8B AutoAWQ target over DEFAULT_TEXTS
+                   (WordTokenizer ids), 8 beams; the 5x6 tree written to
+                   build/, loaded through speculation/tree.GrowMap, drives a
+                   static-engine request of 16 tokens.
+  bench-70b        examples/bench_70b.measure() at Llama-3.x-70B width: the
+                   slope-timed W4 layer (S=128) and lm_head, each count of
+                   layers one CUDA graph; its JSON line (extrapolation with
+                   the H100's HBM and NVLink rates, the draft term left out).
+  serve-soak       examples/serve_soak --model-class awq8b --batch 32: 64
+                   requests of 32-63 new tokens (prompts 32-256), 20 ms apart,
+                   through make_scheduler and the pipelined ContinuousBatcher,
+                   every 4th streaming; its JSON line (tok/s, latency p50/p90/
+                   p99, TTFT, frame cadence).
   report           one JSON line of kernels, the card's name and power limit,
                    and the final {"ok": true, ...} line.
 The static, dynamic and batched engines decode through CUDA graphs in every
@@ -2914,6 +2954,10 @@ DRAFT_HF_CONFIG = dict(
                       original_max_position_embeddings=8192, rope_type="llama3"),
     tie_word_embeddings=True, bos_token_id=128000, eos_token_id=LLAMA3_EOS,
     hidden_act="silu", torch_dtype="bfloat16")
+# meta-llama/Llama-3.1-8B-Instruct's config.json: the bf16 target of
+# chat_config_8b_v5e.json and serve_batched_8b_v5e.json
+TARGET_BF16_HF_CONFIG = dict({k: v for k, v in TARGET_HF_CONFIG.items()
+                              if k != "quantization_config"}, torch_dtype="bfloat16")
 CONFIG_NEW_TOKENS = 64  # cut from 128 to keep the script inside its time limit
 CONFIG_TRACE_TOKENS = 16  # the traced request's; cut from 32 (the trace's records cost host time)
 # the 8B checkpoint directory's depth, a quarter of the published 32 (its
@@ -3040,11 +3084,13 @@ def _write_dir(path, hf, shards):
             if len(shards) > 1 else "model.safetensors"), specs)
 
 
-def write_checkpoints(torch, dev, root):
+def write_checkpoints(torch, dev, root, bf16=False):
     """The target (two shards, as published) at CHECKPOINT_TARGET_LAYERS of
     its 32 layers, a second target directory with `"awq_act": "int8"` over
-    the same files, and the draft. If the disk cannot hold them, the
-    target's depth is cut further (never its width)."""
+    the same files, and the draft; with `bf16`, also the bf16
+    Llama-3.1-8B-Instruct target at the same depth (dirs["target-bf16"]).
+    If the disk cannot hold them, the targets' depth is cut further (never
+    a width)."""
     import shutil
 
     free = shutil.disk_usage(root).free
@@ -3053,12 +3099,16 @@ def write_checkpoints(torch, dev, root):
     d_bytes = spec_bytes(torch, draft_specs(torch, dev, gen, DRAFT_HF_CONFIG))
     while True:
         t_bytes = spec_bytes(torch, target_specs(torch, dev, gen, target_hf))
-        if t_bytes + d_bytes + 2e9 <= free or target_hf["num_hidden_layers"] <= 4:
+        b_hf = dict(TARGET_BF16_HF_CONFIG, num_hidden_layers=target_hf["num_hidden_layers"])
+        b_bytes = spec_bytes(torch, dense_specs(torch, dev, gen, b_hf)) if bf16 else 0
+        if t_bytes + b_bytes + d_bytes + 2e9 <= free or target_hf["num_hidden_layers"] <= 4:
             break
         target_hf["num_hidden_layers"] -= 4
     log(f"[checkpoint] free disk {free / 1e9:.1f} GB; target {t_bytes / 1e9:.2f} GB at "
-        f"{target_hf['num_hidden_layers']} layers, draft {d_bytes / 1e9:.2f} GB")
-    check(t_bytes + d_bytes + 2e9 <= free, "[checkpoint] not enough disk even at 4 layers")
+        f"{target_hf['num_hidden_layers']} layers, bf16 target {b_bytes / 1e9:.2f} GB, "
+        f"draft {d_bytes / 1e9:.2f} GB")
+    check(t_bytes + b_bytes + d_bytes + 2e9 <= free,
+          "[checkpoint] not enough disk even at 4 layers")
     dirs = {k: os.path.join(root, k) for k in ("target", "target-w4a8", "draft")}
     t0 = time.time()
     specs = target_specs(torch, dev, gen.manual_seed(11), target_hf)
@@ -3075,8 +3125,14 @@ def write_checkpoints(torch, dev, root):
     _write_dir(dirs["draft"], DRAFT_HF_CONFIG,
                [draft_specs(torch, dev, gen.manual_seed(12), DRAFT_HF_CONFIG)])
     d_write = time.time() - t0
+    if bf16:  # two shards, as the AWQ target (meta-llama's own directory has four)
+        dirs["target-bf16"] = os.path.join(root, "target-bf16")
+        specs = dense_specs(torch, dev, gen.manual_seed(13), b_hf)
+        half = 1 + 9 * (b_hf["num_hidden_layers"] // 2)  # embed + half the layers | the rest
+        _write_dir(dirs["target-bf16"], b_hf, [specs[:half], specs[half:]])
     torch.cuda.empty_cache()
     return dict(dirs=dirs, target_hf=target_hf, target_gb=t_bytes / 1e9, draft_gb=d_bytes / 1e9,
+                bf16_target_gb=b_bytes / 1e9,
                 target_layers=target_hf["num_hidden_layers"], free_disk_gb=free / 1e9,
                 target_write_s=t_write, draft_write_s=d_write)
 
@@ -7225,6 +7281,399 @@ def multihost_phase(torch, dev):
 TRAIN_PHASES = ("train", "train-dp", "pp-train", "moe-train", "tp-train", "ep-train", "multihost")
 
 
+# ---------------------------------------------------------------- the example scripts
+
+# umbrella_tpu_torch/examples/: each phase calls an example's measuring function
+# on an engine or runtime built here (the checkpoints above, WordTokenizer)
+EXAMPLE_NEW_TOKENS = 32  # spec_bench's and spec_bench_python's (the scripts' 256 / 512)
+SPEC_BENCH_QUESTIONS = 3  # --limit 3: 6 turns over 3 categories
+SERVE_BF16_REQUESTS, SERVE_BF16_NEW_TOKENS = 16, 24
+AR_NEW_TOKENS = 64  # the AR baseline's (the script's 128)
+BENCH_PREFIX, BENCH_DECODE, BENCH_ITERS = 512, 32, 20
+BENCH_OFFLOAD_CACHED = 4  # of the 8B AutoAWQ directory's 8 layers
+SEQUOIA_BEAMS, SEQUOIA_TREE, SEQUOIA_NEW_TOKENS = 8, (5, 6), 16
+SOAK_BATCH, SOAK_REQUESTS, SOAK_NEW_TOKENS = 32, 64, 64  # the script's: 8, 32, 128
+SOAK_PROMPTS = (32, 256)
+
+
+def example_engine(torch, dev, name, ckpt, target):
+    """A shipped config's engine (model, draft_model and growmap_path
+    rewritten) as the examples build it, with WordTokenizer: (engine, the
+    config's template, its scheduler key or None, init s)."""
+    from umbrella_tpu_torch.examples import engine_config
+    from umbrella_tpu_torch.speculation.auto_engine import AutoEngine
+
+    cfg = shipped_config(name, ckpt, target)
+    template = cfg.pop("template", "meta-llama3")
+    sched_cfg = cfg.pop("scheduler", None)
+    for k in ("generation_length", "max_turns"):
+        cfg.pop(k, None)
+    t0 = time.time()
+    eng = AutoEngine.from_config(device=dev, tokenizer=WordTokenizer(), **engine_config(cfg))
+    eng.initialize()
+    torch.cuda.synchronize()
+    return eng, template, sched_cfg, time.time() - t0
+
+
+def recorded_decodes(eng):
+    """Wrap eng.speculative_decoding to keep (context ids, new tokens) of
+    each call, for check_not_degenerate."""
+    decodes, decode = [], eng.speculative_decoding
+
+    def record(n):
+        start = eng.num_nodes
+        dec_len, elapsed, steps = decode(n)
+        decodes.append((eng.tokens_host[:start].tolist(),
+                        eng.tokens_host[start:start + dec_len].tolist()))
+        return dec_len, elapsed, steps
+
+    eng.speculative_decoding = record
+    return decodes
+
+
+def check_decodes(tag, decodes, eos, n_new, vocab=128256):
+    for _, toks in decodes:
+        check(len(toks) >= n_new or toks[-1] in eos, f"{tag} a decode stopped at {len(toks)}")
+        check(all(0 <= t < vocab for t in toks), f"{tag} token out of range")
+
+
+def check_launched(tag, counts, names, bf16=True):
+    for name in names:
+        check(counts[name] > 0, f"{tag} kernel {name} was never launched")
+    if bf16:
+        check_tc_route(counts, tag)
+
+
+def dense_bf16_target(torch, tag, eng, ckpt):
+    from umbrella_tpu_torch.quantization.awq import has_awq_layers
+
+    t = eng.target_model
+    check(not has_awq_layers(t.params["layers"]) and t.params["lm_head"].dtype == torch.bfloat16
+          and t.args.n_layers == ckpt["target_layers"]
+          and t.cfg.hidden_size == TARGET_BF16_HF_CONFIG["hidden_size"],
+          f"{tag} the target is not the bf16 Llama-3.1-8B directory")
+
+
+def spec_bench_phase(torch, dev, ckpt):
+    """configs/chat_config_8b_v5e.json as shipped over the bf16 Llama-3.1-8B
+    directory and the Llama-3.2-1B one: spec_generate once, then spec_bench
+    over the port's question.jsonl (3 questions, 6 turns)."""
+    from umbrella_tpu_torch.examples import DATA_DIR
+    from umbrella_tpu_torch.examples.spec_bench import load_questions, spec_bench
+    from umbrella_tpu_torch.examples.spec_generate import spec_generate
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    tag = "[spec-bench]"
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng, template, _, init_s = example_engine(torch, dev, "chat_config_8b_v5e.json", ckpt,
+                                              "target-bf16")
+    dense_bf16_target(torch, tag, eng, ckpt)
+    check(type(eng).__name__ == "StaticEngine" and eng.tree_size == 31
+          and (eng.temperature, eng.topp, eng.topk, eng.repetition_penalty)
+          == (0.6, 0.9, 32, 1.05), f"{tag} the config was not taken as shipped")
+    decodes = recorded_decodes(eng)
+    reset_launch_counts()
+    gen = spec_generate(eng, template, "Explain the idea of speculative decoding.",
+                        EXAMPLE_NEW_TOKENS)
+    gen_counts = launch_counts()
+    eng.reset()
+    questions = load_questions(os.path.join(DATA_DIR, "question.jsonl"))[:SPEC_BENCH_QUESTIONS]
+    reset_launch_counts()
+    stats = spec_bench(eng, questions, template, EXAMPLE_NEW_TOKENS)
+    counts = launch_counts()
+    for c in (gen_counts, counts):
+        check_launched(tag, c, ("embed_gather", "attend_flash"))
+        check(c["w4a16_matmul"] == 0, f"{tag} a W4 kernel ran on the bf16 pair")
+    cats = sorted(q["category"] for q in questions)
+    check(sorted(stats["categories"]) == cats and len(decodes) == 1 + 2 * len(questions),
+          f"{tag} categories {sorted(stats['categories'])} from {len(decodes)} decodes")
+    check_decodes(tag, decodes, set(eng.eos_token_ids), EXAMPLE_NEW_TOKENS)
+    total = stats["total"]
+    guard = check_not_degenerate(tag, decodes, accept=total["avg_accept_tokens"],
+                                 max_accept=eng.tree_depth)
+    graphs = check_graphed(eng, tag)
+    res = dict(config="chat_config_8b_v5e.json", init_s=init_s, spec_generate=gen,
+               categories=stats["categories"], total=total, degenerate_guard=guard,
+               launches=counts, launches_spec_generate=gen_counts,
+               launches_per_step={k: n / max(total["steps"], 1) for k, n in counts.items()},
+               graphs=graphs, peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+    log(f"{tag} {json.dumps(res)}")
+    del eng
+    return res
+
+
+def spec_bench_code_phase(torch, dev, ckpt):
+    """configs/code_config_8b_awq_v5e.json over the 8B AutoAWQ directory
+    (quantize_draft: a W4 1B draft), through spec_bench_python's five
+    default prompts."""
+    from umbrella_tpu_torch.examples.spec_bench_python import DEFAULT_PROMPTS, spec_bench_python
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    tag = "[spec-bench-code]"
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng, template, _, init_s = example_engine(torch, dev, "code_config_8b_awq_v5e.json", ckpt,
+                                              "target")
+    decodes = recorded_decodes(eng)
+    reset_launch_counts()
+    stats = spec_bench_python(eng, DEFAULT_PROMPTS, template, EXAMPLE_NEW_TOKENS)
+    counts = launch_counts()
+    check(stats["kept"] == list(range(len(DEFAULT_PROMPTS))) and len(decodes) == 5,
+          f"{tag} prompts kept {stats['kept']}")
+    check_launched(tag, counts, ("embed_gather", "attend_flash", "w4a16_matmul"))
+    check_decodes(tag, decodes, set(eng.eos_token_ids), EXAMPLE_NEW_TOKENS)
+    guard = check_not_degenerate(tag, decodes, accept=stats["avg_accept_tokens"],
+                                 max_accept=eng.tree_depth)
+    graphs = check_graphed(eng, tag)
+    res = dict(config="code_config_8b_awq_v5e.json", init_s=init_s, stats=stats,
+               degenerate_guard=guard, launches=counts,
+               launches_per_step={k: n / max(stats["steps"], 1) for k, n in counts.items()},
+               graphs=graphs, peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+    log(f"{tag} {json.dumps(res)}")
+    del eng
+    return res
+
+
+def serve_config_bf16_phase(torch, dev, ckpt):
+    """configs/serve_batched_8b_v5e.json as shipped (batched_static, B=8,
+    3x4, temperature 0.6, top-p 0.9, top-k 32, its "scheduler" key) over the
+    bf16 Llama-3.1-8B / Llama-3.2-1B pair: requests through make_scheduler
+    in front of a ContinuousBatcher."""
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.serving.batched_engine import ContinuousBatcher
+    from umbrella_tpu_torch.serving.scheduler import make_scheduler
+
+    tag = "[serve-config-bf16]"
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng, _, sched_cfg, init_s = example_engine(torch, dev, "serve_batched_8b_v5e.json", ckpt,
+                                               "target-bf16")
+    dense_bf16_target(torch, tag, eng, ckpt)
+    check(type(eng).__name__ == "BatchedStaticEngine" and eng.batch_size == 8
+          and eng.tree_size == 13 and not eng.kv_target.quantized and sched_cfg == {}
+          and (eng.temperature, eng.topp, eng.topk) == (0.6, 0.9, 32),
+          f"{tag} the config was not taken as shipped")
+    reqs = random_requests(17, SERVE_BF16_REQUESTS, SERVE_BF16_NEW_TOKENS)
+    eng.run([dict(r, max_new_tokens=4) for r in reqs[:2]])  # warm-up: captures the segment
+    batcher = ContinuousBatcher(eng)
+    batcher.start()
+    sched = make_scheduler(batcher=batcher, workers=sched_cfg.get("workers"))
+    sched.start()
+    reset_launch_counts()
+    steps0 = eng.steps_dispatched
+    t0 = time.time()
+    futs = [sched.submit(priority=1 + i % 3, **r) for i, r in enumerate(reqs)]
+    outs = [f.result(timeout=300) for f in futs]
+    wall = time.time() - t0
+    counts = launch_counts()
+    metrics = sched.snapshot_metrics()
+    sched.shutdown(wait=False)
+    batcher.shutdown()
+    steps = eng.steps_dispatched - steps0
+    eos = set(eng.eos_token_ids)
+    for o in outs:
+        toks = o["generated_tokens"]
+        check(len(toks) <= SERVE_BF16_NEW_TOKENS + 1 and (
+            len(toks) >= SERVE_BF16_NEW_TOKENS or toks[-1] in eos),
+            f"{tag} request got {len(toks)} tokens")
+        check(all(0 <= t < 128256 for t in toks), f"{tag} token out of range")
+    check_launched(tag, counts, ("embed_gather", "attend_flash_batched"))
+    check(counts["w4a16_matmul"] == 0, f"{tag} a W4 kernel ran on the bf16 pair")
+    guard = check_not_degenerate(tag, [(r["input_ids"], o["generated_tokens"])
+                                       for r, o in zip(reqs, outs)])
+    graphs = check_graphed(eng, tag)
+    res = dict(config="serve_batched_8b_v5e.json", init_s=init_s, requests=len(reqs),
+               tok_per_s=sum(len(o["generated_tokens"]) for o in outs) / wall, wall_s=wall,
+               steps=steps, avg_accept_tokens=sum(o["avg_accept_tokens"] for o in outs) / len(outs),
+               ttft_ms_p50=pct([o["ttft_ms"] for o in outs], 50),
+               scheduler={k: metrics[k] for k in ("requests", "priority_inversions")},
+               degenerate_guard=guard, launches=counts,
+               launches_per_step={k: n / max(steps, 1) for k, n in counts.items()},
+               graphs=graphs, peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+    log(f"{tag} {json.dumps(res)}")
+    del eng, batcher, sched
+    return res
+
+
+def generate_phase(torch, dev, ckpt):
+    """The AR baseline (examples/generate.autoregressive_decode) on the
+    Llama-3.2-1B directory at its full 16 layers: 64 greedy tokens, graphed,
+    equal to the plain stepwise AR decode; 16 sampled ones start with the
+    prefill's argmax. Then examples/bench's step: the 1B resident (prefix
+    512, 32 tokens, one CUDA graph) and the 8B AutoAWQ directory with offload
+    (4 layers resident, the rest streamed)."""
+    from umbrella_tpu_torch.examples.bench import bench_step
+    from umbrella_tpu_torch.examples.generate import autoregressive_decode
+    from umbrella_tpu_torch.models.auto_model import AutoModelLM
+    from umbrella_tpu_torch.offload.streaming import OffloadModelRuntime
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    tag = "[generate]"
+    rt = AutoModelLM.from_pretrained(ckpt["dirs"]["draft"], max_length=MAX_LEN, device=dev)
+    check(rt.args.n_layers == DRAFT_HF_CONFIG["num_hidden_layers"], f"{tag} not the whole 1B")
+    ids = WordTokenizer().encode("Tell me what you know about Reinforcement Learning in 100 "
+                                 "words.")
+    reset_launch_counts()
+    toks, tpot = autoregressive_decode(rt, ids, max_new_tokens=AR_NEW_TOKENS)
+    ar_counts = launch_counts()
+    want = greedy_ar_decode(torch, rt, ids, AR_NEW_TOKENS)[0]
+    check(toks == want, f"{tag} the graphed AR decode parts from the stepwise one at token "
+          f"{first_difference(toks, want)}")
+    check_decodes(tag, [(ids, toks)], set(), AR_NEW_TOKENS)
+    sampled, _ = autoregressive_decode(rt, ids, max_new_tokens=16, greedy=False)
+    check(sampled[0] == toks[0] and len(sampled) == 16, f"{tag} sampled decode's first token")
+    # forwards: the prefill, the capture's eager run, 63 replays
+    check_launched(tag, ar_counts, ("embed_gather", "attend_flash"))
+    reset_launch_counts()
+    step = bench_step(rt, BENCH_PREFIX, BENCH_DECODE, BENCH_ITERS)
+    step_counts = launch_counts()
+    check_launched(tag, step_counts, ("embed_gather", "attend_flash"))
+    del rt
+    torch.cuda.empty_cache()
+    cached = min(BENCH_OFFLOAD_CACHED, ckpt["target_layers"] // 2)
+    off = AutoModelLM.from_pretrained(ckpt["dirs"]["target"], offload=True, max_length=MAX_LEN,
+                                      num_cache_layers=cached, device=dev)
+    check(isinstance(off, OffloadModelRuntime) and off.n_resident == cached and off.n_streamed,
+          f"{tag} --offload did not give an offload runtime")
+    reset_launch_counts()
+    off_step = bench_step(off, BENCH_PREFIX, BENCH_DECODE, BENCH_ITERS)
+    off_counts = launch_counts()
+    check_launched(tag, off_counts, ("embed_gather", "attend_flash", "w4a16_matmul"))
+    res = dict(tokens=len(toks), tpot_ms=tpot, ar_tok_per_s=1000 / tpot, identical_to_ar=True,
+               launches=ar_counts,
+               launches_per_step={k: n / (AR_NEW_TOKENS + 1) for k, n in ar_counts.items()},
+               bench=step, bench_launches=step_counts,
+               bench_offload=dict(off_step, n_resident=off.n_resident,
+                                  n_streamed=off.n_streamed),
+               bench_offload_launches=off_counts)
+    log(f"{tag} {json.dumps(res)}")
+    del off
+    return res
+
+
+def construct_sequoia_phase(torch, dev, ckpt):
+    """examples/construct_sequoia: the 1B draft's positional acceptance
+    against the 8B AutoAWQ target over DEFAULT_TEXTS (WordTokenizer ids), 8
+    beams; the 5x6 tree built from it into build/, loaded through
+    speculation/tree.GrowMap, drives one static-engine request."""
+    from umbrella_tpu_torch.examples.construct_sequoia import DEFAULT_TEXTS, measure_acceptance
+    from umbrella_tpu_torch.models.auto_model import AutoModelLM
+    from umbrella_tpu_torch.ops.kernels import build, launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.sequoia import generate_sequoia_tree
+    from umbrella_tpu_torch.speculation.auto_engine import AutoEngine
+    from umbrella_tpu_torch.speculation.tree import GrowMap
+
+    tag = "[construct-sequoia]"
+    L = 1024
+    target = AutoModelLM.from_pretrained(ckpt["dirs"]["target"], max_length=L, device=dev)
+    draft = AutoModelLM.from_pretrained(ckpt["dirs"]["draft"], max_length=L, device=dev)
+    seqs = [WordTokenizer().encode(t) for t in DEFAULT_TEXTS]
+    reset_launch_counts()
+    t0 = time.time()
+    acc = measure_acceptance(draft, target, seqs, num_beams=SEQUOIA_BEAMS, max_len=L)
+    measure_s = time.time() - t0
+    counts = launch_counts()
+    check(len(acc) == SEQUOIA_BEAMS and all(0.0 <= a <= 1.0 for a in acc) and sum(acc) <= 1.0,
+          f"{tag} acceptance vector {acc}")
+    check_launched(tag, counts, ("embed_gather", "attend_flash", "w4a16_matmul"))
+    w, d = SEQUOIA_TREE
+    path = os.path.join(build.BUILD_DIR, f"sequoia_tree-{w}x{d}.json")
+    tree = generate_sequoia_tree(w, d, acc=acc, json_file=path)
+    gm = GrowMap.from_json(path)
+    gm.validate()
+    check(gm.size == tree["size"] == 1 + w * d, f"{tag} tree of {gm.size} nodes")
+    eng = AutoEngine.from_config(device=dev, engine="static", model=target, draft_model=draft,
+                                 growmap_path=path, max_length=L, temperature=0.0)
+    eng.initialize()
+    reset_launch_counts()
+    out = eng.generate(input_ids=seqs[1], max_new_tokens=SEQUOIA_NEW_TOKENS)
+    eng_counts = launch_counts()
+    check_decodes(tag, [(seqs[1], out["generated_tokens"])], set(eng.eos_token_ids),
+                  SEQUOIA_NEW_TOKENS)
+    check_launched(tag, eng_counts, ("embed_gather", "attend_flash", "w4a16_matmul"))
+    check_graphed(eng, tag)
+    res = dict(acceptance=acc, tokens_measured=sum(len(s) for s in seqs), measure_s=measure_s,
+               tree=os.path.relpath(path, os.path.dirname(os.path.abspath(__file__))),
+               tree_size=gm.size, request_tokens=len(out["generated_tokens"]),
+               request_accept=out["avg_accept_tokens"], launches=counts,
+               launches_per_sequence={k: n / len(seqs) for k, n in counts.items()},
+               engine_launches=eng_counts)
+    log(f"{tag} {json.dumps(res)}")
+    del eng, target, draft
+    return res
+
+
+def bench_70b_phase(torch, dev):
+    """examples/bench_70b.measure() at Llama-3.x-70B width on this card:
+    its JSON line, slope-timed layer and head."""
+    import math
+
+    from umbrella_tpu_torch.examples.bench_70b import measure
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    tag = "[bench-70b]"
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.time()
+    res = measure(device=dev)
+    wall = time.time() - t0
+    counts = launch_counts()
+    log(f"{tag} {json.dumps(res)}")
+    d = res["detail"]
+    check(res["value"] > 0 and d["lm_head_ms"] > 0 and d["platform"].startswith("gpu ")
+          and all(math.isfinite(v["verify_ms"]) and v["verify_ms"] > 0
+                  for v in d["extrapolated_verify_step"].values()),
+          f"{tag} a time is not positive: {res}")
+    check_launched(tag, counts, ("attend_flash", "w4a16_matmul"))
+    out = dict(wall_s=wall, peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+    log(f"{tag} {json.dumps(dict(out, launches={k: n for k, n in counts.items() if n}))}")
+    return dict(res, **out, launches=counts)
+
+
+def serve_soak_phase(torch, dev):
+    """examples/serve_soak --model-class awq8b --batch 32: the flagship 8B
+    AWQ composition (int8 KV, 2x3, early-exit Int4F draft), 64 requests 20 ms
+    apart through make_scheduler and the pipelined ContinuousBatcher, every
+    4th streaming; its JSON line."""
+    from umbrella_tpu_torch.examples.serve_soak import build_models, soak
+    from umbrella_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from umbrella_tpu_torch.serving.batched_engine import BatchedStaticEngine
+
+    tag = "[serve-soak]"
+    torch.cuda.reset_peak_memory_stats(dev)
+    target, draft, gm, kv_dtype, dtype = build_models("awq8b", MAX_LEN, dev)
+    eng = BatchedStaticEngine(draft_model_name=draft, target_model_name=target,
+                              batch_size=SOAK_BATCH, dtype=dtype, growmap=gm, max_length=MAX_LEN,
+                              eos_token_ids=[-100], segment_steps=SEGMENT_STEPS,
+                              kv_dtype=kv_dtype, device=dev)
+    eng.initialize()
+    reset_launch_counts()
+    steps0 = eng.steps_dispatched
+    res = soak(eng, SOAK_REQUESTS, SOAK_NEW_TOKENS, *SOAK_PROMPTS, model_class="awq8b")
+    counts = launch_counts()
+    outs = res.pop("outputs")
+    log(f"{tag} {json.dumps(res)}")
+    d = res["detail"]
+    check(len(outs) == SOAK_REQUESTS
+          and d["total_tokens"] == sum(len(o["generated_tokens"]) for o in outs),
+          f"{tag} {len(outs)} results, {d['total_tokens']} tokens")
+    for o in outs:
+        toks = o["generated_tokens"]
+        check(1 <= len(toks) <= SOAK_NEW_TOKENS + 1 and all(0 <= t < 128256 for t in toks),
+              f"{tag} a request got {len(toks)} tokens or one out of range")
+    check_launched(tag, counts, ("embed_gather", "attend_flash_batched_int8", "w4a16_matmul",
+                                 "w4a8f_matmul", "w4a8_quantize"))
+    steps = eng.steps_dispatched - steps0
+    out = dict(steps=steps, launches_per_step={k: n / max(steps, 1) for k, n in counts.items()
+                                               if n},
+               graphs=check_graphed(eng, tag),
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+    log(f"{tag} {json.dumps(out)}")
+    return dict(res, **out, launches=counts)
+
+
+EXAMPLE_PHASES = ("spec-bench", "spec-bench-code", "serve-config-bf16", "generate",
+                  "construct-sequoia")
+
+
 # ---------------------------------------------------------------- main
 
 KERNEL_META = {
@@ -7279,12 +7728,13 @@ TRACED_IN = {"main": "[profile] graphed: a 64-token generate()",
                           "outside the window)"}
 CHECKPOINT_PHASES = ("checkpoint", "code-config", "code-config-w4a8", "serve-config",
                      "api-serve", "api-chat", "pp-config", "tp-config", "offload-checkpoint",
-                     "offload-config")
+                     "offload-config") + EXAMPLE_PHASES
 PHASES = ("kernels", "multi-card", "lossless", "lossless-int8", "lossless-w4a8",
           "batched-lossless", "pp-lossless", "tp-lossless", "tp-serve", "dynamic-lossless",
           "offload-lossless") + TRAIN_PHASES + ("main",
           "graph", "dynamic", "dynamic-pp", "serve", "serve-bf16",
-          "serve-stochastic") + CHECKPOINT_PHASES + GEMMA_PHASES + MOE_PHASES
+          "serve-stochastic") + CHECKPOINT_PHASES + ("bench-70b", "serve-soak") + GEMMA_PHASES \
+    + MOE_PHASES
 # phases that run only when named in --phases: `w4a16`, `w4a8` and
 # `attention` are subsets of `kernels`
 SUBSET_PHASES = ("w4a16", "w4a8", "attention")
@@ -7386,7 +7836,8 @@ def run(torch, phases):
         os.makedirs(build.BUILD_DIR, exist_ok=True)
         root = tempfile.mkdtemp(prefix="checkpoints-", dir=build.BUILD_DIR)
         try:
-            ckpt = write_checkpoints(torch, dev, root)
+            ckpt = write_checkpoints(torch, dev, root,
+                                     bf16=bool({"spec-bench", "serve-config-bf16"} & set(phases)))
             phase("checkpoint", checkpoint_phase, torch, dev, ckpt)
             phase("code-config", code_config_phase, torch, dev, ckpt, prompt.tolist(),
                   "[code-config]", "target")
@@ -7401,8 +7852,15 @@ def run(torch, phases):
             phase("tp-config", tp_config_phase, torch, dev, ckpt, prompt.tolist())
             phase("offload-checkpoint", offload_checkpoint_phase, torch, dev, ckpt)
             phase("offload-config", offload_config_phase, torch, dev, ckpt, prompt.tolist())
+            phase("spec-bench", spec_bench_phase, torch, dev, ckpt)
+            phase("spec-bench-code", spec_bench_code_phase, torch, dev, ckpt)
+            phase("serve-config-bf16", serve_config_bf16_phase, torch, dev, ckpt)
+            phase("generate", generate_phase, torch, dev, ckpt)
+            phase("construct-sequoia", construct_sequoia_phase, torch, dev, ckpt)
         finally:
             shutil.rmtree(root, ignore_errors=True)
+    phase("bench-70b", bench_70b_phase, torch, dev)
+    phase("serve-soak", serve_soak_phase, torch, dev)
     family_phases(torch, dev, phase, phases, prompt.tolist())
 
     if set(phases) != set(PHASES):
@@ -7439,7 +7897,10 @@ def run(torch, phases):
                                  launches_per_step_in={p: results[p]["launches_per_step"][name]
                                                        for p in ("tp-train", "ep-train")})}
                if "training_shape" in r else {}),
-            **multihost_launches(results["multihost"], name)))
+            **multihost_launches(results["multihost"], name),
+            launches_in_examples={p: results[p]["launches"][name]
+                                  for p in EXAMPLE_PHASES + ("bench-70b", "serve-soak")
+                                  if results[p]["launches"][name]}))
     main, serve = results["main"], results["serve"]
     summary = {k: main[k] for k in ("tok_per_s", "decode_step_ms", "avg_accept_tokens",
                                     "ttft_ms_prefill128", "spec_vs_ar_common_prefix")}
@@ -7599,6 +8060,27 @@ def run(torch, phases):
                             "prompt_logits_bitwise", "one_process_decode_step_ms")},
         processes=[{k: p[k] for k in ("backend", "spawn_to_ready_s", "decode_step_ms",
                                       "gathers_per_step")} for p in mh["processes"]])
+    sb, code = results["spec-bench"], results["spec-bench-code"]["stats"]
+    summary["spec-bench"] = dict({k: sb["total"][k] for k in (
+        "tok_per_s", "tpot_ms", "avg_accept_tokens", "tokens")},
+        spec_generate_tok_per_s=sb["spec_generate"]["tok_per_s"])
+    summary["spec-bench-code"] = {k: code[k] for k in ("tok_per_s", "tpot_ms",
+                                                       "avg_accept_tokens", "tokens")}
+    summary["serve-config-bf16"] = {k: results["serve-config-bf16"][k] for k in (
+        "tok_per_s", "avg_accept_tokens", "ttft_ms_p50", "peak_mem_gb")}
+    gen = results["generate"]
+    summary["generate"] = dict(tpot_ms=gen["tpot_ms"], bench_step_ms=gen["bench"]["step_ms"],
+                               bench_offload_step_ms=gen["bench_offload"]["step_ms"])
+    summary["construct-sequoia"] = {k: results["construct-sequoia"][k] for k in (
+        "acceptance", "tree_size", "request_accept")}
+    b70 = results["bench-70b"]
+    summary["bench-70b"] = dict(layer_ms=b70["value"], lm_head_ms=b70["detail"]["lm_head_ms"],
+                                tp1_verify_ms=b70["detail"]["extrapolated_verify_step"]["tp1"][
+                                    "verify_ms"])
+    soak = results["serve-soak"]["detail"]
+    summary["serve-soak"] = dict({k: soak[k] for k in (
+        "latency_p50_ms", "latency_p99_ms", "ttft_p50_ms", "ttft_p99_ms", "wall_s")},
+        tok_per_s=results["serve-soak"]["value"])
     summary["seconds"] = time.time() - t_all
     log(f"[summary] {json.dumps(summary)}")
     print(json.dumps({"kernels": kernels}), flush=True)

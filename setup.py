@@ -8,7 +8,7 @@ setup(
     packages=find_packages(include=["umbrella_tpu", "umbrella_tpu.*",
                                     "umbrella_tpu_torch", "umbrella_tpu_torch.*"]),
     package_data={"umbrella_tpu": ["trees/*.json", "data/*.jsonl"],
-                  "umbrella_tpu_torch": ["trees/*.json", "csrc/*.cu"]},
+                  "umbrella_tpu_torch": ["trees/*.json", "data/*.jsonl", "csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax>=0.5",
