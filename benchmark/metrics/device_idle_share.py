@@ -1,0 +1,8 @@
+"""device_idle_share (device trace): the share of the traced span in which no
+kernel or copy ran on the card."""
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    return 100.0 * (1.0 - run.trace["busy_s"] / run.trace["window_s"])
