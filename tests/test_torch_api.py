@@ -251,6 +251,12 @@ def test_empty_scheduler_key_builds_a_scheduler(kind):
     assert frames[-1]["processed"] is True and len(frames) >= 2
     assert metrics["requests"] == 2 and metrics["tokens"] >= 8 and metrics["expired"] == 0
     assert set(metrics["by_priority"]) == {"1", "5"} and metrics["priority_inversions"] == 0
+    # the process's span totals ride along: where the requests waited and prefilled
+    spans = metrics["spans"]
+    if kind == "batched":
+        assert spans["serve.queue"]["count"] >= 2 and spans["serve.decode"]["count"] >= 2
+    else:
+        assert spans["engine.prefill"]["count"] >= 2
 
 
 def test_server_device_defaults_to_cuda(monkeypatch):

@@ -12,7 +12,9 @@ A thread per connection reads requests (api_utils framing). Three routes:
 - a Scheduler (a `"scheduler": {...}` config key, even `{}`, or an injected
   `scheduler`): a priority queue in front of either backend
   (serving/scheduler.make_scheduler), with a per-request `"priority"` (lower
-  is sooner) and `{"get_metrics": true}` for its metrics.
+  is sooner) and `{"get_metrics": true}` for its metrics, with the process's
+  span totals under `"spans"` (profiling.totals(): behind a batcher the
+  scheduler's queue is near empty, and `serve.queue` shows the wait).
 
 `"stream": true` sends partial frames {"partial": true, "generated_text":
 text so far, "perf": str} before the final result; a client-chosen `req_id`
@@ -28,6 +30,7 @@ import socket
 import threading
 from queue import Queue
 
+from .. import profiling
 from ..speculation.auto_engine import AutoEngine
 from ..utils import TextColors, device_scope, setup_logger
 from .api_utils import receive_data, send_data
@@ -88,6 +91,7 @@ class APIServer:
                         if received.get("get_metrics", False):
                             with send_lock:
                                 send_data(conn, jsonable(dict(self.scheduler.snapshot_metrics(),
+                                                              spans=profiling.totals(),
                                                               processed=True)))
                             continue
                         priority = int(received.pop("priority", 10))

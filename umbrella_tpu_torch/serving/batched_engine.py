@@ -54,6 +54,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
+from .. import profiling
 from ..cuda_graphs import Phase, StepGraph
 from ..models.auto_model import ModelRuntime
 from ..models.batched import gather_compact_batched, init_runtime_batched_kv, model_forwards
@@ -443,7 +444,8 @@ class BatchedStaticEngine:
             emit = rem <= bucket
             prompt = np.zeros(bucket, np.int32)
             prompt[:min(rem, bucket)] = ids[off:off + min(rem, bucket)]
-            next_tok = self._prefill_chunk(slot, off, prompt, rem if emit else bucket, emit)
+            with profiling.span("serve.prefill_chunk", request=st.get("request")):
+                next_tok = self._prefill_chunk(slot, off, prompt, rem if emit else bucket, emit)
             st["off"] = off + min(rem, bucket)
             if st["off"] >= n:
                 if fetch:
@@ -549,14 +551,18 @@ class BatchedStaticEngine:
         (admission length + its token budget); EOS, budget and context cap
         stop slots on the device. An active slot commits at least one token a
         step, so no slot is active past max(stop_at - num_nodes) steps: the
-        segment is clipped there. Returns per-slot active-step counts."""
+        segment is clipped there. Returns per-slot active-step counts. The
+        dispatch and the sync run in the spans `serve.dispatch` and
+        `serve.sync` (profiling.py)."""
         stop = np.asarray(stop_at, np.int64)
         left = stop[self.active] - self.num_nodes[self.active]
         n_steps = min(int(n_steps), int(left.max(initial=0)))
         if n_steps <= 0:
             return np.zeros(self.batch_size, np.int32)
-        handle = self.step_many_async(n_steps, stop_at, temperature, topp, penalty)
-        steps = self.sync_segment(handle)
+        with profiling.span("serve.dispatch"):
+            handle = self.step_many_async(n_steps, stop_at, temperature, topp, penalty)
+        with profiling.span("serve.sync"):
+            steps = self.sync_segment(handle)
         # serial callers mutate the host mirrors between segments (admit writes
         # num_nodes): drop the device-carried state so the next call re-seeds
         self._dev_nn = self._dev_active = None
@@ -618,7 +624,12 @@ class _SlotTracker:
     budget-clamped harvest, in one implementation.
 
     `lock` guards slot_req and pending, which the serving loop changes and
-    ContinuousBatcher.shutdown reads from another thread (`futures()`)."""
+    ContinuousBatcher.shutdown reads from another thread (`futures()`).
+
+    A request that ContinuousBatcher gave an id (`_request_id`, with its pop
+    time `_pop_time`) files its spans from these stamps: `serve.admit` from
+    the pop to `decode_t0` (begin_decode), `serve.decode` from there to its
+    harvest."""
 
     def __init__(self, eng: BatchedStaticEngine):
         self.eng = eng
@@ -632,7 +643,8 @@ class _SlotTracker:
         self.emitted = {}     # slot -> tokens already sent to its stream_cb
         self._rr_last = -1    # round-robin pointer over pending admissions
         self.submit_t = {}    # request arrival (req _submit_time, else admission)
-        self.decode_t0 = {}   # prefill done / decode start
+        self.decode_t0 = {}   # prefill done / decode start (the pipelined loop:
+        #                       the dispatch its activation rides)
         self.first_tok_t = {}  # first sync at which committed tokens were seen
 
     def futures(self) -> list:
@@ -692,6 +704,7 @@ class _SlotTracker:
         st = None if ids is None else self.eng.begin_admission(slot, ids)
         if st is None:
             return False
+        st["request"] = req.get("_request_id")
         with self.lock:
             self.pending[slot] = (st, tag, req)
         return True
@@ -720,6 +733,17 @@ class _SlotTracker:
                 self._register(slot, tag, req, start=len(st["ids"]))
                 done.append((slot, tag, True))
         return done
+
+    def begin_decode(self, slots, t: Optional[float] = None) -> None:
+        """The slots' registered requests decode from t (default: their
+        registration): files each one's `serve.admit` span."""
+        for b in slots:
+            if t is not None:
+                self.decode_t0[b] = t
+            _tag, req = self.slot_req[b]
+            rid = req.get("_request_id")
+            if rid is not None:
+                profiling.record("serve.admit", req["_pop_time"], self.decode_t0[b], request=rid)
 
     def emit_partials(self):
         """Send newly committed text to each streaming request's stream_cb as
@@ -790,6 +814,9 @@ class _SlotTracker:
                                          clean_up_tokenization_spaces=False)
                     if eng.tokenizer else "")
             t_first = self.first_tok_t.get(b) or now
+            if req.get("_request_id") is not None:
+                profiling.record("serve.decode", self.decode_t0[b], now,
+                                 request=req["_request_id"])
             done.append((b, tag, dict(
                 generated_text=text, generated_tokens=toks,
                 avg_accept_tokens=len(toks) / max(self.slot_steps[b], 1),
@@ -820,7 +847,12 @@ class ContinuousBatcher:
     (result copy, harvest, tokenizer decode, admission staging) and prefill
     chunks overlap device decoding. pipeline=False runs the serial loop (sync,
     harvest, admit, dispatch), kept as the reference the pipelined loop must
-    match token for token."""
+    match token for token.
+
+    Both loops run each phase of an iteration in a span (`serve.dispatch`,
+    `serve.sync`, `serve.harvest`, `serve.stage`, `serve.idle`), and each
+    request submitted here files `serve.queue`, `serve.admit` and
+    `serve.decode` (profiling.py)."""
 
     def __init__(self, engine: BatchedStaticEngine, pipeline: bool = True):
         self.engine = engine
@@ -874,8 +906,9 @@ class ContinuousBatcher:
 
     def submit(self, **request) -> Future:
         fut: Future = Future()
-        # arrival stamp for the TTFT contract
+        # arrival stamp for the TTFT contract, and the id of its spans
         request.setdefault("_submit_time", time.time())
+        request["_request_id"] = profiling.next_request_id()
         with self._lock:
             if self._crashed is not None:
                 fut.set_exception(self._crashed)
@@ -918,7 +951,8 @@ class ContinuousBatcher:
         outside it, so submit() never waits for device work. A request with a
         scheduler `_priority` is marked `_downstream_better` when a request of
         a strictly better priority waits behind it in this queue; its slot's
-        registration reports that through `_admit_cb`."""
+        registration reports that through `_admit_cb`. Files the request's
+        `serve.queue` span."""
         with self._lock:
             if not self._queue:
                 return None
@@ -927,7 +961,10 @@ class ContinuousBatcher:
             if mine is not None:
                 req["_downstream_better"] = any(
                     r.get("_priority", 1 << 30) < mine for r, _ in self._queue)
-            return req, fut
+        req["_pop_time"] = time.time()
+        profiling.record("serve.queue", req["_submit_time"], req["_pop_time"],
+                         request=req["_request_id"])
+        return req, fut
 
     def _reset_engine(self, eng):
         # the engine goes back reusable: serial callers seed from the host
@@ -946,30 +983,36 @@ class ContinuousBatcher:
 
     def _run_serial(self, eng, st, per_boundary):
         while not self._stop.is_set():
-            occupied = st.occupied()
-            for b in range(eng.batch_size):
-                if b in occupied:
-                    continue
-                item = self._pop_request()
-                if item is None:
-                    break
-                req, fut = item
-                if not st.begin_admit(b, fut, req):
-                    _resolve(fut, dict(_EMPTY_RESULT))
-            budget = self.admission_budget(bool(any(eng.active)), len(st.pending), per_boundary)
-            for _slot, fut, ok in st.advance_admissions(budget):
-                if not ok:
-                    _resolve(fut, dict(_EMPTY_RESULT))
+            with profiling.span("serve.stage"):
+                occupied = st.occupied()
+                for b in range(eng.batch_size):
+                    if b in occupied:
+                        continue
+                    item = self._pop_request()
+                    if item is None:
+                        break
+                    req, fut = item
+                    if not st.begin_admit(b, fut, req):
+                        _resolve(fut, dict(_EMPTY_RESULT))
+                budget = self.admission_budget(bool(any(eng.active)), len(st.pending),
+                                               per_boundary)
+                for slot, fut, ok in st.advance_admissions(budget):
+                    if ok:
+                        st.begin_decode([slot])
+                    else:
+                        _resolve(fut, dict(_EMPTY_RESULT))
             if not any(eng.active):
                 if not st.pending:
-                    self._wake.wait(timeout=0.05)
-                    self._wake.clear()
+                    with profiling.span("serve.idle"):
+                        self._wake.wait(timeout=0.05)
+                        self._wake.clear()
                 continue
             tv, pv, rv = st.sampling_vectors()
             steps_seg = eng.step_many(eng.segment_steps, st.stop_at, tv, pv, rv)
-            for _b, fut, result in st.harvest(steps_seg):
-                _resolve(fut, result)
-            st.emit_partials()
+            with profiling.span("serve.harvest"):
+                for _b, fut, result in st.harvest(steps_seg):
+                    _resolve(fut, result)
+                st.emit_partials()
 
     def _loop_pipelined(self):
         """Lag-1 pipelined serving loop. Per iteration i:
@@ -1012,41 +1055,47 @@ class ContinuousBatcher:
             dispatched = bool(any(eng.active)) or bool(activate) or act_inflight
             handle = None
             if dispatched:
-                tv, pv, rv = st.sampling_vectors()
-                handle = eng.step_many_async(eng.segment_steps, st.stop_at, tv, pv, rv,
-                                             set_nn=set_nn, activate=activate)
+                with profiling.span("serve.dispatch") as dispatch:
+                    tv, pv, rv = st.sampling_vectors()
+                    handle = eng.step_many_async(eng.segment_steps, st.stop_at, tv, pv, rv,
+                                                 set_nn=set_nn, activate=activate)
+                st.begin_decode(activate, dispatch.end)
                 act_inflight = bool(activate)
                 set_nn, activate = {}, []
             else:
                 act_inflight = False
             # 2. lag-1 sync of segment i-1 while segment i runs
             if inflight is not None:
-                steps_seg = eng.sync_segment(inflight)
-                for _b, fut, result in st.harvest(steps_seg):
-                    _resolve(fut, result)
-                st.emit_partials()
+                with profiling.span("serve.sync"):
+                    steps_seg = eng.sync_segment(inflight)
+                with profiling.span("serve.harvest"):
+                    for _b, fut, result in st.harvest(steps_seg):
+                        _resolve(fut, result)
+                    st.emit_partials()
             inflight = self._inflight = handle
-            # 3. stage admissions into free slots
-            occupied = st.occupied()
-            for b in range(eng.batch_size):
-                if b in occupied or eng.active[b]:
-                    continue
-                item = self._pop_request()
-                if item is None:
-                    break
-                req, fut = item
-                if not st.begin_admit(b, fut, req):
-                    _resolve(fut, dict(_EMPTY_RESULT))
-                    continue
-                set_nn[b] = len(st.pending[b][0]["ids"])
-            # 4. prefill chunks queue behind the in-flight segment
-            budget = self.admission_budget(dispatched or bool(any(eng.active)),
-                                           len(st.pending), per_boundary)
-            for slot, fut, ok in st.advance_admissions(budget, fetch=False):
-                if not ok:
-                    _resolve(fut, dict(_EMPTY_RESULT))
-                else:
-                    activate.append(slot)
+            with profiling.span("serve.stage"):
+                # 3. stage admissions into free slots
+                occupied = st.occupied()
+                for b in range(eng.batch_size):
+                    if b in occupied or eng.active[b]:
+                        continue
+                    item = self._pop_request()
+                    if item is None:
+                        break
+                    req, fut = item
+                    if not st.begin_admit(b, fut, req):
+                        _resolve(fut, dict(_EMPTY_RESULT))
+                        continue
+                    set_nn[b] = len(st.pending[b][0]["ids"])
+                # 4. prefill chunks queue behind the in-flight segment
+                budget = self.admission_budget(dispatched or bool(any(eng.active)),
+                                               len(st.pending), per_boundary)
+                for slot, fut, ok in st.advance_admissions(budget, fetch=False):
+                    if not ok:
+                        _resolve(fut, dict(_EMPTY_RESULT))
+                    else:
+                        activate.append(slot)
             if inflight is None and not st.pending and not activate and not any(eng.active):
-                self._wake.wait(timeout=0.05)
-                self._wake.clear()
+                with profiling.span("serve.idle"):
+                    self._wake.wait(timeout=0.05)
+                    self._wake.clear()

@@ -70,6 +70,7 @@ from typing import Union
 import numpy as np
 import torch
 
+from .. import profiling
 from ..cuda_graphs import Phase, StepGraph, run_phases
 from ..models.auto_model import AutoModelLM, ModelRuntime
 from ..models.kv_cache import compact_phases, gather_compact, kv_parts
@@ -790,14 +791,13 @@ class SpecEngineBase(BaseEngine):
         it. A request that cannot start yields one frame, "Exceeding reserved
         allowed context length" twice."""
         self.update_generation_args(**api_args)
-        ok, _ = self._start_request(api_args)
+        ok, _ = self._prefill_request(api_args)
         if not ok:
             msg = "Exceeding reserved allowed context length"
             yield msg, msg
             return
         try:
             max_new_tokens = max(api_args.get("max_new_tokens", 128), self.stop_distance)
-            _sync(self.device)
             t1, start = time.time(), self.num_nodes
             pos, words, steps, text = 0, [""], 0, ""
             for words, steps in self._decode_segments(max_new_tokens):
@@ -813,6 +813,15 @@ class SpecEngineBase(BaseEngine):
             logger.info(TextColors.colorize(perf_log, "magenta"))
         finally:
             self.reset()
+
+    def _prefill_request(self, api_args):
+        """_start_request, then a wait for the device: the `engine.prefill`
+        span (profiling.py)."""
+        with profiling.span("engine.prefill"):
+            ok, early = self._start_request(api_args)
+            if ok:
+                _sync(self.device)
+        return ok, early
 
     def _start_request(self, api_args):
         input_ids = api_args.get("input_ids", None)
@@ -841,11 +850,10 @@ class SpecEngineBase(BaseEngine):
         generated_text, generated_tokens, avg_accept_tokens and
         time_per_output_token (ms); the engine is reset afterwards."""
         self.update_generation_args(**api_args)
-        ok, early = self._start_request(api_args)
+        ok, early = self._prefill_request(api_args)
         if not ok:
             return early
         max_new_tokens = api_args.get("max_new_tokens", 128)
-        _sync(self.device)
         t1 = time.time()
         start = self.num_nodes
         if self._can_decode_fused():
