@@ -1,7 +1,8 @@
-"""One run of one cell: build the configuration on the card from the seed,
-warm up the cell's own shapes (set-up), drive the mix's closed loop for the
-window, read the metrics, free the program, check the served tokens against
-the reference, and return the result's fields."""
+"""One run of one cell: build the configuration on the cell's cards from the
+seed, warm up the cell's own shapes (set-up), drive the mix's closed loop for
+the window, read the metrics, free the program, check the served tokens
+against the reference, and return the result's fields. A cell of `chips` N
+runs on cuda:0 .. cuda:N-1 (the run's card and the next ones)."""
 from __future__ import annotations
 
 import faulthandler
@@ -67,8 +68,18 @@ def run_cell(c: dict, seed: int, seconds: float, trace: bool, device, t_start: f
 
     cfg, mix = c["config"], c["mix"]
     keys = mix["engine"]
+    chips = int(c["workload"]["chips"])
+    # the cell's cards, cuda:i .. cuda:i+chips-1 from the run's device
+    cards = ([torch.device("cuda", (device.index or 0) + i) for i in range(chips)]
+             if device.type == "cuda" else [])
+
+    def sync():
+        for card in cards:
+            torch.cuda.synchronize(card)
+
     mod = spec.builder(cfg)
     built = mod.build(cfg, seed, device, keys["max_length"])
+    sync()
     growmap, levels, size = _tree(keys["growmap"])
     eng = drive.make_engine(built, dict(keys, seed=int(seed) % 2 ** 63), growmap)
     traffic = Traffic(mix, seed, built.vocab)
@@ -79,8 +90,7 @@ def run_cell(c: dict, seed: int, seconds: float, trace: bool, device, t_start: f
         from benchmark.trace import warm_up
 
         warm_up(torch)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    sync()
     t_load = time.time()
     setup_s = t_load - t_start
     if watchdog:
@@ -108,14 +118,14 @@ def run_cell(c: dict, seed: int, seconds: float, trace: bool, device, t_start: f
     if prof is not None:
         from benchmark.trace import close_span
 
-        span = close_span(prof, torch)
-    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+        span = close_span(prof, torch, chips)
+    peaks = [torch.cuda.max_memory_allocated(card) for card in cards] or [0]
 
     run = types.SimpleNamespace(
         seconds=t1 - t0, t0=t0, t1=t1, c0=c0, c1=c1, records=loop.records, mix=mix, cfg=cfg,
         setup_s=setup_s, trace=span, shapes=mod.shapes(cfg), batch=int(keys.get("batch_size", 1)),
         tree_size=size, tree_levels=levels, kv_dtype=keys.get("kv_dtype") or "bf16",
-        chunk=512)
+        chunk=512, chips=chips)
     layers = stretch(run, cm) if cm is not None else run
     wanted = c["per_layer"] if trace else c["end_to_end"]
     metrics = {}
@@ -144,7 +154,8 @@ def run_cell(c: dict, seed: int, seconds: float, trace: bool, device, t_start: f
     if failed:
         correct = False
     res = dict(correct=bool(correct), attempted=attempted, failed=int(failed),
-               metrics=metrics, setup_s=setup_s, memory_peak_bytes=int(peak), found=found,
+               metrics=metrics, setup_s=setup_s, memory_peak_bytes=int(max(peaks)),
+               memory_peak_bytes_by_card=[int(p) for p in peaks], found=found,
                checks=compared, tokens_in_window=window.tokens_in(loop.records, t0, t1))
     if cm is not None:
         # where the per-layer stretch ended, and the steps before the profiler
@@ -153,7 +164,8 @@ def run_cell(c: dict, seed: int, seconds: float, trace: bool, device, t_start: f
                               steps_before=cp["steps"] - c0["steps"],
                               steps_profiled=cm["steps"] - cp["steps"])
     if span is not None:
-        res["device_trace"] = dict(busy_s=span["busy_s"], window_s=span["window_s"],
+        res["device_trace"] = dict(busy_s=span["busy_s"], busy_s_by_card=span["busy_s_by_card"],
+                                   window_s=span["window_s"],
                                    breakdown=dict(device_ops=span["device_ops"],
                                                   idle_gaps=span["idle_gaps"]),
                                    pad_kept=span["pad_kept"])
@@ -194,9 +206,11 @@ def main(argv=None, t_start=None) -> int:
                metrics=res["metrics"], device=dev)
     if args.trace and "device_trace" in res:
         t = res["device_trace"]
-        dev.update(busy_s=t["busy_s"], window_s=t["window_s"], pad_kept=t["pad_kept"])
+        dev.update(busy_s=t["busy_s"], busy_s_by_card=t["busy_s_by_card"],
+                   window_s=t["window_s"], pad_kept=t["pad_kept"])
         out["breakdown"] = t["breakdown"]
     out["detail"] = dict(setup_s=res["setup_s"], found=res["found"],
+                         memory_peak_bytes_by_card=res["memory_peak_bytes_by_card"],
                          tokens_in_window=res["tokens_in_window"], stretch=res.get("stretch"))
     out["checks"] = res["checks"]
     for name, v in res["checks"].items():

@@ -154,7 +154,8 @@ def forward(model: dict, sequences: List[torch.Tensor], low: bool = False,
     `model`: {"embed": bf16 [V, H], "final_norm": [H], "head": Linear,
     "layers": [{"input_norm", "post_norm", "qkv": Linear, "wo": Linear, and
     "gate_up", "down": Linear (dense MLP) or "router": [H, E] and
-    "experts": (gate [E, H, I], up [E, H, I], down [E, I, H])}],
+    "experts": (gate [E, H, I], up [E, H, I], down [E, I, H]), each a stack
+    or a list of the E experts' matrices, which may lie on other cards)}],
     "heads", "kv_heads", "head_dim", "eps", "theta", "top_k"}."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -199,9 +200,9 @@ def forward(model: dict, sequences: List[torch.Tensor], low: bool = False,
 
 def moe(lw: dict, x: torch.Tensor, top_k: int, low: bool):
     """Top-k softmax routing, the k weights renormalised to sum 1, and the
-    chosen experts' SiLU MLPs, one expert's float32 weights at a time (the
-    control: a bf16 router, float8 expert inputs). Returns (output, the rows
-    whose decision is a tie)."""
+    chosen experts' SiLU MLPs, one expert's float32 weights at a time,
+    brought to x's card (the control: a bf16 router, float8 expert inputs).
+    Returns (output, the rows whose decision is a tie)."""
     logits = matmul(x, lw["router"].float(), "bf16" if low else None)
     top = logits.topk(top_k + 1, dim=-1).values
     tie = (top[:, top_k - 1] - top[:, top_k]) <= ROUTER_TIE * logits.abs().amax(dim=-1)
@@ -211,12 +212,13 @@ def moe(lw: dict, x: torch.Tensor, top_k: int, low: bool):
     vals = vals / vals.sum(dim=-1, keepdim=True)
     gate, up, down = lw["experts"]
     out = torch.zeros_like(x)
-    for e in range(gate.shape[0]):
+    for e in range(len(gate)):
         rows, slot = (idx == e).nonzero(as_tuple=True)
         if rows.numel() == 0:
             continue
         xe = x[rows]
-        ge, ue, de = (Linear(dense=[w[e]]).weight(low is not None) for w in (gate, up, down))
+        ge, ue, de = (Linear(dense=[w[e].to(x.device)]).weight(low is not None)
+                      for w in (gate, up, down))
         g = matmul(xe, ge, low)
         u = matmul(xe, ue, low)
         y = matmul(torch.nn.functional.silu(g) * u, de, low)

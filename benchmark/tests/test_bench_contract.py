@@ -25,8 +25,11 @@ def test_keys_names_units():
         assert cfg["reduced"] == c["reduced"] and cfg["source"] == c["source"]
     for w in b["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert NAME.match(w["name"]) and NAME.match(w["traffic"]) and w["chips"] == 1
+        assert NAME.match(w["name"]) and NAME.match(w["traffic"]) and w["chips"] in (1, 4)
         assert TEXT.match(w["why"])
+    # at most a quarter of the cells, rounded down, on four cards; one always may
+    four = sum(w["chips"] == 4 for w in b["workloads"])
+    assert four <= max(1, len(b["workloads"]) // 4)
     for m in b["end_to_end"] + b["per_layer"]:
         assert NAME.match(m["name"]) and UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
     for m in b["end_to_end"]:

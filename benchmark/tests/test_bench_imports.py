@@ -24,6 +24,7 @@ def test_a_run_loads_no_jax():
     code = ("import sys; sys.path.insert(0, %r)\n"
             "import benchmark.harness, benchmark.trace, benchmark.reference\n"
             "import benchmark.configs.mistral7b_awq, benchmark.configs.mixtral8x7b\n"
+            "import benchmark.configs.mixtral8x7b_ep4\n"
             "import umbrella_tpu_torch.serving.scheduler, umbrella_tpu_torch.serving.batched_engine\n"
             "import umbrella_tpu_torch.speculation.auto_engine, umbrella_tpu_torch.models.moe\n"
             "import umbrella_tpu_torch.quantization.loader, umbrella_tpu_torch.quantization.int4f\n"

@@ -35,9 +35,10 @@ TRACE_DROPPED = {"[memory]", "[OutOfMemory]", "profiler::_record_function_enter"
 
 
 def read_trace(prof, torch) -> dict:
-    """{"device": [(name, start us, end us)] of kernels and copies, "host":
-    [(start us, end us, name)] of host ops and CUDA runtime calls, "pad":
-    records of the pad kernel}, times from the trace's start."""
+    """{"device": [(name, start us, end us, card)] of kernels and copies (the
+    card the record ran on, as the profiler numbers it), "host": [(start us,
+    end us, name)] of host ops and CUDA runtime calls, "pad": records of the
+    pad kernel}, times from the trace's start."""
     cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
     result = prof.profiler.kineto_results
     t0 = result.trace_start_ns()
@@ -54,7 +55,7 @@ def read_trace(prof, torch) -> dict:
             if PAD_KERNEL in name:
                 pad += 1
             else:
-                device.append((name, start, end))
+                device.append((name, start, end, e.device_index()))
         elif e.device_type() == cpu:
             host.append((start, end, name))
     return dict(device=device, host=host, pad=pad)
@@ -70,15 +71,25 @@ def union(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
     return out
 
 
-def summarize(trace: dict, lo: float, hi: float, top: int = 10) -> dict:
-    """Busy and idle time of the span [lo, hi] (us): the union of device
-    records clipped to it, each kernel name's device time, and the longest
-    idle gaps named by the host op that began latest before each gap closed
-    (what the host was doing while the device waited)."""
-    dev = [(n, max(s, lo), min(e, hi)) for n, s, e in trace["device"] if e > lo and s < hi]
-    busy = union([(s, e) for _, s, e in dev if e > s])
+def summarize(trace: dict, lo: float, hi: float, cards: int = 1, top: int = 10) -> dict:
+    """Busy and idle time of the span [lo, hi] (us) on the run's `cards`
+    cards: each card's union of its device records clipped to the span
+    (`busy_s_by_card`, in the order of the cards' numbers; a card with no
+    record reads 0) and their mean (`busy_s`), each kernel name's device time
+    summed over the cards, and the longest gaps in which no card was busy,
+    named by the host op that began latest before each gap closed (what the
+    host was doing while the devices waited)."""
+    dev = [(n, max(s, lo), min(e, hi), c) for n, s, e, c in trace["device"]
+           if e > lo and s < hi]
+    per_card: Dict[int, List[Tuple[float, float]]] = {}
+    for _, s, e, c in dev:
+        if e > s:  # on one card every record is that card's, whatever its number
+            per_card.setdefault(c if cards > 1 else 0, []).append((s, e))
+    by_card = [sum(e - s for s, e in union(per_card[c])) / 1e6 for c in sorted(per_card)]
+    by_card += [0.0] * (cards - len(by_card))
+    busy = union([(s, e) for _, s, e, _ in dev if e > s])
     by_name: Dict[str, float] = {}
-    for n, s, e in dev:
+    for n, s, e, _ in dev:
         by_name[n] = by_name.get(n, 0.0) + max(0.0, e - s) / 1e6
     gaps, prev = [], lo
     for s, e in busy + [(hi, hi)]:
@@ -92,9 +103,9 @@ def summarize(trace: dict, lo: float, hi: float, top: int = 10) -> dict:
         i = bisect.bisect_right(starts, b) - 1
         label = host[i][2] if i >= 0 else "no host op recorded"
         named.append([f"host in {label}"[:120], (b - a) / 1e6])
-    busy_s = sum(e - s for s, e in busy) / 1e6
     ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return dict(busy_s=busy_s, window_s=(hi - lo) / 1e6, by_name=by_name,
+    return dict(busy_s=sum(by_card) / len(by_card), busy_s_by_card=by_card,
+                window_s=(hi - lo) / 1e6, by_name=by_name,
                 device_ops=[[n[:120], t] for n, t in ops], idle_gaps=named)
 
 
@@ -129,14 +140,15 @@ def open_span(torch, seconds: float):
     return prof
 
 
-def close_span(prof, torch) -> Optional[dict]:
-    """Stop the profiler and read its span: summarize()'s dict with
-    "pad_kept", or None where the trace holds no span or no device time."""
+def close_span(prof, torch, cards: int = 1) -> Optional[dict]:
+    """Stop the profiler and read its span over the run's `cards` cards:
+    summarize()'s dict with "pad_kept", or None where the trace holds no span
+    or no device time."""
     prof.stop()
     trace = read_trace(prof, torch)
     spans = [(s, e) for s, e, n in trace["host"] if n == SPAN]
     if not spans:
         return None
-    res = summarize(trace, *spans[0])
+    res = summarize(trace, *spans[0], cards=cards)
     res["pad_kept"] = trace["pad"]
     return res if res["busy_s"] > 0 else None
